@@ -7,10 +7,19 @@ Run from the root of a checkout, with no arguments:
 
 It builds the hand-written kernels (``src/repro_torch/csrc/*.cu``, with
 ``nvcc`` for ``sm_90a``, into ``build/kernels/``), holds each kernel
-against its plain PyTorch version on the card, then drives the port's main
-path — ``Session`` -> ``Scheduler`` -> ``ThreadedExecutor``, host fission
-slots plus two CUDA-stream slots on ``cuda:0`` — over the paper's four
-benchmark SCTs at the paper's sizes, and checks every output.
+against its plain PyTorch version on the card, then drives the port's two
+main paths, each with the kernels' launch counters set to 0 just before it
+and read just after:
+
+- the scheduler: ``Session`` -> ``Scheduler`` -> ``ThreadedExecutor``,
+  host fission slots plus two CUDA-stream slots on ``cuda:0``, over the
+  paper's four benchmark SCTs at the paper's sizes, every output checked;
+- LM serving: zamba2-2.7b at full width (54 layers, d_model 2560, bf16,
+  random weights from a seed) behind ``ServeEngine``, 8 requests of 256 to
+  1536 prompt tokens and 32 new tokens each, through the flash attention
+  and SSD scan kernels; then one hybrid group (5 Mamba2 + 1 attention
+  layers, full-width embedding) on the card against the same parameters
+  on the CPU (plain versions).
 
 Standard output ends with three lines: the card's name and power limit as
 ``nvidia-smi`` prints them, one JSON object describing each kernel
@@ -32,19 +41,26 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import suite  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (AcceleratorPlatform, DeviceInfo,  # noqa: E402
                               ExecutionSlot, HostPlatform, JobGraph,
                               KnowledgeBase, LoadBalancer, PlatformConfig,
                               Profile, Scheduler, Session, ThreadedExecutor,
                               Workload, build_plan)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.models import (LM, decode_step, init_cache,  # noqa: E402
+                                prefill)
+from repro_torch.runtime import ServeEngine  # noqa: E402
 
 #: published peaks of one H100 SXM at its full 700 W (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12          # dense, tensor cores
 
 #: the paper's sizes (benchmarks/paper_suite.py BENCHMARKS); segmentation
 #: is cut from its largest class (3840 planes, ~15 GiB in and out on the
@@ -67,7 +83,38 @@ KERNELS = {
                         "src/repro/kernels/filter_pipeline.py:46"),
     "nbody": ("src/repro_torch/csrc/nbody.cu",
               "src/repro/kernels/nbody.py:44"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:88"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:84"),
 }
+
+#: the LM serve phase: the model, the engine and its requests
+LM_ARCH = "zamba2-2.7b"
+LM_SLOTS = 4
+LM_CAPACITY = 2048
+LM_REQUESTS = 8
+LM_PROMPTS = (256, 1536)          # prompt lengths drawn in this range
+LM_MAX_NEW = 32
+LM_CHECK_TOKENS = 512             # the card-against-CPU prompt
+#: kernel tolerances: flash as tests/test_kernels.py (absolute); SSD
+#: relative to max |y| and max |h| (outputs reach ~20 at the model's
+#: shapes; bf16 keeps 8 bits of mantissa)
+FLASH_TOL = {torch.float32: 3e-4, torch.bfloat16: 3e-2}
+SSD_TOL = {torch.float32: 3e-4, torch.bfloat16: 1e-2}
+#: one hybrid group, card (kernels, cuBLAS) against CPU (plain versions,
+#: CPU matmuls), same parameters, for the last-token logits and the SSM
+#: state.  In float32: max |diff| <= GROUP_F32_TOL x max |CPU value| (sums
+#: in another order).  In bf16 the model itself amplifies rounding: at
+#: reduced width the CPU alone moves the logits by ~30% of their max
+#: between bf16 and float32.  So the bf16 tolerance is that measured
+#: noise: max |card - CPU| (both bf16) <= GROUP_BF16_NOISE x max |CPU bf16
+#: - CPU float32|, i.e. the card is no further from the CPU than two bf16
+#: runs that each sit that far from float32.
+GROUP_F32_TOL = 1e-3
+GROUP_BF16_NOISE = 2.0
+#: the profiled window: one prefill of the largest prompt, decode steps
+PROFILE_DECODE_STEPS = 8
 
 
 def expect(ok: bool, what: str) -> None:
@@ -98,9 +145,11 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, fp32_ops: float):
+def bound_ms(nbytes: float, ops_count: float, peak: float = PEAK_FP32_PER_S):
+    """The least time for ``nbytes`` moved and ``ops_count`` operations at
+    ``peak`` operations/s (FP32 unless the inputs' type has another)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = fp32_ops / PEAK_FP32_PER_S * 1e3
+    t_ops = ops_count / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -351,7 +400,7 @@ def units_by_class(run):
 
 
 def main_path(sched: Scheduler, inputs):
-    need = {k: 0 for k in ops.COUNTERS}
+    need = {k: 0 for k in ORDER}
     requests = []
     for c in ops.COUNTERS.values():
         c.reset()
@@ -430,6 +479,333 @@ def chain_phase(arrays, need):
 
 
 # ---------------------------------------------------------------------------
+# phase 4: LM serving, zamba2-2.7b at full width
+# ---------------------------------------------------------------------------
+
+def peak_for(dtype: torch.dtype) -> float:
+    return PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_FP32_PER_S
+
+
+def flash_bound(B, H, KV, Sq, Sk, hd, dtype, **kw):
+    """Bytes: q, k, v read and o written once.  Operations: the two
+    products (2 per multiply-add) over the (query, key) pairs the mask
+    keeps in this call."""
+    qp = torch.arange(Sq)[:, None]
+    kp = torch.arange(Sk)[None, :]
+    keep = kp < kw.get("kv_len", Sk)
+    if kw.get("causal", True):
+        keep = keep & (kp <= qp)
+    if kw.get("window") is not None:
+        keep = keep & (kp > qp - kw["window"])
+    pairs = int(keep.sum())
+    size = torch.finfo(dtype).bits // 8
+    nbytes = size * (2 * B * H * Sq * hd + 2 * B * KV * Sk * hd)
+    return bound_ms(nbytes, 4.0 * B * H * pairs * hd, peak_for(dtype))
+
+
+def ssd_bound(Bsz, S, chunk, nh, hd, ds, dtype, h0: bool = False):
+    """Bytes: x, B, C (dtype), dt (f32) read, y written, A and the state.
+    Operations of the chunked algorithm (C.B^T once per chunk, not per
+    head): per chunk the (Q, Q) lower triangle of C.B^T, and per head its
+    decay (exp, subtract, multiply), y_diag over the triangle, the
+    carried-state term and the state update."""
+    size = torch.finfo(dtype).bits // 8
+    nc, tri = S // chunk, chunk * (chunk + 1) // 2
+    ops_count = Bsz * nc * (2 * tri * ds + nh * (3 * tri + 2 * tri * hd
+                                                 + 4 * chunk * ds * hd))
+    nbytes = (Bsz * S * (2 * nh * hd * size + 2 * ds * size + 4 * nh)
+              + 4 * nh + 4 * Bsz * nh * ds * hd * (2 if h0 else 1))
+    return bound_ms(nbytes, ops_count, peak_for(dtype))
+
+
+def lm_kernel_phase(cfg):
+    """Flash attention and the SSD scan against their plain versions on
+    the card, at the model's prefill shapes."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    bf16 = torch.bfloat16
+    H, hd = cfg.n_heads, cfg.head_dim
+    results = {}
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    # flash: (1, H, S, hd) bf16 causal at a ragged S and the largest prompt
+    worst = 0.0
+    for S in (1000, LM_PROMPTS[1]):
+        q, k, v = (randn(1, H, S, hd, dtype=bf16) for _ in range(3))
+        got = ops.flash_attention(q, k, v)
+        err = (got.float() - ref.attention_ref(q, k, v).float()).abs().max()
+        expect(err.item() <= FLASH_TOL[bf16],
+               f"flash S={S}: max err {err.item()} <= {FLASH_TOL[bf16]}")
+        bshd = ops.flash_attention_bshd(*(t.transpose(1, 2).contiguous()
+                                          for t in (q, k, v)))
+        expect(torch.equal(bshd.transpose(1, 2), got),
+               "flash in the model's (B, S, H, hd) layout == (B, H, S, hd)")
+        worst = max(worst, err.item())
+    # GQA + window + softcap + kv_len, float32, small
+    kw = dict(window=64, logit_cap=30.0, kv_len=250)
+    qs, ks, vs = randn(2, 8, 300, 64), randn(2, 2, 300, 64), randn(2, 2, 300,
+                                                                   64)
+    err_v = (ops.flash_attention(qs, ks, vs, **kw)
+             - ref.attention_ref(qs, ks, vs, **kw)).abs().max().item()
+    expect(err_v <= FLASH_TOL[torch.float32],
+           f"flash GQA/window/softcap/kv_len: max err {err_v}")
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                         is_causal=True), 20)
+    results["flash_attention"] = dict(
+        max_abs_err=worst, ms=cuda_ms(lambda: ops.flash_attention(q, k, v),
+                                      20),
+        plain_ms=cuda_ms(lambda: ref.attention_ref(q, k, v), 5),
+        library_ms=lib, shape=list(q.shape), dtype="bfloat16",
+        variants_max_abs_err=err_v,
+        tolerance=f"{FLASH_TOL[bf16]} (bf16), {FLASH_TOL[torch.float32]} "
+                  "(f32 GQA/window/softcap/kv_len)",
+        bound=flash_bound(1, H, H, q.shape[2], q.shape[2], hd, bf16))
+    expect(cfg.n_kv_heads == H, "zamba2's attention has as many kv heads")
+
+    # ssd: x (1, S, nh*hd) float32 as the model feeds it, chunk 256, then a
+    # tail of chunk 232 chained through h0; then the same in bf16
+    s = cfg.ssm
+    nh, shd, ds, Q = s.n_heads(cfg.d_model), s.head_dim, s.d_state, s.chunk
+    S, tail = LM_PROMPTS[1], 232
+    x = randn(1, S + tail, nh * shd) * 0.5
+    dt = F.softplus(randn(1, S + tail, nh))
+    Bm, Cm = randn(1, S + tail, ds) * 0.5, randn(1, S + tail, ds) * 0.5
+    A = -torch.exp(randn(nh) * 0.3)
+    main = (x[:, :S], dt[:, :S], Bm[:, :S], Cm[:, :S], A)
+    y1, h1 = ops.ssd_scan(*main, chunk=Q)
+    y2, h2 = ops.ssd_scan(x[:, S:], dt[:, S:], Bm[:, S:], Cm[:, S:], A,
+                          chunk=tail, h0=h1)
+    wy, wh = ref.ssd_scan_ref(x, dt, Bm, Cm, A, chunk=1)
+    err_y = (torch.cat([y1, y2], 1) - wy).abs().max().item()
+    err_h = (h2 - wh).abs().max().item()
+    sy, sh = wy.abs().max().item(), wh.abs().max().item()
+    expect(err_y <= SSD_TOL[torch.float32] * max(1.0, sy)
+           and err_h <= SSD_TOL[torch.float32] * max(1.0, sh),
+           f"ssd f32 + chained tail: y err {err_y} (max {sy}), h err "
+           f"{err_h} (max {sh})")
+    xb, Bb, Cb = x[:, :S].to(bf16), Bm[:, :S].to(bf16), Cm[:, :S].to(bf16)
+    yb, hb = ops.ssd_scan(xb, dt[:, :S], Bb, Cb, A, chunk=Q)
+    wyb, whb = ref.ssd_scan_ref(xb, dt[:, :S], Bb, Cb, A, chunk=Q)
+    err_b = (yb.float() - wyb.float()).abs().max().item()
+    expect(err_b <= SSD_TOL[bf16] * max(1.0, wyb.float().abs().max().item())
+           and (hb - whb).abs().max().item()
+           <= SSD_TOL[torch.float32] * max(1.0, whb.abs().max().item()),
+           f"ssd bf16: y err {err_b}")
+    results["ssd_scan"] = dict(
+        max_abs_err=max(err_y, err_h), ms=cuda_ms(
+            lambda: ops.ssd_scan(*main, chunk=Q), 10),
+        plain_ms=cuda_ms(lambda: ref.ssd_scan_ref(*main, chunk=Q), 2),
+        library_ms=None, shape=list(main[0].shape), dtype="float32",
+        max_abs_y=sy, max_abs_h=sh, bf16_max_abs_err=err_b,
+        tolerance=f"{SSD_TOL[torch.float32]} x max(1, max |y|) and "
+                  f"x max(1, max |h|) (f32), {SSD_TOL[bf16]} x max(1, "
+                  "max |y|) (bf16)",
+        bound=ssd_bound(1, S, Q, nh, shd, ds, torch.float32))
+    torch.cuda.synchronize()
+    return results
+
+
+def lm_prompts(cfg):
+    """LM_REQUESTS prompts, lengths drawn from seed 0 in LM_PROMPTS; at
+    least one a multiple of the SSD chunk (no tail) and two not (a
+    tail)."""
+    rng = np.random.default_rng(0)
+    Q = cfg.ssm.chunk
+    lengths = [int(n) for n in rng.integers(LM_PROMPTS[0], LM_PROMPTS[1] + 1,
+                                            LM_REQUESTS)]
+    if not any(n % Q == 0 for n in lengths):
+        lengths[0] -= lengths[0] % Q
+    expect(sum(n % Q != 0 for n in lengths) >= 2, "two prompts with a tail")
+    return [rng.integers(0, cfg.vocab, n).tolist() for n in lengths]
+
+
+def lm_main_path(cfg, model):
+    """8 requests through ServeEngine on cuda:0; the flash and SSD launch
+    counters from 0 just before to just after."""
+    engine = ServeEngine(cfg, model, slots=LM_SLOTS, capacity=LM_CAPACITY,
+                         temperature=0.0)
+    prompts = lm_prompts(cfg)
+    prefills, decode = [], {"seconds": 0.0, "tokens": 0, "steps": 0}
+    bad = []
+    step_prefill, step_decode = engine._prefill1, engine._decode
+
+    def timed_prefill(m, tokens):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = step_prefill(m, tokens)
+        torch.cuda.synchronize()
+        prefills.append((tokens.shape[1], time.perf_counter() - t0))
+        if not torch.isfinite(logits).all():
+            bad.append(f"prefill of {tokens.shape[1]} tokens")
+        return logits, cache
+
+    def timed_decode(m, cache, token, pos):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = step_decode(m, cache, token, pos)
+        torch.cuda.synchronize()
+        decode["seconds"] += time.perf_counter() - t0
+        decode["steps"] += 1
+        decode["tokens"] += sum(r is not None for r in engine.active)
+        if not torch.isfinite(logits).all():
+            bad.append(f"decode at pos {pos}")
+        return logits, cache
+
+    engine._prefill1, engine._decode = timed_prefill, timed_decode
+    for p in prompts:
+        engine.submit(p, max_new=LM_MAX_NEW)
+    for c in ops.COUNTERS.values():
+        c.reset()
+    t0 = time.perf_counter()
+    done = engine.run_to_completion()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: c.value for k, c in ops.COUNTERS.items()}
+
+    expect(not bad, f"non-finite logits: {bad}")
+    expect(len(done) == LM_REQUESTS, f"{len(done)} of {LM_REQUESTS} done")
+    for r in done:
+        expect(len(r.out) == LM_MAX_NEW
+               and all(0 <= t < cfg.vocab for t in r.out),
+               f"request {r.rid}: {len(r.out)} tokens in the vocab")
+    groups = cfg.n_layers // cfg.hybrid_attn_every
+    mamba = groups * (cfg.hybrid_attn_every - 1)
+    lengths = [len(p) for p in prompts]
+    Q = cfg.ssm.chunk
+    # one SSD call per Mamba2 layer, two when the prompt has a ragged tail
+    want = {"flash_attention": groups * len(lengths),
+            "ssd_scan": sum(mamba * (2 if n > Q and n % Q else 1)
+                            for n in lengths)}
+    for k, n in want.items():
+        expect(launches[k] == n, f"{k}: {launches[k]} launches == {n}")
+    for n, sec in prefills:
+        print(f"lm prefill {n} tokens: {sec:.4f} s", flush=True)
+    tok_s = decode["tokens"] / decode["seconds"]
+    print(f"lm decode: {decode['tokens']} tokens in {decode['steps']} steps, "
+          f"{decode['seconds']:.3f} s, {tok_s:.1f} tokens/s; all 8 requests "
+          f"in {seconds:.2f} s", flush=True)
+    return dict(prompt_lengths=lengths, prefill_seconds=prefills,
+                decode=decode, decode_tokens_per_s=tok_s, seconds=seconds,
+                launches=launches, want_launches=want,
+                first_tokens=[r.out[:8] for r in done])
+
+
+def lm_group_check(cfg, model):
+    """One hybrid group at full width with the full-width embedding: the
+    model's own parameters on the card (kernels) and on the CPU (plain
+    versions, chosen by device), one 512-token prompt, in float32 and in
+    bf16."""
+    one = cfg.scaled(n_layers=cfg.hybrid_attn_every)
+    state = {k: v for k, v in model.state_dict().items()
+             if not k.startswith("layers.") or k.startswith("layers.0.")}
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (1, LM_CHECK_TOKENS)))
+    runs, cpu_s = {}, 0.0
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 1)
+    for dtype in (torch.float32, torch.bfloat16):
+        for dev in ("cuda", "cpu"):
+            m = LM(one, dtype=dtype, device=dev)
+            m.load_state_dict({k: v.to(dev) for k, v in state.items()})
+            t0 = time.perf_counter()
+            logits, cache = prefill(m, tokens.to(dev))
+            if dev == "cpu":
+                cpu_s += time.perf_counter() - t0
+            runs[dtype, dev] = {"logits": logits.float().cpu(),
+                                "h": cache["h"].float().cpu()}
+            del m, cache
+    torch.set_num_threads(threads)
+    f32, bf16 = torch.float32, torch.bfloat16
+    out = {}
+    for name in ("logits", "h"):
+        def diff(a, b):
+            return (runs[a][name] - runs[b][name]).abs().max().item()
+        scale = runs[f32, "cpu"][name].abs().max().item()
+        e32 = diff((f32, "cuda"), (f32, "cpu"))
+        noise = diff((bf16, "cpu"), (f32, "cpu"))
+        e16 = diff((bf16, "cuda"), (bf16, "cpu"))
+        expect(math.isfinite(e32) and e32 <= GROUP_F32_TOL * scale,
+               f"card vs CPU {name}, float32: max err {e32} <= "
+               f"{GROUP_F32_TOL} x {scale}")
+        expect(math.isfinite(e16) and e16 <= GROUP_BF16_NOISE * noise,
+               f"card vs CPU {name}, bf16: max err {e16} <= "
+               f"{GROUP_BF16_NOISE} x bf16 noise {noise}")
+        out[name] = dict(max_abs=scale, f32_max_abs_err=e32,
+                         bf16_max_abs_err=e16, cpu_bf16_vs_f32=noise)
+    print(f"lm one group card vs CPU: {out} (CPU {cpu_s:.1f} s)", flush=True)
+    return dict(out, cpu_seconds=cpu_s, tolerance=(
+        f"f32: {GROUP_F32_TOL} x max |CPU f32|; bf16: {GROUP_BF16_NOISE} x "
+        "max |CPU bf16 - CPU f32|"))
+
+
+def lm_profile(cfg, model):
+    """Device busy time against the host clock, from ``torch.profiler``:
+    one prefill of the largest prompt, then PROFILE_DECODE_STEPS decode
+    steps at LM_SLOTS slots; the kernels that took the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (1, LM_PROMPTS[1]))).cuda()
+    cache = init_cache(cfg, LM_SLOTS, LM_CAPACITY, device="cuda")
+    token = torch.zeros(LM_SLOTS, dtype=torch.long, device="cuda")
+    prefill(model, tokens, capacity=LM_CAPACITY)        # warm-up
+    out = {}
+    for what in ("prefill", "decode"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if what == "prefill":
+                prefill(model, tokens, capacity=LM_CAPACITY)
+            else:
+                for i in range(PROFILE_DECODE_STEPS):
+                    decode_step(model, cache, token, LM_PROMPTS[1] + i)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [(e.key, getattr(e, "self_device_time_total",
+                                   getattr(e, "self_cuda_time_total", 0)),
+                    e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(t for _, t, _ in kernels) / 1e6
+        launches = sum(n for _, _, n in kernels)
+        top = sorted(kernels, key=lambda ktn: -ktn[1])[:6]
+        out[what] = dict(wall_s=wall, device_busy_s=busy,
+                         kernel_launches=launches,
+                         idle_share=1.0 - busy / wall if busy else None,
+                         top_kernels_s=[(k[:80], t / 1e6, n)
+                                        for k, t, n in top])
+        print(f"lm profile {what}: wall {wall:.4f} s, device busy "
+              f"{busy:.4f} s, {launches} kernel launches; top "
+              f"{out[what]['top_kernels_s'][:3]}", flush=True)
+    return out
+
+
+def lm_phase():
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    model = LM(cfg, device="cuda",
+               generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"lm {cfg.arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.param_count() / 1e9:.2f}e9 parameters in bf16, built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    kernels = lm_kernel_phase(cfg)
+    for name, r in kernels.items():
+        print(f"kernel {name} {r['shape']} {r['dtype']}: {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, "
+              f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), max err "
+              f"{r['max_abs_err']:.3g}", flush=True)
+    serve = lm_main_path(cfg, model)
+    serve["profile"] = lm_profile(cfg, model)
+    group = lm_group_check(cfg, model)
+    del model
+    torch.cuda.empty_cache()
+    return kernels, serve, group
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -460,9 +836,14 @@ def main() -> int:
               f"{r['max_abs_err']:.3g}", flush=True)
 
     requests, chain, launches = main_path(sched, inputs)
+    del inputs
+    lm_kernels, serve, group = lm_phase()
+    results.update(lm_kernels)
+    launches.update({k: serve["launches"][k] for k in lm_kernels})
 
     kernels = []
-    for name in ["saxpy", "filter_pipeline", "segmentation", "nbody"]:
+    for name in ["saxpy", "filter_pipeline", "segmentation", "nbody",
+                 "flash_attention", "ssd_scan"]:
         r = results[name]
         source, replaces = KERNELS[name]
         kernels.append({
@@ -471,9 +852,12 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
-    record = {"card": card, "build_seconds": build_s, "ptxas": regs,
+    record = {"card": card, "torch": torch.__version__,
+              "cuda": torch.version.cuda, "build_seconds": build_s,
+              "ptxas": regs,
               "kernel_phase": results, "requests": requests,
-              "chain": chain, "launches": launches, "kernels": kernels}
+              "chain": chain, "launches": launches, "lm_serve": serve,
+              "lm_group_check": group, "kernels": kernels}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

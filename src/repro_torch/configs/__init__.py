@@ -1,0 +1,39 @@
+"""Architecture registry of the port: ``--arch <id>`` resolution.
+
+It holds only the architectures the port runs so far.  ``get_config(name)``
+returns the published configuration, ``get_smoke(name)`` a reduced
+same-family variant for CPU tests; any other name raises ``KeyError``
+naming the architectures the port has.
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+from repro_torch.configs import zamba2_2_7b
+from repro_torch.models.config import ModelConfig
+
+_MODULES = (zamba2_2_7b,)
+
+ARCHS: Dict[str, object] = {m.ARCH: m for m in _MODULES}
+
+
+def arch_names() -> List[str]:
+    return list(ARCHS.keys())
+
+
+def _module(name: str):
+    if name not in ARCHS:
+        raise KeyError(f"arch '{name}' is not ported yet; the port has: "
+                       f"{arch_names()}")
+    return ARCHS[name]
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).config()
+
+
+def get_smoke(name: str) -> ModelConfig:
+    return _module(name).smoke()
+
+
+__all__ = ["ARCHS", "arch_names", "get_config", "get_smoke"]

@@ -146,15 +146,16 @@ def from_numpy(value: Any) -> Any:
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
-    """Where accelerator slots run: CUDA unless ``"cpu"`` is asked for.
+    """Where the port's device work runs (accelerator slots, serving):
+    CUDA unless ``"cpu"`` is asked for.
 
     Raises when CUDA is wanted (explicitly or by default) and no CUDA
     device is present — there is no silent fallback to the CPU."""
     dev = torch.device(device if device is not None else "cuda")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "accelerator slots run on CUDA and no CUDA device is available; "
-            "pass device='cpu' to run them on the host")
+            "the port runs on CUDA and no CUDA device is available; "
+            "pass device='cpu' to run on the host")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
     return dev

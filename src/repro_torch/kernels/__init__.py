@@ -1,7 +1,9 @@
-"""Hand-written CUDA kernels for the paper's benchmark suite (Sec. 4).
+"""Hand-written CUDA kernels: the paper's benchmark suite (Sec. 4) and
+the LM kernels.
 
 Layout:
-  saxpy.py, filter_pipeline.py, segmentation.py, nbody.py
+  saxpy.py, filter_pipeline.py, segmentation.py, nbody.py,
+  flash_attention.py, ssd_scan.py
                  wrappers that launch ``csrc/*.cu`` on the current stream
                  and count their launches
   ops.py         entry points: a CUDA tensor -> the kernel, else the

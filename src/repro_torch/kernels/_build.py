@@ -21,7 +21,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -38,7 +38,17 @@ SIGNATURES: Dict[str, List] = {
     "segmentation_f32": [_P, _P, _L, _F, _F, _I, _P],
     "filter_pipeline_f32": [_P, _P, _I, _I, _I, _F, _F, _I, _P],
     "nbody_acc_f32": [_P, _I, _P, _P, _I, _P, _F, _I, _P],
+    # q, k, v, o, dtype, B, H, KV, Sq, Sk, hd, (b, h, s) strides of q, k,
+    # v, o, scale, softcap, causal, window, kv_len, device, stream
+    "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            *[_L] * 12, _F, _F, _I, _I, _I, _I, _P],
+    # x, dt, B, C, A, h0 (or NULL), y, h_out, dtype, batch, S, nh, hd, ds,
+    # chunk, device, stream
+    "ssd_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                     _I, _I, _I, _P],
 }
+#: dtype code a C entry point takes for its tensors' element type
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -131,14 +141,19 @@ def check_launch(err: int, kernel: str) -> None:
 
 
 def require(t: torch.Tensor, name: str, *, ndim: Optional[int] = None,
-            device: Optional[torch.device] = None) -> None:
-    """Wrapper-side checks: a contiguous float32 CUDA tensor (of ``ndim``
-    dimensions, on ``device``)."""
+            device: Optional[torch.device] = None,
+            dtypes: Tuple[torch.dtype, ...] = (torch.float32,),
+            contiguous: bool = True) -> None:
+    """Wrapper-side checks: a CUDA tensor of one of ``dtypes`` (float32
+    unless the caller allows more), contiguous unless the caller takes
+    strides (of ``ndim`` dimensions, on ``device``)."""
     if not isinstance(t, torch.Tensor) or not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
-    if not t.is_contiguous():
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} must be "
+                         f"{' or '.join(str(d) for d in dtypes)}, "
+                         f"got {t.dtype}")
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if ndim is not None and t.ndim != ndim:
         raise ValueError(f"{name} must have {ndim} dimensions, "

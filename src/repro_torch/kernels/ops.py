@@ -1,4 +1,4 @@
-"""Public entry points of the paper's benchmark kernels, by device.
+"""Public entry points of the hand-written kernels, by device.
 
 A CUDA tensor goes to the hand-written kernel, whose wrapper checks its
 inputs and raises on anything it does not take.  Any other tensor (the
@@ -15,9 +15,11 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels import filter_pipeline as _filter
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import nbody as _nbody
 from repro_torch.kernels import saxpy as _saxpy
 from repro_torch.kernels import segmentation as _seg
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def saxpy(a, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -59,6 +61,38 @@ def nbody_step(pos: torch.Tensor, vel: torch.Tensor, mass: torch.Tensor,
     return pos + vel * dt, vel
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    **kw) -> torch.Tensor:
+    """(B,H,Sq,hd) x (B,KV,Sk,hd) attention (GQA/causal/window/softcap/
+    ``kv_len``), output in q's dtype."""
+    if q.is_cuda:
+        return _flash.flash_attention(q, k, v, **kw)
+    return ref.attention_ref(q, k, v, **kw)
+
+
+def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         **kw) -> torch.Tensor:
+    """Model-layout adapter: (B,S,H,hd)/(B,S,KV,hd) in and out.  The kernel
+    reads the model's layout through its strides; the plain version works
+    on transposed views."""
+    if q.is_cuda:
+        return _flash.flash_attention_bshd(q, k, v, **kw)
+    o = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), **kw)
+    return o.transpose(1, 2)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+             C: torch.Tensor, A: torch.Tensor, *, chunk: int,
+             h0: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked Mamba2 SSD -> (y in x's dtype, final state float32)."""
+    if x.is_cuda:
+        return _ssd.ssd_scan(x, dt, B, C, A, chunk=chunk, h0=h0)
+    return ref.ssd_scan_ref(x, dt, B, C, A, chunk=chunk, h0=h0)
+
+
 #: launch counters of the kernels, by kernel name
 COUNTERS = {c.name: c for c in (_saxpy.launches, _filter.launches,
-                                _seg.launches, _nbody.launches)}
+                                _seg.launches, _nbody.launches,
+                                _flash.launches, _ssd.launches)}

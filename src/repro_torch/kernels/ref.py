@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the paper's benchmark kernels.
+"""Plain PyTorch versions of the hand-written kernels: the paper's
+benchmark kernels and the LM kernels (flash attention, SSD scan).
 
 Each computes the same function as its hand-written CUDA kernel with
 ordinary tensor operations, on any device.  The CPU tests hold them
@@ -8,7 +9,9 @@ of every hybrid run with them (``ops`` dispatches by device).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
+
+import math
 
 import torch
 
@@ -79,3 +82,77 @@ def nbody_ref(pos: torch.Tensor, mass: torch.Tensor,
         acc[s:s + block] = torch.einsum("ij,ijk->ik",
                                         mass[None, :] * inv_r3, d)
     return acc
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+#: the score of a masked key, as in the JAX package (not -inf: a row with
+#: every key masked averages V instead of giving NaN)
+NEG_INF = -2.0 ** 30
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  logit_cap: float = 0.0, scale: Optional[float] = None,
+                  kv_len: Optional[int] = None) -> torch.Tensor:
+    """q: (B,H,Sq,hd); k/v: (B,KV,Sk,hd) -> (B,H,Sq,hd) in q's dtype.
+    Dense float32 softmax over all Sk keys."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    sc = scale if scale is not None else 1.0 / math.sqrt(hd)
+    kf = k.repeat_interleave(G, dim=1)
+    vf = v.repeat_interleave(G, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf.float()) * sc
+    if logit_cap and logit_cap > 0:
+        s = logit_cap * torch.tanh(s / logit_cap)
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    mask = kp < (Sk if kv_len is None else kv_len)
+    if causal:
+        mask = mask & (kp <= qp)
+    if window is not None:
+        mask = mask & (kp > qp - window)
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, vf.float())
+    return o.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# SSD scan
+# ---------------------------------------------------------------------------
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+                 C: torch.Tensor, A: torch.Tensor, *, chunk: int,
+                 h0: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The token-by-token recurrence the chunked kernel computes:
+    ``h_t = exp(dt_t A) h_{t-1} + B_t (dt_t x_t)``, ``y_t = C_t h_t``.
+
+    x (Bsz,S,nh*hd), dt (Bsz,S,nh), B/C (Bsz,S,ds), A (nh,), h0
+    (Bsz,nh,ds,hd) -> (y in x's dtype, final state float32).  S must be a
+    multiple of ``chunk``, as for the kernel; the recurrence itself does
+    not depend on it."""
+    Bsz, S, dih = x.shape
+    nh = dt.shape[-1]
+    hd = dih // nh
+    ds = B.shape[-1]
+    if S % chunk:
+        raise ValueError(f"S={S} not a multiple of chunk={chunk}")
+    xf = x.float().reshape(Bsz, S, nh, hd)
+    dtf = dt.float()
+    Bf = B.float()
+    Cf = C.float()
+    h = (torch.zeros((Bsz, nh, ds, hd), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    a = torch.exp(dtf * A.float()[None, None, :])            # (Bsz,S,nh)
+    xdt = xf * dtf[..., None]                                # (Bsz,S,nh,hd)
+    ys = torch.empty((Bsz, S, nh, hd), dtype=torch.float32, device=x.device)
+    for t in range(S):
+        upd = Bf[:, t, None, :, None] * xdt[:, t, :, None, :]
+        h = h * a[:, t, :, None, None] + upd
+        ys[:, t] = (Cf[:, t, None, :, None] * h).sum(2)
+    return ys.reshape(Bsz, S, dih).to(x.dtype), h

@@ -1,0 +1,302 @@
+"""Model assembly for the ``hybrid`` family (zamba2): Mamba2 blocks with an
+attention block every ``hybrid_attn_every`` layers.
+
+The JAX package scans over stacked per-layer parameters; here the stack
+is a Python loop over ``nn.ModuleList``s: ``LM.layers`` holds one
+:class:`HybridGroup` per period, each ``period - 1`` :class:`MambaBlock`\\ s
+and one :class:`AttnBlock`.  Entry points, as in the JAX package:
+
+  * :meth:`LM.forward`  — full-sequence logits,
+  * :func:`prefill`     — fills the decode cache, returns last-token logits,
+  * :func:`decode_step` — one token in, logits out, cache updated.
+
+The decode cache keeps the JAX package's key names, layout and dtypes
+(``h`` float32, the rest bfloat16); :func:`decode_step` updates it in
+place (the JAX engine donates it) and returns it.  Other families raise
+``NotImplementedError``: they come in later slices of the port.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.attention import (attn_defs, decode_attention,
+                                          out_proj, prefill_attention, qkv,
+                                          update_cache)
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (Defs, Params, embed, embed_defs, mlp,
+                                       mlp_defs, rmsnorm, rmsnorm_def,
+                                       unembed)
+
+Cache = Dict[str, torch.Tensor]
+
+#: where each family not ported yet is planned (ROADMAP.md, queue 1)
+_LATER = {"moe": "the MoE slice (granite-moe-3b serving)",
+          "ssm": "the ssm/dense/local-global slice",
+          "dense": "the ssm/dense/local-global slice",
+          "vlm": "the ssm/dense/local-global slice",
+          "audio": "the enc-dec slice"}
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    if cfg.family != "hybrid" or cfg.enc_dec or cfg.moe is not None:
+        where = _LATER.get(cfg.family, "a later slice")
+        raise NotImplementedError(
+            f"{cfg.arch}: the {cfg.family} family is not ported yet; "
+            f"it comes with {where}")
+    if not cfg.use_rope or cfg.frontend_positions:
+        raise NotImplementedError(
+            f"{cfg.arch}: learned positions and frontends are not ported")
+
+
+def _hybrid_groups(cfg: ModelConfig) -> Tuple[int, int]:
+    period = max(cfg.hybrid_attn_every, 1)
+    if cfg.n_layers % period:
+        raise ValueError(f"{cfg.arch}: n_layers {cfg.n_layers} not a "
+                         f"multiple of hybrid period {period}")
+    return cfg.n_layers // period, period - 1
+
+
+def attn_block_defs(cfg: ModelConfig) -> Defs:
+    return {"ln1": rmsnorm_def(cfg.d_model), "attn": attn_defs(cfg),
+            "ln2": rmsnorm_def(cfg.d_model), "ffn": mlp_defs(cfg)}
+
+
+def mamba_block_defs(cfg: ModelConfig) -> Defs:
+    return {"ln1": rmsnorm_def(cfg.d_model), "ssm": ssm_mod.ssm_defs(cfg)}
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+class AttnBlock(Params):
+    """Pre-norm attention + dense MLP block (``ln1``, ``attn``, ``ln2``,
+    ``ffn``)."""
+
+    def __init__(self, cfg: ModelConfig, **kw):
+        super().__init__(attn_block_defs(cfg), **kw)
+        self.cfg = cfg
+
+    def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
+                causal: bool = True, window: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        y, kv = _attn_part(self, x, self.cfg, positions=positions,
+                           causal=causal, window=window)
+        return _ffn_part(self, y, self.cfg), kv
+
+    def decode(self, x: torch.Tensor, *, k_cache: torch.Tensor,
+               v_cache: torch.Tensor, pos: int, window: Optional[int]
+               ) -> torch.Tensor:
+        cfg = self.cfg
+        h = rmsnorm(x, self["ln1"]["scale"], cfg.norm_eps)
+        positions = torch.full((1, 1), pos, device=x.device)
+        q, k, v = qkv(h, self["attn"], cfg, positions=positions,
+                      rope=cfg.use_rope)
+        update_cache(k_cache, v_cache, k, v, pos, window=window)
+        o = decode_attention(q, k_cache, v_cache, pos=pos, window=window,
+                             logit_cap=cfg.attn_softcap, scale=cfg.attn_scale)
+        y = x + out_proj(o, self["attn"])
+        return _ffn_part(self, y, cfg)
+
+
+def _attn_part(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+               positions: torch.Tensor, causal: bool,
+               window: Optional[int] = None):
+    h = rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
+    q, k, v = qkv(h, p["attn"], cfg, positions=positions, rope=cfg.use_rope)
+    o = prefill_attention(q, k, v, cfg, causal=causal, window=window)
+    return x + out_proj(o, p["attn"]), (k, v)
+
+
+def _ffn_part(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
+    return x + mlp(h, p["ffn"], cfg)
+
+
+class MambaBlock(Params):
+    """Pre-norm Mamba2 block (``ln1``, ``ssm``)."""
+
+    def __init__(self, cfg: ModelConfig, **kw):
+        super().__init__(mamba_block_defs(cfg), **kw)
+        self.cfg = cfg
+
+    def forward(self, x: torch.Tensor, *, h0=None, conv0=None):
+        h = rmsnorm(x, self["ln1"]["scale"], self.cfg.norm_eps)
+        y, h_fin, conv = ssm_mod.ssd_prefill(h, self["ssm"], self.cfg,
+                                             h0=h0, conv_state=conv0)
+        return x + y, h_fin, conv
+
+    def decode(self, x: torch.Tensor, *, h: torch.Tensor,
+               conv_state: Dict[str, torch.Tensor]):
+        hn = rmsnorm(x, self["ln1"]["scale"], self.cfg.norm_eps)
+        y, hs, conv = ssm_mod.ssd_decode(hn, self["ssm"], self.cfg, h=h,
+                                         conv_state=conv_state)
+        return x + y, hs, conv
+
+
+class HybridGroup(nn.Module):
+    """One period of the hybrid stack: ``period - 1`` Mamba2 blocks, then
+    one attention block."""
+
+    def __init__(self, cfg: ModelConfig, n_mamba: int, **kw):
+        super().__init__()
+        self.mamba = nn.ModuleList(MambaBlock(cfg, **kw)
+                                   for _ in range(n_mamba))
+        self.attn = AttnBlock(cfg, **kw)
+
+
+class LM(nn.Module):
+    """A hybrid decoder LM.  ``generator`` draws the parameters by the JAX
+    package's scale rules; without one they are left uninitialised."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype: torch.dtype = torch.bfloat16,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _check_ported(cfg)
+        self.cfg = cfg
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.embed = Params(embed_defs(cfg), **kw)
+        g, m = _hybrid_groups(cfg)
+        self.layers = nn.ModuleList(HybridGroup(cfg, m, **kw)
+                                    for _ in range(g))
+        self.final_norm = Params(rmsnorm_def(cfg.d_model), **kw)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (B,S) -> logits (B,S,V)."""
+        cfg = self.cfg
+        S = tokens.shape[1]
+        positions = torch.arange(S, device=tokens.device)[None]
+        x = embed(tokens, self.embed, cfg)
+        for grp in self.layers:
+            for blk in grp.mamba:
+                x, _, _ = blk(x)
+            x, _ = grp.attn(x, positions=positions, causal=True,
+                            window=cfg.sliding_window)
+        x = rmsnorm(x, self.final_norm["scale"], cfg.norm_eps)
+        return unembed(x, self.embed, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Decode cache
+# ---------------------------------------------------------------------------
+
+def cache_defs(cfg: ModelConfig, batch: int, capacity: int
+               ) -> Dict[str, Tuple[int, ...]]:
+    """Shapes of the decode cache, by the JAX package's key names."""
+    _check_ported(cfg)
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    g, m = _hybrid_groups(cfg)
+    d = _ssm_cache_defs(cfg, m, batch, lead=(g,))
+    cap = min(capacity, cfg.sliding_window) if cfg.sliding_window \
+        else capacity
+    d["k"] = (g, batch, cap, KV, hd)
+    d["v"] = (g, batch, cap, KV, hd)
+    return d
+
+
+def _ssm_cache_defs(cfg: ModelConfig, n_layers: int, batch: int,
+                    lead: Tuple[int, ...]) -> Dict[str, Tuple[int, ...]]:
+    s = cfg.ssm
+    nh, ds, hd = s.n_heads(cfg.d_model), s.d_state, s.head_dim
+    di, K1 = s.d_inner(cfg.d_model), s.conv_dim - 1
+    return {"h": lead + (n_layers, batch, nh, ds, hd),
+            "conv_x": lead + (n_layers, batch, K1, di),
+            "conv_B": lead + (n_layers, batch, K1, ds),
+            "conv_C": lead + (n_layers, batch, K1, ds)}
+
+
+def cache_dtype(key: str, dtype=torch.bfloat16) -> torch.dtype:
+    return torch.float32 if key == "h" else dtype     # SSM state is f32
+
+
+def init_cache(cfg: ModelConfig, batch: int, capacity: int,
+               dtype=torch.bfloat16, device=None) -> Cache:
+    return {k: torch.zeros(shape, dtype=cache_dtype(k, dtype), device=device)
+            for k, shape in cache_defs(cfg, batch, capacity).items()}
+
+
+# ---------------------------------------------------------------------------
+# Prefill: tokens -> (last logits, filled cache)
+# ---------------------------------------------------------------------------
+
+def _fit_window(k: torch.Tensor, S: int, W: int) -> torch.Tensor:
+    """Pack the last W of S prefilled k/v (B,S,KV,hd) into a rolling cache."""
+    if S >= W:
+        return torch.roll(k[:, S - W:], S % W, dims=1)
+    return F.pad(k, (0, 0, 0, 0, 0, W - S))
+
+
+def _pad_cap(k: torch.Tensor, c: int) -> torch.Tensor:
+    return k if k.shape[1] == c else F.pad(k, (0, 0, 0, 0, 0, c - k.shape[1]))
+
+
+def prefill(model: LM, tokens: torch.Tensor,
+            capacity: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
+    """tokens (B,S) -> last-token logits (B,V), cache of capacity
+    ``capacity`` (default S)."""
+    cfg = model.cfg
+    S = tokens.shape[1]
+    cap = capacity or S
+    positions = torch.arange(S, device=tokens.device)[None]
+    x = embed(tokens, model.embed, cfg)
+    W = min(cfg.sliding_window, cap) if cfg.sliding_window else cap
+    per: Dict[str, List[torch.Tensor]] = {k: [] for k in
+                                          ("h", "conv_x", "conv_B",
+                                           "conv_C", "k", "v")}
+    for grp in model.layers:
+        mc: Dict[str, List[torch.Tensor]] = {k: [] for k in
+                                             ("h", "conv_x", "conv_B",
+                                              "conv_C")}
+        for blk in grp.mamba:
+            x, hf, conv = blk(x)
+            mc["h"].append(hf.float())
+            mc["conv_x"].append(conv["x"])
+            mc["conv_B"].append(conv["B"])
+            mc["conv_C"].append(conv["C"])
+        for k, vals in mc.items():
+            per[k].append(torch.stack(vals))
+        x, (k, v) = grp.attn(x, positions=positions,
+                             window=cfg.sliding_window)
+        kk = _fit_window(k, S, W) if cfg.sliding_window else _pad_cap(k, W)
+        vv = _fit_window(v, S, W) if cfg.sliding_window else _pad_cap(v, W)
+        per["k"].append(kk.to(torch.bfloat16))
+        per["v"].append(vv.to(torch.bfloat16))
+    cache = {k: torch.stack(vals) for k, vals in per.items()}
+    x = rmsnorm(x[:, -1:], model.final_norm["scale"], cfg.norm_eps)
+    logits = unembed(x, model.embed, cfg)
+    return logits[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# Decode: one token step
+# ---------------------------------------------------------------------------
+
+def decode_step(model: LM, cache: Cache, token: torch.Tensor, pos: int
+                ) -> Tuple[torch.Tensor, Cache]:
+    """token (B,), pos -> logits (B,V); ``cache`` is updated in place and
+    returned."""
+    cfg = model.cfg
+    x = embed(token[:, None], model.embed, cfg)
+    W = cache["k"].shape[2]
+    window = cfg.sliding_window if W == cfg.sliding_window else None
+    for i, grp in enumerate(model.layers):
+        for j, blk in enumerate(grp.mamba):
+            x, hs, conv = blk.decode(
+                x, h=cache["h"][i, j],
+                conv_state={"x": cache["conv_x"][i, j],
+                            "B": cache["conv_B"][i, j],
+                            "C": cache["conv_C"][i, j]})
+            cache["h"][i, j] = hs
+            cache["conv_x"][i, j] = conv["x"]
+            cache["conv_B"][i, j] = conv["B"]
+            cache["conv_C"][i, j] = conv["C"]
+        x = grp.attn.decode(x, k_cache=cache["k"][i], v_cache=cache["v"][i],
+                            pos=pos, window=window)
+    x = rmsnorm(x, model.final_norm["scale"], cfg.norm_eps)
+    logits = unembed(x, model.embed, cfg)
+    return logits[:, 0], cache

@@ -146,8 +146,8 @@ def test_main_path_on_card(cuda_device):
         devices = {slot.device_type: env["mid"].device.type
                    for env, slot in zip(handle.envs, handle.part.slots)}
         assert devices == {"gpu": "cuda", "cpu": "cpu"}
-    for name, c in ops.COUNTERS.items():
-        assert c.value >= 4, name       # two requests x two streams
+    for name in ("saxpy", "segmentation", "filter_pipeline", "nbody"):
+        assert ops.COUNTERS[name].value >= 4, name  # 2 requests x 2 streams
     with T.Session(_scheduler(T.LoadBalancer(trigger=math.inf))) as s:
         g3 = T.JobGraph()
         first = g3.add(suite.filter_pipeline_sct(96, dst="mid"),
@@ -171,3 +171,93 @@ def test_device_fault_aborts_without_retry(cuda_device):
     kinds = {r.kind for r in info.value.records}
     assert "device" in kinds
     assert all(r.attempt == 0 for r in info.value.records)
+
+
+# ---------------------------------------------------------------------------
+# the LM kernels and the serving path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kw", [
+    (torch.float32, dict(causal=True)),
+    (torch.float32, dict(causal=False, kv_len=70)),
+    (torch.float32, dict(causal=True, window=16, logit_cap=20.0)),
+    (torch.float32, dict(causal=True, window=8, kv_len=20)),  # empty rows
+    (torch.bfloat16, dict(causal=True)),
+], ids=["causal", "kv_len", "window_softcap", "fully_masked", "bf16"])
+@pytest.mark.parametrize("hd", [16, 64, 80, 128, 256])
+def test_flash_attention_matches_plain_on_card(dtype, kw, hd, cuda_device):
+    g = torch.Generator().manual_seed(hd)
+    q = torch.randn(2, 4, 100, hd, generator=g).to(cuda_device, dtype)
+    k = torch.randn(2, 2, 100, hd, generator=g).to(cuda_device, dtype)
+    v = torch.randn(2, 2, 100, hd, generator=g).to(cuda_device, dtype)
+    before = ops.COUNTERS["flash_attention"].value
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ref.attention_ref(q, k, v, **kw)
+    tol = 3e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    bshd = ops.flash_attention_bshd(*(t.transpose(1, 2).contiguous()
+                                      for t in (q, k, v)), **kw)
+    assert torch.equal(bshd.transpose(1, 2), got)
+    torch.cuda.synchronize()
+    assert ops.COUNTERS["flash_attention"].value == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_matches_plain_on_card(dtype, cuda_device):
+    """nh 4, hd 64, ds 64: 512 positions in chunks of 256, then a tail of
+    chunk 232 chained through h0, against the token-by-token recurrence
+    over the whole sequence."""
+    g = torch.Generator().manual_seed(3)
+    S, tail, nh, hd, ds = 512, 232, 4, 64, 64
+    x = (torch.randn(1, S + tail, nh * hd, generator=g) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(1, S + tail, nh,
+                                                  generator=g))
+    Bm = (torch.randn(1, S + tail, ds, generator=g) * 0.5).to(dtype)
+    Cm = (torch.randn(1, S + tail, ds, generator=g) * 0.5).to(dtype)
+    A = -torch.exp(torch.randn(nh, generator=g) * 0.3)
+    x, dt, Bm, Cm, A = (t.to(cuda_device) for t in (x, dt, Bm, Cm, A))
+    y1, h1 = ops.ssd_scan(x[:, :S], dt[:, :S], Bm[:, :S], Cm[:, :S], A,
+                          chunk=256)
+    y2, h2 = ops.ssd_scan(x[:, S:], dt[:, S:], Bm[:, S:], Cm[:, S:], A,
+                          chunk=tail, h0=h1)
+    wy, wh = ref.ssd_scan_ref(x, dt, Bm, Cm, A, chunk=1)
+    y = torch.cat([y1, y2], 1)
+    assert y.dtype == dtype and h2.dtype == torch.float32
+    tol = 3e-4 if dtype == torch.float32 else 1e-2
+    scale = max(1.0, wy.float().abs().max().item())
+    assert (y.float() - wy.float()).abs().max().item() <= tol * scale
+    assert (h2 - wh).abs().max().item() <= 3e-4 * max(
+        1.0, wh.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_smoke_model_serves_on_card_as_on_cpu(cuda_device):
+    """zamba2's smoke config in float32: prefill logits and state on the
+    card (kernels) against the CPU (plain versions), then greedy serving
+    through the kernels, with one flash launch per attention layer and one
+    or two SSD launches per Mamba2 layer per prefill."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import LM, prefill
+    from repro_torch.runtime import ServeEngine
+    cfg = get_smoke("zamba2-2.7b")
+    card = LM(cfg, dtype=torch.float32, device=cuda_device,
+              generator=torch.Generator(device=cuda_device).manual_seed(0))
+    host = LM(cfg, dtype=torch.float32)
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    toks = torch.randint(0, cfg.vocab, (1, 37),
+                         generator=torch.Generator().manual_seed(1))
+    lc, cc = prefill(card, toks.to(cuda_device))
+    lh, ch = prefill(host, toks)
+    torch.testing.assert_close(lc.cpu(), lh, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(cc["h"].cpu(), ch["h"], rtol=1e-3, atol=1e-3)
+    for c in ops.COUNTERS.values():
+        c.reset()
+    eng = ServeEngine(cfg, card, slots=2, capacity=64)
+    for n in (20, 37, 32):
+        eng.submit(torch.randint(0, cfg.vocab, (n,)).tolist(), max_new=5)
+    done = eng.run_to_completion()
+    assert sorted(len(r.out) for r in done) == [5, 5, 5]
+    assert ops.COUNTERS["flash_attention"].value == 2 * 3
+    assert ops.COUNTERS["ssd_scan"].value == 2 * (2 + 2 + 1)
