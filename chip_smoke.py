@@ -97,22 +97,26 @@ LM_REQUESTS = 8
 LM_PROMPTS = (256, 1536)          # prompt lengths drawn in this range
 LM_MAX_NEW = 32
 LM_CHECK_TOKENS = 512             # the card-against-CPU prompt
-#: kernel tolerances: flash as tests/test_kernels.py (absolute); SSD
-#: relative to max |y| and max |h| (outputs reach ~20 at the model's
-#: shapes; bf16 keeps 8 bits of mantissa)
-FLASH_TOL = {torch.float32: 3e-4, torch.bfloat16: 3e-2}
-SSD_TOL = {torch.float32: 3e-4, torch.bfloat16: 1e-2}
+#: kernel tolerances.  float32: flash absolute as tests/test_kernels.py;
+#: SSD relative to max(1, max |y|) and max(1, max |h|) (outputs reach ~30
+#: at the model's shapes).  bf16: kernel and plain version both compute in
+#: float32 from the same bf16 inputs and round the output once, so each
+#: element may differ by one bf16 step (2^-7 of its value) plus the float32
+#: tolerance: |got - want| <= BF16_STEP x |want| + the float32 bound
+FLASH_TOL = 3e-4
+SSD_TOL = 3e-4
+BF16_STEP = 2.0 ** -7
 #: one hybrid group, card (kernels, cuBLAS) against CPU (plain versions,
 #: CPU matmuls), same parameters, for the last-token logits and the SSM
-#: state.  In float32: max |diff| <= GROUP_F32_TOL x max |CPU value| (sums
-#: in another order).  In bf16 the model itself amplifies rounding: at
-#: reduced width the CPU alone moves the logits by ~30% of their max
-#: between bf16 and float32.  So the bf16 tolerance is that measured
-#: noise: max |card - CPU| (both bf16) <= GROUP_BF16_NOISE x max |CPU bf16
-#: - CPU float32|, i.e. the card is no further from the CPU than two bf16
-#: runs that each sit that far from float32.
+#: state.  float32: max |card - CPU| <= GROUP_F32_TOL x max |CPU|.  bf16:
+#: with random weights the group amplifies bf16 rounding until max-abs
+#: differences say nothing (the CPU alone moves the logits by ~26% of their
+#: max between bf16 and float32), so the bf16 card run is held to the CPU
+#: float32 run by relative L2 norm, ||card bf16 - CPU f32|| / ||CPU f32||,
+#: under limits set between the readings of sound runs and of runs with a
+#: deliberate fault in a kernel call (chip_group_calibration.py, PERF.md)
 GROUP_F32_TOL = 1e-3
-GROUP_BF16_NOISE = 2.0
+GROUP_BF16_REL = {"logits": 0.3, "h": 0.05}
 #: the profiled window: one prefill of the largest prompt, decode steps
 PROFILE_DECODE_STEPS = 8
 
@@ -143,6 +147,14 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bf16_excess(got: torch.Tensor, want: torch.Tensor, atol: float) -> float:
+    """The largest |got - want| / (BF16_STEP x |want| + atol) over the
+    elements: at most 1 when they differ by no more than one bf16 rounding
+    step and ``atol``."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() / (BF16_STEP * want.abs() + atol)).max().item()
 
 
 def bound_ms(nbytes: float, ops_count: float, peak: float = PEAK_FP32_PER_S):
@@ -531,25 +543,27 @@ def lm_kernel_phase(cfg):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
     # flash: (1, H, S, hd) bf16 causal at a ragged S and the largest prompt
-    worst = 0.0
+    worst, excess = 0.0, 0.0
     for S in (1000, LM_PROMPTS[1]):
         q, k, v = (randn(1, H, S, hd, dtype=bf16) for _ in range(3))
         got = ops.flash_attention(q, k, v)
-        err = (got.float() - ref.attention_ref(q, k, v).float()).abs().max()
-        expect(err.item() <= FLASH_TOL[bf16],
-               f"flash S={S}: max err {err.item()} <= {FLASH_TOL[bf16]}")
+        want = ref.attention_ref(q, k, v)
+        ex = bf16_excess(got, want, FLASH_TOL)
+        expect(ex <= 1.0, f"flash S={S}: |err| within one bf16 step + "
+               f"{FLASH_TOL} (worst element at {ex:.3f} of its bound)")
         bshd = ops.flash_attention_bshd(*(t.transpose(1, 2).contiguous()
                                           for t in (q, k, v)))
         expect(torch.equal(bshd.transpose(1, 2), got),
                "flash in the model's (B, S, H, hd) layout == (B, H, S, hd)")
-        worst = max(worst, err.item())
+        worst = max(worst, (got.float() - want.float()).abs().max().item())
+        excess = max(excess, ex)
     # GQA + window + softcap + kv_len, float32, small
     kw = dict(window=64, logit_cap=30.0, kv_len=250)
     qs, ks, vs = randn(2, 8, 300, 64), randn(2, 2, 300, 64), randn(2, 2, 300,
                                                                    64)
     err_v = (ops.flash_attention(qs, ks, vs, **kw)
              - ref.attention_ref(qs, ks, vs, **kw)).abs().max().item()
-    expect(err_v <= FLASH_TOL[torch.float32],
+    expect(err_v <= FLASH_TOL,
            f"flash GQA/window/softcap/kv_len: max err {err_v}")
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
                                                          is_causal=True), 20)
@@ -558,9 +572,9 @@ def lm_kernel_phase(cfg):
                                       20),
         plain_ms=cuda_ms(lambda: ref.attention_ref(q, k, v), 5),
         library_ms=lib, shape=list(q.shape), dtype="bfloat16",
-        variants_max_abs_err=err_v,
-        tolerance=f"{FLASH_TOL[bf16]} (bf16), {FLASH_TOL[torch.float32]} "
-                  "(f32 GQA/window/softcap/kv_len)",
+        variants_max_abs_err=err_v, bf16_worst_share_of_bound=excess,
+        tolerance=f"bf16: |err| <= 2^-7 |plain| + {FLASH_TOL} elementwise; "
+                  f"f32 (GQA/window/softcap/kv_len): {FLASH_TOL}",
         bound=flash_bound(1, H, H, q.shape[2], q.shape[2], hd, bf16))
     expect(cfg.n_kv_heads == H, "zamba2's attention has as many kv heads")
 
@@ -581,27 +595,29 @@ def lm_kernel_phase(cfg):
     err_y = (torch.cat([y1, y2], 1) - wy).abs().max().item()
     err_h = (h2 - wh).abs().max().item()
     sy, sh = wy.abs().max().item(), wh.abs().max().item()
-    expect(err_y <= SSD_TOL[torch.float32] * max(1.0, sy)
-           and err_h <= SSD_TOL[torch.float32] * max(1.0, sh),
+    expect(err_y <= SSD_TOL * max(1.0, sy) and err_h <= SSD_TOL * max(1.0, sh),
            f"ssd f32 + chained tail: y err {err_y} (max {sy}), h err "
            f"{err_h} (max {sh})")
     xb, Bb, Cb = x[:, :S].to(bf16), Bm[:, :S].to(bf16), Cm[:, :S].to(bf16)
     yb, hb = ops.ssd_scan(xb, dt[:, :S], Bb, Cb, A, chunk=Q)
     wyb, whb = ref.ssd_scan_ref(xb, dt[:, :S], Bb, Cb, A, chunk=Q)
     err_b = (yb.float() - wyb.float()).abs().max().item()
-    expect(err_b <= SSD_TOL[bf16] * max(1.0, wyb.float().abs().max().item())
-           and (hb - whb).abs().max().item()
-           <= SSD_TOL[torch.float32] * max(1.0, whb.abs().max().item()),
-           f"ssd bf16: y err {err_b}")
+    ex_b = bf16_excess(yb, wyb, SSD_TOL * max(1.0, wyb.float().abs().max()
+                                              .item()))
+    expect(ex_b <= 1.0 and (hb - whb).abs().max().item()
+           <= SSD_TOL * max(1.0, whb.abs().max().item()),
+           f"ssd bf16: y err {err_b}, worst element at {ex_b:.3f} of its "
+           "bound")
     results["ssd_scan"] = dict(
         max_abs_err=max(err_y, err_h), ms=cuda_ms(
             lambda: ops.ssd_scan(*main, chunk=Q), 10),
         plain_ms=cuda_ms(lambda: ref.ssd_scan_ref(*main, chunk=Q), 2),
         library_ms=None, shape=list(main[0].shape), dtype="float32",
         max_abs_y=sy, max_abs_h=sh, bf16_max_abs_err=err_b,
-        tolerance=f"{SSD_TOL[torch.float32]} x max(1, max |y|) and "
-                  f"x max(1, max |h|) (f32), {SSD_TOL[bf16]} x max(1, "
-                  "max |y|) (bf16)",
+        bf16_worst_share_of_bound=ex_b,
+        tolerance=f"f32: {SSD_TOL} x max(1, max |y|) and x max(1, max |h|); "
+                  f"bf16 y: 2^-7 |plain| + {SSD_TOL} x max(1, max |y|) "
+                  "elementwise",
         bound=ssd_bound(1, S, Q, nh, shd, ds, torch.float32))
     torch.cuda.synchronize()
     return results
@@ -624,36 +640,22 @@ def lm_prompts(cfg):
 def lm_main_path(cfg, model):
     """8 requests through ServeEngine on cuda:0; the flash and SSD launch
     counters from 0 just before to just after."""
-    engine = ServeEngine(cfg, model, slots=LM_SLOTS, capacity=LM_CAPACITY,
-                         temperature=0.0)
     prompts = lm_prompts(cfg)
     prefills, decode = [], {"seconds": 0.0, "tokens": 0, "steps": 0}
     bad = []
-    step_prefill, step_decode = engine._prefill1, engine._decode
 
-    def timed_prefill(m, tokens):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, cache = step_prefill(m, tokens)
-        torch.cuda.synchronize()
-        prefills.append((tokens.shape[1], time.perf_counter() - t0))
+    def on_step(kind, n, seconds, logits):
+        if kind == "prefill":
+            prefills.append((n, seconds))
+        else:
+            decode["seconds"] += seconds
+            decode["steps"] += 1
+            decode["tokens"] += n
         if not torch.isfinite(logits).all():
-            bad.append(f"prefill of {tokens.shape[1]} tokens")
-        return logits, cache
+            bad.append(f"{kind} of {n}")
 
-    def timed_decode(m, cache, token, pos):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, cache = step_decode(m, cache, token, pos)
-        torch.cuda.synchronize()
-        decode["seconds"] += time.perf_counter() - t0
-        decode["steps"] += 1
-        decode["tokens"] += sum(r is not None for r in engine.active)
-        if not torch.isfinite(logits).all():
-            bad.append(f"decode at pos {pos}")
-        return logits, cache
-
-    engine._prefill1, engine._decode = timed_prefill, timed_decode
+    engine = ServeEngine(cfg, model, slots=LM_SLOTS, capacity=LM_CAPACITY,
+                         temperature=0.0, on_step=on_step)
     for p in prompts:
         engine.submit(p, max_new=LM_MAX_NEW)
     for c in ops.COUNTERS.values():
@@ -692,14 +694,33 @@ def lm_main_path(cfg, model):
                 first_tokens=[r.out[:8] for r in done])
 
 
-def lm_group_check(cfg, model):
-    """One hybrid group at full width with the full-width embedding: the
-    model's own parameters on the card (kernels) and on the CPU (plain
-    versions, chosen by device), one 512-token prompt, in float32 and in
-    bf16."""
+def one_group(cfg, model):
+    """The config and parameters of the model's first hybrid group (5
+    Mamba2 + 1 attention layers) with its full-width embedding."""
     one = cfg.scaled(n_layers=cfg.hybrid_attn_every)
     state = {k: v for k, v in model.state_dict().items()
              if not k.startswith("layers.") or k.startswith("layers.0.")}
+    return one, state
+
+
+def group_prefill(one, state, tokens, dtype, dev):
+    """The last-token logits and SSM state of one group's prefill, on
+    ``dev`` in ``dtype``: kernels on the card, plain versions on the CPU."""
+    m = LM(one, dtype=dtype, device=dev)
+    m.load_state_dict({k: v.to(dev) for k, v in state.items()})
+    logits, cache = prefill(m, tokens.to(dev))
+    return {"logits": logits.float().cpu(), "h": cache["h"].float().cpu()}
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got - want).norm() / want.norm()).item()
+
+
+def lm_group_check(cfg, model):
+    """One hybrid group at full width: the model's own parameters on the
+    card (kernels) and on the CPU (plain versions, chosen by device), one
+    512-token prompt, in float32 and in bf16."""
+    one, state = one_group(cfg, model)
     rng = np.random.default_rng(1)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (1, LM_CHECK_TOKENS)))
     runs, cpu_s = {}, 0.0
@@ -707,37 +728,31 @@ def lm_group_check(cfg, model):
     torch.set_num_threads(os.cpu_count() or 1)
     for dtype in (torch.float32, torch.bfloat16):
         for dev in ("cuda", "cpu"):
-            m = LM(one, dtype=dtype, device=dev)
-            m.load_state_dict({k: v.to(dev) for k, v in state.items()})
             t0 = time.perf_counter()
-            logits, cache = prefill(m, tokens.to(dev))
+            runs[dtype, dev] = group_prefill(one, state, tokens, dtype, dev)
             if dev == "cpu":
                 cpu_s += time.perf_counter() - t0
-            runs[dtype, dev] = {"logits": logits.float().cpu(),
-                                "h": cache["h"].float().cpu()}
-            del m, cache
     torch.set_num_threads(threads)
     f32, bf16 = torch.float32, torch.bfloat16
     out = {}
     for name in ("logits", "h"):
-        def diff(a, b):
-            return (runs[a][name] - runs[b][name]).abs().max().item()
-        scale = runs[f32, "cpu"][name].abs().max().item()
-        e32 = diff((f32, "cuda"), (f32, "cpu"))
-        noise = diff((bf16, "cpu"), (f32, "cpu"))
-        e16 = diff((bf16, "cuda"), (bf16, "cpu"))
+        want = runs[f32, "cpu"][name]
+        scale = want.abs().max().item()
+        e32 = (runs[f32, "cuda"][name] - want).abs().max().item()
+        rel16 = rel_l2(runs[bf16, "cuda"][name], want)
+        noise = rel_l2(runs[bf16, "cpu"][name], want)
         expect(math.isfinite(e32) and e32 <= GROUP_F32_TOL * scale,
                f"card vs CPU {name}, float32: max err {e32} <= "
                f"{GROUP_F32_TOL} x {scale}")
-        expect(math.isfinite(e16) and e16 <= GROUP_BF16_NOISE * noise,
-               f"card vs CPU {name}, bf16: max err {e16} <= "
-               f"{GROUP_BF16_NOISE} x bf16 noise {noise}")
+        expect(math.isfinite(rel16) and rel16 <= GROUP_BF16_REL[name],
+               f"card bf16 vs CPU float32 {name}: relative L2 {rel16} <= "
+               f"{GROUP_BF16_REL[name]}")
         out[name] = dict(max_abs=scale, f32_max_abs_err=e32,
-                         bf16_max_abs_err=e16, cpu_bf16_vs_f32=noise)
+                         bf16_card_rel_l2=rel16, bf16_cpu_rel_l2=noise)
     print(f"lm one group card vs CPU: {out} (CPU {cpu_s:.1f} s)", flush=True)
     return dict(out, cpu_seconds=cpu_s, tolerance=(
-        f"f32: {GROUP_F32_TOL} x max |CPU f32|; bf16: {GROUP_BF16_NOISE} x "
-        "max |CPU bf16 - CPU f32|"))
+        f"f32: {GROUP_F32_TOL} x max |CPU f32|; bf16: ||card bf16 - CPU "
+        f"f32|| / ||CPU f32|| <= {GROUP_BF16_REL}"))
 
 
 def lm_profile(cfg, model):

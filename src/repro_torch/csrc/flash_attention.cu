@@ -277,7 +277,6 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
     case 32: return launch<T, 32>(q, k, v, o, B, P, stream);
     case 64: return launch<T, 64>(q, k, v, o, B, P, stream);
     case 80: return launch<T, 80>(q, k, v, o, B, P, stream);
-    case 96: return launch<T, 96>(q, k, v, o, B, P, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, P, stream);
     case 256: return launch<T, 256>(q, k, v, o, B, P, stream);
     default: return (int)cudaErrorInvalidValue;

@@ -20,7 +20,7 @@ launches = LaunchCounter("flash_attention")
 
 #: head dims the kernel is instantiated for (every config of the repo:
 #: 64, 80, 128, 256; the smaller ones for the smoke configs)
-HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 #: window passed for "no window": ``k > q - 2**30`` holds for every key
 NO_WINDOW = 1 << 30
 _DTYPES = (torch.float32, torch.bfloat16)

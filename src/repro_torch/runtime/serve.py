@@ -6,11 +6,14 @@ greedy or temperature sampling), as in the JAX package.  It runs on CUDA
 unless ``device="cpu"`` is passed, and raises without a card otherwise.
 Like the JAX engine it keeps one decode position for all slots (the
 longest prompt admitted so far); see ROADMAP.md, faults of the reference.
+An optional ``on_step`` callback sees each prefill and decode step with its
+host-clock seconds and its logits, for measurement and checks.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+import time
+from typing import Callable, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -51,6 +54,11 @@ def sample(logits: torch.Tensor, generator: torch.Generator,
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
+#: ``on_step(kind, n, seconds, logits)``: kind "prefill" with n the prompt's
+#: tokens, or "decode" with n the active slots
+StepHook = Callable[[str, int, float, torch.Tensor], None]
+
+
 @dataclasses.dataclass
 class Request:
     rid: int
@@ -69,11 +77,16 @@ class ServeEngine:
     A fixed decode batch of ``slots`` sequences advances one token per
     ``step()``; finished sequences free their slot, queued requests are
     prefilled (batch 1) into free slots and spliced into the shared cache.
+
+    ``on_step``, when given, is called after every prefill and decode step
+    with the seconds from the step's start to the host's read of the tokens
+    it sampled (a read that waits for the device), and the step's logits.
     """
 
     def __init__(self, cfg: ModelConfig, model: LM, *, slots: int,
                  capacity: int, temperature: float = 0.0, seed: int = 0,
-                 device: Optional[str] = None):
+                 device: Optional[str] = None,
+                 on_step: Optional[StepHook] = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = model.to(self.device)
@@ -81,6 +94,7 @@ class ServeEngine:
         self.capacity = capacity
         self.temperature = temperature
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.on_step = on_step
 
         self._prefill1 = make_prefill_step(cfg, capacity)
         self._decode = make_decode_step(cfg)
@@ -107,8 +121,10 @@ class ServeEngine:
         """Admit queued work, decode one token for every active slot.
         Returns the number of active sequences."""
         self._admit()
-        if not any(r is not None for r in self.active):
+        n_decode = sum(r is not None for r in self.active)
+        if not n_decode:
             return 0
+        t0 = time.perf_counter()
         try:
             logits, self.cache = self._decode(self.model, self.cache,
                                               self.cur_token, self.pos)
@@ -123,6 +139,8 @@ class ServeEngine:
         self.cur_token = nxt
         self.pos += 1
         toks = nxt.tolist()
+        if self.on_step is not None:
+            self.on_step("decode", n_decode, time.perf_counter() - t0, logits)
         n_active = 0
         for i, req in enumerate(self.active):
             if req is None:
@@ -149,14 +167,19 @@ class ServeEngine:
             if self.active[i] is not None or not self.queue:
                 continue
             req = self.queue.pop(0)
+            t0 = time.perf_counter()
             prompt = torch.tensor(req.prompt, dtype=torch.long,
                                   device=self.device)[None]
             logits, c1 = self._prefill1(self.model, prompt)
             _splice(self.cache, c1, i)
             first = greedy(logits)[0]
+            token = int(first)
+            if self.on_step is not None:
+                self.on_step("prefill", len(req.prompt),
+                             time.perf_counter() - t0, logits)
             self.cur_token[i] = first
             self.pos = max(self.pos, len(req.prompt))
-            req.out.append(int(first))
+            req.out.append(token)
             if req.done:
                 self.finished.append(req)
             else:

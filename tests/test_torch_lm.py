@@ -179,6 +179,28 @@ def test_serve_engine_greedy_tokens_match_jax(models):
     assert got == want
 
 
+def test_serve_engine_reports_each_step(models):
+    """``on_step`` sees one prefill per request with its prompt length and
+    one call per decode step with its active slots, with the step's
+    logits; the decode calls count every token after each first one."""
+    _, _, tcfg, model = models
+    seen = []
+    eng = ServeEngine(tcfg, model, slots=2, capacity=64, temperature=0.0,
+                      device="cpu",
+                      on_step=lambda *a: seen.append(a))
+    for n in (20, 37, 9):
+        eng.submit(tokens(n, seed=n)[0].tolist(), max_new=4)
+    done = eng.run_to_completion()
+    prefills = [a for a in seen if a[0] == "prefill"]
+    decodes = [a for a in seen if a[0] == "decode"]
+    assert [a[1] for a in prefills] == [20, 37, 9]
+    assert all(a[3].shape == (1, tcfg.vocab) for a in prefills)
+    assert all(a[3].shape == (2, tcfg.vocab) and 1 <= a[1] <= 2
+               for a in decodes)
+    assert sum(a[1] for a in decodes) == sum(len(r.out) - 1 for r in done)
+    assert all(a[2] > 0 for a in seen)
+
+
 def test_serve_engine_needs_a_card_unless_asked_for_the_cpu(models,
                                                             monkeypatch):
     _, _, tcfg, model = models
