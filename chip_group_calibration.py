@@ -1,25 +1,38 @@
 #!/usr/bin/env python3
-"""Readings behind the limits of ``chip_smoke.py``'s bf16 one-group check.
+"""Readings behind the limits of ``chip_smoke.py``'s bf16 head checks.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_group_calibration.py
 
-It builds zamba2-2.7b at full width from seed 0 as ``chip_smoke.py`` does,
-keeps the first hybrid group (5 Mamba2 + 1 attention layers, full-width
-embedding), and prefills three 512-token prompts (seeds 1, 3, 5) through
-it.  Against the CPU float32 run it prints the relative L2 difference,
-||run - CPU f32|| / ||CPU f32||, of the last-token logits and the SSM state
+For each model of ``chip_smoke.LM_ARCHS`` it builds the model at full width
+from seed 0 as ``chip_smoke.py`` does, keeps its head (zamba2-2.7b: the
+first hybrid group of 5 Mamba2 + 1 attention layers; granite-moe-3b-a800m:
+the first 2 layers; each with the full-width embedding), and prefills
+three 512-token prompts (seeds 1, 3, 5) through it.  Against the CPU
+float32 run it prints the relative L2 difference, ||run - CPU f32|| /
+||CPU f32||, of the last-token logits, of the cache the head fills
+(zamba2: the SSM state h; granite: k and v) and, for granite, of the first
+layer's MoE FFN on the normalised embeddings (``chip_smoke.head_moe``),
 for sound runs (card f32, card bf16, CPU bf16) and for card bf16 runs with
-a deliberate fault put into one kernel call of the model:
+a deliberate fault:
 
-- ``flash_noncausal``: the causal mask dropped;
-- ``flash_misplaced_tile``: keys and values 64-127 replaced by 0-63;
-- ``flash_scale_1_over_hd``: softmax scale 1/hd for 1/sqrt(hd);
-- ``ssd_no_carry``: the state not carried from one chunk to the next;
-- ``ssd_B_C_swapped``: B and C passed in each other's place;
-- ``ssd_dt_shift``: dt one position late.
+- zamba2, in one kernel call of the model: ``flash_noncausal`` (the causal
+  mask dropped), ``flash_misplaced_tile`` (keys and values 64-127 replaced
+  by 0-63), ``flash_scale_1_over_hd`` (softmax scale 1/hd for 1/sqrt(hd)),
+  ``ssd_no_carry`` (the state not carried from one chunk to the next),
+  ``ssd_B_C_swapped`` (B and C in each other's place), ``ssd_dt_shift``
+  (dt one position late);
+- granite, the three flash faults above, and in the MoE layers:
+  ``moe_w_in_experts_swapped`` (experts 0 and 1 given each other's
+  ``w_in``), ``moe_w_in_w_gate_swapped`` (``w_in`` and ``w_gate`` in each
+  other's place), ``moe_no_capacity_drop`` (every slot kept, the capacity
+  drop skipped), ``moe_weights_not_renormalised`` (the top-k router
+  weights not divided by their sum).
 
+For granite it also prints how many (token, expert) slots go past the
+capacity in each layer of the prefill and in the MoE FFN of
+``head_moe``, which decides whether ``moe_no_capacity_drop`` can show.
 ``chip_smoke.GROUP_BF16_REL`` is set between the largest sound reading and
 the smallest reading of a fault it can see.  The full record goes to
 ``build/chip_group_calibration.json``.
@@ -36,6 +49,7 @@ import torch
 
 import chip_smoke as cs
 from repro_torch.kernels import _build, ops
+from repro_torch.models import moe as moe_mod
 
 SEEDS = (1, 3, 5)
 
@@ -73,20 +87,124 @@ def ssd_dt_shift(ssd, x, dt, B, C, A, *, chunk, h0=None):
     return ssd(x, torch.roll(dt, 1, dims=1), B, C, A, chunk=chunk, h0=h0)
 
 
-FAULTS = {f.__name__: ("flash_attention_bshd" if f.__name__.startswith(
-    "flash") else "ssd_scan", f) for f in (
-        flash_noncausal, flash_misplaced_tile, flash_scale_1_over_hd,
-        ssd_no_carry, ssd_B_C_swapped, ssd_dt_shift)}
+def wrap(module, attr, fault):
+    """A patch of ``module.<attr>`` that calls ``fault`` with the sound
+    function first."""
+    return module, attr, lambda good: (
+        lambda *a, **kw: fault(good, *a, **kw))
 
 
-def faulty(one, state, tokens, attr, fault):
-    """A card bf16 prefill with ``ops.<attr>`` wrapped by ``fault``."""
-    good = getattr(ops, attr)
-    setattr(ops, attr, lambda *a, **kw: fault(good, *a, **kw))
+def moe_w_in_experts_swapped(state):
+    state = dict(state)
+    for k in [k for k in state if k.endswith(".moe.w_in")]:
+        state[k] = state[k][[1, 0, *range(2, state[k].shape[0])]]
+    return state
+
+
+def moe_w_in_w_gate_swapped(state):
+    state = dict(state)
+    for k in [k for k in state if k.endswith(".moe.w_in")]:
+        gate = k[:-len("w_in")] + "w_gate"
+        state[k], state[gate] = state[gate], state[k]
+    return state
+
+
+def keep_every_slot(cfg, n_tokens):
+    """A capacity no expert reaches: every slot kept."""
+    return max(8, -(-n_tokens // 8) * 8)
+
+
+def route_not_renormalised(x2d, p, cfg):
+    probs = moe_mod.router_probs(x2d, p, cfg)
+    w, idx = moe_mod.top_k(probs, cfg.moe.top_k)
+    return w.to(x2d.dtype), idx, torch.zeros((), device=x2d.device)
+
+
+#: name -> (module, attribute, patch of the sound function) or a transform
+#: of the head's parameters, by model
+FLASH_FAULTS = {f.__name__: wrap(ops, "flash_attention_bshd", f) for f in (
+    flash_noncausal, flash_misplaced_tile, flash_scale_1_over_hd)}
+FAULTS = {
+    "zamba2-2.7b": dict(FLASH_FAULTS, **{
+        f.__name__: wrap(ops, "ssd_scan", f)
+        for f in (ssd_no_carry, ssd_B_C_swapped, ssd_dt_shift)}),
+    "granite-moe-3b-a800m": dict(FLASH_FAULTS, **{
+        "moe_w_in_experts_swapped": moe_w_in_experts_swapped,
+        "moe_w_in_w_gate_swapped": moe_w_in_w_gate_swapped,
+        "moe_no_capacity_drop": (moe_mod, "capacity",
+                                 lambda good: keep_every_slot),
+        "moe_weights_not_renormalised": (moe_mod, "route",
+                                         lambda good: route_not_renormalised),
+    }),
+}
+
+
+def faulty(head, state, tokens, fault):
+    """A card bf16 prefill of the head with ``fault`` put in."""
+    if callable(fault):
+        return cs.head_prefill(head, fault(state), tokens, torch.bfloat16,
+                               "cuda")
+    module, attr, patch = fault
+    good = getattr(module, attr)
+    setattr(module, attr, patch(good))
     try:
-        return cs.group_prefill(one, state, tokens, torch.bfloat16, "cuda")
+        return cs.head_prefill(head, state, tokens, torch.bfloat16, "cuda")
     finally:
-        setattr(ops, attr, good)
+        setattr(module, attr, good)
+
+
+def drops(head, state, tokens):
+    """Slots past the capacity in the CPU float32 run: in each MoE layer
+    of the prefill, then in ``chip_smoke.head_moe``."""
+    K, E = head.moe.top_k, head.moe.n_experts
+    C = moe_mod.capacity(head, tokens.numel())
+    m = cs.head_model(head, state, torch.float32, "cpu")
+    h = cs.rmsnorm(cs.embed(tokens, m.embed, head),
+                   m.layers[0]["ln2"]["scale"], head.norm_eps)
+    first = moe_mod.router_probs(h.reshape(-1, head.d_model),
+                                 m.layers[0]["moe"], head)
+    out = []
+    for probs in cs.head_routes(head, state, tokens, "cpu") + [first]:
+        load = torch.bincount(moe_mod.top_k(probs, K)[1].reshape(-1),
+                              minlength=E)
+        out.append(int((load - C).clamp(min=0).sum()))
+    return out
+
+
+def calibrate(arch):
+    cfg = cs.get_config(arch)
+    model = cs.LM(cfg, device="cuda",
+                  generator=torch.Generator(device="cuda").manual_seed(0))
+    head, state = cs.model_head(cfg, model)
+    del model
+    torch.cuda.empty_cache()
+    names = cs.HEAD_OUTPUTS[cfg.family]
+    f32, bf16 = torch.float32, torch.bfloat16
+    record = {}
+    for seed in SEEDS:
+        tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab, (1, cs.LM_CHECK_TOKENS)))
+        t0 = time.perf_counter()
+        want = cs.head_prefill(head, state, tokens, f32, "cpu")
+        runs = {"card_f32": cs.head_prefill(head, state, tokens, f32, "cuda"),
+                "card_bf16": cs.head_prefill(head, state, tokens, bf16,
+                                             "cuda"),
+                "cpu_bf16": cs.head_prefill(head, state, tokens, bf16, "cpu")}
+        for name, fault in FAULTS[arch].items():
+            runs[name] = faulty(head, state, tokens, fault)
+        row = {name: {k: cs.rel_l2(r[k], want[k]) for k in names}
+               for name, r in runs.items()}
+        if cfg.moe is not None:
+            row["drops_per_layer_and_head_moe"] = drops(head, state, tokens)
+        record[seed] = row
+        print(f"{arch} seed {seed} ({time.perf_counter() - t0:.1f} s), "
+              "relative L2 against CPU f32:", flush=True)
+        for name, r in row.items():
+            print(f"  {name}: " + (", ".join(f"{k} {v:.4g}"
+                                             for k, v in r.items())
+                                   if isinstance(r, dict) else str(r)),
+                  flush=True)
+    return record
 
 
 def main() -> int:
@@ -95,34 +213,8 @@ def main() -> int:
         return 2
     print(cs.gpu_line(), flush=True)
     _build.library()
-    cfg = cs.get_config(cs.LM_ARCH)
-    model = cs.LM(cfg, device="cuda",
-                  generator=torch.Generator(device="cuda").manual_seed(0))
-    one, state = cs.one_group(cfg, model)
-    del model
-    torch.cuda.empty_cache()
     torch.set_num_threads(os.cpu_count() or 1)
-    f32, bf16 = torch.float32, torch.bfloat16
-    record = {}
-    for seed in SEEDS:
-        tokens = torch.from_numpy(np.random.default_rng(seed).integers(
-            0, cfg.vocab, (1, cs.LM_CHECK_TOKENS)))
-        t0 = time.perf_counter()
-        want = cs.group_prefill(one, state, tokens, f32, "cpu")
-        runs = {"card_f32": cs.group_prefill(one, state, tokens, f32, "cuda"),
-                "card_bf16": cs.group_prefill(one, state, tokens, bf16,
-                                              "cuda"),
-                "cpu_bf16": cs.group_prefill(one, state, tokens, bf16, "cpu")}
-        for name, (attr, fault) in FAULTS.items():
-            runs[name] = faulty(one, state, tokens, attr, fault)
-        row = {name: {k: cs.rel_l2(r[k], want[k]) for k in ("logits", "h")}
-               for name, r in runs.items()}
-        record[seed] = row
-        print(f"seed {seed} ({time.perf_counter() - t0:.1f} s), relative L2 "
-              "against CPU f32:", flush=True)
-        for name, r in row.items():
-            print(f"  {name}: logits {r['logits']:.4g}, h {r['h']:.4g}",
-                  flush=True)
+    record = {arch: calibrate(arch) for arch in cs.LM_ARCHS}
     out = cs.ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_group_calibration.json").write_text(json.dumps(record,

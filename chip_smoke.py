@@ -7,18 +7,21 @@ Run from the root of a checkout, with no arguments:
 
 It builds the hand-written kernels (``src/repro_torch/csrc/*.cu``, with
 ``nvcc`` for ``sm_90a``, into ``build/kernels/``), holds each kernel
-against its plain PyTorch version on the card, then drives the port's two
+against its plain PyTorch version on the card, then drives the port's
 main paths, each with the kernels' launch counters set to 0 just before it
 and read just after:
 
 - the scheduler: ``Session`` -> ``Scheduler`` -> ``ThreadedExecutor``,
   host fission slots plus two CUDA-stream slots on ``cuda:0``, over the
   paper's four benchmark SCTs at the paper's sizes, every output checked;
-- LM serving: zamba2-2.7b at full width (54 layers, d_model 2560, bf16,
-  random weights from a seed) behind ``ServeEngine``, 8 requests of 256 to
-  1536 prompt tokens and 32 new tokens each, through the flash attention
-  and SSD scan kernels; then one hybrid group (5 Mamba2 + 1 attention
-  layers, full-width embedding) on the card against the same parameters
+- LM serving, two models in turn, each at full width in bf16 with random
+  weights from a seed, behind ``ServeEngine``: 8 requests of 256 to 1536
+  prompt tokens and 32 new tokens each.  zamba2-2.7b (54 layers, d_model
+  2560) runs the flash attention and SSD scan kernels; granite-moe-3b-a800m
+  (32 layers, d_model 1536, 40 experts top-8) runs flash attention and the
+  MoE grouped GEMM.  Then the head of each model (zamba2's first hybrid
+  group of 5 Mamba2 + 1 attention layers, granite's first 2 layers, each
+  with the full-width embedding) on the card against the same parameters
   on the CPU (plain versions).
 
 Standard output ends with three lines: the card's name and power limit as
@@ -30,6 +33,7 @@ record is written to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -55,6 +59,9 @@ from repro_torch.core import (AcceleratorPlatform, DeviceInfo,  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.models import (LM, decode_step, init_cache,  # noqa: E402
                                 prefill)
+from repro_torch.models import lm as lm_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.layers import embed, rmsnorm  # noqa: E402
 from repro_torch.runtime import ServeEngine  # noqa: E402
 
 #: published peaks of one H100 SXM at its full 700 W (NVIDIA data sheet)
@@ -87,10 +94,12 @@ KERNELS = {
                         "src/repro/kernels/flash_attention.py:88"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:84"),
+    "grouped_matmul": ("src/repro_torch/csrc/moe_gemm.cu",
+                       "src/repro/kernels/moe_gemm.py:39"),
 }
 
-#: the LM serve phase: the model, the engine and its requests
-LM_ARCH = "zamba2-2.7b"
+#: the LM serve phase: the models, the engine and its requests
+LM_ARCHS = ("zamba2-2.7b", "granite-moe-3b-a800m")
 LM_SLOTS = 4
 LM_CAPACITY = 2048
 LM_REQUESTS = 8
@@ -106,17 +115,33 @@ LM_CHECK_TOKENS = 512             # the card-against-CPU prompt
 FLASH_TOL = 3e-4
 SSD_TOL = 3e-4
 BF16_STEP = 2.0 ** -7
-#: one hybrid group, card (kernels, cuBLAS) against CPU (plain versions,
-#: CPU matmuls), same parameters, for the last-token logits and the SSM
-#: state.  float32: max |card - CPU| <= GROUP_F32_TOL x max |CPU|.  bf16:
-#: with random weights the group amplifies bf16 rounding until max-abs
-#: differences say nothing (the CPU alone moves the logits by ~26% of their
-#: max between bf16 and float32), so the bf16 card run is held to the CPU
-#: float32 run by relative L2 norm, ||card bf16 - CPU f32|| / ||CPU f32||,
-#: under limits set between the readings of sound runs and of runs with a
-#: deliberate fault in a kernel call (chip_group_calibration.py, PERF.md)
+#: grouped GEMM: float32 max |err| <= GMM_TOL x max |plain|; bf16 each
+#: element within one bf16 step plus that
+GMM_TOL = 2e-4
+#: the grouped GEMM's shapes: (E, C, d, f) of each call on the main path
+#: (granite-moe-3b: a 1536-token prefill's w_in/w_gate and w_out, a decode
+#: step at 4 slots) and an odd shape whose every edge is ragged
+GMM_SHAPES = {"prefill_in": (40, 384, 1536, 512),
+              "prefill_out": (40, 384, 512, 1536),
+              "decode": (40, 8, 1536, 512), "odd": (3, 37, 65, 41)}
+#: the head of each model (zamba2: one hybrid group; granite: 2 layers),
+#: card (kernels, cuBLAS) against CPU (plain versions, CPU matmuls), same
+#: parameters, for the last-token logits and the cache the head fills
+#: (zamba2: the SSM state h; granite: k and v).  float32: max |card - CPU|
+#: <= GROUP_F32_TOL x max |CPU|, and for k/v, which the cache stores in
+#: bf16, each element within one bf16 step plus that.  bf16: with random
+#: weights the head amplifies bf16 rounding until max-abs differences say
+#: nothing (the CPU alone moves zamba2's logits by ~26% of their max between
+#: bf16 and float32), so the bf16 card run is held to the CPU float32 run by
+#: relative L2 norm, ||card bf16 - CPU f32|| / ||CPU f32||, under limits set
+#: between the readings of sound runs and of runs with a deliberate fault
+#: (chip_group_calibration.py, PERF.md)
 GROUP_F32_TOL = 1e-3
-GROUP_BF16_REL = {"logits": 0.3, "h": 0.05}
+GROUP_BF16_REL = {"zamba2-2.7b": {"logits": 0.3, "h": 0.05},
+                  "granite-moe-3b-a800m": {"logits": 0.5, "k": 0.1,
+                                           "v": 0.1, "moe": 0.2}}
+#: granite's head: its first layers
+MOE_CHECK_LAYERS = 2
 #: the profiled window: one prefill of the largest prompt, decode steps
 PROFILE_DECODE_STEPS = 8
 
@@ -491,7 +516,7 @@ def chain_phase(arrays, need):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: LM serving, zamba2-2.7b at full width
+# phase 4: LM serving at full width, zamba2-2.7b then granite-moe-3b-a800m
 # ---------------------------------------------------------------------------
 
 def peak_for(dtype: torch.dtype) -> float:
@@ -623,22 +648,125 @@ def lm_kernel_phase(cfg):
     return results
 
 
+def gmm_bound(E, C, d, f, dtype):
+    """Bytes: x, w read and y written once.  Operations: 2 per multiply-add
+    of the E products."""
+    size = torch.finfo(dtype).bits // 8
+    nbytes = size * (E * C * d + E * d * f + E * C * f)
+    return bound_ms(nbytes, 2.0 * E * C * d * f, peak_for(dtype))
+
+
+def moe_kernel_phase(cfg):
+    """The grouped GEMM against its plain version on the card at the
+    model's shapes and an odd one, in float32 and bf16, weights of std
+    1/sqrt(d) as the model draws them; timed (with ``torch.bmm`` as the
+    library's yardstick) at the prefill and decode shapes in bf16.  Then
+    flash attention at granite's own shape (head_dim 64, GQA 24/8)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    bf16 = torch.bfloat16
+    m = cfg.moe
+    E, d, f = m.n_experts, cfg.d_model, m.d_ff
+    expect((GMM_SHAPES["prefill_in"], GMM_SHAPES["decode"])
+           == ((E, 384, d, f), (E, 8, d, f)),
+           "GMM_SHAPES are the model's")
+    checks, timed = {}, {}
+    for name, (E_, C, d_, f_) in GMM_SHAPES.items():
+        for dtype in (torch.float32, bf16):
+            x = torch.randn((E_, C, d_), generator=g, device=dev).to(dtype)
+            w = (torch.randn((E_, d_, f_), generator=g, device=dev)
+                 * d_ ** -0.5).to(dtype)
+            got, want = ops.grouped_matmul(x, w), ref.grouped_matmul_ref(x, w)
+            expect(got.dtype == dtype and tuple(got.shape) == (E_, C, f_),
+                   f"grouped_matmul {name}: dtype and shape")
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            if dtype == torch.float32:
+                ex = err / (GMM_TOL * scale)
+            else:
+                ex = bf16_excess(got, want, GMM_TOL * scale)
+            expect(ex <= 1.0, f"grouped_matmul {name} {dtype}: max err {err} "
+                   f"(max |plain| {scale}), worst element at {ex:.3f} of "
+                   "its bound")
+            checks[f"{name}/{str(dtype)[6:]}"] = dict(
+                max_abs_err=err, max_abs=scale, share_of_bound=ex)
+            if dtype == bf16 and name in ("prefill_in", "decode"):
+                timed[name] = dict(
+                    ms=cuda_ms(lambda: ops.grouped_matmul(x, w), 20),
+                    plain_ms=cuda_ms(lambda: ref.grouped_matmul_ref(x, w),
+                                     5),
+                    library_ms=cuda_ms(lambda: torch.bmm(x, w), 20),
+                    bound=gmm_bound(E_, C, d_, f_, dtype), max_abs_err=err)
+    main = timed["prefill_in"]
+    results = {"grouped_matmul": dict(
+        main, shape=list(GMM_SHAPES["prefill_in"]), dtype="bfloat16",
+        decode=timed["decode"], checks=checks,
+        max_abs_err=max(c["max_abs_err"] for k, c in checks.items()
+                        if k.endswith("bfloat16") and not
+                        k.startswith("odd")),
+        tolerance=f"f32: max |err| <= {GMM_TOL} x max |plain|; bf16: "
+                  f"|err| <= 2^-7 |plain| + {GMM_TOL} x max |plain| "
+                  "elementwise")}
+
+    # flash at granite's attention: (1, 24, 1536, 64) queries, 8 kv heads
+    H, KV, hd, S = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, LM_PROMPTS[1]
+    q = torch.randn((1, H, S, hd), generator=g, device=dev).to(bf16)
+    k = torch.randn((1, KV, S, hd), generator=g, device=dev).to(bf16)
+    v = torch.randn((1, KV, S, hd), generator=g, device=dev).to(bf16)
+    got, want = ops.flash_attention(q, k, v), ref.attention_ref(q, k, v)
+    ex = bf16_excess(got, want, FLASH_TOL)
+    expect(ex <= 1.0, f"flash GQA {H}/{KV} hd {hd}: worst element at "
+           f"{ex:.3f} of its bound")
+    results["flash_attention_gqa"] = dict(
+        max_abs_err=(got.float() - want.float()).abs().max().item(),
+        ms=cuda_ms(lambda: ops.flash_attention(q, k, v), 20),
+        plain_ms=cuda_ms(lambda: ref.attention_ref(q, k, v), 5),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 20),
+        shape=[1, H, KV, S, hd], dtype="bfloat16",
+        bf16_worst_share_of_bound=ex,
+        tolerance=f"bf16: |err| <= 2^-7 |plain| + {FLASH_TOL} elementwise",
+        bound=flash_bound(1, H, KV, S, S, hd, bf16))
+    torch.cuda.synchronize()
+    return results
+
+
 def lm_prompts(cfg):
-    """LM_REQUESTS prompts, lengths drawn from seed 0 in LM_PROMPTS; at
-    least one a multiple of the SSD chunk (no tail) and two not (a
-    tail)."""
+    """LM_REQUESTS prompts, lengths drawn from seed 0 in LM_PROMPTS; for
+    an SSM model at least one a multiple of the SSD chunk (no tail) and two
+    not (a tail)."""
     rng = np.random.default_rng(0)
-    Q = cfg.ssm.chunk
     lengths = [int(n) for n in rng.integers(LM_PROMPTS[0], LM_PROMPTS[1] + 1,
                                             LM_REQUESTS)]
-    if not any(n % Q == 0 for n in lengths):
-        lengths[0] -= lengths[0] % Q
-    expect(sum(n % Q != 0 for n in lengths) >= 2, "two prompts with a tail")
+    if cfg.ssm is not None:
+        Q = cfg.ssm.chunk
+        if not any(n % Q == 0 for n in lengths):
+            lengths[0] -= lengths[0] % Q
+        expect(sum(n % Q != 0 for n in lengths) >= 2,
+               "two prompts with a tail")
     return [rng.integers(0, cfg.vocab, n).tolist() for n in lengths]
 
 
+def want_launches(cfg, lengths, decode_steps):
+    """Each LM kernel's launches over the requests: zamba2 one flash call
+    per hybrid group and one SSD call per Mamba2 layer (two when the prompt
+    has a ragged tail) per prefill; granite one flash call per layer per
+    prefill and three grouped GEMMs per layer per prefill and decode step."""
+    if cfg.family == "hybrid":
+        groups = cfg.n_layers // cfg.hybrid_attn_every
+        mamba = groups * (cfg.hybrid_attn_every - 1)
+        Q = cfg.ssm.chunk
+        return {"flash_attention": groups * len(lengths),
+                "ssd_scan": sum(mamba * (2 if n > Q and n % Q else 1)
+                                for n in lengths),
+                "grouped_matmul": 0}
+    return {"flash_attention": cfg.n_layers * len(lengths), "ssd_scan": 0,
+            "grouped_matmul": 3 * cfg.n_layers * (len(lengths)
+                                                  + decode_steps)}
+
+
 def lm_main_path(cfg, model):
-    """8 requests through ServeEngine on cuda:0; the flash and SSD launch
+    """8 requests through ServeEngine on cuda:0; the LM kernels' launch
     counters from 0 just before to just after."""
     prompts = lm_prompts(cfg)
     prefills, decode = [], {"seconds": 0.0, "tokens": 0, "steps": 0}
@@ -667,19 +795,14 @@ def lm_main_path(cfg, model):
     launches = {k: c.value for k, c in ops.COUNTERS.items()}
 
     expect(not bad, f"non-finite logits: {bad}")
-    expect(len(done) == LM_REQUESTS, f"{len(done)} of {LM_REQUESTS} done")
+    expect(len(done) == LM_REQUESTS and len(prefills) == LM_REQUESTS,
+           f"{len(done)} of {LM_REQUESTS} done, {len(prefills)} prefills")
     for r in done:
         expect(len(r.out) == LM_MAX_NEW
                and all(0 <= t < cfg.vocab for t in r.out),
                f"request {r.rid}: {len(r.out)} tokens in the vocab")
-    groups = cfg.n_layers // cfg.hybrid_attn_every
-    mamba = groups * (cfg.hybrid_attn_every - 1)
     lengths = [len(p) for p in prompts]
-    Q = cfg.ssm.chunk
-    # one SSD call per Mamba2 layer, two when the prompt has a ragged tail
-    want = {"flash_attention": groups * len(lengths),
-            "ssd_scan": sum(mamba * (2 if n > Q and n % Q else 1)
-                            for n in lengths)}
+    want = want_launches(cfg, lengths, decode["steps"])
     for k, n in want.items():
         expect(launches[k] == n, f"{k}: {launches[k]} launches == {n}")
     for n, sec in prefills:
@@ -694,33 +817,107 @@ def lm_main_path(cfg, model):
                 first_tokens=[r.out[:8] for r in done])
 
 
-def one_group(cfg, model):
-    """The config and parameters of the model's first hybrid group (5
-    Mamba2 + 1 attention layers) with its full-width embedding."""
-    one = cfg.scaled(n_layers=cfg.hybrid_attn_every)
+#: what the head check compares, by family: the last-token logits, the
+#: cache the head fills, and for the MoE family the first layer's MoE FFN
+#: on a shared input (``head_moe``)
+HEAD_OUTPUTS = {"hybrid": ("logits", "h"), "moe": ("logits", "k", "v", "moe")}
+
+
+def model_head(cfg, model):
+    """The config and parameters of the model's head, with its full-width
+    embedding: zamba2's first hybrid group (5 Mamba2 + 1 attention
+    layers), granite's first MOE_CHECK_LAYERS layers."""
+    if cfg.family == "hybrid":
+        n, blocks = cfg.hybrid_attn_every, 1
+    else:
+        n = blocks = MOE_CHECK_LAYERS
+    keep = tuple(f"layers.{i}." for i in range(blocks))
     state = {k: v for k, v in model.state_dict().items()
-             if not k.startswith("layers.") or k.startswith("layers.0.")}
-    return one, state
+             if not k.startswith("layers.") or k.startswith(keep)}
+    return cfg.scaled(n_layers=n), state
 
 
-def group_prefill(one, state, tokens, dtype, dev):
-    """The last-token logits and SSM state of one group's prefill, on
-    ``dev`` in ``dtype``: kernels on the card, plain versions on the CPU."""
-    m = LM(one, dtype=dtype, device=dev)
+def head_model(head, state, dtype, dev):
+    m = LM(head, dtype=dtype, device=dev)
     m.load_state_dict({k: v.to(dev) for k, v in state.items()})
+    return m
+
+
+def head_moe(m, tokens):
+    """The first layer's MoE FFN applied to the normalised token
+    embeddings: the expert path on an input both devices share up to its
+    dtype.  Downstream of an attention layer the path is hidden: with the
+    JAX package's init rule (fan-in = the heads axis) q and k reach ~14 per
+    element, the softmax is near argmax, bf16 rounding flips which key
+    wins, and the attention output (~70 per element) drowns the MoE's
+    (~0.3) in the residual stream."""
+    blk = m.layers[0]
+    h = rmsnorm(embed(tokens, m.embed, m.cfg), blk["ln2"]["scale"],
+                m.cfg.norm_eps)
+    return moe_mod.moe_ffn(h, blk["moe"], m.cfg)[0]
+
+
+def head_prefill(head, state, tokens, dtype, dev):
+    """The last-token logits over the vocab, the cache entries of the
+    head's prefill and (MoE) the first layer's MoE FFN, on ``dev`` in
+    ``dtype``: kernels on the card, plain versions on the CPU."""
+    m = head_model(head, state, dtype, dev)
     logits, cache = prefill(m, tokens.to(dev))
-    return {"logits": logits.float().cpu(), "h": cache["h"].float().cpu()}
+    # the padded vocab tail is masked to -2^30 on every run: left out
+    out = {"logits": logits[:, :head.vocab].float().cpu()}
+    for k in HEAD_OUTPUTS[head.family][1:]:
+        out[k] = (head_moe(m, tokens.to(dev)) if k == "moe"
+                  else cache[k]).float().cpu()
+    return out
+
+
+def head_routes(head, state, tokens, dev):
+    """Each MoE layer's router probabilities (N, E), float32, from the
+    layer's own input in a float32 prefill of the head on ``dev``."""
+    m = head_model(head, state, torch.float32, dev)
+    x = embed(tokens.to(dev), m.embed, head)
+    positions = torch.arange(tokens.shape[1], device=dev)[None]
+    probs = []
+    for blk in m.layers:
+        y, _ = lm_mod._attn_part(blk, x, head, positions=positions,
+                                 causal=True)
+        h = rmsnorm(y, blk["ln2"]["scale"], head.norm_eps)
+        probs.append(moe_mod.router_probs(h.reshape(-1, head.d_model),
+                                          blk["moe"], head).cpu())
+        x = lm_mod._ffn_part(blk, y, head)
+    return probs
+
+
+def route_check(head, state, tokens):
+    """(token, expert) assignments that differ between the card's and the
+    CPU's float32 runs, the gap between the k-th and (k+1)-th CPU
+    probability of each token where they differ, and the smallest such gap
+    over every token."""
+    K = head.moe.top_k
+    differ, gaps, nearest = 0, [], math.inf
+    for pc, pg in zip(head_routes(head, state, tokens, "cpu"),
+                      head_routes(head, state, tokens, "cuda")):
+        vals, ic = moe_mod.top_k(pc, K + 1)
+        sc = ic[:, :K].sort(-1).values
+        sg = moe_mod.top_k(pg, K)[1].sort(-1).values
+        kth_gap = vals[:, K - 1] - vals[:, K]
+        nearest = min(nearest, kth_gap.min().item())
+        for r in (sc != sg).any(-1).nonzero()[:, 0].tolist():
+            differ += len(set(sc[r].tolist()) - set(sg[r].tolist()))
+            gaps.append(kth_gap[r].item())
+    return dict(assignments_differ=differ, gaps_where_differ=gaps,
+                nearest_kth_gap=nearest)
 
 
 def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got - want).norm() / want.norm()).item()
 
 
-def lm_group_check(cfg, model):
-    """One hybrid group at full width: the model's own parameters on the
-    card (kernels) and on the CPU (plain versions, chosen by device), one
+def lm_head_check(cfg, model):
+    """The model's head at full width: its own parameters on the card
+    (kernels) and on the CPU (plain versions, chosen by device), one
     512-token prompt, in float32 and in bf16."""
-    one, state = one_group(cfg, model)
+    head, state = model_head(cfg, model)
     rng = np.random.default_rng(1)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (1, LM_CHECK_TOKENS)))
     runs, cpu_s = {}, 0.0
@@ -729,30 +926,49 @@ def lm_group_check(cfg, model):
     for dtype in (torch.float32, torch.bfloat16):
         for dev in ("cuda", "cpu"):
             t0 = time.perf_counter()
-            runs[dtype, dev] = group_prefill(one, state, tokens, dtype, dev)
+            runs[dtype, dev] = head_prefill(head, state, tokens, dtype, dev)
             if dev == "cpu":
                 cpu_s += time.perf_counter() - t0
+    routes = route_check(head, state, tokens) if cfg.moe else None
     torch.set_num_threads(threads)
     f32, bf16 = torch.float32, torch.bfloat16
+    limits = GROUP_BF16_REL[cfg.arch]
     out = {}
-    for name in ("logits", "h"):
+    for name in HEAD_OUTPUTS[cfg.family]:
         want = runs[f32, "cpu"][name]
+        got = runs[f32, "cuda"][name]
         scale = want.abs().max().item()
-        e32 = (runs[f32, "cuda"][name] - want).abs().max().item()
+        e32 = (got - want).abs().max().item()
+        # k/v are stored in bf16: one bf16 step apart where the float32
+        # values round to neighbours
+        ex32 = (bf16_excess(got, want, GROUP_F32_TOL * scale)
+                if name in ("k", "v") else e32 / (GROUP_F32_TOL * scale))
         rel16 = rel_l2(runs[bf16, "cuda"][name], want)
         noise = rel_l2(runs[bf16, "cpu"][name], want)
-        expect(math.isfinite(e32) and e32 <= GROUP_F32_TOL * scale,
-               f"card vs CPU {name}, float32: max err {e32} <= "
-               f"{GROUP_F32_TOL} x {scale}")
-        expect(math.isfinite(rel16) and rel16 <= GROUP_BF16_REL[name],
+        expect(math.isfinite(e32) and ex32 <= 1.0,
+               f"card vs CPU {name}, float32: max err {e32} (max {scale}), "
+               f"worst element at {ex32:.3f} of its bound")
+        expect(math.isfinite(rel16) and rel16 <= limits[name],
                f"card bf16 vs CPU float32 {name}: relative L2 {rel16} <= "
-               f"{GROUP_BF16_REL[name]}")
+               f"{limits[name]}")
         out[name] = dict(max_abs=scale, f32_max_abs_err=e32,
-                         bf16_card_rel_l2=rel16, bf16_cpu_rel_l2=noise)
-    print(f"lm one group card vs CPU: {out} (CPU {cpu_s:.1f} s)", flush=True)
-    return dict(out, cpu_seconds=cpu_s, tolerance=(
-        f"f32: {GROUP_F32_TOL} x max |CPU f32|; bf16: ||card bf16 - CPU "
-        f"f32|| / ||CPU f32|| <= {GROUP_BF16_REL}"))
+                         f32_share_of_bound=ex32, bf16_card_rel_l2=rel16,
+                         bf16_cpu_rel_l2=noise)
+    what = ("one group" if cfg.family == "hybrid"
+            else f"{MOE_CHECK_LAYERS} layers")
+    print(f"lm {what} card vs CPU: {out} (CPU {cpu_s:.1f} s)", flush=True)
+    if routes is not None:
+        print(f"lm {what} routes, f32 card vs CPU: "
+              f"{routes['assignments_differ']} (token, expert) assignments "
+              f"differ; k-th vs (k+1)-th probability gap where they do: "
+              f"{routes['gaps_where_differ']}; smallest gap of any token "
+              f"{routes['nearest_kth_gap']:.3g}", flush=True)
+    f32_rule = (f"{GROUP_F32_TOL} x max |CPU f32|" if cfg.family == "hybrid"
+                else f"logits {GROUP_F32_TOL} x max |CPU f32|; k/v 2^-7 |CPU| "
+                     f"+ {GROUP_F32_TOL} x max |CPU| elementwise")
+    return dict(out, routes=routes, cpu_seconds=cpu_s, tolerance=(
+        f"f32: {f32_rule}; bf16: ||card bf16 - CPU f32|| / ||CPU f32|| <= "
+        f"{limits}"))
 
 
 def lm_profile(cfg, model):
@@ -797,27 +1013,38 @@ def lm_profile(cfg, model):
     return out
 
 
-def lm_phase():
-    cfg = get_config(LM_ARCH)
+def lm_phase(arch):
+    """One model: its kernels at its shapes, its main path, a profiled
+    window and the head check; the model is freed before returning."""
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     model = LM(cfg, device="cuda",
                generator=torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
     print(f"lm {cfg.arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.param_count() / 1e9:.2f}e9 parameters in bf16, built in "
+          f"{n_params / 1e9:.2f}e9 parameters in bf16, built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    kernels = lm_kernel_phase(cfg)
+    kernels = (lm_kernel_phase(cfg) if cfg.family == "hybrid"
+               else moe_kernel_phase(cfg))
     for name, r in kernels.items():
         print(f"kernel {name} {r['shape']} {r['dtype']}: {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, "
               f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), max err "
               f"{r['max_abs_err']:.3g}", flush=True)
+    if "decode" in kernels.get("grouped_matmul", {}):
+        r = kernels["grouped_matmul"]["decode"]
+        print(f"kernel grouped_matmul {list(GMM_SHAPES['decode'])} bfloat16: "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']}, bound {r['bound'][0]:.4f} ms "
+              f"({r['bound'][1]})", flush=True)
     serve = lm_main_path(cfg, model)
     serve["profile"] = lm_profile(cfg, model)
-    group = lm_group_check(cfg, model)
+    head = lm_head_check(cfg, model)
     del model
+    gc.collect()
     torch.cuda.empty_cache()
-    return kernels, serve, group
+    return kernels, serve, head
 
 
 # ---------------------------------------------------------------------------
@@ -826,6 +1053,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
+    # float32 products in full float32 (the plain versions and the float32
+    # checks): no TF32 in cuBLAS or cuDNN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = gpu_line()
     print(card, flush=True)
     t0 = time.perf_counter()
@@ -852,13 +1084,20 @@ def main() -> int:
 
     requests, chain, launches = main_path(sched, inputs)
     del inputs
-    lm_kernels, serve, group = lm_phase()
-    results.update(lm_kernels)
-    launches.update({k: serve["launches"][k] for k in lm_kernels})
+    by_path = {"scheduler": dict(launches)}
+    lm_serve, lm_head = {}, {}
+    for arch in LM_ARCHS:
+        lm_kernels, lm_serve[arch], lm_head[arch] = lm_phase(arch)
+        results.update(lm_kernels)
+        by_path[arch] = lm_serve[arch]["launches"]
+    # each kernel's launches over the main paths, each counted from 0
+    launches = {k: sum(p[k] for p in by_path.values()) for k in KERNELS}
+    expect(all(n > 0 for n in launches.values()),
+           f"every kernel launched on a main path: {launches}")
 
     kernels = []
     for name in ["saxpy", "filter_pipeline", "segmentation", "nbody",
-                 "flash_attention", "ssd_scan"]:
+                 "flash_attention", "ssd_scan", "grouped_matmul"]:
         r = results[name]
         source, replaces = KERNELS[name]
         kernels.append({
@@ -867,15 +1106,19 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
+    seconds = time.perf_counter() - t_start
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_seconds": build_s,
-              "ptxas": regs,
+              "ptxas": regs, "seconds": seconds,
               "kernel_phase": results, "requests": requests,
-              "chain": chain, "launches": launches, "lm_serve": serve,
-              "lm_group_check": group, "kernels": kernels}
+              "chain": chain, "launches": launches,
+              "launches_by_path": by_path, "lm_serve": lm_serve,
+              "lm_head_check": lm_head, "kernels": kernels}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    print(f"chip_smoke: all phases passed in {seconds:.1f} s", flush=True)
+    print(card, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,10 +9,10 @@ from __future__ import annotations
 
 from typing import Dict, List
 
-from repro_torch.configs import zamba2_2_7b
+from repro_torch.configs import granite_moe_3b, zamba2_2_7b
 from repro_torch.models.config import ModelConfig
 
-_MODULES = (zamba2_2_7b,)
+_MODULES = (zamba2_2_7b, granite_moe_3b)
 
 ARCHS: Dict[str, object] = {m.ARCH: m for m in _MODULES}
 

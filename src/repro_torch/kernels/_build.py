@@ -46,6 +46,8 @@ SIGNATURES: Dict[str, List] = {
     # chunk, device, stream
     "ssd_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _I, _I, _I, _P],
+    # x, w, y, dtype, E, C, d, f, device, stream
+    "grouped_matmul_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 #: dtype code a C entry point takes for its tensors' element type
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels import filter_pipeline as _filter
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import moe_gemm as _gmm
 from repro_torch.kernels import nbody as _nbody
 from repro_torch.kernels import saxpy as _saxpy
 from repro_torch.kernels import segmentation as _seg
@@ -92,7 +93,16 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     return ref.ssd_scan_ref(x, dt, B, C, A, chunk=chunk, h0=h0)
 
 
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(E,C,d) x (E,d,f) -> (E,C,f), one product per expert, summed in
+    float32, in x's dtype."""
+    if x.is_cuda:
+        return _gmm.grouped_matmul(x, w)
+    return ref.grouped_matmul_ref(x, w)
+
+
 #: launch counters of the kernels, by kernel name
 COUNTERS = {c.name: c for c in (_saxpy.launches, _filter.launches,
                                 _seg.launches, _nbody.launches,
-                                _flash.launches, _ssd.launches)}
+                                _flash.launches, _ssd.launches,
+                                _gmm.launches)}

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the hand-written kernels: the paper's
-benchmark kernels and the LM kernels (flash attention, SSD scan).
+benchmark kernels and the LM kernels (flash attention, SSD scan, the MoE
+grouped GEMM).
 
 Each computes the same function as its hand-written CUDA kernel with
 ordinary tensor operations, on any device.  The CPU tests hold them
@@ -156,3 +157,13 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
         h = h * a[:, t, :, None, None] + upd
         ys[:, t] = (Cf[:, t, None, :, None] * h).sum(2)
     return ys.reshape(Bsz, S, dih).to(x.dtype), h
+
+
+# ---------------------------------------------------------------------------
+# grouped matmul
+# ---------------------------------------------------------------------------
+
+def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (E,C,d) x w (E,d,f) -> (E,C,f): one product per expert, summed in
+    float32, in x's dtype."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)

@@ -1,12 +1,14 @@
 """Carry a JAX-package parameter tree into the port's modules.
 
-The JAX package keeps parameters as a nested dict of stacked arrays; for
+The JAX package keeps parameters as a nested dict of stacked arrays.  For
 the hybrid family ``layers`` is ``{"mamba": leaves of shape (g, m, ...),
-"attn": leaves of shape (g, ...)}``.  :func:`from_jax_params` takes that
-tree as numpy arrays (``jax.device_get`` of it, or any array-likes
-``numpy.asarray`` accepts) and returns an :class:`~repro_torch.models.lm.LM`
-holding the same numbers, group ``i``'s Mamba2 block ``j`` from index
-``[i, j]`` and its attention block from ``[i]``.
+"attn": leaves of shape (g, ...)}``; for the plain stack (the moe family)
+``layers`` is one block's tree with leaves of shape (L, ...).
+:func:`from_jax_params` takes that tree as numpy arrays (``jax.device_get``
+of it, or any array-likes ``numpy.asarray`` accepts) and returns an
+:class:`~repro_torch.models.lm.LM` holding the same numbers: group ``i``'s
+Mamba2 block ``j`` from index ``[i, j]`` and its attention block from
+``[i]``, or block ``i`` of the plain stack from ``[i]``.
 """
 from __future__ import annotations
 
@@ -50,6 +52,9 @@ def from_jax_params(cfg: ModelConfig, tree: Dict[str, Any], *,
         _fill(getattr(model, top), tree[top], (), f"{top}.")
     layers = tree["layers"]
     for i, grp in enumerate(model.layers):
+        if cfg.family != "hybrid":
+            _fill(grp, layers, (i,), f"layers[{i}].")
+            continue
         for j, blk in enumerate(grp.mamba):
             _fill(blk, layers["mamba"], (i, j), f"layers.mamba[{i},{j}].")
         _fill(grp.attn, layers["attn"], (i,), f"layers.attn[{i}].")

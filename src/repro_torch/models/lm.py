@@ -1,10 +1,14 @@
-"""Model assembly for the ``hybrid`` family (zamba2): Mamba2 blocks with an
-attention block every ``hybrid_attn_every`` layers.
+"""Model assembly for the ``hybrid`` family (zamba2: Mamba2 blocks with an
+attention block every ``hybrid_attn_every`` layers) and the ``moe`` family
+(granite-moe: a plain stack of attention blocks whose FFN is a
+mixture of experts).
 
 The JAX package scans over stacked per-layer parameters; here the stack
-is a Python loop over ``nn.ModuleList``s: ``LM.layers`` holds one
-:class:`HybridGroup` per period, each ``period - 1`` :class:`MambaBlock`\\ s
-and one :class:`AttnBlock`.  Entry points, as in the JAX package:
+is a Python loop over an ``nn.ModuleList``: ``LM.layers`` holds one
+:class:`HybridGroup` per period (``period - 1`` :class:`MambaBlock`\\ s and
+one :class:`AttnBlock`) for the hybrid family, and ``n_layers``
+:class:`AttnBlock`\\ s for the plain stack.  Entry points, as in the JAX
+package:
 
   * :meth:`LM.forward`  — full-sequence logits,
   * :func:`prefill`     — fills the decode cache, returns last-token logits,
@@ -31,23 +35,29 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (Defs, Params, embed, embed_defs, mlp,
                                        mlp_defs, rmsnorm, rmsnorm_def,
                                        unembed)
+from repro_torch.models.moe import moe_defs, moe_ffn
 
 Cache = Dict[str, torch.Tensor]
 
+#: the families the port runs
+PORTED = ("hybrid", "moe")
 #: where each family not ported yet is planned (ROADMAP.md, queue 1)
-_LATER = {"moe": "the MoE slice (granite-moe-3b serving)",
-          "ssm": "the ssm/dense/local-global slice",
+_LATER = {"ssm": "the ssm/dense/local-global slice",
           "dense": "the ssm/dense/local-global slice",
           "vlm": "the ssm/dense/local-global slice",
           "audio": "the enc-dec slice"}
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family != "hybrid" or cfg.enc_dec or cfg.moe is not None:
+    if cfg.family not in PORTED or cfg.enc_dec:
         where = _LATER.get(cfg.family, "a later slice")
         raise NotImplementedError(
             f"{cfg.arch}: the {cfg.family} family is not ported yet; "
             f"it comes with {where}")
+    if cfg.local_global_pattern:
+        raise NotImplementedError(
+            f"{cfg.arch}: local/global layer pairs are not ported yet; "
+            f"they come with {_LATER['dense']}")
     if not cfg.use_rope or cfg.frontend_positions:
         raise NotImplementedError(
             f"{cfg.arch}: learned positions and frontends are not ported")
@@ -62,8 +72,13 @@ def _hybrid_groups(cfg: ModelConfig) -> Tuple[int, int]:
 
 
 def attn_block_defs(cfg: ModelConfig) -> Defs:
-    return {"ln1": rmsnorm_def(cfg.d_model), "attn": attn_defs(cfg),
-            "ln2": rmsnorm_def(cfg.d_model), "ffn": mlp_defs(cfg)}
+    d: Defs = {"ln1": rmsnorm_def(cfg.d_model), "attn": attn_defs(cfg),
+               "ln2": rmsnorm_def(cfg.d_model)}
+    if cfg.moe is not None:
+        d["moe"] = moe_defs(cfg)
+    else:
+        d["ffn"] = mlp_defs(cfg)
+    return d
 
 
 def mamba_block_defs(cfg: ModelConfig) -> Defs:
@@ -75,8 +90,8 @@ def mamba_block_defs(cfg: ModelConfig) -> Defs:
 # ---------------------------------------------------------------------------
 
 class AttnBlock(Params):
-    """Pre-norm attention + dense MLP block (``ln1``, ``attn``, ``ln2``,
-    ``ffn``)."""
+    """Pre-norm attention + FFN block (``ln1``, ``attn``, ``ln2``, and
+    ``ffn`` or, with a MoE config, ``moe``)."""
 
     def __init__(self, cfg: ModelConfig, **kw):
         super().__init__(attn_block_defs(cfg), **kw)
@@ -114,8 +129,13 @@ def _attn_part(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def _ffn_part(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The residual FFN; the MoE aux loss is dropped (serving only)."""
     h = rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
-    return x + mlp(h, p["ffn"], cfg)
+    if "moe" in p:
+        y, _ = moe_ffn(h, p["moe"], cfg)
+    else:
+        y = mlp(h, p["ffn"], cfg)
+    return x + y
 
 
 class MambaBlock(Params):
@@ -151,8 +171,9 @@ class HybridGroup(nn.Module):
 
 
 class LM(nn.Module):
-    """A hybrid decoder LM.  ``generator`` draws the parameters by the JAX
-    package's scale rules; without one they are left uninitialised."""
+    """A hybrid or plain-stack (MoE) decoder LM.  ``generator`` draws the
+    parameters by the JAX package's scale rules; without one they are left
+    uninitialised."""
 
     def __init__(self, cfg: ModelConfig, *, dtype: torch.dtype = torch.bfloat16,
                  device=None, generator: Optional[torch.Generator] = None):
@@ -161,9 +182,13 @@ class LM(nn.Module):
         self.cfg = cfg
         kw = dict(dtype=dtype, device=device, generator=generator)
         self.embed = Params(embed_defs(cfg), **kw)
-        g, m = _hybrid_groups(cfg)
-        self.layers = nn.ModuleList(HybridGroup(cfg, m, **kw)
-                                    for _ in range(g))
+        if cfg.family == "hybrid":
+            g, m = _hybrid_groups(cfg)
+            self.layers = nn.ModuleList(HybridGroup(cfg, m, **kw)
+                                        for _ in range(g))
+        else:
+            self.layers = nn.ModuleList(AttnBlock(cfg, **kw)
+                                        for _ in range(cfg.n_layers))
         self.final_norm = Params(rmsnorm_def(cfg.d_model), **kw)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -172,11 +197,16 @@ class LM(nn.Module):
         S = tokens.shape[1]
         positions = torch.arange(S, device=tokens.device)[None]
         x = embed(tokens, self.embed, cfg)
-        for grp in self.layers:
-            for blk in grp.mamba:
-                x, _, _ = blk(x)
-            x, _ = grp.attn(x, positions=positions, causal=True,
-                            window=cfg.sliding_window)
+        if cfg.family == "hybrid":
+            for grp in self.layers:
+                for blk in grp.mamba:
+                    x, _, _ = blk(x)
+                x, _ = grp.attn(x, positions=positions, causal=True,
+                                window=cfg.sliding_window)
+        else:
+            for blk in self.layers:
+                x, _ = blk(x, positions=positions, causal=True,
+                           window=cfg.sliding_window)
         x = rmsnorm(x, self.final_norm["scale"], cfg.norm_eps)
         return unembed(x, self.embed, cfg)
 
@@ -190,10 +220,13 @@ def cache_defs(cfg: ModelConfig, batch: int, capacity: int
     """Shapes of the decode cache, by the JAX package's key names."""
     _check_ported(cfg)
     KV, hd = cfg.n_kv_heads, cfg.head_dim
-    g, m = _hybrid_groups(cfg)
-    d = _ssm_cache_defs(cfg, m, batch, lead=(g,))
     cap = min(capacity, cfg.sliding_window) if cfg.sliding_window \
         else capacity
+    if cfg.family == "hybrid":
+        g, m = _hybrid_groups(cfg)
+        d = _ssm_cache_defs(cfg, m, batch, lead=(g,))
+    else:
+        g, d = cfg.n_layers, {}
     d["k"] = (g, batch, cap, KV, hd)
     d["v"] = (g, batch, cap, KV, hd)
     return d
@@ -246,26 +279,33 @@ def prefill(model: LM, tokens: torch.Tensor,
     x = embed(tokens, model.embed, cfg)
     W = min(cfg.sliding_window, cap) if cfg.sliding_window else cap
     per: Dict[str, List[torch.Tensor]] = {k: [] for k in
-                                          ("h", "conv_x", "conv_B",
-                                           "conv_C", "k", "v")}
-    for grp in model.layers:
-        mc: Dict[str, List[torch.Tensor]] = {k: [] for k in
-                                             ("h", "conv_x", "conv_B",
-                                              "conv_C")}
-        for blk in grp.mamba:
-            x, hf, conv = blk(x)
-            mc["h"].append(hf.float())
-            mc["conv_x"].append(conv["x"])
-            mc["conv_B"].append(conv["B"])
-            mc["conv_C"].append(conv["C"])
-        for k, vals in mc.items():
-            per[k].append(torch.stack(vals))
-        x, (k, v) = grp.attn(x, positions=positions,
-                             window=cfg.sliding_window)
+                                          cache_defs(cfg, 1, cap)}
+
+    def attn(blk: AttnBlock, x: torch.Tensor) -> torch.Tensor:
+        x, (k, v) = blk(x, positions=positions, window=cfg.sliding_window)
         kk = _fit_window(k, S, W) if cfg.sliding_window else _pad_cap(k, W)
         vv = _fit_window(v, S, W) if cfg.sliding_window else _pad_cap(v, W)
         per["k"].append(kk.to(torch.bfloat16))
         per["v"].append(vv.to(torch.bfloat16))
+        return x
+
+    if cfg.family != "hybrid":
+        for blk in model.layers:
+            x = attn(blk, x)
+    else:
+        for grp in model.layers:
+            mc: Dict[str, List[torch.Tensor]] = {k: [] for k in
+                                                 ("h", "conv_x", "conv_B",
+                                                  "conv_C")}
+            for blk in grp.mamba:
+                x, hf, conv = blk(x)
+                mc["h"].append(hf.float())
+                mc["conv_x"].append(conv["x"])
+                mc["conv_B"].append(conv["B"])
+                mc["conv_C"].append(conv["C"])
+            for k, vals in mc.items():
+                per[k].append(torch.stack(vals))
+            x = attn(grp.attn, x)
     cache = {k: torch.stack(vals) for k, vals in per.items()}
     x = rmsnorm(x[:, -1:], model.final_norm["scale"], cfg.norm_eps)
     logits = unembed(x, model.embed, cfg)
@@ -283,20 +323,27 @@ def decode_step(model: LM, cache: Cache, token: torch.Tensor, pos: int
     cfg = model.cfg
     x = embed(token[:, None], model.embed, cfg)
     W = cache["k"].shape[2]
-    window = cfg.sliding_window if W == cfg.sliding_window else None
-    for i, grp in enumerate(model.layers):
-        for j, blk in enumerate(grp.mamba):
-            x, hs, conv = blk.decode(
-                x, h=cache["h"][i, j],
-                conv_state={"x": cache["conv_x"][i, j],
-                            "B": cache["conv_B"][i, j],
-                            "C": cache["conv_C"][i, j]})
-            cache["h"][i, j] = hs
-            cache["conv_x"][i, j] = conv["x"]
-            cache["conv_B"][i, j] = conv["B"]
-            cache["conv_C"][i, j] = conv["C"]
-        x = grp.attn.decode(x, k_cache=cache["k"][i], v_cache=cache["v"][i],
-                            pos=pos, window=window)
+    window = (cfg.sliding_window
+              if cfg.sliding_window and W == cfg.sliding_window else None)
+    if cfg.family != "hybrid":
+        for i, blk in enumerate(model.layers):
+            x = blk.decode(x, k_cache=cache["k"][i], v_cache=cache["v"][i],
+                           pos=pos, window=window)
+    else:
+        for i, grp in enumerate(model.layers):
+            for j, blk in enumerate(grp.mamba):
+                x, hs, conv = blk.decode(
+                    x, h=cache["h"][i, j],
+                    conv_state={"x": cache["conv_x"][i, j],
+                                "B": cache["conv_B"][i, j],
+                                "C": cache["conv_C"][i, j]})
+                cache["h"][i, j] = hs
+                cache["conv_x"][i, j] = conv["x"]
+                cache["conv_B"][i, j] = conv["B"]
+                cache["conv_C"][i, j] = conv["C"]
+            x = grp.attn.decode(x, k_cache=cache["k"][i],
+                                v_cache=cache["v"][i], pos=pos,
+                                window=window)
     x = rmsnorm(x, model.final_norm["scale"], cfg.norm_eps)
     logits = unembed(x, model.embed, cfg)
     return logits[:, 0], cache

@@ -266,3 +266,73 @@ def test_smoke_model_serves_on_card_as_on_cpu(cuda_device):
     assert sorted(len(r.out) for r in done) == [5, 5, 5]
     assert ops.COUNTERS["flash_attention"].value == 2 * 3
     assert ops.COUNTERS["ssd_scan"].value == 2 * (2 + 2 + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 37, 65, 41), (40, 8, 1536, 512),
+                                   (40, 384, 512, 1536)],
+                         ids=["odd", "decode", "prefill_w_out"])
+def test_grouped_matmul_matches_plain_on_card(shape, dtype, cuda_device):
+    """Weights of std 1/sqrt(d), as the model draws them.  float32: max
+    |err| <= 2e-4 x max |plain|; bf16: both sum in float32 and round once,
+    so each element within one bf16 step (2^-7 of its value) plus that."""
+    E, C, d, f = shape
+    g = torch.Generator().manual_seed(C)
+    x = torch.randn(E, C, d, generator=g).to(cuda_device, dtype)
+    w = (torch.randn(E, d, f, generator=g) * d ** -0.5).to(cuda_device,
+                                                           dtype)
+    before = ops.COUNTERS["grouped_matmul"].value
+    got = ops.grouped_matmul(x, w)
+    want = ref.grouped_matmul_ref(x, w)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and tuple(got.shape) == (E, C, f)
+    assert ops.COUNTERS["grouped_matmul"].value == before + 1
+    err = (got.float() - want.float()).abs()
+    scale = want.float().abs().max().item()
+    rtol = 0.0 if dtype == torch.float32 else 2 ** -7
+    assert (err <= rtol * want.float().abs() + 2e-4 * scale).all()
+
+
+@pytest.mark.cuda
+def test_granite_smoke_model_serves_on_card_as_on_cpu(cuda_device):
+    """granite's smoke config in float32: the same parameters serve the
+    same greedy tokens on the card (kernels) as on the CPU (plain
+    versions), with no near tie behind any CPU token, and one flash launch
+    per layer per prefill, three grouped GEMMs per layer per step."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import LM
+    from repro_torch.runtime import ServeEngine
+    cfg = get_smoke("granite-moe-3b-a800m")
+    host = LM(cfg, dtype=torch.float32,
+              generator=torch.Generator().manual_seed(0))
+    card = LM(cfg, dtype=torch.float32, device=cuda_device)
+    card.load_state_dict(host.state_dict())
+    prompts = [torch.randint(0, cfg.vocab, (n,),
+                             generator=torch.Generator().manual_seed(n)
+                             ).tolist() for n in (20, 37, 32)]
+    gaps, steps = [], []
+    outs = {}
+    for c in ops.COUNTERS.values():
+        c.reset()
+    for model, device in ((host, "cpu"), (card, "cuda")):
+        def on_step(kind, n, seconds, logits, device=device):
+            if device == "cuda":
+                steps.append(kind)
+                return
+            rows = [0] if kind == "prefill" else [
+                i for i, r in enumerate(eng.active) if r is not None]
+            top2 = logits[rows].float().topk(2, dim=-1).values
+            gaps.append((top2[:, 0] - top2[:, 1]).min().item())
+        eng = ServeEngine(cfg, model, slots=2, capacity=64, device=device,
+                          on_step=on_step)
+        for p in prompts:
+            eng.submit(p, max_new=5)
+        outs[device] = {r.rid: r.out for r in eng.run_to_completion()}
+    torch.cuda.synchronize()
+    assert min(gaps) > 1e-3
+    assert outs["cuda"] == outs["cpu"]
+    assert ops.COUNTERS["flash_attention"].value == cfg.n_layers * 3
+    assert ops.COUNTERS["grouped_matmul"].value == 3 * cfg.n_layers * len(
+        steps)
+    assert ops.COUNTERS["ssd_scan"].value == 0

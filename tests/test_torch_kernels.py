@@ -146,7 +146,8 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     ops.nbody_accelerations(torch.ones(5, 3), torch.ones(5))
     assert {k: c.value for k, c in ops.COUNTERS.items()} == before
     assert set(ops.COUNTERS) == {"saxpy", "filter_pipeline", "segmentation",
-                                 "nbody", "flash_attention", "ssd_scan"}
+                                 "nbody", "flash_attention", "ssd_scan",
+                                 "grouped_matmul"}
 
 
 def test_meta_tensors_give_shapes():

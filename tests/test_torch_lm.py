@@ -87,15 +87,19 @@ def test_config_is_the_jax_packages(models):
 
 
 def test_registry_names_the_ported_archs():
-    with pytest.raises(KeyError, match="zamba2-2.7b"):
+    """An arch the port lacks raises KeyError naming those it has; a
+    family not ported yet raises NotImplementedError naming its slice."""
+    with pytest.raises(KeyError, match="zamba2-2.7b.*granite-moe-3b-a800m"):
         configs.get_config("mixtral-8x22b")
-    cfg = jget_smoke("granite-moe-3b-a800m")
-    from repro_torch.models.config import MoEConfig, ModelConfig
-    moe = ModelConfig(arch=cfg.arch, family="moe", n_layers=2, d_model=32,
-                      n_heads=2, n_kv_heads=2, d_ff=64, vocab=64,
-                      moe=MoEConfig(n_experts=4, top_k=2, d_ff=32))
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        LM(moe)
+    from repro_torch.models.config import ModelConfig, SSMConfig
+    j = jget_smoke("mamba2-1.3b")
+    ssm = ModelConfig(**{**{f: getattr(j, f) for f in
+                            ModelConfig.__dataclass_fields__},
+                         "ssm": SSMConfig(**vars(j.ssm))})
+    assert ssm.family == "ssm"
+    with pytest.raises(NotImplementedError,
+                       match="ssm family .*ssm/dense/local-global slice"):
+        LM(ssm)
 
 
 def test_ssd_prefill_and_decode_match_jax(models):
