@@ -13,7 +13,8 @@ three 512-token prompts (seeds 1, 3, 5) through it.  Against the CPU
 float32 run it prints the relative L2 difference, ||run - CPU f32|| /
 ||CPU f32||, of the last-token logits, of the cache the head fills
 (zamba2: the SSM state h; granite: k and v) and, for granite, of the first
-layer's MoE FFN on the normalised embeddings (``chip_smoke.head_moe``),
+layer's MoE FFN on that layer's input from the CPU float32 run
+(``chip_smoke.head_prefill``),
 for sound runs (card f32, card bf16, CPU bf16) and for card bf16 runs with
 a deliberate fault:
 
@@ -31,8 +32,10 @@ a deliberate fault:
   weights not divided by their sum).
 
 For granite it also prints how many (token, expert) slots go past the
-capacity in each layer of the prefill and in the MoE FFN of
-``head_moe``, which decides whether ``moe_no_capacity_drop`` can show.
+capacity in each layer, which decides whether ``moe_no_capacity_drop``
+can show, and each MoE fault's reading in a card float32 run on that
+first MoE FFN, max |run - CPU f32| / max |CPU f32|, against which
+``chip_smoke.GROUP_F32_TOL`` holds the sound float32 run.
 ``chip_smoke.GROUP_BF16_REL`` is set between the largest sound reading and
 the smallest reading of a fault it can see.  The full record goes to
 ``build/chip_group_calibration.json``.
@@ -139,32 +142,26 @@ FAULTS = {
 }
 
 
-def faulty(head, state, tokens, fault):
-    """A card bf16 prefill of the head with ``fault`` put in."""
+def faulty(head, state, tokens, fault, moe_in, dtype=torch.bfloat16):
+    """A card prefill of the head with ``fault`` put in."""
     if callable(fault):
-        return cs.head_prefill(head, fault(state), tokens, torch.bfloat16,
-                               "cuda")
+        return cs.head_prefill(head, fault(state), tokens, dtype, "cuda",
+                               moe_in)
     module, attr, patch = fault
     good = getattr(module, attr)
     setattr(module, attr, patch(good))
     try:
-        return cs.head_prefill(head, state, tokens, torch.bfloat16, "cuda")
+        return cs.head_prefill(head, state, tokens, dtype, "cuda", moe_in)
     finally:
         setattr(module, attr, good)
 
 
 def drops(head, state, tokens):
-    """Slots past the capacity in the CPU float32 run: in each MoE layer
-    of the prefill, then in ``chip_smoke.head_moe``."""
+    """Slots past the capacity in each MoE layer of the CPU float32 run."""
     K, E = head.moe.top_k, head.moe.n_experts
     C = moe_mod.capacity(head, tokens.numel())
-    m = cs.head_model(head, state, torch.float32, "cpu")
-    h = cs.rmsnorm(cs.embed(tokens, m.embed, head),
-                   m.layers[0]["ln2"]["scale"], head.norm_eps)
-    first = moe_mod.router_probs(h.reshape(-1, head.d_model),
-                                 m.layers[0]["moe"], head)
     out = []
-    for probs in cs.head_routes(head, state, tokens, "cpu") + [first]:
+    for probs in cs.head_routes(head, state, tokens, "cpu"):
         load = torch.bincount(moe_mod.top_k(probs, K)[1].reshape(-1),
                               minlength=E)
         out.append(int((load - C).clamp(min=0).sum()))
@@ -185,17 +182,26 @@ def calibrate(arch):
         tokens = torch.from_numpy(np.random.default_rng(seed).integers(
             0, cfg.vocab, (1, cs.LM_CHECK_TOKENS)))
         t0 = time.perf_counter()
-        want = cs.head_prefill(head, state, tokens, f32, "cpu")
-        runs = {"card_f32": cs.head_prefill(head, state, tokens, f32, "cuda"),
-                "card_bf16": cs.head_prefill(head, state, tokens, bf16,
-                                             "cuda"),
-                "cpu_bf16": cs.head_prefill(head, state, tokens, bf16, "cpu")}
+        moe_in = (cs.moe_inputs(head, state, tokens, "cpu")[0][0]
+                  if cfg.moe is not None else None)
+        want = cs.head_prefill(head, state, tokens, f32, "cpu", moe_in)
+        runs = {name: cs.head_prefill(head, state, tokens, dtype, dev,
+                                      moe_in)
+                for name, dtype, dev in (("card_f32", f32, "cuda"),
+                                         ("card_bf16", bf16, "cuda"),
+                                         ("cpu_bf16", bf16, "cpu"))}
         for name, fault in FAULTS[arch].items():
-            runs[name] = faulty(head, state, tokens, fault)
+            runs[name] = faulty(head, state, tokens, fault, moe_in)
         row = {name: {k: cs.rel_l2(r[k], want[k]) for k in names}
                for name, r in runs.items()}
         if cfg.moe is not None:
-            row["drops_per_layer_and_head_moe"] = drops(head, state, tokens)
+            row["drops_per_layer"] = drops(head, state, tokens)
+            scale = want["moe"].abs().max()
+            for name, fault in FAULTS[arch].items():
+                if name.startswith("moe"):
+                    got = faulty(head, state, tokens, fault, moe_in, f32)
+                    row[name + "_f32"] = {"moe": ((got["moe"] - want["moe"])
+                                                  .abs().max() / scale).item()}
         record[seed] = row
         print(f"{arch} seed {seed} ({time.perf_counter() - t0:.1f} s), "
               "relative L2 against CPU f32:", flush=True)

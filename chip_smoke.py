@@ -138,8 +138,8 @@ GMM_SHAPES = {"prefill_in": (40, 384, 1536, 512),
 #: (chip_group_calibration.py, PERF.md)
 GROUP_F32_TOL = 1e-3
 GROUP_BF16_REL = {"zamba2-2.7b": {"logits": 0.3, "h": 0.05},
-                  "granite-moe-3b-a800m": {"logits": 0.5, "k": 0.1,
-                                           "v": 0.1, "moe": 0.2}}
+                  "granite-moe-3b-a800m": {"logits": 0.5, "k": 0.08,
+                                           "v": 0.08, "moe": 0.1}}
 #: granite's head: its first layers
 MOE_CHECK_LAYERS = 2
 #: the profiled window: one prefill of the largest prompt, decode steps
@@ -819,7 +819,7 @@ def lm_main_path(cfg, model):
 
 #: what the head check compares, by family: the last-token logits, the
 #: cache the head fills, and for the MoE family the first layer's MoE FFN
-#: on a shared input (``head_moe``)
+#: on a shared input (``head_prefill``)
 HEAD_OUTPUTS = {"hybrid": ("logits", "h"), "moe": ("logits", "k", "v", "moe")}
 
 
@@ -843,49 +843,50 @@ def head_model(head, state, dtype, dev):
     return m
 
 
-def head_moe(m, tokens):
-    """The first layer's MoE FFN applied to the normalised token
-    embeddings: the expert path on an input both devices share up to its
-    dtype.  Downstream of an attention layer the path is hidden: with the
-    JAX package's init rule (fan-in = the heads axis) q and k reach ~14 per
-    element, the softmax is near argmax, bf16 rounding flips which key
-    wins, and the attention output (~70 per element) drowns the MoE's
-    (~0.3) in the residual stream."""
-    blk = m.layers[0]
-    h = rmsnorm(embed(tokens, m.embed, m.cfg), blk["ln2"]["scale"],
-                m.cfg.norm_eps)
-    return moe_mod.moe_ffn(h, blk["moe"], m.cfg)[0]
-
-
-def head_prefill(head, state, tokens, dtype, dev):
-    """The last-token logits over the vocab, the cache entries of the
-    head's prefill and (MoE) the first layer's MoE FFN, on ``dev`` in
-    ``dtype``: kernels on the card, plain versions on the CPU."""
-    m = head_model(head, state, dtype, dev)
-    logits, cache = prefill(m, tokens.to(dev))
-    # the padded vocab tail is masked to -2^30 on every run: left out
-    out = {"logits": logits[:, :head.vocab].float().cpu()}
-    for k in HEAD_OUTPUTS[head.family][1:]:
-        out[k] = (head_moe(m, tokens.to(dev)) if k == "moe"
-                  else cache[k]).float().cpu()
+def moe_inputs(head, state, tokens, dev):
+    """Each MoE layer's input (the post-attention hidden state, normalised
+    by ``ln2``) and parameters, in a float32 prefill of the head on
+    ``dev``."""
+    m = head_model(head, state, torch.float32, dev)
+    x = embed(tokens.to(dev), m.embed, head)
+    positions = torch.arange(tokens.shape[1], device=dev)[None]
+    out = []
+    for blk in m.layers:
+        y, _ = lm_mod._attn_part(blk, x, head, positions=positions,
+                                 causal=True)
+        out.append((rmsnorm(y, blk["ln2"]["scale"], head.norm_eps),
+                    blk["moe"]))
+        x = lm_mod._ffn_part(blk, y, head)
     return out
 
 
 def head_routes(head, state, tokens, dev):
     """Each MoE layer's router probabilities (N, E), float32, from the
     layer's own input in a float32 prefill of the head on ``dev``."""
-    m = head_model(head, state, torch.float32, dev)
-    x = embed(tokens.to(dev), m.embed, head)
-    positions = torch.arange(tokens.shape[1], device=dev)[None]
-    probs = []
-    for blk in m.layers:
-        y, _ = lm_mod._attn_part(blk, x, head, positions=positions,
-                                 causal=True)
-        h = rmsnorm(y, blk["ln2"]["scale"], head.norm_eps)
-        probs.append(moe_mod.router_probs(h.reshape(-1, head.d_model),
-                                          blk["moe"], head).cpu())
-        x = lm_mod._ffn_part(blk, y, head)
-    return probs
+    return [moe_mod.router_probs(h.reshape(-1, head.d_model), p, head).cpu()
+            for h, p in moe_inputs(head, state, tokens, dev)]
+
+
+def head_prefill(head, state, tokens, dtype, dev, moe_in=None):
+    """The last-token logits over the vocab and the cache entries of the
+    head's prefill, on ``dev`` in ``dtype``: kernels on the card, plain
+    versions on the CPU.  For the MoE family also ``moe``: the first
+    layer's MoE FFN applied to ``moe_in``, that layer's input from the CPU
+    float32 run, which every run shares up to its dtype.  Behind the
+    attention layers the expert path is hidden: with the JAX package's
+    init rule (fan-in = the heads axis) q and k reach ~14 per element, the
+    softmax is near argmax, bf16 rounding flips which key wins, and the
+    attention output (~70 per element) drowns the MoE's (~0.3) in the
+    residual stream."""
+    m = head_model(head, state, dtype, dev)
+    logits, cache = prefill(m, tokens.to(dev))
+    # the padded vocab tail is masked to -2^30 on every run: left out
+    out = {"logits": logits[:, :head.vocab].float().cpu()}
+    for k in HEAD_OUTPUTS[head.family][1:]:
+        out[k] = (moe_mod.moe_ffn(moe_in.to(dev, dtype), m.layers[0]["moe"],
+                                  head)[0] if k == "moe"
+                  else cache[k]).float().cpu()
+    return out
 
 
 def route_check(head, state, tokens):
@@ -923,10 +924,13 @@ def lm_head_check(cfg, model):
     runs, cpu_s = {}, 0.0
     threads = torch.get_num_threads()
     torch.set_num_threads(os.cpu_count() or 1)
+    moe_in = (moe_inputs(head, state, tokens, "cpu")[0][0] if cfg.moe
+              else None)
     for dtype in (torch.float32, torch.bfloat16):
         for dev in ("cuda", "cpu"):
             t0 = time.perf_counter()
-            runs[dtype, dev] = head_prefill(head, state, tokens, dtype, dev)
+            runs[dtype, dev] = head_prefill(head, state, tokens, dtype, dev,
+                                            moe_in)
             if dev == "cpu":
                 cpu_s += time.perf_counter() - t0
     routes = route_check(head, state, tokens) if cfg.moe else None

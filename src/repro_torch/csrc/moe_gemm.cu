@@ -8,52 +8,168 @@
 // (E 40, C 384, d 1536, f 512, bf16) one call is 2.4e10 operations on 126 MB,
 // about 190 operations a byte, below the H100's ~295 for bf16 on the tensor
 // cores, so the bytes bound it (0.038 ms); at decode (C 8) the expert
-// weights alone are 63 MB and bound it harder.  This kernel does the
-// operations as FP32 FMAs on the CUDA cores (67 TFLOP/s peak), not on the
-// tensor cores: a first, simple version, with mma/wgmma and TMA left to a
-// later change.
+// weights alone are 63 MB and bound it harder.
 //
-// Design.  One block of 256 threads per (expert, 64 x 64 tile of y); it
-// loops over the contraction d in steps of 16, staging the (64 x 16) tile of
-// x (transposed) and the (16 x 64) tile of w in shared memory as float32
-// (bf16 is converted on load), and each thread accumulates a 4 x 4 piece of
-// the output tile in registers.  The TPU kernel padded C, d and f to its
-// block sizes with copies and sliced the result; here every load and store
-// guards its edge instead (rows past C, columns past f, depth past d read as
-// 0), so any shape works without a padded copy.  Threads whose four rows all
-// lie past C (the decode shape has C = 8) skip the FMAs but still help load.
+// Two paths, one block per (expert, 64 x 64 tile of y) in both.  The TPU
+// kernel padded C, d and f to its block sizes with copies and sliced the
+// result; here every load and store guards its edge instead (rows past C,
+// columns past f, depth past d read as 0), so any shape works without a
+// padded copy, and warps or threads whose rows all lie past C (the decode
+// shape has C = 8) skip the products but still help load.
+//
+// - bfloat16, the model's path: tensor cores through WMMA (16 x 16 x 16 bf16
+//   fragments, float32 accumulators).  128 threads, each warp a 32 x 32
+//   quarter of the tile; the contraction advances 64 at a time, the x and w
+//   tiles staged in shared memory as bf16 with 16-byte loads where the rows
+//   are aligned; the float32 tile goes through shared memory (over the
+//   staging buffers) to be rounded once and stored.  No asynchronous copies
+//   and no double buffering: the loads of a step wait for the products of
+//   the last (cp.async/TMA pipelines and wgmma are a later change).
+// - float32: FP32 FMAs on the CUDA cores.  256 threads, each a 4 x 4 piece
+//   of the tile in registers; the contraction advances 16 at a time, the x
+//   tile staged transposed.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
 
 namespace {
 
+namespace wmma = nvcuda::wmma;
+
+constexpr int BM = 64;      // rows of x / y per block
+constexpr int BN = 64;      // columns of w / y per block
+
+// ---- bfloat16: tensor cores ------------------------------------------------
+
+constexpr int kTcThreads = 128;
+constexpr int TBK = 64;             // depth of one staged step
+constexpr int LDA = TBK + 8;        // bf16 row of the x tile, As[row][k]
+constexpr int LDB = BN + 8;         // bf16 row of the w tile, Bs[k][col]
+constexpr int LDC = BN + 4;         // float row of the output tile
+constexpr int kTcStage = (BM * LDA + TBK * LDB) * 2;
+constexpr int kTcOut = BM * LDC * 4;
+constexpr int kTcSmem = kTcStage > kTcOut ? kTcStage : kTcOut;
+
+// one 8-element (16-byte) chunk of a bf16 row into shared memory: a vector
+// load when the chunk is whole and aligned, else element by element with
+// zeros past the row's end or past the last row
+__device__ __forceinline__ void stage8(__nv_bfloat16* dst,
+                                       const __nv_bfloat16* src, bool row_ok,
+                                       int col, int ncols, bool vec) {
+  if (row_ok && vec && col + 8 <= ncols) {
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    return;
+  }
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+    dst[t] = (row_ok && col + t < ncols) ? src[t] : __float2bfloat16(0.0f);
+}
+
+__global__ void __launch_bounds__(kTcThreads)
+    gmm_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                  const __nv_bfloat16* __restrict__ w,
+                  __nv_bfloat16* __restrict__ y, int C, int d, int f,
+                  int vec) {
+  __shared__ __align__(128) unsigned char smem[kTcSmem];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Bs = As + BM * LDA;
+  float* Cs = reinterpret_cast<float*>(smem);   // after the last step
+
+  const int e = blockIdx.z;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const __nv_bfloat16* xe = x + (long long)e * C * d;
+  const __nv_bfloat16* we = w + (long long)e * d * f;
+  __nv_bfloat16* ye = y + (long long)e * C * f;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int wr = warp / 2, wc = warp % 2;      // 32 x 32 quarter of the tile
+  const bool busy = m0 + wr * 32 < C;          // uniform across the warp
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+
+  for (int k0 = 0; k0 < d; k0 += TBK) {
+    // x tile: 64 rows of 8 chunks; w tile: 64 depths of 8 chunks
+#pragma unroll
+    for (int r = 0; r < BM * TBK / 8 / kTcThreads; ++r) {
+      const int i = tid + r * kTcThreads;
+      const int m = i / (TBK / 8), c = (i % (TBK / 8)) * 8;
+      const int row = m0 + m;
+      stage8(As + m * LDA + c, xe + (long long)row * d + k0 + c, row < C,
+             k0 + c, d, vec);
+    }
+#pragma unroll
+    for (int r = 0; r < TBK * BN / 8 / kTcThreads; ++r) {
+      const int i = tid + r * kTcThreads;
+      const int kk = i / (BN / 8), c = (i % (BN / 8)) * 8;
+      const int row = k0 + kk;
+      stage8(Bs + kk * LDB + c, we + (long long)row * f + n0 + c, row < d,
+             n0 + c, f, vec);
+    }
+    __syncthreads();
+    if (busy) {
+#pragma unroll
+      for (int kk = 0; kk < TBK; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major> a[2];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major> b[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          wmma::load_matrix_sync(a[i], As + (wr * 32 + i * 16) * LDA + kk,
+                                 LDA);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::load_matrix_sync(b[j], Bs + kk * LDB + wc * 32 + j * 16,
+                                 LDB);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(Cs + (wr * 32 + i * 16) * LDC + wc * 32 + j * 16,
+                              acc[i][j], LDC, wmma::mem_row_major);
+  __syncthreads();
+#pragma unroll 4
+  for (int i = tid; i < BM * BN; i += kTcThreads) {
+    const int row = m0 + i / BN, col = n0 + i % BN;
+    if (row < C && col < f)
+      ye[(long long)row * f + col] = __float2bfloat16(Cs[(i / BN) * LDC +
+                                                         i % BN]);
+  }
+}
+
+// ---- float32: CUDA cores ---------------------------------------------------
+
 constexpr int kThreads = 256;
-constexpr int BM = 64;     // rows of x / y per block
-constexpr int BN = 64;     // columns of w / y per block
-constexpr int BK = 16;     // depth of one staged step
-constexpr int LDA = BM + 4;  // padded row of the transposed x tile
+constexpr int BK = 16;              // depth of one staged step
+constexpr int LDT = BM + 4;         // padded row of the transposed x tile
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-               T* __restrict__ y, int C, int d, int f) {
-  __shared__ __align__(16) float As[BK][LDA];   // x tile, As[k][row]
+    gmm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                   float* __restrict__ y, int C, int d, int f) {
+  __shared__ __align__(16) float As[BK][LDT];   // x tile, As[k][row]
   __shared__ __align__(16) float Bs[BK][BN];    // w tile, Bs[k][col]
 
   const int e = blockIdx.z;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const T* xe = x + (long long)e * C * d;
-  const T* we = w + (long long)e * d * f;
-  T* ye = y + (long long)e * C * f;
+  const float* xe = x + (long long)e * C * d;
+  const float* we = w + (long long)e * d * f;
+  float* ye = y + (long long)e * C * f;
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -72,9 +188,7 @@ __global__ void __launch_bounds__(kThreads)
       const int i = tid + r * kThreads;
       const int m = i / BK, kk = i % BK;
       const int row = m0 + m, col = k0 + kk;
-      As[kk][m] = (row < C && col < d)
-                      ? to_f32(xe[(long long)row * d + col])
-                      : 0.0f;
+      As[kk][m] = (row < C && col < d) ? xe[(long long)row * d + col] : 0.0f;
     }
     // w tile: element i -> depth i / BN, column i % BN (reads run along f)
 #pragma unroll
@@ -82,9 +196,7 @@ __global__ void __launch_bounds__(kThreads)
       const int i = tid + r * kThreads;
       const int kk = i / BN, n = i % BN;
       const int row = k0 + kk, col = n0 + n;
-      Bs[kk][n] = (row < d && col < f)
-                      ? to_f32(we[(long long)row * f + col])
-                      : 0.0f;
+      Bs[kk][n] = (row < d && col < f) ? we[(long long)row * f + col] : 0.0f;
     }
     __syncthreads();
     if (busy) {
@@ -111,19 +223,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = n0 + tx * 4 + j;
-      if (col < f) store(ye + (long long)row * f + col, acc[i][j]);
+      if (col < f) ye[(long long)row * f + col] = acc[i][j];
     }
   }
-}
-
-template <typename T>
-int launch(const void* x, const void* w, void* y, int E, int C, int d, int f,
-           cudaStream_t stream) {
-  dim3 grid((f + BN - 1) / BN, (C + BM - 1) / BM, E);
-  gmm_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
-      C, d, f);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -138,8 +240,21 @@ extern "C" int grouped_matmul_fwd(const void* x, const void* w, void* y,
   if (E < 0 || C < 0 || d < 0 || f < 0 || E > 65535)
     return (int)cudaErrorInvalidValue;
   if (E == 0 || C == 0 || f == 0) return 0;
-  if (dtype == 0) return launch<float>(x, w, y, E, C, d, f, stream);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, w, y, E, C, d, f, stream);
-  return (int)cudaErrorInvalidValue;
+  dim3 grid((f + BN - 1) / BN, (C + BM - 1) / BM, E);
+  if (dtype == 0) {
+    gmm_f32_kernel<<<grid, kThreads, 0, stream>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w),
+        static_cast<float*>(y), C, d, f);
+  } else if (dtype == 1) {
+    // 16-byte row chunks need rows that start on 16 bytes
+    const int vec = d % 8 == 0 && f % 8 == 0 &&
+                    ((uintptr_t)x | (uintptr_t)w) % 16 == 0;
+    gmm_tc_kernel<<<grid, kTcThreads, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(x),
+        static_cast<const __nv_bfloat16*>(w),
+        static_cast<__nv_bfloat16*>(y), C, d, f, vec);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }

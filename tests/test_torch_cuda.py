@@ -295,6 +295,24 @@ def test_grouped_matmul_matches_plain_on_card(shape, dtype, cuda_device):
 
 
 @pytest.mark.cuda
+def test_grouped_matmul_takes_unaligned_rows_on_card(cuda_device):
+    """bf16 rows that do not start on 16 bytes (a view one element into
+    its storage) take the element-wise loads: the same result."""
+    g = torch.Generator().manual_seed(5)
+    base = torch.randn(4 * 72 * 136 + 1, generator=g).to(cuda_device,
+                                                         torch.bfloat16)
+    x = base[1:].view(4, 72, 136)
+    w = (torch.randn(4, 136, 200, generator=g) * 136 ** -0.5).to(
+        cuda_device, torch.bfloat16)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    got, want = ops.grouped_matmul(x, w), ref.grouped_matmul_ref(x, w)
+    scale = want.float().abs().max().item()
+    assert ((got.float() - want.float()).abs()
+            <= 2 ** -7 * want.float().abs() + 2e-4 * scale).all()
+    assert torch.equal(got, ops.grouped_matmul(x.contiguous().clone(), w))
+
+
+@pytest.mark.cuda
 def test_granite_smoke_model_serves_on_card_as_on_cpu(cuda_device):
     """granite's smoke config in float32: the same parameters serve the
     same greedy tokens on the card (kernels) as on the CPU (plain
