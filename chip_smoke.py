@@ -57,6 +57,7 @@ from repro_torch.core import (AcceleratorPlatform, DeviceInfo,  # noqa: E402
                               Profile, Scheduler, Session, ThreadedExecutor,
                               Workload, build_plan)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import moe_gemm as gmm_mod  # noqa: E402
 from repro_torch.models import (LM, decode_step, init_cache,  # noqa: E402
                                 prefill)
 from repro_torch.models import lm as lm_mod  # noqa: E402
@@ -120,10 +121,17 @@ BF16_STEP = 2.0 ** -7
 GMM_TOL = 2e-4
 #: the grouped GEMM's shapes: (E, C, d, f) of each call on the main path
 #: (granite-moe-3b: a 1536-token prefill's w_in/w_gate and w_out, a decode
-#: step at 4 slots) and an odd shape whose every edge is ragged
+#: step at 4 slots), a capacity that leaves a ragged last 128-row tile, and
+#: an odd shape whose every edge is ragged (rows the TMA cannot take: the
+#: WMMA kernel)
 GMM_SHAPES = {"prefill_in": (40, 384, 1536, 512),
               "prefill_out": (40, 384, 512, 1536),
-              "decode": (40, 8, 1536, 512), "odd": (3, 37, 65, 41)}
+              "decode": (40, 8, 1536, 512), "ragged_c": (40, 72, 1536, 512),
+              "odd": (3, 37, 65, 41)}
+#: the shapes timed beside torch.bmm
+GMM_TIMED = ("prefill_in", "prefill_out", "decode")
+#: the redesigned kernels, whose ptxas report must show no spills
+NO_SPILL = ("flash_mma_kernel", "gmm_wgmma_kernel")
 #: the head of each model (zamba2: one hybrid group; granite: 2 layers),
 #: card (kernels, cuBLAS) against CPU (plain versions, CPU matmuls), same
 #: parameters, for the last-token logits and the cache the head fills
@@ -144,6 +152,13 @@ GROUP_BF16_REL = {"zamba2-2.7b": {"logits": 0.3, "h": 0.05},
 MOE_CHECK_LAYERS = 2
 #: the profiled window: one prefill of the largest prompt, decode steps
 PROFILE_DECODE_STEPS = 8
+
+
+def reset_counts() -> None:
+    """Every kernel's launch counter, and the grouped GEMM's bf16 counters
+    by kernel, to 0."""
+    for c in [*ops.COUNTERS.values(), *gmm_mod.bf16_launches.values()]:
+        c.reset()
 
 
 def expect(ok: bool, what: str) -> None:
@@ -439,8 +454,7 @@ def units_by_class(run):
 def main_path(sched: Scheduler, inputs):
     need = {k: 0 for k in ORDER}
     requests = []
-    for c in ops.COUNTERS.values():
-        c.reset()
+    reset_counts()
     with Session(sched) as session:
         for name in ORDER:
             arrays = inputs[name]
@@ -590,6 +604,15 @@ def lm_kernel_phase(cfg):
              - ref.attention_ref(qs, ks, vs, **kw)).abs().max().item()
     expect(err_v <= FLASH_TOL,
            f"flash GQA/window/softcap/kv_len: max err {err_v}")
+    # the same in bf16 (the tensor-core kernel), and with every row masked
+    ex_v = 0.0
+    qb, kb, vb = (t.to(bf16) for t in (qs, ks, vs))
+    for kwb in (kw, dict(window=8, kv_len=20)):
+        ex = bf16_excess(ops.flash_attention(qb, kb, vb, **kwb),
+                         ref.attention_ref(qb, kb, vb, **kwb), FLASH_TOL)
+        expect(ex <= 1.0, f"flash bf16 {kwb}: worst element at {ex:.3f} "
+               "of its bound")
+        ex_v = max(ex_v, ex)
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
                                                          is_causal=True), 20)
     results["flash_attention"] = dict(
@@ -598,6 +621,7 @@ def lm_kernel_phase(cfg):
         plain_ms=cuda_ms(lambda: ref.attention_ref(q, k, v), 5),
         library_ms=lib, shape=list(q.shape), dtype="bfloat16",
         variants_max_abs_err=err_v, bf16_worst_share_of_bound=excess,
+        bf16_variants_worst_share_of_bound=ex_v,
         tolerance=f"bf16: |err| <= 2^-7 |plain| + {FLASH_TOL} elementwise; "
                   f"f32 (GQA/window/softcap/kv_len): {FLASH_TOL}",
         bound=flash_bound(1, H, H, q.shape[2], q.shape[2], hd, bf16))
@@ -676,6 +700,8 @@ def moe_kernel_phase(cfg):
             x = torch.randn((E_, C, d_), generator=g, device=dev).to(dtype)
             w = (torch.randn((E_, d_, f_), generator=g, device=dev)
                  * d_ ** -0.5).to(dtype)
+            path = ("f32" if dtype == torch.float32 else
+                    "tma" if gmm_mod.tma_rows(x, w) else "wmma")
             got, want = ops.grouped_matmul(x, w), ref.grouped_matmul_ref(x, w)
             expect(got.dtype == dtype and tuple(got.shape) == (E_, C, f_),
                    f"grouped_matmul {name}: dtype and shape")
@@ -689,18 +715,23 @@ def moe_kernel_phase(cfg):
                    f"(max |plain| {scale}), worst element at {ex:.3f} of "
                    "its bound")
             checks[f"{name}/{str(dtype)[6:]}"] = dict(
-                max_abs_err=err, max_abs=scale, share_of_bound=ex)
-            if dtype == bf16 and name in ("prefill_in", "decode"):
+                max_abs_err=err, max_abs=scale, share_of_bound=ex,
+                kernel=path)
+            if dtype == bf16 and name in GMM_TIMED:
                 timed[name] = dict(
                     ms=cuda_ms(lambda: ops.grouped_matmul(x, w), 20),
                     plain_ms=cuda_ms(lambda: ref.grouped_matmul_ref(x, w),
                                      5),
                     library_ms=cuda_ms(lambda: torch.bmm(x, w), 20),
                     bound=gmm_bound(E_, C, d_, f_, dtype), max_abs_err=err)
+    expect(all(checks[f"{n}/bfloat16"]["kernel"] == "tma"
+               for n in GMM_TIMED),
+           "the model's bf16 shapes take the TMA + wgmma kernel")
     main = timed["prefill_in"]
     results = {"grouped_matmul": dict(
         main, shape=list(GMM_SHAPES["prefill_in"]), dtype="bfloat16",
-        decode=timed["decode"], checks=checks,
+        prefill_out=timed["prefill_out"], decode=timed["decode"],
+        checks=checks,
         max_abs_err=max(c["max_abs_err"] for k, c in checks.items()
                         if k.endswith("bfloat16") and not
                         k.startswith("odd")),
@@ -786,13 +817,13 @@ def lm_main_path(cfg, model):
                          temperature=0.0, on_step=on_step)
     for p in prompts:
         engine.submit(p, max_new=LM_MAX_NEW)
-    for c in ops.COUNTERS.values():
-        c.reset()
+    reset_counts()
     t0 = time.perf_counter()
     done = engine.run_to_completion()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {k: c.value for k, c in ops.COUNTERS.items()}
+    gmm_paths = {k: c.value for k, c in gmm_mod.bf16_launches.items()}
 
     expect(not bad, f"non-finite logits: {bad}")
     expect(len(done) == LM_REQUESTS and len(prefills) == LM_REQUESTS,
@@ -805,6 +836,9 @@ def lm_main_path(cfg, model):
     want = want_launches(cfg, lengths, decode["steps"])
     for k, n in want.items():
         expect(launches[k] == n, f"{k}: {launches[k]} launches == {n}")
+    expect(gmm_paths == {"tma": launches["grouped_matmul"], "wmma": 0},
+           f"every grouped GEMM launch took the TMA + wgmma kernel: "
+           f"{gmm_paths}")
     for n, sec in prefills:
         print(f"lm prefill {n} tokens: {sec:.4f} s", flush=True)
     tok_s = decode["tokens"] / decode["seconds"]
@@ -814,6 +848,7 @@ def lm_main_path(cfg, model):
     return dict(prompt_lengths=lengths, prefill_seconds=prefills,
                 decode=decode, decode_tokens_per_s=tok_s, seconds=seconds,
                 launches=launches, want_launches=want,
+                grouped_matmul_bf16_launches=gmm_paths,
                 first_tokens=[r.out[:8] for r in done])
 
 
@@ -1036,9 +1071,11 @@ def lm_phase(arch):
               f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, "
               f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), max err "
               f"{r['max_abs_err']:.3g}", flush=True)
-    if "decode" in kernels.get("grouped_matmul", {}):
-        r = kernels["grouped_matmul"]["decode"]
-        print(f"kernel grouped_matmul {list(GMM_SHAPES['decode'])} bfloat16: "
+    for shape in ("prefill_out", "decode"):
+        if shape not in kernels.get("grouped_matmul", {}):
+            continue
+        r = kernels["grouped_matmul"][shape]
+        print(f"kernel grouped_matmul {list(GMM_SHAPES[shape])} bfloat16: "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
               f"{r['library_ms']}, bound {r['bound'][0]:.4f} ms "
               f"({r['bound'][1]})", flush=True)
@@ -1067,9 +1104,15 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     build_s = time.perf_counter() - t0
-    regs = [ln.strip() for ln in _build.build_log.splitlines()
-            if "registers" in ln]
-    print(f"built the kernels in {build_s:.1f}s; ptxas: {regs}", flush=True)
+    regs = _build.ptxas_report(_build.build_log)
+    print(f"built the kernels in {build_s:.1f}s; ptxas (registers, spill "
+          f"stores, spill loads): "
+          f"{ {k: tuple(v.values()) for k, v in regs.items()} }", flush=True)
+    spilled = {k: v for k, v in regs.items()
+               if any(n in k for n in NO_SPILL)
+               and (v["spill_stores"] or v["spill_loads"])}
+    expect(regs and not spilled,
+           f"ptxas: the redesigned kernels spill no registers: {spilled}")
 
     sched = make_scheduler()
     torch.set_num_threads(max(1, (os.cpu_count() or 1)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -48,13 +49,16 @@ SIGNATURES: Dict[str, List] = {
                      _I, _I, _I, _P],
     # x, w, y, dtype, E, C, d, f, device, stream
     "grouped_matmul_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, y, E, C, d, f, device, stream (bfloat16)
+    "grouped_matmul_wmma_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 #: dtype code a C entry point takes for its tensors' element type
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-#: what the last build printed (``-Xptxas -v``: registers, shared memory)
+#: what the build of the library last built or loaded printed
+#: (``-Xptxas -v``: registers, spills, shared memory)
 build_log: str = ""
 
 
@@ -69,38 +73,53 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def build() -> Path:
-    """Compile the sources (if not built yet); returns the library path."""
+def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
+    """Compile the ``*.cu`` files of ``csrc`` (if not built yet) into
+    ``build_dir``; returns the library path."""
     global build_log
-    sources = sorted(CSRC.glob("*.cu"))
+    sources = sorted(csrc.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = BUILD_DIR / f"librepro_torch_kernels-{digest.hexdigest()[:16]}.so"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    lib = build_dir / f"librepro_torch_kernels-{digest.hexdigest()[:16]}.so"
+    log_path = lib.with_suffix(".log")
     if lib.exists():
+        build_log = log_path.read_text() if log_path.exists() else ""
         return lib
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         objs = [Path(tmp) / (src.stem + ".o") for src in sources]
         procs = [subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for src, obj in zip(sources, objs)]
         logs = [p.communicate()[0] for p in procs]
-        build_log = "".join(f"== {s.name}\n{log}"
-                            for s, log in zip(sources, logs))
+        log = "".join(f"== {s.name}\n{out}" for s, out in zip(sources, logs))
         failed = [s.name for s, p in zip(sources, procs) if p.returncode]
         if failed:
-            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
         part = Path(tmp) / lib.name
         link = subprocess.run(
             [nvcc, "-shared", "-o", str(part), *map(str, objs)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode:
             raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
+        log_path.write_text(log)
         os.replace(part, lib)
+    build_log = log
+    return lib
+
+
+def load(path: Path, names=tuple(SIGNATURES)) -> ctypes.CDLL:
+    """Load a built kernel library and declare the argument types of its
+    entry points ``names``."""
+    lib = ctypes.CDLL(str(path))
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -109,13 +128,32 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = load(build())
         return _lib
+
+
+def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
+    """Registers and spill bytes of each compiled kernel, by mangled name,
+    from an ``-Xptxas -v`` build log."""
+    out: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": 0, "spill_stores": 0, "spill_loads": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 class LaunchCounter:

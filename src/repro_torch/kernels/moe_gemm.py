@@ -1,4 +1,11 @@
-"""The MoE grouped GEMM on the card, launching ``csrc/moe_gemm.cu``."""
+"""The MoE grouped GEMM on the card, launching ``csrc/moe_gemm.cu``.
+
+bfloat16 goes to the TMA + wgmma kernel when its rows suit the TMA (16-byte
+row strides and bases: ``d % 8 == 0``, ``f % 8 == 0``, x and w on 16
+bytes); any other bf16 shape or view goes, by that check alone, to the
+WMMA kernel.  Each of the two is counted apart (``bf16_launches``) besides
+the kernel's total (``launches``).
+"""
 from __future__ import annotations
 
 import torch
@@ -8,8 +15,20 @@ from repro_torch.kernels._build import (DTYPE_CODES, LaunchCounter,
                                         stream_of)
 
 launches = LaunchCounter("grouped_matmul")
+#: bfloat16 launches by kernel: "tma" (TMA + wgmma) and "wmma" (rows the
+#: TMA cannot take)
+bf16_launches = {"tma": LaunchCounter("grouped_matmul/tma"),
+                 "wmma": LaunchCounter("grouped_matmul/wmma")}
 
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def tma_rows(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether the TMA can read x (E, C, d) and w (E, d, f): 16-byte row
+    strides and 16-byte aligned bases (y is allocated aligned)."""
+    d, f = x.shape[2], w.shape[2]
+    return (d > 0 and d % 8 == 0 and f % 8 == 0
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -26,8 +45,17 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     y = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
     if not y.numel():
         return y
-    check_launch(library().grouped_matmul_fwd(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), DTYPE_CODES[x.dtype],
-        E, C, d, f, x.device.index, stream_of(x)), "grouped_matmul")
+    lib, dev, stream = library(), x.device.index, stream_of(x)
+    if x.dtype == torch.bfloat16 and not tma_rows(x, w):
+        check_launch(lib.grouped_matmul_wmma_fwd(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), E, C, d, f, dev,
+            stream), "grouped_matmul (wmma)")
+        bf16_launches["wmma"].add()
+    else:
+        check_launch(lib.grouped_matmul_fwd(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), DTYPE_CODES[x.dtype],
+            E, C, d, f, dev, stream), "grouped_matmul")
+        if x.dtype == torch.bfloat16:
+            bf16_launches["tma"].add()
     launches.add()
     return y

@@ -184,7 +184,11 @@ def test_device_fault_aborts_without_retry(cuda_device):
     (torch.float32, dict(causal=True, window=16, logit_cap=20.0)),
     (torch.float32, dict(causal=True, window=8, kv_len=20)),  # empty rows
     (torch.bfloat16, dict(causal=True)),
-], ids=["causal", "kv_len", "window_softcap", "fully_masked", "bf16"])
+    (torch.bfloat16, dict(causal=False, kv_len=70)),
+    (torch.bfloat16, dict(causal=True, window=16, logit_cap=20.0)),
+    (torch.bfloat16, dict(causal=True, window=8, kv_len=20)),
+], ids=["causal", "kv_len", "window_softcap", "fully_masked", "bf16",
+        "bf16_kv_len", "bf16_window_softcap", "bf16_fully_masked"])
 @pytest.mark.parametrize("hd", [16, 64, 80, 128, 256])
 def test_flash_attention_matches_plain_on_card(dtype, kw, hd, cuda_device):
     g = torch.Generator().manual_seed(hd)
@@ -204,6 +208,51 @@ def test_flash_attention_matches_plain_on_card(dtype, kw, hd, cuda_device):
     assert torch.equal(bshd.transpose(1, 2), got)
     torch.cuda.synchronize()
     assert ops.COUNTERS["flash_attention"].value == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,kw", [
+    (1, 24, 8, 300, 300, 64, dict(causal=True)),
+    (2, 4, 2, 77, 77, 80, dict(causal=True)),
+    (1, 4, 4, 77, 200, 128, dict(causal=False)),
+], ids=["gqa_24_8", "ragged_rows", "sq_not_sk"])
+def test_flash_attention_bf16_shapes_on_card(B, H, KV, Sq, Sk, hd, kw,
+                                             cuda_device):
+    """bf16 (the tensor-core kernel): granite's GQA 24/8 at head_dim 64,
+    query rows that leave a ragged last 64-row tile, and fewer queries than
+    keys, each within one bf16 step (2^-7 of the value) plus 3e-4."""
+    g = torch.Generator().manual_seed(Sq + hd)
+    q = torch.randn(B, H, Sq, hd, generator=g).to(cuda_device,
+                                                  torch.bfloat16)
+    k = torch.randn(B, KV, Sk, hd, generator=g).to(cuda_device,
+                                                   torch.bfloat16)
+    v = torch.randn(B, KV, Sk, hd, generator=g).to(cuda_device,
+                                                   torch.bfloat16)
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ref.attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=3e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 80])
+def test_flash_attention_bf16_unaligned_rows_on_card(hd, cuda_device):
+    """bf16 q/k/v whose rows do not start on 16 bytes (views one element
+    into their storage) take the kernel's element-wise loads: the same
+    output, bit for bit, as aligned copies, which take cp.async."""
+    g = torch.Generator().manual_seed(hd + 1)
+    n = 2 * 4 * 100 * hd
+    q, k, v = (torch.randn(n + 1, generator=g).to(cuda_device,
+                                                  torch.bfloat16)[1:]
+               .view(2, 4, 100, hd) for _ in range(3))
+    assert q.data_ptr() % 16 and q.is_contiguous()
+    kw = dict(causal=True, window=40, kv_len=90)
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ops.flash_attention(q.clone(), k.clone(), v.clone(), **kw)
+    assert torch.equal(got, want)
+    ref_out = ref.attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), ref_out.float(), rtol=2 ** -7,
+                               atol=3e-4)
 
 
 @pytest.mark.cuda
@@ -271,8 +320,10 @@ def test_smoke_model_serves_on_card_as_on_cpu(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(3, 37, 65, 41), (40, 8, 1536, 512),
-                                   (40, 384, 512, 1536)],
-                         ids=["odd", "decode", "prefill_w_out"])
+                                   (40, 384, 512, 1536),
+                                   (40, 384, 1536, 512), (4, 72, 1536, 512)],
+                         ids=["odd", "decode", "prefill_w_out",
+                              "prefill_in", "ragged_c"])
 def test_grouped_matmul_matches_plain_on_card(shape, dtype, cuda_device):
     """Weights of std 1/sqrt(d), as the model draws them.  float32: max
     |err| <= 2e-4 x max |plain|; bf16: both sum in float32 and round once,
@@ -297,7 +348,12 @@ def test_grouped_matmul_matches_plain_on_card(shape, dtype, cuda_device):
 @pytest.mark.cuda
 def test_grouped_matmul_takes_unaligned_rows_on_card(cuda_device):
     """bf16 rows that do not start on 16 bytes (a view one element into
-    its storage) take the element-wise loads: the same result."""
+    its storage) take the WMMA kernel, by the wrapper's alignment check:
+    the same result as that kernel on an aligned copy, and within one bf16
+    step of the TMA + wgmma kernel, which the aligned copy takes.  The TMA
+    kernel's entry point refuses the view outright."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import moe_gemm
     g = torch.Generator().manual_seed(5)
     base = torch.randn(4 * 72 * 136 + 1, generator=g).to(cuda_device,
                                                          torch.bfloat16)
@@ -305,11 +361,29 @@ def test_grouped_matmul_takes_unaligned_rows_on_card(cuda_device):
     w = (torch.randn(4, 136, 200, generator=g) * 136 ** -0.5).to(
         cuda_device, torch.bfloat16)
     assert x.is_contiguous() and x.data_ptr() % 16
+    paths = moe_gemm.bf16_launches
+    before = {k: c.value for k, c in paths.items()}
     got, want = ops.grouped_matmul(x, w), ref.grouped_matmul_ref(x, w)
+    assert paths["wmma"].value == before["wmma"] + 1
     scale = want.float().abs().max().item()
     assert ((got.float() - want.float()).abs()
             <= 2 ** -7 * want.float().abs() + 2e-4 * scale).all()
-    assert torch.equal(got, ops.grouped_matmul(x.contiguous().clone(), w))
+    xa = x.contiguous().clone()
+    lib, stream = _build.library(), torch.cuda.current_stream().cuda_stream
+    # the WMMA kernel on the aligned copy: bit-identical
+    y = torch.empty(4, 72, 200, dtype=torch.bfloat16, device=cuda_device)
+    assert lib.grouped_matmul_wmma_fwd(xa.data_ptr(), w.data_ptr(),
+                                       y.data_ptr(), 4, 72, 136, 200,
+                                       x.device.index, stream) == 0
+    assert torch.equal(got, y)
+    aligned = ops.grouped_matmul(xa, w)
+    torch.cuda.synchronize()
+    assert paths["tma"].value == before["tma"] + 1
+    assert ((aligned.float() - want.float()).abs()
+            <= 2 ** -7 * want.float().abs() + 2e-4 * scale).all()
+    assert lib.grouped_matmul_fwd(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                                  1, 4, 72, 136, 200, x.device.index,
+                                  stream) != 0
 
 
 @pytest.mark.cuda
