@@ -273,10 +273,11 @@ def _modules_after(code):
 @pytest.mark.parametrize("code", [
     "import repro_torch, repro_torch.core, repro_torch.kernels.ops, "
     "repro_torch.suite",
-    "import importlib.util\n"
-    "spec = importlib.util.spec_from_file_location('chip_smoke', "
-    "'chip_smoke.py')\n"
-    "spec.loader.exec_module(importlib.util.module_from_spec(spec))",
-], ids=["package", "chip_smoke"])
+    *("import importlib.util\n"
+      f"spec = importlib.util.spec_from_file_location('{name}', "
+      f"'{name}.py')\n"
+      "spec.loader.exec_module(importlib.util.module_from_spec(spec))"
+      for name in ("chip_smoke", "chip_kernel_turns", "chip_kernel_shapes")),
+], ids=["package", "chip_smoke", "chip_kernel_turns", "chip_kernel_shapes"])
 def test_port_imports_neither_jax_nor_the_reference(code):
     assert _modules_after(code) == []
