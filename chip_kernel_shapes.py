@@ -1,23 +1,32 @@
 #!/usr/bin/env python3
-"""Tile shapes of the bf16 flash attention and grouped GEMM kernels, timed
+"""Tile shapes and knock-out builds of the port's redesigned kernels, timed
 on one CUDA card.
 
-    python3 chip_kernel_shapes.py
+    python3 chip_kernel_shapes.py [flash] [gmm] [ssd] [saxpy]
 
-Rebuilds ``csrc/flash_attention.cu`` and ``csrc/moe_gemm.cu`` with other
-tile shapes in place of the ones the sources choose (the ``Cfg`` alias of
-the bf16 flash kernel: keys a tile, cp.async stages, blocks an SM; the
-``Prefill`` alias of the grouped GEMM: tile rows and columns, TMA stages,
-blocks an SM), each variant into its own library under ``build/shapes/``,
-all built at once.  Each is timed at the main paths' shapes (CUDA-event
-means over 50 launches after a warm-up, twice) with its output held to the
-plain version (one bf16 step plus the ``chip_smoke.py`` tolerance), the
-library call timed beside as a yardstick.  The sources' own choice is the
-first variant of each list.  Two more builds of the flash kernel each
-knock one part out (the K/V loads, the lo half of P's product) to show
-what it costs; their output is not checked.  Prints the card, one line a variant and the
-registers and spills ``ptxas`` reports, and writes
-``build/kernel_shapes.json``.  Exits non-zero without a card.
+(no argument: all four).  Rebuilds a kernel's source with one setting
+replaced, each variant into its own library under ``build/shapes/``, all
+built at once, and times each at the main paths' shapes (CUDA-event means
+over 50 launches after a warm-up, twice), its output held to the plain
+version under the ``chip_smoke.py`` tolerance, the library call timed
+beside as a yardstick.  The sources' own choice is the first variant of
+each list.
+- flash (bf16): keys a tile, cp.async stages, blocks an SM (the ``Cfg``
+  alias); two builds knock one part out (the K/V loads, the lo half of
+  P's product).
+- gmm (bf16): tile rows and columns, TMA stages, blocks an SM (the
+  ``Prefill`` alias).
+- ssd, at zamba2's call, x (1, 1536, 80 x 64) float32, chunk 256: as built
+  (with each of its four kernels' device time from ``torch.profiler``),
+  built for 2 blocks an SM, and with one part knocked out each: the lo
+  products of the TF32 split (one TF32 pass: its error is reported), the
+  C.B^T pass, the decay tile's exp, every product, every split into shared
+  memory.
+- saxpy, at one slot's 2e7 elements: 1, 2, 4 and 8 float4 loads of x and
+  of y a thread, beside ``torch.add``.
+A knocked-out build's output is wrong and not checked.  Prints the card,
+one line a variant and the registers and spills ``ptxas`` reports, and
+writes ``build/kernel_shapes.json``.  Exits non-zero without a card.
 """
 from __future__ import annotations
 
@@ -32,6 +41,7 @@ import torch.nn.functional as F
 
 import chip_smoke as cs
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.kernels.flash_attention import NO_WINDOW
 
 CSRC = cs.ROOT / "src" / "repro_torch" / "csrc"
@@ -56,6 +66,30 @@ FLASH_KNOCKOUTS = {
 GMM_CFG = "using Prefill = Cfg<128, 128, 3, 2>;"
 GMM_VARIANTS = [(128, 128, 3, 2), (128, 128, 4, 1), (128, 256, 4, 1),
                 (128, 256, 3, 1), (128, 64, 4, 2)]
+#: parts of the SSD scan knocked out (the output is then wrong, and only
+#: the one-pass TF32 build's error is reported): the lo.hi and hi.lo
+#: products of every split product; the C.B^T launch; the decay tile's exp;
+#: every product; every split of a staged piece into shared memory
+SSD_KNOCKOUTS = {
+    "lo_products": ("      mma_tf32(acc[n], al, bh0, bh1);\n"
+                    "      mma_tf32(acc[n], ah, bl0, bl1);\n", ""),
+    "cb_pass": ("ssd_cb<T><<<dim3(", "if (false) ssd_cb<T><<<dim3("),
+    "decay_exp": ("exp2_approx((q - cumc[", "((q - cumc["),
+    "products": ("warp_product<NT, ", "if (false) warp_product<NT, "),
+    "staging": ("      put_split4(hi, lo, row(u) * ld + col(u), "
+                "f(row(u), col(u), v[u]));\n", "      ;\n"),
+}
+#: blocks an SM the SSD kernels with a 64-wide output are built for (the
+#: source's choice first)
+SSD_CFG = "  return NC <= 64 ? 3 : 2;"
+SSD_MIN_BLOCKS = [3, 2]
+#: (Bsz, S, nh, hd, ds, chunk): zamba2-2.7b's SSD call, 1536 tokens
+SSD = (1, 1536, 80, 64, 64, 256)
+#: float4 loads of x and of y a saxpy thread issues before it stores
+SAXPY_CFG = "constexpr int kUnroll = 2;"
+SAXPY_UNROLL = [2, 1, 4, 8]
+SAXPY_N = 2 * 10 ** 7
+KINDS = ("flash", "gmm", "ssd", "saxpy")
 FLASH = {"zamba2": (1, 32, 32, 1536, 80), "granite": (1, 24, 8, 1536, 64)}
 GMM = {"prefill_in": (40, 384, 1536, 512), "prefill_out": (40, 384, 512, 1536),
        "ragged_c": (40, 72, 1536, 512)}
@@ -79,30 +113,161 @@ def ptxas(lib: Path, kernel: str, tag: str = ""):
                    for k, v in report.items() if kernel in k and tag in k})
 
 
+def kernel_times(call, calls: int = 20):
+    """Device microseconds a call of each kernel ``call`` launches, by
+    name, from ``torch.profiler`` over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    return {e.key[:40]: getattr(e, "self_device_time_total",
+                                getattr(e, "self_cuda_time_total", 0)) / calls
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def ssd_rows(libs, g):
+    """The SSD scan as built and with each part knocked out, at zamba2's
+    call, f32: ms (twice), and for the checked builds the worst error as a
+    share of the card checks' bound."""
+    Bsz, S, nh, hd, ds, chunk = SSD
+    x = torch.randn((Bsz, S, nh * hd), generator=g, device="cuda") * 0.5
+    dt = torch.nn.functional.softplus(
+        torch.randn((Bsz, S, nh), generator=g, device="cuda"))
+    Bm = torch.randn((Bsz, S, ds), generator=g, device="cuda") * 0.5
+    Cm = torch.randn((Bsz, S, ds), generator=g, device="cuda") * 0.5
+    A = -torch.exp(torch.randn(nh, generator=g, device="cuda") * 0.3)
+    wy, wh = ref.ssd_scan_ref(x, dt, Bm, Cm, A, chunk=chunk)
+    sy = cs.SSD_TOL * max(1.0, wy.abs().max().item())
+    sh = cs.SSD_TOL * max(1.0, wh.abs().max().item())
+    stream = torch.cuda.current_stream().cuda_stream
+    row = {"bound_fp32_ms": cs.ssd_bound(Bsz, S, chunk, nh, hd, ds,
+                                         torch.float32)[0],
+           "bound_split_tf32_ms": cs.ssd_split_bound(Bsz, S, chunk, nh, hd,
+                                                     ds, torch.float32)[0]}
+    for name, label in [("ssd", "as built"),
+                        *[(f"ssd_blocks{m}", f"built for {m} blocks an SM")
+                          for m in SSD_MIN_BLOCKS[1:]],
+                        *[(f"ssd_without_{n}", f"without {n}")
+                          for n in SSD_KNOCKOUTS]]:
+        lib = _build.load(libs[name], ("ssd_scan_fwd",))
+        y = torch.empty_like(x)
+        h = torch.empty((Bsz, nh, ds, hd), device="cuda")
+        scratch = ssd_mod.scratch(Bsz, S, nh, hd, ds, chunk, "cuda")
+
+        def call(lib=lib, y=y, h=h, scratch=scratch):
+            return lib.ssd_scan_fwd(
+                x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                A.data_ptr(), None, y.data_ptr(), h.data_ptr(),
+                *(t.data_ptr() for t in scratch), 0, Bsz, S, nh, hd, ds,
+                chunk, 0, stream)
+        if call():
+            raise RuntimeError(f"{name} did not launch")
+        torch.cuda.synchronize()
+        share = max((y - wy).abs().max().item() / sy,
+                    (h - wh).abs().max().item() / sh)
+        checked = "without" not in name
+        if checked and share > 1.0:
+            raise RuntimeError(f"{name}: {share:.3f} of its bound")
+        row[name] = dict(ms=[cs.cuda_ms(call, REPS) for _ in range(2)],
+                         share_of_bound=share if checked or name ==
+                         "ssd_without_lo_products" else None,
+                         ptxas=ptxas(libs[name], "ssd_"),
+                         spills=spills(libs[name], "ssd_"))
+        if name == "ssd":
+            row[name]["kernels_us"] = kernel_times(call)
+        print(f"ssd {label}: {row[name]['ms']} ms, share of bound "
+              f"{row[name]['share_of_bound']}, ptxas (registers, spill "
+              f"bytes) {row[name]['ptxas']}, spilling {row[name]['spills']}"
+              + (f"; device us a call by kernel {row[name]['kernels_us']}"
+                 if name == "ssd" else ""), flush=True)
+    return row
+
+
+def saxpy_rows(libs, g):
+    """saxpy with each count of float4 loads a thread, beside torch.add."""
+    n, a = SAXPY_N, 2.5
+    x = torch.randn(n, generator=g, device="cuda")
+    y = torch.randn(n, generator=g, device="cuda")
+    want = torch.add(y, x, alpha=a)
+    stream = torch.cuda.current_stream().cuda_stream
+    row = {"torch_add_ms": []}
+    for u in SAXPY_UNROLL:
+        lib = _build.load(libs[f"saxpy_{u}"], ("saxpy_f32",))
+        z = torch.empty_like(x)
+
+        def call(lib=lib, z=z):
+            return lib.saxpy_f32(x.data_ptr(), y.data_ptr(), z.data_ptr(), a,
+                                 n, 0, stream)
+        if call():
+            raise RuntimeError(f"saxpy_{u} did not launch")
+        torch.testing.assert_close(z, want, rtol=1e-5, atol=1e-5)
+        row["torch_add_ms"].append(cs.cuda_ms(
+            lambda: torch.add(y, x, alpha=a), REPS))
+        row[f"saxpy_{u}"] = dict(ms=[cs.cuda_ms(call, REPS) for _ in
+                                     range(2)])
+        print(f"saxpy {u} float4 loads a thread: {row[f'saxpy_{u}']['ms']} "
+              f"ms (torch.add {row['torch_add_ms'][-1]:.4f})", flush=True)
+    return row
+
+
+def spills(lib: Path, kernel: str):
+    """The instantiations of ``kernel`` that spill: {name: (registers,
+    spill store bytes)}."""
+    report = _build.ptxas_report(lib.with_suffix(".log").read_text())
+    return {k[-48:]: (v["registers"], v["spill_stores"])
+            for k, v in report.items() if kernel in k and v["spill_stores"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_kernel_shapes: no CUDA device", file=sys.stderr)
         return 2
+    kinds = sys.argv[1:] or list(KINDS)
+    if set(kinds) - set(KINDS):
+        print(f"known: {list(KINDS)}", file=sys.stderr)
+        return 2
     card = cs.gpu_line()
     print(card, flush=True)
-    jobs = [("flash_attention.cu", FLASH_CFG,
-             f"using Cfg = Shape<HD, (HD > 128 ? 16 : {bk}), (HD <= 80 ? "
-             f"{st} : 2), (HD <= 80 ? {mb} : 1)>;", f"flash_{bk}_{st}_{mb}")
-            for bk, st, mb in FLASH_VARIANTS]
-    jobs += [("flash_attention.cu", *patch, f"flash_without_{name}")
-             for name, patch in FLASH_KNOCKOUTS.items()]
-    jobs += [("moe_gemm.cu", GMM_CFG,
-              f"using Prefill = Cfg<{bm}, {bn}, {st}, {mb}>;",
-              f"gmm_{bm}_{bn}_{st}_{mb}")
-             for bm, bn, st, mb in GMM_VARIANTS]
+    jobs = []
+    if "flash" in kinds:
+        jobs += [("flash_attention.cu", FLASH_CFG,
+                  f"using Cfg = Shape<HD, (HD > 128 ? 16 : {bk}), (HD <= 80 "
+                  f"? {st} : 2), (HD <= 80 ? {mb} : 1)>;",
+                  f"flash_{bk}_{st}_{mb}")
+                 for bk, st, mb in FLASH_VARIANTS]
+        jobs += [("flash_attention.cu", *patch, f"flash_without_{name}")
+                 for name, patch in FLASH_KNOCKOUTS.items()]
+    if "gmm" in kinds:
+        jobs += [("moe_gemm.cu", GMM_CFG,
+                  f"using Prefill = Cfg<{bm}, {bn}, {st}, {mb}>;",
+                  f"gmm_{bm}_{bn}_{st}_{mb}")
+                 for bm, bn, st, mb in GMM_VARIANTS]
+    if "ssd" in kinds:
+        jobs += [("ssd_scan.cu", SSD_CFG, f"  return NC <= 64 ? {m} : 2;",
+                  "ssd" if m == SSD_MIN_BLOCKS[0] else f"ssd_blocks{m}")
+                 for m in SSD_MIN_BLOCKS]
+        jobs += [("ssd_scan.cu", *patch, f"ssd_without_{name}")
+                 for name, patch in SSD_KNOCKOUTS.items()]
+    if "saxpy" in kinds:
+        jobs += [("saxpy.cu", SAXPY_CFG, f"constexpr int kUnroll = {u};",
+                  f"saxpy_{u}") for u in SAXPY_UNROLL]
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
         libs = dict(zip((j[3] for j in jobs),
                         pool.map(lambda j: variant(*j), jobs)))
     stream = torch.cuda.current_stream().cuda_stream
     g = torch.Generator(device="cuda").manual_seed(0)
     out = {"card": card, "flash": {}, "gmm": {}}
+    if "ssd" in kinds:
+        out["ssd"] = ssd_rows(libs, g)
+    if "saxpy" in kinds:
+        out["saxpy"] = saxpy_rows(libs, g)
 
-    for shape_name, (B, H, KV, S, hd) in FLASH.items():
+    for shape_name, (B, H, KV, S, hd) in (FLASH.items() if "flash" in kinds
+                                          else ()):
         q = torch.randn((B, H, S, hd), generator=g, device="cuda").bfloat16()
         k = torch.randn((B, KV, S, hd), generator=g, device="cuda").bfloat16()
         v = torch.randn((B, KV, S, hd), generator=g, device="cuda").bfloat16()
@@ -140,7 +305,7 @@ def main() -> int:
                   flush=True)
         out["flash"][shape_name] = row
 
-    for shape_name, (E, C, d, f) in GMM.items():
+    for shape_name, (E, C, d, f) in GMM.items() if "gmm" in kinds else ():
         x = torch.randn((E, C, d), generator=g, device="cuda").bfloat16()
         w = (torch.randn((E, d, f), generator=g, device="cuda")
              * d ** -0.5).bfloat16()

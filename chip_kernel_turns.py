@@ -1,28 +1,34 @@
 #!/usr/bin/env python3
 """Two builds of the port's kernels, timed in turns on one CUDA card.
 
-    python3 chip_kernel_turns.py OLD_ROOT
+    python3 chip_kernel_turns.py OLD_ROOT [flash] [gmm] [saxpy] [ssd]
 
-``OLD_ROOT`` is the root of another checkout of the repository (for
-example the parent commit, unpacked with ``git archive`` into a directory
-that ``.gitignore`` lists).  Its ``src/repro_torch/csrc`` is built with the
-same ``nvcc`` flags into ``OLD_ROOT/build/kernels``, this checkout's into
-``build/kernels``.  Flash attention and the grouped GEMM then run through
-each library's C entry points on the same bf16 inputs, at the main paths'
-shapes (zamba2-2.7b's and granite-moe-3b-a800m's 1536-token prefills, and
-granite's grouped GEMMs at a 1536-token prefill and a decode step), in the
-order old, new, library call, new, old: CUDA-event means over ``REPS``
-launches after a warm-up.  The library call (``scaled_dot_product_attention``
-or ``torch.bmm``) is a yardstick only.  Each build's output is held to the
-plain version (one bf16 step plus the ``chip_smoke.py`` tolerance).  The
-host time of one C call is timed too (the TMA kernel encodes its two tensor
-maps at every call).
+(no case named: all four).  ``OLD_ROOT`` is the root of another checkout
+of the repository (for example the parent commit, unpacked with ``git
+archive`` into a directory that ``.gitignore`` lists).  Its
+``src/repro_torch/csrc`` is built with the same ``nvcc`` flags into
+``OLD_ROOT/build/kernels``, this checkout's into ``build/kernels``.  Each
+case then runs through each library's C entry points on the same inputs,
+at the main paths' shapes: flash attention and the grouped GEMM in bf16
+(zamba2-2.7b's and granite-moe-3b-a800m's 1536-token prefills, granite's
+grouped GEMMs at a prefill and a decode step); saxpy at one accelerator
+slot's 2e7 float32 elements; the SSD scan at zamba2's call, x (1, 1536,
+80 x 64), chunk 256, in float32 (as the model feeds it) and bf16, each
+checkout's ``ssd_scan_fwd`` called with its own arguments.  Order: old,
+new, library call, new, old (saxpy: five rounds of it), CUDA-event means
+over ``REPS`` launches after a warm-up.  The library call
+(``scaled_dot_product_attention``, ``torch.bmm``, ``torch.add``; none for
+the SSD scan) is a yardstick only.  Each build's output is held to the
+plain version under ``chip_smoke.py``'s tolerances.  The host time of one
+C call is timed too.
 
-Prints the card's name and power limit, then one JSON object, which is also
-written to ``build/kernel_turns.json``.  Exits non-zero without a card.
+Prints the card's name and power limit, one line a case, then one JSON
+object, which is also written to ``build/kernel_turns.json``.  Exits
+non-zero without a card.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import sys
@@ -34,6 +40,7 @@ import torch.nn.functional as F
 
 import chip_smoke as cs
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.kernels.flash_attention import NO_WINDOW
 
 REPS = 50
@@ -43,6 +50,15 @@ FLASH = {"zamba2": (1, 32, 32, 1536, 80), "granite": (1, 24, 8, 1536, 64)}
 #: (E, C, d, f), bf16
 GMM = {"prefill_in": (40, 384, 1536, 512), "prefill_out": (40, 384, 512, 1536),
        "decode": (40, 8, 1536, 512)}
+#: saxpy: one of chip_smoke.py's two accelerator slots' share (0.8 / 2) of
+#: the paper's 5e7 elements
+SAXPY_N = 2 * 10 ** 7
+#: (Bsz, S, nh, hd, ds, chunk): zamba2-2.7b's SSD call at a 1536-token
+#: prefill
+SSD = (1, 1536, 80, 64, 64, 256)
+#: the cases, and how many times each runs the turn sequence
+KINDS = ("flash", "gmm", "saxpy", "ssd")
+ROUNDS = {"saxpy": 5}
 
 
 def host_us(fn, calls: int = HOST_CALLS) -> float:
@@ -114,46 +130,156 @@ def gmm_case(libs, E, C, d, f):
     return calls, errs, (lambda: torch.bmm(x, w)), bound, nbytes
 
 
+def saxpy_case(libs, n):
+    """saxpy at one accelerator slot's share of the paper's 5e7 elements,
+    against ``torch.add(y, x, alpha=a)``."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(n, generator=g, device="cuda")
+    y = torch.randn(n, generator=g, device="cuda")
+    a = 2.5
+    want = torch.add(y, x, alpha=a)
+    stream = torch.cuda.current_stream().cuda_stream
+    calls, errs = {}, {}
+    for name, lib in libs.items():
+        z = torch.empty_like(x)
+
+        def call(lib=lib, z=z, name=name):
+            checked(lib.saxpy_f32(x.data_ptr(), y.data_ptr(), z.data_ptr(),
+                                  a, n, 0, stream), f"saxpy ({name})")
+        call()
+        torch.cuda.synchronize()
+        # within 1e-5 of torch.add, relative to 1e-5 (the card checks')
+        calls[name] = call
+        errs[name] = (z - want).abs().max().item() / 1e-5
+    bound = cs.bound_ms(12.0 * n, 2.0 * n)[0]
+    return calls, errs, (lambda: torch.add(y, x, alpha=a)), bound
+
+
+def ssd_entry(lib, root: Path):
+    """The ``ssd_scan_fwd`` of a library built from ``root``'s sources,
+    with that checkout's own argument types: since the chunk-parallel
+    design the entry point also takes three scratch tensors (states, cb,
+    cum) after ``h_out``; before it, none."""
+    text = (root / "src" / "repro_torch" / "csrc" / "ssd_scan.cu").read_text()
+    decl = text[text.index('extern "C" int ssd_scan_fwd'):]
+    scratch = "states" in decl[:decl.index(")")]
+    fn = lib.ssd_scan_fwd
+    fn.argtypes = ([ctypes.c_void_p] * (11 if scratch else 8)
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn, scratch
+
+
+def ssd_case(entries, Bsz, S, nh, hd, ds, chunk, dtype):
+    """zamba2's SSD call at a 1536-token prefill: x (1, 1536, 80 x 64),
+    d_state 64, chunk 256, as the model feeds it (float32), and in bf16."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = (torch.randn((Bsz, S, nh * hd), generator=g, device="cuda")
+         * 0.5).to(dtype)
+    dt = F.softplus(torch.randn((Bsz, S, nh), generator=g, device="cuda"))
+    Bm = (torch.randn((Bsz, S, ds), generator=g, device="cuda") * 0.5).to(
+        dtype)
+    Cm = (torch.randn((Bsz, S, ds), generator=g, device="cuda") * 0.5).to(
+        dtype)
+    A = -torch.exp(torch.randn(nh, generator=g, device="cuda") * 0.3)
+    wy, wh = ref.ssd_scan_ref(x, dt, Bm, Cm, A, chunk=chunk)
+    sy = max(1.0, wy.float().abs().max().item())
+    sh = max(1.0, wh.abs().max().item())
+    stream = torch.cuda.current_stream().cuda_stream
+    calls, errs = {}, {}
+    for name, (fn, scratch) in entries.items():
+        y = torch.empty_like(x)
+        h = torch.empty((Bsz, nh, ds, hd), device="cuda")
+        extra = []
+        if scratch:
+            extra = ssd_mod.scratch(Bsz, S, nh, hd, ds, chunk, "cuda")
+
+        def call(fn=fn, y=y, h=h, extra=extra, name=name):
+            checked(fn(x.data_ptr(), dt.data_ptr(), Bm.data_ptr(),
+                       Cm.data_ptr(), A.data_ptr(), None, y.data_ptr(),
+                       h.data_ptr(), *(t.data_ptr() for t in extra),
+                       _build.DTYPE_CODES[dtype], Bsz, S, nh, hd, ds, chunk, 0,
+                       stream), f"ssd_scan ({name})")
+        call()
+        torch.cuda.synchronize()
+        # y elementwise within one bf16 step (bf16 only) plus SSD_TOL x
+        # max(1, max |y|); h within SSD_TOL x max(1, max |h|)
+        ey = (cs.bf16_excess(y, wy, cs.SSD_TOL * sy) if dtype != torch.float32
+              else (y - wy).abs().max().item() / (cs.SSD_TOL * sy))
+        eh = (h - wh).abs().max().item() / (cs.SSD_TOL * sh)
+        calls[name], errs[name] = call, max(ey, eh)
+    bound = cs.ssd_bound(Bsz, S, chunk, nh, hd, ds, dtype)[0]
+    return calls, errs, None, bound
+
+
 def main() -> int:
-    if len(sys.argv) != 2:
+    if len(sys.argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_kernel_turns: no CUDA device", file=sys.stderr)
         return 2
     old_root = Path(sys.argv[1]).resolve()
+    kinds = sys.argv[2:] or list(KINDS)
+    unknown = set(kinds) - set(KINDS)
+    if unknown:
+        print(f"unknown cases {sorted(unknown)}; known: {list(KINDS)}",
+              file=sys.stderr)
+        return 2
     card = cs.gpu_line()
     print(card, flush=True)
-    names = ("flash_attention_fwd", "grouped_matmul_fwd")
+    names = ("flash_attention_fwd", "grouped_matmul_fwd", "saxpy_f32")
     libs = {"old": _build.load(_build.build(
                 old_root / "src" / "repro_torch" / "csrc",
                 old_root / "build" / "kernels"), names),
             "new": _build.load(_build.build(), names)}
     out = {"card": card, "torch": torch.__version__, "reps": REPS,
-           "order": "old, new, library, new, old", "flash": {}, "gmm": {}}
-    cases = [("flash", n, flash_case(libs, *shape), shape)
-             for n, shape in FLASH.items()]
-    cases += [("gmm", n, gmm_case(libs, *shape), shape)
-              for n, shape in GMM.items()]
+           "order": "old, new, library, new, old (ROUNDS[kind] times)",
+           **{k: {} for k in kinds}}
+    cases = []
+    if "flash" in kinds:
+        cases += [("flash", n, flash_case(libs, *shape), shape)
+                  for n, shape in FLASH.items()]
+    if "gmm" in kinds:
+        cases += [("gmm", n, gmm_case(libs, *shape), shape)
+                  for n, shape in GMM.items()]
+    if "saxpy" in kinds:
+        cases += [("saxpy", "slot", saxpy_case(libs, SAXPY_N), (SAXPY_N,))]
+    if "ssd" in kinds:
+        entries = {"old": ssd_entry(libs["old"], old_root),
+                   "new": ssd_entry(libs["new"], cs.ROOT)}
+        cases += [("ssd", name, ssd_case(entries, *shape, dtype), shape)
+                  for name, dtype in (("f32", torch.float32),
+                                      ("bf16", torch.bfloat16))
+                  for shape in [SSD]]
     for kind, name, case, shape in cases:
         calls, errs, lib_call, bound = case[:4]
         for n, e in errs.items():
             if e > 1.0:
                 raise RuntimeError(f"{kind} {name} ({n}): worst element at "
                                    f"{e:.3f} of its bound")
-        t = [cs.cuda_ms(c, REPS) for c in (calls["old"], calls["new"],
-                                           lib_call, calls["new"],
-                                           calls["old"])]
-        r = dict(shape=list(shape), old_ms=[t[0], t[4]], new_ms=[t[1], t[3]],
-                 library_ms=t[2], bound_ms=bound,
+        old, new, lib = [], [], []
+        for _ in range(ROUNDS.get(kind, 1)):
+            t = [cs.cuda_ms(c, REPS) if c else None
+                 for c in (calls["old"], calls["new"], lib_call,
+                           calls["new"], calls["old"])]
+            old += [t[0], t[4]]
+            new += [t[1], t[3]]
+            lib.append(t[2])
+        r = dict(shape=list(shape), old_ms=old, new_ms=new,
+                 library_ms=lib if len(lib) > 1 else lib[0],
+                 bound_ms=bound,
                  worst_share_of_bound=errs,
                  host_us={n: host_us(c) for n, c in calls.items()})
         if kind == "gmm":
-            r["new_tb_per_s"] = case[4] / (min(t[1], t[3]) * 1e-3) / 1e12
+            r["new_tb_per_s"] = case[4] / (min(new) * 1e-3) / 1e12
         out[kind][name] = r
-        print(f"{kind} {name} {list(shape)}: old {t[0]:.4f}/{t[4]:.4f} ms, "
-              f"new {t[1]:.4f}/{t[3]:.4f} ms, library {t[2]:.4f} ms, bound "
-              f"{bound:.4f} ms; host {r['host_us']} us a call", flush=True)
+        print(f"{kind} {name} {list(shape)}: old "
+              f"{'/'.join(f'{v:.4f}' for v in old)} ms, new "
+              f"{'/'.join(f'{v:.4f}' for v in new)} ms, library "
+              f"{'/'.join(f'{v:.4f}' for v in lib if v is not None)} ms, "
+              f"bound {bound:.4f} "
+              f"ms; host {r['host_us']} us a call", flush=True)
     (cs.ROOT / "build").mkdir(exist_ok=True)
     (cs.ROOT / "build" / "kernel_turns.json").write_text(json.dumps(out,
                                                                    indent=1))

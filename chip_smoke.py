@@ -58,6 +58,7 @@ from repro_torch.core import (AcceleratorPlatform, DeviceInfo,  # noqa: E402
                               Workload, build_plan)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import moe_gemm as gmm_mod  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.models import (LM, decode_step, init_cache,  # noqa: E402
                                 prefill)
 from repro_torch.models import lm as lm_mod  # noqa: E402
@@ -69,6 +70,7 @@ from repro_torch.runtime import ServeEngine  # noqa: E402
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 PEAK_BF16_PER_S = 989e12          # dense, tensor cores
+PEAK_TF32_PER_S = 495e12          # dense, tensor cores
 
 #: the paper's sizes (benchmarks/paper_suite.py BENCHMARKS); segmentation
 #: is cut from its largest class (3840 planes, ~15 GiB in and out on the
@@ -131,7 +133,8 @@ GMM_SHAPES = {"prefill_in": (40, 384, 1536, 512),
 #: the shapes timed beside torch.bmm
 GMM_TIMED = ("prefill_in", "prefill_out", "decode")
 #: the redesigned kernels, whose ptxas report must show no spills
-NO_SPILL = ("flash_mma_kernel", "gmm_wgmma_kernel")
+NO_SPILL = ("flash_mma_kernel", "gmm_wgmma_kernel", "ssd_cb",
+            "ssd_chunk_state", "ssd_state_pass", "ssd_output", "saxpy_vec4")
 #: the head of each model (zamba2: one hybrid group; granite: 2 layers),
 #: card (kernels, cuBLAS) against CPU (plain versions, CPU matmuls), same
 #: parameters, for the last-token logits and the cache the head fills
@@ -554,19 +557,36 @@ def flash_bound(B, H, KV, Sq, Sk, hd, dtype, **kw):
     return bound_ms(nbytes, 4.0 * B * H * pairs * hd, peak_for(dtype))
 
 
-def ssd_bound(Bsz, S, chunk, nh, hd, ds, dtype, h0: bool = False):
-    """Bytes: x, B, C (dtype), dt (f32) read, y written, A and the state.
-    Operations of the chunked algorithm (C.B^T once per chunk, not per
-    head): per chunk the (Q, Q) lower triangle of C.B^T, and per head its
-    decay (exp, subtract, multiply), y_diag over the triangle, the
-    carried-state term and the state update."""
+def ssd_bytes(Bsz, S, nh, hd, ds, dtype, h0: bool = False):
+    """x, B, C (dtype), dt (f32) read, y written, A and the state."""
     size = torch.finfo(dtype).bits // 8
+    return (Bsz * S * (2 * nh * hd * size + 2 * ds * size + 4 * nh)
+            + 4 * nh + 4 * Bsz * nh * ds * hd * (2 if h0 else 1))
+
+
+def ssd_bound(Bsz, S, chunk, nh, hd, ds, dtype, h0: bool = False):
+    """Bytes: ``ssd_bytes``.  Operations of the chunked algorithm (C.B^T
+    once per chunk, not per head): per chunk the (Q, Q) lower triangle of
+    C.B^T, and per head its decay (exp, subtract, multiply), y_diag over
+    the triangle, the carried-state term and the state update."""
     nc, tri = S // chunk, chunk * (chunk + 1) // 2
     ops_count = Bsz * nc * (2 * tri * ds + nh * (3 * tri + 2 * tri * hd
                                                  + 4 * chunk * ds * hd))
-    nbytes = (Bsz * S * (2 * nh * hd * size + 2 * ds * size + 4 * nh)
-              + 4 * nh + 4 * Bsz * nh * ds * hd * (2 if h0 else 1))
-    return bound_ms(nbytes, ops_count, peak_for(dtype))
+    return bound_ms(ssd_bytes(Bsz, S, nh, hd, ds, dtype, h0), ops_count,
+                    peak_for(dtype))
+
+
+def ssd_split_bound(Bsz, S, chunk, nh, hd, ds, dtype, h0: bool = False):
+    """The bound at the rate of the instructions the kernel issues: its
+    products (C.B^T over the triangle once per chunk; per head the
+    masked-decay tile times dt x, the carried-state term and the state
+    update), each issued three times (split TF32: lo.hi + hi.lo + hi.hi),
+    at the TF32 tensor-core peak; bytes as ``ssd_bound``."""
+    nc, tri = S // chunk, chunk * (chunk + 1) // 2
+    products = Bsz * nc * (2 * tri * ds + nh * (2 * tri * hd
+                                                + 4 * chunk * ds * hd))
+    return bound_ms(ssd_bytes(Bsz, S, nh, hd, ds, dtype, h0),
+                    3.0 * products, PEAK_TF32_PER_S)
 
 
 def lm_kernel_phase(cfg):
@@ -667,7 +687,10 @@ def lm_kernel_phase(cfg):
         tolerance=f"f32: {SSD_TOL} x max(1, max |y|) and x max(1, max |h|); "
                   f"bf16 y: 2^-7 |plain| + {SSD_TOL} x max(1, max |y|) "
                   "elementwise",
-        bound=ssd_bound(1, S, Q, nh, shd, ds, torch.float32))
+        bound=ssd_bound(1, S, Q, nh, shd, ds, torch.float32),
+        bound_split_tf32=ssd_split_bound(1, S, Q, nh, shd, ds,
+                                         torch.float32),
+        kernels_per_call=ssd_mod.KERNELS_PER_CALL)
     torch.cuda.synchronize()
     return results
 
@@ -1041,14 +1064,19 @@ def lm_profile(cfg, model):
         busy = sum(t for _, t, _ in kernels) / 1e6
         launches = sum(n for _, _, n in kernels)
         top = sorted(kernels, key=lambda ktn: -ktn[1])[:6]
+        # the SSD scan's four kernels, summed
+        ssd = [(t, n) for k, t, n in kernels if "ssd_" in k]
         out[what] = dict(wall_s=wall, device_busy_s=busy,
                          kernel_launches=launches,
                          idle_share=1.0 - busy / wall if busy else None,
+                         ssd_s=sum(t for t, _ in ssd) / 1e6,
+                         ssd_launches=sum(n for _, n in ssd),
                          top_kernels_s=[(k[:80], t / 1e6, n)
                                         for k, t, n in top])
         print(f"lm profile {what}: wall {wall:.4f} s, device busy "
-              f"{busy:.4f} s, {launches} kernel launches; top "
-              f"{out[what]['top_kernels_s'][:3]}", flush=True)
+              f"{busy:.4f} s, {launches} kernel launches; SSD kernels "
+              f"{out[what]['ssd_s']:.4f} s in {out[what]['ssd_launches']} "
+              f"launches; top {out[what]['top_kernels_s'][:3]}", flush=True)
     return out
 
 
@@ -1071,6 +1099,13 @@ def lm_phase(arch):
               f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, "
               f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), max err "
               f"{r['max_abs_err']:.3g}", flush=True)
+    if "ssd_scan" in kernels:
+        r = kernels["ssd_scan"]
+        print(f"kernel ssd_scan: {r['kernels_per_call']} kernels a call "
+              "(C.B^T per chunk, chunk end states, state passing, outputs); "
+              f"bound at the split-TF32 tensor-core rate "
+              f"{r['bound_split_tf32'][0]:.4f} ms "
+              f"({r['bound_split_tf32'][1]})", flush=True)
     for shape in ("prefill_out", "decode"):
         if shape not in kernels.get("grouped_matmul", {}):
             continue

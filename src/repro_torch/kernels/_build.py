@@ -43,10 +43,9 @@ SIGNATURES: Dict[str, List] = {
     # v, o, scale, softcap, causal, window, kv_len, device, stream
     "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             *[_L] * 12, _F, _F, _I, _I, _I, _I, _P],
-    # x, dt, B, C, A, h0 (or NULL), y, h_out, dtype, batch, S, nh, hd, ds,
-    # chunk, device, stream
-    "ssd_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                     _I, _I, _I, _P],
+    # x, dt, B, C, A, h0 (or NULL), y, h_out, scratch states, cb, cum,
+    # dtype, batch, S, nh, hd, ds, chunk, device, stream
+    "ssd_scan_fwd": [*[_P] * 11, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, w, y, dtype, E, C, d, f, device, stream
     "grouped_matmul_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, w, y, E, C, d, f, device, stream (bfloat16)

@@ -1,4 +1,6 @@
-"""The Mamba2 SSD chunk scan on the card, launching ``csrc/ssd_scan.cu``."""
+"""The Mamba2 SSD chunk scan on the card, launching ``csrc/ssd_scan.cu``
+(four kernels a call: C.B^T per chunk, each chunk's own end state, the
+state passing over the chunks, the outputs)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -11,9 +13,25 @@ from repro_torch.kernels._build import (DTYPE_CODES, LaunchCounter,
 
 launches = LaunchCounter("ssd_scan")
 
-MAX_CHUNK = 256          # one thread block row per position of a chunk
+MAX_CHUNK = 256          # positions of a chunk
 MAX_DIM = 128            # head_dim and d_state, each a multiple of 16
+#: kernels one call launches
+KERNELS_PER_CALL = 4
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def scratch(Bsz: int, S: int, nh: int, hd: int, ds: int, chunk: int,
+            device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernels' float32 scratch: each chunk's end state, then its
+    starting state (Bsz, S/chunk, nh, ds, hd); C.B^T of each chunk in whole
+    64 x 64 tiles (Bsz, S/chunk, qp, qp), qp = chunk rounded up to 64; the
+    within-chunk cumsum of dt * A (Bsz, nh, S)."""
+    nc, qp = S // chunk, -(-chunk // 64) * 64
+    return (torch.empty((Bsz, nc, nh, ds, hd), dtype=torch.float32,
+                        device=device),
+            torch.empty((Bsz, nc, qp, qp), dtype=torch.float32,
+                        device=device),
+            torch.empty((Bsz, nh, S), dtype=torch.float32, device=device))
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
@@ -55,12 +73,19 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
         if tuple(h0.shape) != (Bsz, nh, ds, hd):
             raise ValueError(f"h0 {tuple(h0.shape)} is not "
                              f"{(Bsz, nh, ds, hd)}")
+    # the kernels read x, B, C and h0 four elements at a time: a view that
+    # does not start on 16 bytes is copied to one that does
+    x, B, C = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, B, C))
+    if h0 is not None and h0.data_ptr() % 16:
+        h0 = h0.clone()
     y = torch.empty_like(x)
     h = torch.empty((Bsz, nh, ds, hd), dtype=torch.float32, device=dev)
+    states, cb, cum = scratch(Bsz, S, nh, hd, ds, chunk, dev)
     check_launch(library().ssd_scan_fwd(
         x.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(),
         A.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
-        h.data_ptr(), DTYPE_CODES[x.dtype], Bsz, S, nh, hd, ds, chunk,
-        dev.index, stream_of(x)), "ssd_scan")
+        h.data_ptr(), states.data_ptr(), cb.data_ptr(), cum.data_ptr(),
+        DTYPE_CODES[x.dtype], Bsz, S, nh, hd, ds, chunk, dev.index,
+        stream_of(x)), "ssd_scan")
     launches.add()
     return y, h

@@ -286,6 +286,152 @@ def test_ssd_scan_matches_plain_on_card(dtype, cuda_device):
         1.0, wh.abs().max().item())
 
 
+def _ssd_inputs(Bsz, S, nh, hd, ds, dtype, device, seed=3, a_scale=0.3):
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(Bsz, S, nh * hd, generator=g) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(Bsz, S, nh, generator=g))
+    Bm = (torch.randn(Bsz, S, ds, generator=g) * 0.5).to(dtype)
+    Cm = (torch.randn(Bsz, S, ds, generator=g) * 0.5).to(dtype)
+    A = -torch.exp(torch.randn(nh, generator=g) * a_scale)
+    return [t.to(device) for t in (x, dt, Bm, Cm, A)]
+
+
+def _ssd_within_bound(y, h, wy, wh):
+    """float32: |err| <= 3e-4 x max(1, max |want|) for y and for h; bf16 y:
+    each element within one bf16 step (2^-7 of its value) more."""
+    rtol = 0.0 if y.dtype == torch.float32 else 2 ** -7
+    scale = max(1.0, wy.float().abs().max().item())
+    assert ((y.float() - wy.float()).abs()
+            <= rtol * wy.float().abs() + 3e-4 * scale).all()
+    assert (h - wh).abs().max().item() <= 3e-4 * max(
+        1.0, wh.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_at_zamba2_shape_on_card(dtype, cuda_device):
+    """zamba2-2.7b's prefill shape (nh 80, hd 64, ds 64, 1536 positions in
+    chunks of 256): four kernels a call, one count; a second call gives
+    the same bits."""
+    x, dt, Bm, Cm, A = _ssd_inputs(1, 1536, 80, 64, 64, dtype, cuda_device)
+    before = ops.COUNTERS["ssd_scan"].value
+    y, h = ops.ssd_scan(x, dt, Bm, Cm, A, chunk=256)
+    y2, h2 = ops.ssd_scan(x, dt, Bm, Cm, A, chunk=256)
+    torch.cuda.synchronize()
+    assert ops.COUNTERS["ssd_scan"].value == before + 2
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    wy, wh = ref.ssd_scan_ref(x, dt, Bm, Cm, A, chunk=256)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    _ssd_within_bound(y, h, wy, wh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tail", [1, 7, 65, 232])
+def test_ssd_scan_tail_chained_on_card(tail, cuda_device):
+    """512 positions in chunks of 256, then a ragged tail as one chunk of
+    its own through h0, as the model chains a prompt's tail."""
+    S, nh, hd, ds = 512, 4, 64, 64
+    x, dt, Bm, Cm, A = _ssd_inputs(1, S + tail, nh, hd, ds, torch.float32,
+                                   cuda_device, seed=tail)
+    y1, h1 = ops.ssd_scan(x[:, :S], dt[:, :S], Bm[:, :S], Cm[:, :S], A,
+                          chunk=256)
+    y2, h2 = ops.ssd_scan(x[:, S:], dt[:, S:], Bm[:, S:], Cm[:, S:], A,
+                          chunk=tail, h0=h1)
+    wy, wh = ref.ssd_scan_ref(x, dt, Bm, Cm, A, chunk=1)
+    _ssd_within_bound(torch.cat([y1, y2], 1), h2, wy, wh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bsz,S,nh,hd,ds,chunk", [
+    (1, 300, 3, 16, 16, 100),
+    (1, 260, 2, 128, 128, 130),
+    (1, 192, 2, 16, 128, 64),
+    (1, 200, 2, 128, 16, 40),
+    (2, 384, 3, 48, 80, 128),
+], ids=["hd16_ds16", "hd128_ds128", "hd16_ds128", "hd128_ds16", "batch2"])
+def test_ssd_scan_shapes_on_card(Bsz, S, nh, hd, ds, chunk, dtype,
+                                 cuda_device):
+    """head_dim and d_state at 16 and 128, chunks that are no multiple of
+    64, batch 2, with an h0: y and h_final against the recurrence."""
+    x, dt, Bm, Cm, A = _ssd_inputs(Bsz, S, nh, hd, ds, dtype, cuda_device,
+                                   seed=hd + ds)
+    h0 = torch.randn(Bsz, nh, ds, hd,
+                     generator=torch.Generator().manual_seed(1)).to(
+        cuda_device)
+    y, h = ops.ssd_scan(x, dt, Bm, Cm, A, chunk=chunk, h0=h0)
+    wy, wh = ref.ssd_scan_ref(x, dt, Bm, Cm, A, chunk=chunk, h0=h0)
+    _ssd_within_bound(y, h, wy, wh)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_strong_decay_on_card(cuda_device):
+    """A decay so strong that exp(cum_q - cum_k) underflows to 0 a few
+    positions back, and exp(cum_k - cum_q) above the diagonal overflows:
+    selected, never multiplied, so no NaN."""
+    x, dt, Bm, Cm, A = _ssd_inputs(1, 256, 2, 32, 32, torch.float32,
+                                   cuda_device, seed=9)
+    A = A * 40.0
+    y, h = ops.ssd_scan(x, dt, Bm, Cm, A, chunk=128)
+    wy, wh = ref.ssd_scan_ref(x, dt, Bm, Cm, A, chunk=128)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    _ssd_within_bound(y, h, wy, wh)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_unaligned_views_on_card(cuda_device):
+    """x, B, C and h0 as views one element into their storage (rows that
+    do not start on 16 bytes): the same bits as aligned copies."""
+    x, dt, Bm, Cm, A = _ssd_inputs(1, 128, 2, 32, 16, torch.float32,
+                                   cuda_device, seed=4)
+    h0 = torch.randn(1, 2, 16, 32,
+                     generator=torch.Generator().manual_seed(2)).to(
+        cuda_device)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, device=cuda_device)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        return view
+    views = [shifted(t) for t in (x, Bm, Cm, h0)]
+    assert all(v.data_ptr() % 16 and v.is_contiguous() for v in views)
+    got = ops.ssd_scan(views[0], dt, views[1], views[2], A, chunk=64,
+                       h0=views[3])
+    want = ops.ssd_scan(x, dt, Bm, Cm, A, chunk=64, h0=h0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_ssd_scan_refuses_what_it_cannot_take_on_card(cuda_device):
+    x, dt, Bm, Cm, A = _ssd_inputs(1, 64, 2, 16, 16, torch.float32,
+                                   cuda_device)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ops.ssd_scan(x, dt, Bm, Cm, A, chunk=48)
+    with pytest.raises(ValueError, match="1 <= chunk"):
+        ops.ssd_scan(x, dt, Bm, Cm, A, chunk=0)
+    x2, dt2, Bm2, Cm2, A2 = _ssd_inputs(1, 64, 2, 24, 16, torch.float32,
+                                        cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.ssd_scan(x2, dt2, Bm2, Cm2, A2, chunk=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(3, 0), (1023, 0), (1024, 0),
+                                      (1025, 1), (4097, 0), (1_000_003, 2),
+                                      (20_000_000, 0)])
+def test_saxpy_ragged_and_repeatable_on_card(n, offset, cuda_device):
+    """Lengths under, at and past one block's 1024 float4 loads, views
+    that start off 16 bytes (the scalar path), the slot's 2e7: within the
+    card checks' 1e-5, and bit-identical across calls."""
+    g = torch.Generator().manual_seed(n)
+    x = torch.randn(n + offset, generator=g).to(cuda_device)[offset:]
+    y = torch.randn(n + offset, generator=g).to(cuda_device)[offset:]
+    got = ops.saxpy(2.5, x, y)
+    assert torch.equal(got, ops.saxpy(2.5, x, y))
+    torch.testing.assert_close(got, ref.saxpy_ref(2.5, x, y), rtol=1e-5,
+                               atol=1e-5)
+
+
 @pytest.mark.cuda
 def test_smoke_model_serves_on_card_as_on_cpu(cuda_device):
     """zamba2's smoke config in float32: prefill logits and state on the
