@@ -2,9 +2,9 @@
 """Tile shapes and knock-out builds of the port's redesigned kernels, timed
 on one CUDA card.
 
-    python3 chip_kernel_shapes.py [flash] [gmm] [ssd] [saxpy]
+    python3 chip_kernel_shapes.py [flash] [gmm] [ssd] [saxpy] [nbody] [sass]
 
-(no argument: all four).  Rebuilds a kernel's source with one setting
+(no argument: all six).  Rebuilds a kernel's source with one setting
 replaced, each variant into its own library under ``build/shapes/``, all
 built at once, and times each at the main paths' shapes (CUDA-event means
 over 50 launches after a warm-up, twice), its output held to the plain
@@ -24,15 +24,28 @@ each list.
   memory.
 - saxpy, at one slot's 2e7 elements: 1, 2, 4 and 8 float4 loads of x and
   of y a thread, beside ``torch.add``.
+- nbody, at one slot's targets against all bodies at the paper's three
+  size classes: as built (with each of its kernels' device time from
+  ``torch.profiler``, and the SASS instruction mix of the sweep); the
+  plan aimed at 4, 8 or 32 blocks an SM, or one split (same build);
+  built for 2 or 8 targets a thread, a 256-source tile, 16 sources
+  unrolled, the subnormal-safe ``rsqrtf``, launches that wait in full for
+  the one before; and without the reduction pass.
+- sass: the SASS instruction mix of every kernel of the port as built
+  (``cuobjdump``), by opcode.
 A knocked-out build's output is wrong and not checked.  Prints the card,
 one line a variant and the registers and spills ``ptxas`` reports, and
 writes ``build/kernel_shapes.json``.  Exits non-zero without a card.
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import json
 import math
+import re
+import shutil
+import subprocess
 import sys
 from pathlib import Path
 
@@ -41,6 +54,7 @@ import torch.nn.functional as F
 
 import chip_smoke as cs
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels import nbody as nbody_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.kernels.flash_attention import NO_WINDOW
 
@@ -89,7 +103,26 @@ SSD = (1, 1536, 80, 64, 64, 256)
 SAXPY_CFG = "constexpr int kUnroll = 2;"
 SAXPY_UNROLL = [2, 1, 4, 8]
 SAXPY_N = 2 * 10 ** 7
-KINDS = ("flash", "gmm", "ssd", "saxpy")
+#: N-body builds: targets a thread (the source's 4 first), a 256-source
+#: tile, rsqrtf in place of the flush-to-zero rsqrt.approx, and the reduction
+#: pass knocked out (its output is then wrong and not checked)
+NBODY_TARGETS_CFG = "constexpr int kTargets = 4;"
+NBODY_TARGETS = [4, 2, 8]
+NBODY_PATCHES = {
+    "tile256": ("constexpr int kTile = 128;", "constexpr int kTile = 256;"),
+    "rsqrtf": ('asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));',
+               "y = rsqrtf(x);"),
+    "unroll16": ("#pragma unroll 8\n    for (int s = 0;",
+                 "#pragma unroll 16\n    for (int s = 0;"),
+    "serial_launches": ("constexpr bool kOverlapLaunches = true;",
+                        "constexpr bool kOverlapLaunches = false;"),
+    "without_reduction": ("  if (err == cudaSuccess && splits > 1) {",
+                          "  if (false) {"),
+}
+#: blocks an SM the plan aims at, on the as-built library (the module's
+#: choice first); 0: one split
+NBODY_BLOCKS_PER_SM = [nbody_mod.BLOCKS_PER_SM, 4, 8, 32, 0]
+KINDS = ("flash", "gmm", "ssd", "saxpy", "nbody", "sass")
 FLASH = {"zamba2": (1, 32, 32, 1536, 80), "granite": (1, 24, 8, 1536, 64)}
 GMM = {"prefill_in": (40, 384, 1536, 512), "prefill_out": (40, 384, 512, 1536),
        "ragged_c": (40, 72, 1536, 512)}
@@ -214,6 +247,141 @@ def saxpy_rows(libs, g):
     return row
 
 
+def sass_mix(lib: Path):
+    """{kernel: {opcode: instructions}} of every kernel in the SASS of
+    ``lib`` (``cuobjdump``), or None where the toolkit has no
+    ``cuobjdump``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120).stdout
+    out, counts = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            counts = out.setdefault(m.group(1), collections.Counter())
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
+                      line)
+        if m and counts is not None:
+            counts[m.group(1)] += 1
+    return {k: dict(v.most_common()) for k, v in out.items()}
+
+
+def clocks_during(fn):
+    """``fn()``, with the card's SM clock (MHz) and power draw (W) sampled
+    by ``nvidia-smi`` every 50 ms while it runs: (result, median MHz,
+    lowest MHz, median W)."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        out = fn()
+    finally:
+        proc.terminate()
+        text = proc.communicate(timeout=30)[0]
+    rows = [[float(v) for v in line.split(",")]
+            for line in text.splitlines() if line.strip()]
+    mhz = sorted(r[0] for r in rows) or [math.nan]
+    watts = sorted(r[1] for r in rows) or [math.nan]
+    return out, mhz[len(mhz) // 2], mhz[0], watts[len(watts) // 2]
+
+
+def nbody_rows(libs, g):
+    """N-body at each slot shape: each build and plan's ms (twice), worst
+    error as a share of the card checks' bound, device us a call by
+    kernel; the as-built sweep's SASS mix."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    runs = [("nbody", f"plan for {b} blocks an SM" if b else "one split",
+             nbody_mod.TARGETS_PER_THREAD, nbody_mod.TILE, b)
+            for b in NBODY_BLOCKS_PER_SM]
+    runs += [(f"nbody_targets{k}", f"{k} targets a thread", k,
+              nbody_mod.TILE, nbody_mod.BLOCKS_PER_SM)
+             for k in NBODY_TARGETS[1:]]
+    runs += [("nbody_tile256", "tile 256", nbody_mod.TARGETS_PER_THREAD, 256,
+              nbody_mod.BLOCKS_PER_SM),
+             ("nbody_rsqrtf", "rsqrtf", nbody_mod.TARGETS_PER_THREAD,
+              nbody_mod.TILE, nbody_mod.BLOCKS_PER_SM),
+             ("nbody_unroll16", "16 sources unrolled",
+              nbody_mod.TARGETS_PER_THREAD, nbody_mod.TILE,
+              nbody_mod.BLOCKS_PER_SM),
+             ("nbody_serial_launches", "launches in plain stream order",
+              nbody_mod.TARGETS_PER_THREAD, nbody_mod.TILE,
+              nbody_mod.BLOCKS_PER_SM),
+             ("nbody_without_reduction", "without the reduction pass",
+              nbody_mod.TARGETS_PER_THREAD, nbody_mod.TILE,
+              nbody_mod.BLOCKS_PER_SM)]
+    out = {"sass_nbody_tiles": {
+        name: {k: v for k, v in (sass_mix(libs[name]) or {}).items()
+               if "nbody_tiles" in k} for name in ("nbody", "nbody_rsqrtf")}}
+    print(f"nbody sweep SASS mix: {out['sass_nbody_tiles']}", flush=True)
+    for n_i, n_j in cs.NBODY_SLOTS:
+        pos = torch.randn((n_j, 3), generator=g, device="cuda")
+        mass = torch.rand(n_j, generator=g, device="cuda") + 0.1
+        tgt = pos[:n_i]
+        want = ref.nbody_ref(pos.double(), mass.double(),
+                             targets=tgt.double())
+        scale = cs.NBODY_TOL * want.abs().max().item()
+        row = {"bound_ms": cs.bound_ms(24.0 * n_i + 16.0 * n_j,
+                                       20.0 * n_i * n_j)[0]}
+        for name, label, k, tile, bps in runs:
+            if bps:
+                plan = nbody_mod.launch_plan(
+                    n_i, n_j, sms, targets_per_block=nbody_mod.THREADS * k,
+                    tile=tile, blocks_per_sm=bps)
+                splits, split_len = plan.splits, plan.split_len
+            else:
+                splits, split_len = 1, -(-n_j // tile) * tile
+            lib = _build.load(libs[name], ("nbody_acc_f32",))
+            acc = torch.empty_like(tgt)
+            scratch = torch.empty(
+                (nbody_mod.scratch_rows(n_i, n_j, splits, tile), 4),
+                device="cuda")
+
+            def call(lib=lib, acc=acc, scratch=scratch, splits=splits,
+                     split_len=split_len):
+                return lib.nbody_acc_f32(
+                    tgt.data_ptr(), n_i, pos.data_ptr(), mass.data_ptr(), n_j,
+                    acc.data_ptr(), nbody_mod.SOFTENING, scratch.data_ptr(),
+                    splits, split_len, 0, stream)
+            if call():
+                raise RuntimeError(f"{name} did not launch")
+            torch.cuda.synchronize()
+            checked = "without" not in name
+            share = (acc.double() - want).abs().max().item() / scale
+            if checked and share > 1.0:
+                raise RuntimeError(f"{name} {n_i}x{n_j}: {share:.3f} of its "
+                                   "bound")
+            key = f"{name}:{label}"
+            if name == "nbody" and bps == nbody_mod.BLOCKS_PER_SM:
+                # a second of back-to-back calls, with the clock beside it
+                ms, mhz, low, watts = clocks_during(
+                    lambda: cs.cuda_ms(call, max(REPS, int(1.0 / (
+                        cs.cuda_ms(call, REPS) * 1e-3)))))
+                row["sustained"] = dict(ms=ms, sm_mhz_median=mhz,
+                                        sm_mhz_lowest=low,
+                                        watts_median=watts)
+                print(f"nbody {n_i}x{n_j} as built, sustained: "
+                      f"{row['sustained']}", flush=True)
+            row[key] = dict(ms=[cs.cuda_ms(call, REPS) for _ in range(2)],
+                            splits=splits, blocks=-(-n_i // (
+                                nbody_mod.THREADS * k)) * splits,
+                            share_of_bound=share if checked else None,
+                            kernels_us=kernel_times(call),
+                            ptxas=ptxas(libs[name], "nbody_"),
+                            spills=spills(libs[name], "nbody_"))
+            print(f"nbody {n_i}x{n_j} {label}: {row[key]['ms']} ms, "
+                  f"{splits} splits, {row[key]['blocks']} blocks, share of "
+                  f"bound {row[key]['share_of_bound']}, device us by kernel "
+                  f"{row[key]['kernels_us']}, ptxas (registers, spill "
+                  f"bytes) {row[key]['ptxas']}", flush=True)
+        out[f"{n_i}x{n_j}"] = row
+    return out
+
+
 def spills(lib: Path, kernel: str):
     """The instantiations of ``kernel`` that spill: {name: (registers,
     spill store bytes)}."""
@@ -255,6 +423,13 @@ def main() -> int:
     if "saxpy" in kinds:
         jobs += [("saxpy.cu", SAXPY_CFG, f"constexpr int kUnroll = {u};",
                   f"saxpy_{u}") for u in SAXPY_UNROLL]
+    if "nbody" in kinds:
+        jobs += [("nbody.cu", NBODY_TARGETS_CFG,
+                  f"constexpr int kTargets = {k};",
+                  "nbody" if k == NBODY_TARGETS[0] else f"nbody_targets{k}")
+                 for k in NBODY_TARGETS]
+        jobs += [("nbody.cu", *patch, f"nbody_{name}")
+                 for name, patch in NBODY_PATCHES.items()]
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
         libs = dict(zip((j[3] for j in jobs),
                         pool.map(lambda j: variant(*j), jobs)))
@@ -265,6 +440,13 @@ def main() -> int:
         out["ssd"] = ssd_rows(libs, g)
     if "saxpy" in kinds:
         out["saxpy"] = saxpy_rows(libs, g)
+    if "nbody" in kinds:
+        out["nbody"] = nbody_rows(libs, g)
+    if "sass" in kinds:
+        out["sass"] = sass_mix(_build.build())
+        for k, v in (out["sass"] or {}).items():
+            print(f"sass {k}: {sum(v.values())} instructions, {v}",
+                  flush=True)
 
     for shape_name, (B, H, KV, S, hd) in (FLASH.items() if "flash" in kinds
                                           else ()):

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Two builds of the port's kernels, timed in turns on one CUDA card.
 
-    python3 chip_kernel_turns.py OLD_ROOT [flash] [gmm] [saxpy] [ssd]
+    python3 chip_kernel_turns.py OLD_ROOT [flash] [gmm] [saxpy] [ssd] [nbody]
 
-(no case named: all four).  ``OLD_ROOT`` is the root of another checkout
+(no case named: all five).  ``OLD_ROOT`` is the root of another checkout
 of the repository (for example the parent commit, unpacked with ``git
 archive`` into a directory that ``.gitignore`` lists).  Its
 ``src/repro_torch/csrc`` is built with the same ``nvcc`` flags into
@@ -14,11 +14,15 @@ at the main paths' shapes: flash attention and the grouped GEMM in bf16
 grouped GEMMs at a prefill and a decode step); saxpy at one accelerator
 slot's 2e7 float32 elements; the SSD scan at zamba2's call, x (1, 1536,
 80 x 64), chunk 256, in float32 (as the model feeds it) and bf16, each
-checkout's ``ssd_scan_fwd`` called with its own arguments.  Order: old,
-new, library call, new, old (saxpy: five rounds of it), CUDA-event means
-over ``REPS`` launches after a warm-up.  The library call
-(``scaled_dot_product_attention``, ``torch.bmm``, ``torch.add``; none for
-the SSD scan) is a yardstick only.  Each build's output is held to the
+checkout's ``ssd_scan_fwd`` called with its own arguments; N-body at one
+accelerator slot's targets against all bodies at the paper's three size
+classes, float32, each checkout's ``nbody_acc_f32`` called with its own
+arguments (the split design's scratch allocated once, outside the timed
+calls).  Order: old, new, library call, new, old (saxpy: five rounds of
+it, N-body three), CUDA-event means over ``REPS`` launches after a
+warm-up.  The library call (``scaled_dot_product_attention``,
+``torch.bmm``, ``torch.add``; none for the SSD scan and N-body) is a
+yardstick only.  Each build's output is held to the
 plain version under ``chip_smoke.py``'s tolerances.  The host time of one
 C call is timed too.
 
@@ -32,7 +36,6 @@ import ctypes
 import json
 import math
 import sys
-import time
 from pathlib import Path
 
 import torch
@@ -40,11 +43,11 @@ import torch.nn.functional as F
 
 import chip_smoke as cs
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels import nbody as nbody_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.kernels.flash_attention import NO_WINDOW
 
 REPS = 50
-HOST_CALLS = 200
 #: (B, H, KV, S, hd) causal, bf16
 FLASH = {"zamba2": (1, 32, 32, 1536, 80), "granite": (1, 24, 8, 1536, 64)}
 #: (E, C, d, f), bf16
@@ -57,20 +60,8 @@ SAXPY_N = 2 * 10 ** 7
 #: prefill
 SSD = (1, 1536, 80, 64, 64, 256)
 #: the cases, and how many times each runs the turn sequence
-KINDS = ("flash", "gmm", "saxpy", "ssd")
-ROUNDS = {"saxpy": 5}
-
-
-def host_us(fn, calls: int = HOST_CALLS) -> float:
-    """Host microseconds per call (enqueue only), after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    t = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return t / calls * 1e6
+KINDS = ("flash", "gmm", "saxpy", "ssd", "nbody")
+ROUNDS = {"saxpy": 5, "nbody": 3}
 
 
 def checked(rc: int, what: str) -> None:
@@ -212,6 +203,55 @@ def ssd_case(entries, Bsz, S, nh, hd, ds, chunk, dtype):
     return calls, errs, None, bound
 
 
+def nbody_entry(lib, root: Path):
+    """The ``nbody_acc_f32`` of a library built from ``root``'s sources,
+    with that checkout's own argument types: since the source-split design
+    the entry point also takes the scratch, the splits and the split length
+    after ``softening``; before it, none."""
+    text = (root / "src" / "repro_torch" / "csrc" / "nbody.cu").read_text()
+    decl = text[text.index('extern "C" int nbody_acc_f32'):]
+    split = "scratch" in decl[:decl.index(")")]
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = lib.nbody_acc_f32
+    fn.argtypes = ([P, I, P, P, I, P, ctypes.c_float]
+                   + ([P, I, I] if split else []) + [I, P])
+    fn.restype = ctypes.c_int
+    return fn, split
+
+
+def nbody_case(entries, n_i, n_j):
+    """One slot's ``n_i`` targets against all ``n_j`` bodies, float32, held
+    to float64 under ``NBODY_TOL``."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    pos = torch.randn((n_j, 3), generator=g, device="cuda")
+    mass = torch.rand(n_j, generator=g, device="cuda") + 0.1
+    tgt = pos[:n_i]
+    want = ref.nbody_ref(pos.double(), mass.double(), targets=tgt.double())
+    scale = cs.NBODY_TOL * want.abs().max().item()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = nbody_mod.launch_plan(n_i, n_j, sms)
+    stream = torch.cuda.current_stream().cuda_stream
+    calls, errs = {}, {}
+    for name, (fn, split) in entries.items():
+        acc = torch.empty_like(tgt)
+        scratch = torch.empty(
+            (nbody_mod.scratch_rows(n_i, n_j, plan.splits), 4),
+            device="cuda") if split else None
+
+        def call(fn=fn, acc=acc, scratch=scratch, name=name):
+            extra = ([] if scratch is None else
+                     [scratch.data_ptr(), plan.splits, plan.split_len])
+            checked(fn(tgt.data_ptr(), n_i, pos.data_ptr(), mass.data_ptr(),
+                       n_j, acc.data_ptr(), nbody_mod.SOFTENING, *extra, 0,
+                       stream), f"nbody ({name})")
+        call()
+        torch.cuda.synchronize()
+        calls[name] = call
+        errs[name] = (acc.double() - want).abs().max().item() / scale
+    bound = cs.bound_ms(24.0 * n_i + 16.0 * n_j, 20.0 * n_i * n_j)[0]
+    return calls, errs, None, bound
+
+
 def main() -> int:
     if len(sys.argv) < 2:
         print(__doc__, file=sys.stderr)
@@ -252,6 +292,11 @@ def main() -> int:
                   for name, dtype in (("f32", torch.float32),
                                       ("bf16", torch.bfloat16))
                   for shape in [SSD]]
+    if "nbody" in kinds:
+        entries = {"old": nbody_entry(libs["old"], old_root),
+                   "new": nbody_entry(libs["new"], cs.ROOT)}
+        cases += [("nbody", f"{n_i}x{n_j}", nbody_case(entries, n_i, n_j),
+                   (n_i, n_j)) for n_i, n_j in cs.NBODY_SLOTS]
     for kind, name, case, shape in cases:
         calls, errs, lib_call, bound = case[:4]
         for n, e in errs.items():
@@ -270,7 +315,7 @@ def main() -> int:
                  library_ms=lib if len(lib) > 1 else lib[0],
                  bound_ms=bound,
                  worst_share_of_bound=errs,
-                 host_us={n: host_us(c) for n, c in calls.items()})
+                 host_us={n: cs.host_us(c) for n, c in calls.items()})
         if kind == "gmm":
             r["new_tb_per_s"] = case[4] / (min(new) * 1e-3) / 1e12
         out[kind][name] = r

@@ -58,6 +58,7 @@ from repro_torch.core import (AcceleratorPlatform, DeviceInfo,  # noqa: E402
                               Workload, build_plan)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import moe_gemm as gmm_mod  # noqa: E402
+from repro_torch.kernels import nbody as nbody_mod  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.models import (LM, decode_step, init_cache,  # noqa: E402
                                 prefill)
@@ -83,6 +84,15 @@ SHARE_A = 0.8           # accelerator share of the KB profile carried in
 OVERLAP = 2             # CUDA streams on cuda:0
 FISSION = "L2"          # host fission level of that profile
 NBODY_TOL = 3e-4        # max |err| / max |acc| against float64
+#: (targets, bodies) of one accelerator slot (share SHARE_A / OVERLAP) at
+#: the paper's N-body size classes, as the main path partitions them; the
+#: timing scripts use them
+NBODY_SLOTS = [(3277, 8192), (6554, 16384), (13107, 32768)]
+#: operations a filtered pixel costs in csrc/filter_pipeline.cu: two
+#: integer hashes (~8 each: multiply-add, two shift-xors, a multiply, a
+#: mask, a conversion) and two IEEE divisions (~8 each: reciprocal,
+#: refinement, range check), then noise, clip, solarize and addressing
+FILTER_OPS = 50.0
 
 KERNELS = {
     "saxpy": ("src/repro_torch/csrc/saxpy.cu",
@@ -134,7 +144,8 @@ GMM_SHAPES = {"prefill_in": (40, 384, 1536, 512),
 GMM_TIMED = ("prefill_in", "prefill_out", "decode")
 #: the redesigned kernels, whose ptxas report must show no spills
 NO_SPILL = ("flash_mma_kernel", "gmm_wgmma_kernel", "ssd_cb",
-            "ssd_chunk_state", "ssd_state_pass", "ssd_output", "saxpy_vec4")
+            "ssd_chunk_state", "ssd_state_pass", "ssd_output", "saxpy_vec4",
+            "nbody_pack", "nbody_tiles", "nbody_reduce")
 #: the head of each model (zamba2: one hybrid group; granite: 2 layers),
 #: card (kernels, cuBLAS) against CPU (plain versions, CPU matmuls), same
 #: parameters, for the last-token logits and the cache the head fills
@@ -277,24 +288,45 @@ def make_scheduler(balancer=None) -> Scheduler:
                      kb=kb, balancer=balancer)
 
 
-def first_partitioning(sched: Scheduler, name: str, arrays):
-    """The partitioning the first request will run under (the KB profile's
-    slots and shares), for the kernel phase's main-path shapes."""
+def first_partitioning(sched: Scheduler, sct, shapes):
+    """The partitioning a first request of ``sct`` on arrays of ``shapes``
+    runs under (the KB profile's slots and shares), for the kernel phase's
+    main-path shapes."""
     host_slots = sched.host.topology[FISSION]
     slots = [ExecutionSlot(f"gpu0/q{i}", "gpu") for i in range(OVERLAP)] + \
         [ExecutionSlot(f"cpu0/f{i}", "cpu") for i in range(host_slots)]
     shares = [SHARE_A / OVERLAP] * OVERLAP + \
         [(1 - SHARE_A) / host_slots] * host_slots
-    shapes = {k: tuple(v.shape) for k, v in arrays.items()
-              if isinstance(v, torch.Tensor)}
-    return build_plan(sct_for(name), shapes).partition(slots, shares)
+    return build_plan(sct, shapes).partition(slots, shares)
+
+
+def nbody_slot_targets(sched: Scheduler):
+    """{bodies: one accelerator slot's targets} at each of the paper's
+    N-body size classes."""
+    return {n: first_partitioning(
+        sched, suite.nbody_sct(n), {"pos": (n, 3), "vel": (n, 3),
+                                    "all_pos": (n, 3), "mass": (n,)}).units[0]
+            for n in suite.BENCHMARKS["nbody"][1]}
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds per call of ``fn`` (its enqueue), after a
+    warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
 
 
 # ---------------------------------------------------------------------------
 # phase 2: each kernel against its plain version on the card
 # ---------------------------------------------------------------------------
 
-def kernel_phase(inputs, gpu_units):
+def kernel_phase(inputs, gpu_units, nbody_slots):
     dev = torch.device("cuda")
     results = {}
 
@@ -356,19 +388,36 @@ def kernel_phase(inputs, gpu_units):
         plain_ms=cuda_ms(lambda: ref.filter_pipeline_ref(img, seed), 3),
         library_ms=None, shape=list(img.shape),
         tolerance="rtol 1e-5, atol 1e-4",
-        bound=bound_ms(8.0 * hw, 10.0 * hw))
+        bound=bound_ms(8.0 * hw, FILTER_OPS * hw))
 
-    # nbody: one slot's targets against every body, vs float64; ragged N
-    u = gpu_units["nbody"]
+    # nbody: one slot's targets against every body at each of the paper's
+    # size classes (the first N bodies), vs float64, repeated bit for bit;
+    # ragged N.  The kernel line reports the main path's class.
     pos = inputs["nbody"]["pos"].to(dev)
     mass = inputs["nbody"]["mass"].to(dev)
-    tgt = pos[:u]
-    got = ops.nbody_accelerations(pos, mass, targets=tgt)
-    want = ref.nbody_ref(pos.double(), mass.double(), targets=tgt.double())
-    err = (got.double() - want).abs().max().item()
-    scale = want.abs().max().item()
-    expect(err <= NBODY_TOL * scale,
-           f"nbody max err {err} <= {NBODY_TOL} x max |acc| {scale}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    classes = {}
+    for n, n_i in nbody_slots.items():
+        p, m, tgt = pos[:n], mass[:n], pos[:n_i]
+        got = ops.nbody_accelerations(p, m, targets=tgt)
+        want = ref.nbody_ref(p.double(), m.double(), targets=tgt.double())
+        err = (got.double() - want).abs().max().item()
+        scale = want.abs().max().item()
+        expect(err <= NBODY_TOL * scale,
+               f"nbody {n_i}x{n} max err {err} <= {NBODY_TOL} x max |acc| "
+               f"{scale}")
+        expect(torch.equal(got, ops.nbody_accelerations(p, m, targets=tgt)),
+               f"nbody {n_i}x{n}: a repeated call is bit-identical")
+        plan = nbody_mod.launch_plan(n_i, n, sms)
+        classes[n] = dict(
+            shape=[n_i, n], max_abs_err=err, max_abs_acc=scale,
+            ms=cuda_ms(lambda: ops.nbody_accelerations(p, m, targets=tgt),
+                       20),
+            host_us=host_us(lambda: ops.nbody_accelerations(p, m,
+                                                            targets=tgt)),
+            splits=plan.splits, blocks=plan.blocks,
+            bound=bound_ms(24.0 * n_i + 16.0 * n, 20.0 * n_i * n))
+        print(f"kernel nbody class {n}: {classes[n]}", flush=True)
     for n_i, n_j in [(1000, 1001), (129, 32767)]:
         p, m = pos[:n_j], mass[:n_j]
         g2 = ops.nbody_accelerations(p, m, targets=p[:n_i])
@@ -376,14 +425,17 @@ def kernel_phase(inputs, gpu_units):
         expect((g2.double() - w2).abs().max().item()
                <= NBODY_TOL * w2.abs().max().item(),
                f"nbody ragged {n_i}x{n_j}")
-    n_i, n_j = tgt.shape[0], pos.shape[0]
+    n_j = pos.shape[0]
+    main = classes[n_j]
+    slots = [tuple(c["shape"]) for c in classes.values()]
+    expect(main["shape"][0] == gpu_units["nbody"] and slots == NBODY_SLOTS,
+           f"the timed classes {slots} are the main path's slots")
+    tgt = pos[:main["shape"][0]]
     results["nbody"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: ops.nbody_accelerations(pos, mass, targets=tgt), 5),
-        plain_ms=cuda_ms(lambda: ref.nbody_ref(pos, mass, targets=tgt), 2),
-        library_ms=None, shape=[n_i, n_j], max_abs_acc=scale,
-        tolerance=f"max |err| <= {NBODY_TOL} x max |acc| (float64 plain)",
-        bound=bound_ms(24.0 * n_i + 16.0 * n_j, 20.0 * n_i * n_j))
+        main, plain_ms=cuda_ms(lambda: ref.nbody_ref(pos, mass, targets=tgt),
+                               2),
+        library_ms=None, classes=classes,
+        tolerance=f"max |err| <= {NBODY_TOL} x max |acc| (float64 plain)")
     torch.cuda.synchronize()
     return results
 
@@ -1155,9 +1207,11 @@ def main() -> int:
     inputs = make_inputs()
     gpu_units = {}
     for name in ORDER:
-        part = first_partitioning(sched, name, inputs[name])
+        shapes = {k: tuple(v.shape) for k, v in inputs[name].items()
+                  if isinstance(v, torch.Tensor)}
+        part = first_partitioning(sched, sct_for(name), shapes)
         gpu_units[name] = part.units[0]
-    results = kernel_phase(inputs, gpu_units)
+    results = kernel_phase(inputs, gpu_units, nbody_slot_targets(sched))
     for name, r in results.items():
         print(f"kernel {name} {r['shape']}: {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "

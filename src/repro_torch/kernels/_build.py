@@ -38,7 +38,9 @@ SIGNATURES: Dict[str, List] = {
     "saxpy_f32": [_P, _P, _P, _F, _L, _I, _P],
     "segmentation_f32": [_P, _P, _L, _F, _F, _I, _P],
     "filter_pipeline_f32": [_P, _P, _I, _I, _I, _F, _F, _I, _P],
-    "nbody_acc_f32": [_P, _I, _P, _P, _I, _P, _F, _I, _P],
+    # pos_i, n_i, pos_j, mass_j, n_j, acc, softening, scratch, splits,
+    # split_len, device, stream
+    "nbody_acc_f32": [_P, _I, _P, _P, _I, _P, _F, _P, _I, _I, _I, _P],
     # q, k, v, o, dtype, B, H, KV, Sq, Sk, hd, (b, h, s) strides of q, k,
     # v, o, scale, softcap, causal, window, kv_len, device, stream
     "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

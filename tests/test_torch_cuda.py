@@ -432,6 +432,111 @@ def test_saxpy_ragged_and_repeatable_on_card(n, offset, cuda_device):
                                atol=1e-5)
 
 
+NBODY_TOL = 3e-4        # as chip_smoke.py: max |err| / max |acc|, float64
+
+
+def _nbody_inputs(n_j, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    pos = torch.randn(n_j, 3, generator=g).to(device)
+    mass = (torch.rand(n_j, generator=g) + 0.1).to(device)
+    return pos, mass
+
+
+def _nbody_within_bound(got, pos, mass, targets):
+    want = ref.nbody_ref(pos.double(), mass.double(),
+                         targets=targets.double())
+    err = (got.double() - want).abs().max().item()
+    assert err <= NBODY_TOL * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_i,n_j", [(3277, 8192), (6554, 16384),
+                                     (13107, 32768), (1000, 1001),
+                                     (129, 32767), (1, 32768), (1, 5)])
+def test_nbody_shapes_on_card(n_i, n_j, cuda_device):
+    """One accelerator slot's targets at the paper's three size classes
+    (split sources), chip_smoke.py's ragged cases, one target: within
+    NBODY_TOL of float64, one launch counted a call."""
+    pos, mass = _nbody_inputs(n_j, cuda_device, seed=n_i)
+    before = ops.COUNTERS["nbody"].value
+    got = ops.nbody_accelerations(pos, mass, targets=pos[:n_i])
+    torch.cuda.synchronize()
+    assert ops.COUNTERS["nbody"].value == before + 1
+    assert got.shape == (n_i, 3) and torch.isfinite(got).all()
+    _nbody_within_bound(got, pos, mass, pos[:n_i])
+
+
+@pytest.mark.cuda
+def test_nbody_without_sources_on_card(cuda_device):
+    pos, mass = _nbody_inputs(0, cuda_device)
+    tgt = torch.randn(7, 3, device=cuda_device)
+    assert torch.equal(ops.nbody_accelerations(pos, mass, targets=tgt),
+                       torch.zeros_like(tgt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_i,n_j", [(13107, 32768), (129, 32767),
+                                     (1000, 1001)])
+def test_nbody_repeats_bit_for_bit_on_card(n_i, n_j, cuda_device):
+    """The partial sums are added in a fixed order: no call differs from
+    another by a bit."""
+    pos, mass = _nbody_inputs(n_j, cuda_device, seed=1)
+    first = ops.nbody_accelerations(pos, mass, targets=pos[:n_i])
+    for _ in range(3):
+        assert torch.equal(first, ops.nbody_accelerations(
+            pos, mass, targets=pos[:n_i]))
+
+
+@pytest.mark.cuda
+def test_nbody_two_streams_at_once_on_card(cuda_device):
+    """Two slots' calls at once, each from its own thread on its own
+    stream, as the executor's overlap slots run them: each call equals the
+    same call made alone (the scratch is the call's own)."""
+    import concurrent.futures
+    pos, mass = _nbody_inputs(32768, cuda_device, seed=2)
+    halves = [pos[:13107], pos[13107:26214]]
+    lone = [ops.nbody_accelerations(pos, mass, targets=t) for t in halves]
+    torch.cuda.synchronize()
+
+    def slot(k):
+        stream = torch.cuda.Stream()
+        with torch.cuda.stream(stream):
+            outs = [ops.nbody_accelerations(pos, mass, targets=halves[k])
+                    for _ in range(4)]
+        stream.synchronize()
+        return outs
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        futures = [pool.submit(slot, k) for k in range(2)]
+        results = [f.result(timeout=120) for f in futures]
+    for k in range(2):
+        assert all(torch.equal(o, lone[k]) for o in results[k])
+
+
+@pytest.mark.cuda
+def test_nbody_refuses_what_it_cannot_take_on_card(cuda_device):
+    """The C entry point refuses a split call without scratch, and split
+    lengths that are not whole tiles or do not cover the sources."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import nbody as tnbody
+    pos, mass = _nbody_inputs(1000, cuda_device)
+    acc = torch.empty(10, 3, device=cuda_device)
+    scratch = torch.empty(tnbody.scratch_rows(10, 1000, 8), 4,
+                          device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = _build.library()
+    for ptr, splits, split_len in [(None, 2, 512), (None, 1, 1024),
+                                   (scratch.data_ptr(), 2, 500),
+                                   (scratch.data_ptr(), 2, 384),
+                                   (scratch.data_ptr(), 8, 256),
+                                   (scratch.data_ptr(), 0, 1024)]:
+        assert lib.nbody_acc_f32(
+            pos.data_ptr(), 10, pos.data_ptr(), mass.data_ptr(), 1000,
+            acc.data_ptr(), 1e-3, ptr, splits, split_len, 0, stream) != 0
+    with pytest.raises(ValueError, match="mass has"):
+        ops.nbody_accelerations(pos, mass[:-1])
+
+
 @pytest.mark.cuda
 def test_smoke_model_serves_on_card_as_on_cpu(cuda_device):
     """zamba2's smoke config in float32: prefill logits and state on the
