@@ -37,7 +37,28 @@ can show, and each MoE fault's reading in a card float32 run on that
 first MoE FFN, max |run - CPU f32| / max |CPU f32|, against which
 ``chip_smoke.GROUP_F32_TOL`` holds the sound float32 run.
 ``chip_smoke.GROUP_BF16_REL`` is set between the largest sound reading and
-the smallest reading of a fault it can see.  The full record goes to
+the smallest reading of a fault it can see.
+
+The gradient head check of ``chip_smoke.py``'s training phase is
+calibrated the same way (``grad``): granite's first 2 layers with the
+full-width embedding, built from seed 0 as ``chip_smoke.train_phase``
+builds them, and ``chip_smoke.grad_check_inputs`` of data seeds 1, 3, 5:
+the gradients of the loss on one 1 x 512 batch by parameter group
+(embed, attn, router, experts, norms), and of the first MoE FFN alone on a
+shared input and output gradient (router, experts, its input x), each by
+relative L2 against the CPU's float32 plain gradients, for sound runs
+(card f32, card bf16, CPU bf16) and for card runs (head f32 and bf16, MoE
+FFN bf16) with a fault in a backward: ``bwd_flash_dk_dv_swapped`` (the
+flash backward's dK and dV in each other's place),
+``bwd_flash_softcap_ignored`` (the backward run without the softcap, its
+derivative dropped with it; granite has no attention softcap, so this one
+cannot show there: the kernel checks' softcap variant covers it),
+``bwd_gmm_expert0_dw_zeroed`` (one expert's dw zeroed).
+``chip_smoke.GRAD_F32_REL`` and ``GRAD_BF16_REL`` are set from these.
+
+    python3 chip_group_calibration.py [forward] [grad]
+
+(no argument: both).  The full record goes to
 ``build/chip_group_calibration.json``.
 """
 from __future__ import annotations
@@ -52,6 +73,7 @@ import torch
 
 import chip_smoke as cs
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.models import moe as moe_mod
 
 SEEDS = (1, 3, 5)
@@ -213,14 +235,105 @@ def calibrate(arch):
     return record
 
 
-def main() -> int:
+def bwd_flash_dk_dv_swapped(good):
+    def backward(*a, **kw):
+        dq, dk, dv = good(*a, **kw)
+        return dq, dv, dk
+    return backward
+
+
+def bwd_flash_softcap_ignored(good):
+    return lambda *a, **kw: good(*a, **dict(kw, logit_cap=0.0))
+
+
+def bwd_gmm_expert0_dw_zeroed(good):
+    def backward(ctx, dy):
+        dx, dw = good(ctx, dy)
+        if dw is not None:
+            dw = dw.clone()
+            dw[0] = 0
+        return dx, dw
+    return staticmethod(backward)
+
+
+#: name -> (owner, attribute, patch of the sound function)
+GRAD_FAULTS = {
+    "bwd_flash_dk_dv_swapped": (flash_mod, "flash_attention_backward",
+                                bwd_flash_dk_dv_swapped),
+    "bwd_flash_softcap_ignored": (flash_mod, "flash_attention_backward",
+                                  bwd_flash_softcap_ignored),
+    "bwd_gmm_expert0_dw_zeroed": (ops._GroupedMatmul, "backward",
+                                  bwd_gmm_expert0_dw_zeroed),
+}
+
+
+def patched(fault, fn, *args):
+    """``fn(*args)`` with ``fault`` put in."""
+    owner, attr, patch = fault
+    saved = owner.__dict__[attr]
+    setattr(owner, attr, patch(getattr(owner, attr)))
+    try:
+        return fn(*args)
+    finally:
+        setattr(owner, attr, saved)
+
+
+def calibrate_grads():
+    cfg = cs.get_config(cs.TRAIN_ARCH)
+    model = cs.LM(cfg, device="cuda",
+                  generator=torch.Generator(device="cuda").manual_seed(0))
+    f32, bf16 = torch.float32, torch.bfloat16
+    record = {}
+    for seed in SEEDS:
+        t0 = time.perf_counter()
+        head, state, batch, x_in, dy = cs.grad_check_inputs(cfg, model, seed)
+        want = cs.head_grads(head, state, batch, f32, "cpu")
+        want_moe = cs.moe_grads(head, state, x_in, dy, f32, "cpu")
+
+        def head_run(dtype, dev="cuda"):
+            return cs.grad_rel(cs.head_grads(head, state, batch, dtype, dev),
+                               want)
+
+        def moe_run(dtype, dev="cuda"):
+            return cs.grad_rel(cs.moe_grads(head, state, x_in, dy, dtype,
+                                            dev), want_moe,
+                               cs.MOE_GRAD_GROUPS)
+
+        row = {"head card_f32": head_run(f32), "head card_bf16":
+               head_run(bf16), "head cpu_bf16": head_run(bf16, "cpu"),
+               "moe card_f32": moe_run(f32), "moe card_bf16": moe_run(bf16),
+               "moe cpu_bf16": moe_run(bf16, "cpu")}
+        for name, fault in GRAD_FAULTS.items():
+            row[f"head f32 {name}"] = patched(fault, head_run, f32)
+            row[f"head bf16 {name}"] = patched(fault, head_run, bf16)
+            row[f"moe bf16 {name}"] = patched(fault, moe_run, bf16)
+        record[seed] = row
+        print(f"{cfg.arch} gradients, data seed {seed} "
+              f"({time.perf_counter() - t0:.1f} s), relative L2 against "
+              "CPU f32:", flush=True)
+        for name, r in row.items():
+            print(f"  {name}: " + ", ".join(f"{k} {v:.4g}"
+                                            for k, v in r.items()),
+                  flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return record
+
+
+def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_group_calibration: no CUDA device", file=sys.stderr)
         return 2
+    parts = set((sys.argv[1:] if argv is None else argv)
+                or ("forward", "grad"))
     print(cs.gpu_line(), flush=True)
     _build.library()
     torch.set_num_threads(os.cpu_count() or 1)
-    record = {arch: calibrate(arch) for arch in cs.LM_ARCHS}
+    record = {}
+    if "forward" in parts:
+        record.update({arch: calibrate(arch) for arch in cs.LM_ARCHS})
+    if "grad" in parts:
+        record["grad " + cs.TRAIN_ARCH] = calibrate_grads()
     out = cs.ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_group_calibration.json").write_text(json.dumps(record,

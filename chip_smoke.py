@@ -22,7 +22,15 @@ and read just after:
   MoE grouped GEMM.  Then the head of each model (zamba2's first hybrid
   group of 5 Mamba2 + 1 attention layers, granite's first 2 layers, each
   with the full-width embedding) on the card against the same parameters
-  on the CPU (plain versions).
+  on the CPU (plain versions);
+- LM training, after serving's models are freed: flash attention's forward
+  and backward and the grouped GEMM's dx and dw at the training shapes
+  against autograd through their plain versions (timed beside the SDPA
+  backward and ``torch.bmm``), then four steps of granite-moe-3b-a800m at
+  full width (bf16 parameters, float32 AdamW moments, random weights from
+  seed 0) through ``make_train_step`` on ``batch_at``'s 8 x 512 tokens,
+  with no plain version called, and the gradients of the model's first 2
+  layers (bf16, kernels) against the CPU's (float32, plain versions).
 
 Standard output ends with three lines: the card's name and power limit as
 ``nvidia-smi`` prints them, one JSON object describing each kernel
@@ -56,7 +64,9 @@ from repro_torch.core import (AcceleratorPlatform, DeviceInfo,  # noqa: E402
                               KnowledgeBase, LoadBalancer, PlatformConfig,
                               Profile, Scheduler, Session, ThreadedExecutor,
                               Workload, build_plan)
+from repro_torch.data import DataConfig, batch_at  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import moe_gemm as gmm_mod  # noqa: E402
 from repro_torch.kernels import nbody as nbody_mod  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
@@ -65,7 +75,10 @@ from repro_torch.models import (LM, decode_step, init_cache,  # noqa: E402
 from repro_torch.models import lm as lm_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.layers import embed, rmsnorm  # noqa: E402
-from repro_torch.runtime import ServeEngine  # noqa: E402
+from repro_torch.launch.train import build_optimizer  # noqa: E402
+from repro_torch.runtime import (RuntimeConfig, ServeEngine,  # noqa: E402
+                                 init_state, make_loss_fn, make_train_step)
+from repro_torch.runtime.train import trainable  # noqa: E402
 
 #: published peaks of one H100 SXM at its full 700 W (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
@@ -97,6 +110,10 @@ FILTER_OPS = 50.0
 KERNELS = {
     "saxpy": ("src/repro_torch/csrc/saxpy.cu",
               "src/repro/kernels/saxpy.py:17"),
+    # the gradient of the TPU flash kernel's function (the JAX package has
+    # no backward kernel: it differentiates its jnp attention)
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention.py:88"),
     "segmentation": ("src/repro_torch/csrc/segmentation.cu",
                      "src/repro/kernels/segmentation.py:23"),
     "filter_pipeline": ("src/repro_torch/csrc/filter_pipeline.cu",
@@ -145,7 +162,8 @@ GMM_TIMED = ("prefill_in", "prefill_out", "decode")
 #: the redesigned kernels, whose ptxas report must show no spills
 NO_SPILL = ("flash_mma_kernel", "gmm_wgmma_kernel", "ssd_cb",
             "ssd_chunk_state", "ssd_state_pass", "ssd_output", "saxpy_vec4",
-            "nbody_pack", "nbody_tiles", "nbody_reduce")
+            "nbody_pack", "nbody_tiles", "nbody_reduce", "flash_bwd_dot",
+            "flash_bwd_dkdv", "flash_bwd_dq")
 #: the head of each model (zamba2: one hybrid group; granite: 2 layers),
 #: card (kernels, cuBLAS) against CPU (plain versions, CPU matmuls), same
 #: parameters, for the last-token logits and the cache the head fills
@@ -164,6 +182,37 @@ GROUP_BF16_REL = {"zamba2-2.7b": {"logits": 0.3, "h": 0.05},
                                            "v": 0.08, "moe": 0.1}}
 #: granite's head: its first layers
 MOE_CHECK_LAYERS = 2
+#: the training phase: granite at full width, batch x sequence tokens a
+#: step, the reference launcher's recipe (cosine schedule, lr 3e-3), no
+#: activation checkpointing (it fits: PERF.md section 4)
+TRAIN_ARCH = "granite-moe-3b-a800m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 512, 4, 3e-3
+TRAIN_REMAT = "none"
+#: flash backward: float32 gradients max |err| <= BWD_TOL x max |plain|;
+#: bf16 inputs each element within one bf16 step plus that, plus for dq/dk
+#: how far D = rowsum(dO o) moves with o rounded to bf16
+#: (ref.attention_bwd_rounding)
+BWD_TOL = 1e-4
+#: the gradient head check, on granite's first MOE_CHECK_LAYERS layers and
+#: the full-width embedding: the loss's gradients on one 1 x TRAIN_SEQ batch
+#: by parameter group, card float32 held to the CPU's float32 plain ones by
+#: relative L2 under GRAD_F32_REL.  In bf16 the head's gradients are noise
+#: at these random weights (q and k reach ~14 an element, bf16 rounding
+#: moves scores by ~1 and flips which key wins: card and CPU bf16 both read
+#: 0.94-1.36 against CPU float32, as far as a fault), so they are reported,
+#: not bounded; bf16 is bounded on the first layer's MoE FFN alone, on the
+#: CPU float32 run's input to it and one output gradient shared by every
+#: run, under GRAD_BF16_REL by group.  Limits set between sound and faulty
+#: readings (chip_group_calibration.py grad, data seeds 1, 3, 5; PERF.md):
+#: head f32 sound <= 1.21e-3, dK/dV swapped >= 0.757 in every group, one
+#: expert's dw zeroed >= 0.0912 in experts; MoE FFN bf16 experts sound <=
+#: 0.0238, that fault >= 0.117.  No calibrated fault reaches the MoE FFN's
+#: router or x gradients (sound <= 0.0439 and 0.0303): their limits are
+#: 2-3x the sound readings.
+GRAD_GROUPS = ("embed", "attn", "router", "experts", "norms")
+MOE_GRAD_GROUPS = ("router", "experts", "x")
+GRAD_F32_REL = 1e-2
+GRAD_BF16_REL = {"router": 0.1, "experts": 0.06, "x": 0.1}
 #: the profiled window: one prefill of the largest prompt, decode steps
 PROFILE_DECODE_STEPS = 8
 
@@ -171,7 +220,8 @@ PROFILE_DECODE_STEPS = 8
 def reset_counts() -> None:
     """Every kernel's launch counter, and the grouped GEMM's bf16 counters
     by kernel, to 0."""
-    for c in [*ops.COUNTERS.values(), *gmm_mod.bf16_launches.values()]:
+    for c in [*ops.COUNTERS.values(), *gmm_mod.bf16_launches.values(),
+              gmm_mod.bwd_launches]:
         c.reset()
 
 
@@ -1176,6 +1226,410 @@ def lm_phase(arch):
 
 
 # ---------------------------------------------------------------------------
+# LM training: the kernels' gradients, four full-width steps, a head check
+# ---------------------------------------------------------------------------
+
+def flash_bwd_bound(B, H, KV, S, hd, dtype, causal=True):
+    """Bytes: q, k, v, o, dO and the lse read, dq, dk, dv written once.
+    Operations: five products (S, dP, dV, dK, dQ) of 2 per multiply-add
+    over the (query, key) pairs the causal mask keeps."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    size = torch.finfo(dtype).bits // 8
+    nbytes = size * (6 * B * H * S * hd + 4 * B * KV * S * hd) + 4 * B * H * S
+    return bound_ms(nbytes, 5 * 2.0 * B * H * pairs * hd, peak_for(dtype))
+
+
+def grads_of(fn, inputs, dout, **kw):
+    """fn(*inputs) and its gradients for the output gradient ``dout``."""
+    xs = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*xs, **kw)
+    return out, torch.autograd.grad(out, xs, dout)
+
+
+def grad_ms(fn, inputs, dout, reps, **kw):
+    """Milliseconds of one backward of ``fn`` (the graph built once)."""
+    xs = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*xs, **kw)
+    return cuda_ms(lambda: torch.autograd.grad(out, xs, dout,
+                                               retain_graph=True), reps)
+
+
+def flash_grads_excess(q, k, v, do, kw):
+    """The kernel's output (the forward that keeps the log-sum-exp) and its
+    dq, dk, dv against autograd through the plain version in float32 from
+    the same inputs: the largest share of the elementwise bound (at most 1
+    when within it) and the largest |err| of the gradients."""
+    o, got = grads_of(ops.flash_attention, (q, k, v), do, **kw)
+    o_want, want = grads_of(ref.attention_ref,
+                            (q.float(), k.float(), v.float()), do.float(),
+                            **kw)
+    worst = (bf16_excess(o, o_want, FLASH_TOL) if q.dtype == torch.bfloat16
+             else (o - o_want).abs().max().item() / FLASH_TOL)
+    expect(worst <= 1.0, f"flash forward with lse {list(q.shape)} {q.dtype}: "
+           f"worst element at {worst:.3f} of its bound")
+    rounding = (*ref.attention_bwd_rounding(q, k, o, do, **kw), 0.0)
+    err_max = 0.0
+    for g, w, r in zip(got, want, rounding):
+        err = (g.float() - w).abs()
+        bound = BWD_TOL * w.abs().max()
+        if q.dtype == torch.bfloat16:
+            bound = bound + BF16_STEP * w.abs() + r
+        worst = max(worst, (err / bound).max().item())
+        err_max = max(err_max, err.max().item())
+    return worst, err_max
+
+
+def train_kernel_phase(cfg, dev="cuda"):
+    """Flash attention's backward and the grouped GEMM's dx and dw against
+    autograd through their plain versions on the card, at granite's
+    training shapes, and timed: the flash backward kernel in turns with
+    the SDPA backward, each grouped GEMM backward beside ``torch.bmm``'s."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    bf16 = torch.bfloat16
+    B, S, H, KV, hd = (TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim)
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    q, do = randn(B, H, S, hd), randn(B, H, S, hd)
+    k, v = randn(B, KV, S, hd), randn(B, KV, S, hd)
+    worst, err = flash_grads_excess(q, k, v, do, dict(causal=True))
+    expect(worst <= 1.0, f"flash backward {list(q.shape)} bf16: worst "
+           f"element at {worst:.3f} of its bound")
+    variants = {}
+    for dtype in (torch.float32, bf16):
+        qs, dos = randn(2, 8, 300, 64, dtype=dtype), randn(2, 8, 300, 64,
+                                                           dtype=dtype)
+        ks, vs = randn(2, 2, 300, 64, dtype=dtype), randn(2, 2, 300, 64,
+                                                          dtype=dtype)
+        ex, _ = flash_grads_excess(qs, ks, vs, dos,
+                                   dict(causal=True, window=64,
+                                        logit_cap=30.0))
+        expect(ex <= 1.0, f"flash backward window/softcap {dtype}: worst "
+               f"element at {ex:.3f} of its bound")
+        variants[str(dtype)[6:]] = ex
+    o, lse = flash_mod.flash_attention_with_lse(q, k, v)
+    kernel = lambda: flash_mod.flash_attention_backward(q, k, v, o, do, lse)
+    sdpa = lambda *t: F.scaled_dot_product_attention(*t, is_causal=True,
+                                                     enable_gqa=True)
+    turns = {"kernel": [], "sdpa": []}
+    for _ in range(2):                 # in turns: kernel, SDPA, kernel, SDPA
+        turns["kernel"].append(cuda_ms(kernel, 20))
+        turns["sdpa"].append(grad_ms(sdpa, (q, k, v), do, 20))
+    results = {"flash_attention_bwd": dict(
+        max_abs_err=err, ms=sum(turns["kernel"]) / 2,
+        plain_ms=grad_ms(ref.attention_ref, (q, k, v), do, 3),
+        library_ms=sum(turns["sdpa"]) / 2, turns=turns,
+        shape=[B, H, KV, S, hd], dtype="bfloat16",
+        bf16_worst_share_of_bound=worst,
+        window_softcap_worst_share_of_bound=variants,
+        kernels_per_call=flash_mod.BWD_KERNELS_PER_CALL,
+        tolerance=f"f32: max |err| <= {BWD_TOL} x max |plain|; bf16: "
+                  f"2^-7 |plain| + {BWD_TOL} x max |plain| + the "
+                  "o-rounding bound on dq/dk, elementwise",
+        bound=flash_bwd_bound(B, H, KV, S, hd, bf16))}
+    fwd_turns = [cuda_ms(lambda: flash_mod.flash_attention_with_lse(q, k, v),
+                         20) for _ in range(2)]
+    results["flash_attention_bwd"]["forward_with_lse_ms"] = fwd_turns
+
+    # the grouped GEMM's backward at the training capacity
+    m = cfg.moe
+    C = moe_mod.capacity(cfg, B * S)
+    E, d, f = m.n_experts, cfg.d_model, m.d_ff
+    gmm = {}
+    before = gmm_mod.bf16_launches["wmma"].value
+    for name, (d_, f_) in (("w_in", (d, f)), ("w_out", (f, d))):
+        x, dy = randn(E, C, d_), randn(E, C, f_)
+        w = (torch.randn((E, d_, f_), generator=g, device=dev)
+             * d_ ** -0.5).to(bf16)
+        _, got = grads_of(ops.grouped_matmul, (x, w), dy)
+        _, want = grads_of(ref.grouped_matmul_ref, (x, w), dy)
+        worst_g, err_g = 0.0, 0.0
+        for a, b_ in zip(got, want):
+            scale = b_.float().abs().max().item()
+            worst_g = max(worst_g, bf16_excess(a, b_, GMM_TOL * scale))
+            err_g = max(err_g, (a.float() - b_.float()).abs().max().item())
+        expect(worst_g <= 1.0, f"grouped GEMM backward {name} "
+               f"({E}, {C}, {d_}, {f_}): worst element at {worst_g:.3f} of "
+               "its bound")
+        size = 2
+        gmm[name] = dict(
+            shape=[E, C, d_, f_], max_abs_err=err_g,
+            bf16_worst_share_of_bound=worst_g,
+            ms=grad_ms(ops.grouped_matmul, (x, w), dy, 20),
+            plain_ms=grad_ms(ref.grouped_matmul_ref, (x, w), dy, 5),
+            library_ms=grad_ms(torch.bmm, (x, w), dy, 20),
+            bound=bound_ms(size * (2 * E * C * d_ + 2 * E * d_ * f_
+                                   + E * C * f_),
+                           4.0 * E * C * d_ * f_, PEAK_BF16_PER_S))
+    expect(gmm_mod.bf16_launches["wmma"].value == before,
+           "every grouped GEMM backward call took the TMA + wgmma kernel")
+    results["grouped_matmul_bwd"] = gmm
+    torch.cuda.synchronize()
+    return results
+
+
+def want_train_launches(cfg):
+    """Each kernel's launches in one step of the moe family: one flash
+    forward and backward per layer; three grouped GEMMs per layer forward,
+    each with a dx and a dw behind it."""
+    L = cfg.n_layers
+    return {"flash_attention": L, "flash_attention_bwd": L,
+            "grouped_matmul": 9 * L, "ssd_scan": 0}
+
+
+class PlainCalls:
+    """Counts the calls of the LM kernels' plain versions while it is
+    entered (the card's training path must make none)."""
+    NAMES = ("attention_ref", "grouped_matmul_ref", "ssd_scan_ref")
+
+    def __enter__(self):
+        self.calls = {n: 0 for n in self.NAMES}
+        self.saved = {n: getattr(ref, n) for n in self.NAMES}
+        for n, fn in self.saved.items():
+            def counted(*a, _n=n, _fn=fn, **kw):
+                self.calls[_n] += 1
+                return _fn(*a, **kw)
+            setattr(ref, n, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(ref, n, fn)
+
+
+def train_main_path(cfg, model):
+    """TRAIN_STEPS steps of ``make_train_step`` on ``batch_at``'s batches,
+    the launch counters from 0 just before to just after."""
+    opt = build_optimizer(cfg, TRAIN_LR, TRAIN_STEPS)
+    rt = RuntimeConfig(microbatches=1, remat=TRAIN_REMAT, loss_chunks=1,
+                       aux_weight=0.01)
+    state = init_state(model, opt)
+    step_fn = make_train_step(cfg, opt, rt)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                    global_batch=TRAIN_BATCH, seed=0)
+    batches = [batch_at(dc, i) for i in range(TRAIN_STEPS)]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    reset_counts()
+    with PlainCalls() as plain:
+        for i, b in enumerate(batches):
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, b)
+            m = {k: float(v) for k, v in metrics.items()}
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            steps.append(dict(m, seconds=sec, tokens_per_s=tokens / sec))
+            print(f"train step {i + 1}: loss {m['loss']:.4f} aux "
+                  f"{m['aux_loss']:.4f} grad_norm {m['grad_norm']:.4f} lr "
+                  f"{m['lr']:.3e} {sec:.3f} s {tokens / sec:.0f} tokens/s",
+                  flush=True)
+    launches = {k: c.value for k, c in ops.COUNTERS.items()}
+    gmm_paths = {k: c.value for k, c in gmm_mod.bf16_launches.items()}
+    gmm_bwd = gmm_mod.bwd_launches.value
+    peak = torch.cuda.max_memory_allocated()
+    expect(all(math.isfinite(s[k]) for s in steps
+               for k in ("loss", "aux_loss", "grad_norm")),
+           f"finite losses and gradient norms: {steps}")
+    expect(int(state.opt.step) == TRAIN_STEPS, "the optimizer counted "
+           f"{int(state.opt.step)} steps")
+    want = want_train_launches(cfg)
+    per_step = {k: launches[k] / TRAIN_STEPS for k in want}
+    for k, n in want.items():
+        expect(launches[k] == n * TRAIN_STEPS,
+               f"{k}: {launches[k]} launches == {n} a step x {TRAIN_STEPS}")
+    expect(gmm_bwd == 6 * cfg.n_layers * TRAIN_STEPS,
+           f"grouped GEMM backward launches {gmm_bwd}")
+    expect(gmm_paths == {"tma": launches["grouped_matmul"], "wmma": 0},
+           f"every grouped GEMM launch took the TMA + wgmma kernel: "
+           f"{gmm_paths}")
+    expect(not any(plain.calls.values()),
+           f"no plain version on the card's training path: {plain.calls}")
+    print(f"train: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens, remat {TRAIN_REMAT}; peak memory {peak / 2 ** 30:.2f} "
+          f"GiB; launches a step {per_step} (grouped GEMM "
+          f"{gmm_bwd // TRAIN_STEPS} of them backward)", flush=True)
+    profile = train_profile(step_fn, state, batches[-1])
+    del state
+    return dict(steps=steps, launches=launches, launches_per_step=per_step,
+                profile=profile,
+                want_launches_per_step=want,
+                grouped_matmul_backward_launches=gmm_bwd,
+                grouped_matmul_bf16_launches=gmm_paths,
+                peak_memory_bytes=peak, plain_calls=plain.calls,
+                batch=TRAIN_BATCH, seq=TRAIN_SEQ, remat=TRAIN_REMAT,
+                lr=TRAIN_LR, schedule=cfg.lr_schedule)
+
+
+def train_profile(step_fn, state, batch):
+    """One more step under ``torch.profiler`` (after the main path's
+    counts are read): device busy time against the host clock, and the
+    kernels that took the most device time, summed by name."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [(e.key, getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0)),
+                e.count)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(t for _, t, _ in kernels) / 1e6
+    top = sorted(kernels, key=lambda ktn: -ktn[1])[:8]
+    mine = {name: sum(t for k, t, _ in kernels if name in k) / 1e6
+            for name in ("flash_mma_kernel", "flash_bwd_", "gmm_wgmma")}
+    out = dict(wall_s=wall, device_busy_s=busy,
+               kernel_launches=sum(n for _, _, n in kernels),
+               idle_share=1.0 - busy / wall if busy else None,
+               hand_written_s=mine,
+               top_kernels_s=[(k[:80], t / 1e6, n) for k, t, n in top])
+    print(f"train profile, one step: wall {wall:.4f} s, device busy "
+          f"{busy:.4f} s, {out['kernel_launches']} kernel launches; "
+          f"hand-written kernels {mine}; top {out['top_kernels_s'][:5]}",
+          flush=True)
+    return out
+
+
+def grad_group(name: str) -> str:
+    """A gradient's group in the gradient head check."""
+    if name == "x":
+        return "x"
+    if name.startswith("embed."):
+        return "embed"
+    if ".attn." in name:
+        return "attn"
+    if name.endswith("moe.router"):
+        return "router"
+    if "moe." in name:
+        return "experts"
+    return "norms"
+
+
+def head_grads(head, state, batch, dtype, dev):
+    """The head's gradients (float32, CPU) for one batch, on ``dev`` in
+    ``dtype``: kernels and their backward on the card, plain versions on
+    the CPU."""
+    m = head_model(head, state, dtype, dev)
+    params = trainable(m)
+    total, _ = make_loss_fn(head, RuntimeConfig(remat=None))(
+        m, batch["tokens"].to(dev), batch["labels"].to(dev))
+    grads = torch.autograd.grad(total, list(params.values()))
+    return {k: g.float().cpu() for k, g in zip(params, grads)}
+
+
+def moe_grads(head, state, x_in, dy, dtype, dev):
+    """The gradients of sum(moe_ffn(x_in) * dy) for the head's first MoE
+    FFN (its parameters ``moe.*`` and its input ``x``), float32 on the CPU,
+    computed on ``dev`` in ``dtype``."""
+    m = head_model(head, state, dtype, dev)
+    p = m.layers[0]["moe"]
+    params = {f"moe.{k}": v for k, v in trainable(p).items()}
+    x = x_in.to(dev, dtype).requires_grad_(True)
+    y, _ = moe_mod.moe_ffn(x, p, head)
+    total = (y.float() * dy.to(dev)).sum()
+    grads = torch.autograd.grad(total, [*params.values(), x])
+    return {k: g.float().cpu() for k, g in zip([*params, "x"], grads)}
+
+
+def grad_rel(got, want, groups=GRAD_GROUPS):
+    """Relative L2 by group: ||got - want|| / ||want|| over the group's
+    gradients."""
+    out = {}
+    for grp in groups:
+        keys = [k for k in want if grad_group(k) == grp]
+        num = sum(((got[k] - want[k]) ** 2).sum() for k in keys)
+        den = sum((want[k] ** 2).sum() for k in keys)
+        out[grp] = math.sqrt(float(num) / float(den))
+    return out
+
+
+def grad_check_inputs(cfg, model, seed: int = 1):
+    """The head, its parameters, the head's batch (``batch_at`` of data
+    seed ``seed``), and for the MoE FFN alone its input from the CPU
+    float32 run and an output gradient drawn from ``seed``."""
+    head, state = model_head(cfg, model)
+    batch = batch_at(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                global_batch=1, seed=seed), 0)
+    x_in = moe_inputs(head, state, batch["tokens"], "cpu")[0][0]
+    dy = torch.randn(x_in.shape, generator=torch.Generator().manual_seed(
+        seed))
+    return head, state, batch, x_in, dy
+
+
+def train_head_check(cfg, model, dev="cuda"):
+    """The gradients of the model's head on one batch, card float32 and
+    bf16 against the CPU's float32 plain ones, and of its first MoE FFN
+    alone in bf16 (see GRAD_F32_REL)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    head, state, batch, x_in, dy = grad_check_inputs(cfg, model)
+    want = head_grads(head, state, batch, torch.float32, "cpu")
+    want_moe = moe_grads(head, state, x_in, dy, torch.float32, "cpu")
+    cpu_s = time.perf_counter() - t0
+    torch.set_num_threads(threads)
+    f32 = grad_rel(head_grads(head, state, batch, torch.float32, dev), want)
+    b16 = grad_rel(head_grads(head, state, batch, torch.bfloat16, dev),
+                   want)
+    moe16 = grad_rel(moe_grads(head, state, x_in, dy, torch.bfloat16, dev),
+                     want_moe, MOE_GRAD_GROUPS)
+    for grp in GRAD_GROUPS:
+        expect(math.isfinite(f32[grp]) and f32[grp] <= GRAD_F32_REL,
+               f"card f32 vs CPU f32 gradients of {grp}: relative L2 "
+               f"{f32[grp]} <= {GRAD_F32_REL}")
+        expect(math.isfinite(b16[grp]), f"finite bf16 gradients of {grp}")
+    for grp in MOE_GRAD_GROUPS:
+        expect(math.isfinite(moe16[grp]) and moe16[grp] <= GRAD_BF16_REL[grp],
+               f"card bf16 vs CPU f32 MoE FFN gradients of {grp}: relative "
+               f"L2 {moe16[grp]} <= {GRAD_BF16_REL[grp]}")
+    print(f"train {MOE_CHECK_LAYERS} layers' gradients, relative L2 to CPU "
+          f"f32: card f32 {f32}; card bf16 {b16}; first MoE FFN alone, card "
+          f"bf16 {moe16} (CPU {cpu_s:.1f} s)", flush=True)
+    return dict(f32_rel_l2=f32, bf16_rel_l2=b16, moe_bf16_rel_l2=moe16,
+                cpu_seconds=cpu_s,
+                tolerance=f"head f32: {GRAD_F32_REL}; head bf16: reported; "
+                          f"MoE FFN bf16: {GRAD_BF16_REL}")
+
+
+def train_phase():
+    """Training of TRAIN_ARCH: its kernels' gradients, the main path, the
+    gradient head check; the model is freed before returning."""
+    cfg = get_config(TRAIN_ARCH)
+    kernels = train_kernel_phase(cfg)
+    r = kernels["flash_attention_bwd"]
+    print(f"kernel flash_attention_bwd {r['shape']} bfloat16: {r['ms']:.4f} "
+          f"ms (in turns {r['turns']['kernel']}), plain {r['plain_ms']:.4f} "
+          f"ms, SDPA backward {r['library_ms']:.4f} ms (in turns "
+          f"{r['turns']['sdpa']}), bound {r['bound'][0]:.4f} ms "
+          f"({r['bound'][1]}), max err {r['max_abs_err']:.3g}; forward with "
+          f"lse {r['forward_with_lse_ms']} ms", flush=True)
+    for name, r in kernels["grouped_matmul_bwd"].items():
+        print(f"kernel grouped_matmul backward {name} {r['shape']} bfloat16 "
+              f"(dx + dw): {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"torch.bmm backward {r['library_ms']:.4f} ms, bound "
+              f"{r['bound'][0]:.4f} ms ({r['bound'][1]})", flush=True)
+    t0 = time.perf_counter()
+    model = LM(cfg, device="cuda",
+               generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"train {cfg.arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    head = train_head_check(cfg, model)      # the parameters as built
+    main = train_main_path(cfg, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return kernels, main, head
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1226,6 +1680,9 @@ def main() -> int:
         lm_kernels, lm_serve[arch], lm_head[arch] = lm_phase(arch)
         results.update(lm_kernels)
         by_path[arch] = lm_serve[arch]["launches"]
+    train_kernels, train, train_head = train_phase()
+    results.update(train_kernels)
+    by_path["train " + TRAIN_ARCH] = train["launches"]
     # each kernel's launches over the main paths, each counted from 0
     launches = {k: sum(p[k] for p in by_path.values()) for k in KERNELS}
     expect(all(n > 0 for n in launches.values()),
@@ -1233,7 +1690,8 @@ def main() -> int:
 
     kernels = []
     for name in ["saxpy", "filter_pipeline", "segmentation", "nbody",
-                 "flash_attention", "ssd_scan", "grouped_matmul"]:
+                 "flash_attention", "flash_attention_bwd", "ssd_scan",
+                 "grouped_matmul"]:
         r = results[name]
         source, replaces = KERNELS[name]
         kernels.append({
@@ -1242,6 +1700,9 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
+    # the grouped GEMM's launches for gradients (dx and dw), all training's
+    kernels[-1]["backward_launches"] = train[
+        "grouped_matmul_backward_launches"]
     seconds = time.perf_counter() - t_start
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_seconds": build_s,
@@ -1249,7 +1710,8 @@ def main() -> int:
               "kernel_phase": results, "requests": requests,
               "chain": chain, "launches": launches,
               "launches_by_path": by_path, "lm_serve": lm_serve,
-              "lm_head_check": lm_head, "kernels": kernels}
+              "lm_head_check": lm_head, "train": train,
+              "train_head_check": train_head, "kernels": kernels}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -71,6 +71,9 @@ struct Problem {
   Strides q, k, v, o;
   float scale, cap;
   int causal, window, kv_len;
+  // optional (B, H, Sq) float32 output: each row's log-sum-exp of its
+  // scaled (and capped, masked) scores, natural log; null when not wanted
+  float* lse;
 };
 
 // The keys [k_begin, k_end) a tile of `rows` query rows from q0 must visit.
@@ -274,6 +277,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < CD; ++j)
       store(op + row * P.o.s + tx + 16 * j, acc[i][j] / denom);
+    if (P.lse != nullptr && tx == 0)
+      P.lse[((long long)b * P.H + h) * P.Sq + row] = m_s[r] + logf(denom);
   }
 }
 
@@ -643,6 +648,10 @@ __global__ void __launch_bounds__(kThreads, Cf::kMinBlocks)
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     if (rows[r] >= P.Sq) continue;
     const float denom = fmaxf(l, 1e-30f);
+    // m and the scores are in base-2 units: lse = ln 2 * (m + log2 l)
+    if (P.lse != nullptr && t == 0)
+      P.lse[((long long)b * P.H + h) * P.Sq + rows[r]] =
+          0.69314718055994531f * (m_r[r] + log2f(denom));
     bf16* orow = op + rows[r] * P.o.s + 2 * t;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
@@ -689,14 +698,15 @@ int launch_hd(int dtype, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  Strides are in elements.  window: keys
-// k > q - window are kept (pass 2^30 for none).
-extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int H, int KV, int Sq, int Sk, int hd, long long qb, long long qh,
-    long long qs, long long kb, long long kh, long long ks, long long vb,
-    long long vh, long long vs, long long ob, long long oh, long long os,
-    float scale, float cap, int causal, int window, int kv_len, int device,
-    cudaStream_t stream) {
+// k > q - window are kept (pass 2^30 for none).  lse: null, or a contiguous
+// (B, H, Sq) float32 output of each row's log-sum-exp (the backward's input).
+extern "C" int flash_attention_fwd_lse(
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int dtype, int B, int H, int KV, int Sq, int Sk, int hd, long long qb,
+    long long qh, long long qs, long long kb, long long kh, long long ks,
+    long long vb, long long vh, long long vs, long long ob, long long oh,
+    long long os, float scale, float cap, int causal, int window, int kv_len,
+    int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
@@ -716,6 +726,7 @@ extern "C" int flash_attention_fwd(
   P.causal = causal;
   P.window = window;
   P.kv_len = kv_len;
+  P.lse = lse;
   // bf16 rows of q, k and v all start on 16 bytes: cp.async chunks
   const int vec =
       ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0 &&
@@ -729,4 +740,18 @@ extern "C" int flash_attention_fwd(
     case 256: return launch_hd<256>(dtype, q, k, v, o, B, P, vec, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The forward without the log-sum-exp (serving).
+extern "C" int flash_attention_fwd(
+    const void* q, const void* k, const void* v, void* o, int dtype, int B,
+    int H, int KV, int Sq, int Sk, int hd, long long qb, long long qh,
+    long long qs, long long kb, long long kh, long long ks, long long vb,
+    long long vh, long long vs, long long ob, long long oh, long long os,
+    float scale, float cap, int causal, int window, int kv_len, int device,
+    cudaStream_t stream) {
+  return flash_attention_fwd_lse(q, k, v, o, nullptr, dtype, B, H, KV, Sq,
+                                 Sk, hd, qb, qh, qs, kb, kh, ks, vb, vh, vs,
+                                 ob, oh, os, scale, cap, causal, window,
+                                 kv_len, device, stream);
 }

@@ -45,6 +45,14 @@ SIGNATURES: Dict[str, List] = {
     # v, o, scale, softcap, causal, window, kv_len, device, stream
     "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             *[_L] * 12, _F, _F, _I, _I, _I, _I, _P],
+    # the same with the (B, H, Sq) float32 log-sum-exp (or NULL) after o
+    "flash_attention_fwd_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _I, *[_L] * 12, _F, _F, _I, _I, _I, _I, _P],
+    # q, k, v, o, dO, lse, dq, dk, dv, D scratch, dtype, B, H, KV, Sq, Sk,
+    # hd, (b, h, s) strides of q (= o, dO, dq) and of k (= v, dk, dv),
+    # scale, softcap, causal, window, device, stream
+    "flash_attention_bwd": [*[_P] * 10, *[_I] * 7, *[_L] * 6, _F, _F, _I,
+                            _I, _I, _P],
     # x, dt, B, C, A, h0 (or NULL), y, h_out, scratch states, cb, cum,
     # dtype, batch, S, nh, hd, ds, chunk, device, stream
     "ssd_scan_fwd": [*[_P] * 11, _I, _I, _I, _I, _I, _I, _I, _I, _P],

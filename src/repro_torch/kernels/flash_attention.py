@@ -1,14 +1,18 @@
-"""Flash attention on the card, launching ``csrc/flash_attention.cu``.
+"""Flash attention on the card, launching ``csrc/flash_attention.cu`` and,
+for the gradients, ``csrc/flash_attention_bwd.cu``.
 
-The kernel reads q/k/v and writes the output through their (batch, head,
+The kernels read q/k/v and write the output through their (batch, head,
 sequence) strides, so the model's (B, S, H, hd) layout goes in and comes
 out without a transposed copy (:func:`flash_attention_bshd`); only the
-head dimension must be contiguous.
+head dimension must be contiguous.  The forward can also write each query
+row's log-sum-exp (``with_lse``), which the backward
+(:func:`flash_attention_backward`: three kernels a call, counted once in
+``bwd_launches``) reads to recompute the probabilities.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -17,6 +21,9 @@ from repro_torch.kernels._build import (DTYPE_CODES, LaunchCounter,
                                         stream_of)
 
 launches = LaunchCounter("flash_attention")
+bwd_launches = LaunchCounter("flash_attention_bwd")
+#: kernels one backward call launches (D = rowsum(dO o), dK/dV, dQ)
+BWD_KERNELS_PER_CALL = 3
 
 #: head dims the kernel is instantiated for (every config of the repo:
 #: 64, 80, 128, 256; the smaller ones for the smoke configs)
@@ -35,11 +42,12 @@ def _check(t: torch.Tensor, name: str, like: Optional[torch.Tensor]) -> None:
         raise ValueError(f"{name} is {t.dtype}, q is {like.dtype}")
 
 
-def _launch(q, k, v, o, *, causal: bool = True,
-            window: Optional[int] = None, logit_cap: float = 0.0,
-            scale: Optional[float] = None,
+def _launch(q, k, v, o, *, lse: Optional[torch.Tensor] = None,
+            causal: bool = True, window: Optional[int] = None,
+            logit_cap: float = 0.0, scale: Optional[float] = None,
             kv_len: Optional[int] = None) -> None:
-    """q/o (B, H, Sq, hd), k/v (B, KV, Sk, hd) views of CUDA tensors."""
+    """q/o (B, H, Sq, hd), k/v (B, KV, Sk, hd) views of CUDA tensors; lse
+    None or a contiguous (B, H, Sq) float32 tensor."""
     _check(q, "q", None)
     for t, name in ((k, "k"), (v, "v"), (o, "out")):
         _check(t, name, q)
@@ -52,13 +60,18 @@ def _launch(q, k, v, o, *, causal: bool = True,
         raise ValueError(f"GQA needs H % KV == 0, got {H} % {KV}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if lse is not None:
+        require(lse, "lse", ndim=3, device=q.device)
+        if tuple(lse.shape) != (B, H, Sq):
+            raise ValueError(f"lse {tuple(lse.shape)} is not (B, H, Sq)")
     sc = scale if scale is not None else 1.0 / math.sqrt(hd)
     kvl = Sk if kv_len is None else int(kv_len)
     win = NO_WINDOW if window is None else int(window)
     strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                *o.stride()[:3]]
-    check_launch(library().flash_attention_fwd(
+    check_launch(library().flash_attention_fwd_lse(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         DTYPE_CODES[q.dtype], B, H, KV, Sq, Sk, hd, *strides, float(sc),
         float(logit_cap or 0.0), int(bool(causal)), win, kvl,
         q.device.index, stream_of(q)), "flash_attention")
@@ -85,3 +98,78 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launch(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             o.transpose(1, 2), **kw)
     return o
+
+
+def _bhsd(t: torch.Tensor, bshd: bool) -> torch.Tensor:
+    return t.transpose(1, 2) if bshd else t
+
+
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, bshd: bool = False, **kw
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward, in the (B, H, S, hd) layout or (``bshd``) the model's,
+    and each query row's log-sum-exp (B, H, Sq) float32: the backward's
+    inputs."""
+    qh = _bhsd(q, bshd)
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty(qh.shape[:3], dtype=torch.float32, device=q.device)
+    _launch(qh, _bhsd(k, bshd), _bhsd(v, bshd), _bhsd(o, bshd), lse=lse,
+            **kw)
+    return o, lse
+
+
+def flash_attention_backward(q, k, v, o, do, lse, *, bshd: bool = False,
+                             causal: bool = True,
+                             window: Optional[int] = None,
+                             logit_cap: float = 0.0,
+                             scale: Optional[float] = None,
+                             kv_len: Optional[int] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """dq, dk, dv of the forward ``o = flash_attention(q, k, v)`` given the
+    output gradient ``do`` and the forward's ``lse``, in the layout of q
+    (``bshd``: the model's).  q, o and do must share their strides, as
+    must k and v (the forward's contiguous tensors do); the gradients come
+    out with those strides, in q's dtype."""
+    if kv_len is not None:
+        raise ValueError("the flash attention backward does not take "
+                         "kv_len")
+    qh, kh, vh, oh, doh = (_bhsd(t, bshd) for t in (q, k, v, o, do))
+    _check(qh, "q", None)
+    for t, name in ((kh, "k"), (vh, "v"), (oh, "o"), (doh, "do")):
+        _check(t, name, qh)
+    B, H, Sq, hd = qh.shape
+    KV, Sk = kh.shape[1], kh.shape[2]
+    if tuple(kh.shape) != (B, KV, Sk, hd) or vh.shape != kh.shape \
+            or oh.shape != qh.shape or doh.shape != qh.shape:
+        raise ValueError(f"shapes do not fit: q {tuple(qh.shape)}, k "
+                         f"{tuple(kh.shape)}, v {tuple(vh.shape)}, o "
+                         f"{tuple(oh.shape)}, do {tuple(doh.shape)}")
+    if not (qh.stride() == oh.stride() == doh.stride()
+            and kh.stride() == vh.stride()):
+        raise ValueError("q, o and do must share their strides, and k and v")
+    if H % KV:
+        raise ValueError(f"GQA needs H % KV == 0, got {H} % {KV}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    require(lse, "lse", ndim=3, device=q.device)
+    if tuple(lse.shape) != (B, H, Sq):
+        raise ValueError(f"lse {tuple(lse.shape)} is not (B, H, Sq)")
+    dq = torch.empty_strided(q.shape, q.stride(), dtype=q.dtype,
+                             device=q.device)
+    dk = torch.empty_strided(k.shape, k.stride(), dtype=k.dtype,
+                             device=k.device)
+    dv = torch.empty_strided(k.shape, k.stride(), dtype=k.dtype,
+                             device=k.device)
+    D = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    sc = scale if scale is not None else 1.0 / math.sqrt(hd)
+    win = NO_WINDOW if window is None else int(window)
+    check_launch(library().flash_attention_bwd(
+        qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), oh.data_ptr(),
+        doh.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), D.data_ptr(), DTYPE_CODES[q.dtype], B, H, KV, Sq, Sk,
+        hd, *qh.stride()[:3], *kh.stride()[:3], float(sc),
+        float(logit_cap or 0.0), int(bool(causal)), win, q.device.index,
+        stream_of(q)), "flash_attention_bwd")
+    bwd_launches.add()
+    return dq, dk, dv

@@ -4,7 +4,11 @@ bfloat16 goes to the TMA + wgmma kernel when its rows suit the TMA (16-byte
 row strides and bases: ``d % 8 == 0``, ``f % 8 == 0``, x and w on 16
 bytes); any other bf16 shape or view goes, by that check alone, to the
 WMMA kernel.  Each of the two is counted apart (``bf16_launches``) besides
-the kernel's total (``launches``).
+the kernel's total (``launches``).  The backward of ``y[e] = x[e] w[e]``
+is two more calls of the same kernel, ``dx[e] = dy[e] w[e]^T`` and
+``dw[e] = x[e]^T dy[e]`` on contiguous transposed operands
+(``repro_torch.kernels.ops``); those calls are also counted in
+``bwd_launches``.
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ launches = LaunchCounter("grouped_matmul")
 #: TMA cannot take)
 bf16_launches = {"tma": LaunchCounter("grouped_matmul/tma"),
                  "wmma": LaunchCounter("grouped_matmul/wmma")}
+#: launches made for a gradient (dx or dw), also counted in ``launches``
+bwd_launches = LaunchCounter("grouped_matmul/backward")
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -31,10 +37,12 @@ def tma_rows(x: torch.Tensor, w: torch.Tensor) -> bool:
             and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
 
 
-def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
+                   backward: bool = False) -> torch.Tensor:
     """x (E, C, d) and w (E, d, f), contiguous CUDA tensors of one dtype,
     float32 or bfloat16 -> y (E, C, f) in x's dtype, ``y[e] = x[e] @ w[e]``
-    summed in float32."""
+    summed in float32.  ``backward``: the call computes a gradient (counted
+    in ``bwd_launches`` too)."""
     require(x, "x", ndim=3, dtypes=_DTYPES)
     require(w, "w", ndim=3, device=x.device, dtypes=(x.dtype,))
     E, C, d = x.shape
@@ -58,4 +66,6 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         if x.dtype == torch.bfloat16:
             bf16_launches["tma"].add()
     launches.add()
+    if backward:
+        bwd_launches.add()
     return y

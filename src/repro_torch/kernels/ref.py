@@ -94,18 +94,16 @@ def nbody_ref(pos: torch.Tensor, mass: torch.Tensor,
 NEG_INF = -2.0 ** 30
 
 
-def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, window: Optional[int] = None,
-                  logit_cap: float = 0.0, scale: Optional[float] = None,
-                  kv_len: Optional[int] = None) -> torch.Tensor:
-    """q: (B,H,Sq,hd); k/v: (B,KV,Sk,hd) -> (B,H,Sq,hd) in q's dtype.
-    Dense float32 softmax over all Sk keys."""
+def attention_probs(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+                    window: Optional[int] = None, logit_cap: float = 0.0,
+                    scale: Optional[float] = None,
+                    kv_len: Optional[int] = None) -> torch.Tensor:
+    """q: (B,H,Sq,hd); k: (B,KV,Sk,hd) -> the float32 softmax (B,H,Sq,Sk)
+    over the masked (NEG_INF) scores."""
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
-    G = H // KV
     sc = scale if scale is not None else 1.0 / math.sqrt(hd)
-    kf = k.repeat_interleave(G, dim=1)
-    vf = v.repeat_interleave(G, dim=1)
+    kf = k.repeat_interleave(H // KV, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf.float()) * sc
     if logit_cap and logit_cap > 0:
         s = logit_cap * torch.tanh(s / logit_cap)
@@ -116,10 +114,43 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask = mask & (kp <= qp)
     if window is not None:
         mask = mask & (kp > qp - window)
-    s = s.masked_fill(~mask, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    return torch.softmax(s.masked_fill(~mask, NEG_INF), dim=-1)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  logit_cap: float = 0.0, scale: Optional[float] = None,
+                  kv_len: Optional[int] = None) -> torch.Tensor:
+    """q: (B,H,Sq,hd); k/v: (B,KV,Sk,hd) -> (B,H,Sq,hd) in q's dtype.
+    Dense float32 softmax over all Sk keys.  Its gradient under autograd
+    is the plain version of the flash backward kernel."""
+    p = attention_probs(q, k, causal=causal, window=window,
+                        logit_cap=logit_cap, scale=scale, kv_len=kv_len)
+    vf = v.repeat_interleave(q.shape[1] // v.shape[1], dim=1)
     o = torch.einsum("bhqk,bhkd->bhqd", p, vf.float())
     return o.to(q.dtype)
+
+
+def attention_bwd_rounding(q: torch.Tensor, k: torch.Tensor,
+                           o: torch.Tensor, do: torch.Tensor, **kw
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Elementwise bounds on how far dq and dk move when the backward
+    reads the forward's output rounded to its dtype (bf16: within 2^-8 of
+    each value), as the flash backward does for D = rowsum(dO o), and not
+    the exact output autograd keeps: dS moves by P |dD|, so
+    |ddq| <= scale (P |dD|) |K| and |ddk| <= scale (P |dD|)^T |Q| (summed
+    over a kv head's query heads).  dv does not read D.  ``kw``: the
+    forward's mask, softcap and scale."""
+    hd, G = q.shape[-1], q.shape[1] // k.shape[1]
+    sc = kw.get("scale") or 1.0 / math.sqrt(hd)
+    unit = torch.finfo(o.dtype).eps / 2
+    dD = (do.float().abs() * o.float().abs()).sum(-1) * unit   # (B,H,Sq)
+    w = attention_probs(q, k, **kw) * dD[..., None]
+    eq = sc * torch.einsum("bhqk,bhkd->bhqd", w,
+                           k.float().abs().repeat_interleave(G, dim=1))
+    ek = sc * torch.einsum("bhqk,bhqd->bhkd", w, q.float().abs())
+    ek = ek.reshape(k.shape[0], k.shape[1], G, *ek.shape[2:]).sum(2)
+    return eq, ek
 
 
 # ---------------------------------------------------------------------------

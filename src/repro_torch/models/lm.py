@@ -11,6 +11,9 @@ one :class:`AttnBlock`) for the hybrid family, and ``n_layers``
 package:
 
   * :meth:`LM.forward`  — full-sequence logits,
+  * :func:`forward_backbone` / :func:`forward_train` — the training
+    forward: final hidden states (or logits) and the MoE aux loss, with
+    the reference's activation-checkpointing ("remat") policies,
   * :func:`prefill`     — fills the decode cache, returns last-token logits,
   * :func:`decode_step` — one token in, logits out, cache updated.
 
@@ -21,11 +24,14 @@ place (the JAX engine donates it) and returns it.  Other families raise
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import functools
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (attn_defs, decode_attention,
@@ -128,14 +134,31 @@ def _attn_part(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     return x + out_proj(o, p["attn"]), (k, v)
 
 
-def _ffn_part(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The residual FFN; the MoE aux loss is dropped (serving only)."""
+def _ffn_aux(p: Params, x: torch.Tensor, cfg: ModelConfig
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual FFN and its aux loss (the MoE router's; 0 for an
+    MLP)."""
     h = rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
     if "moe" in p:
-        y, _ = moe_ffn(h, p["moe"], cfg)
+        y, aux = moe_ffn(h, p["moe"], cfg)
     else:
         y = mlp(h, p["ffn"], cfg)
-    return x + y
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, aux
+
+
+def _ffn_part(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The residual FFN; the MoE aux loss is dropped (serving only)."""
+    return _ffn_aux(p, x, cfg)[0]
+
+
+def attn_block_train(blk: "AttnBlock", x: torch.Tensor, *,
+                     positions: torch.Tensor, window: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One causal attention block of the training forward: (y, aux)."""
+    y, _ = _attn_part(blk, x, blk.cfg, positions=positions, causal=True,
+                      window=window)
+    return _ffn_aux(blk, y, blk.cfg)
 
 
 class MambaBlock(Params):
@@ -209,6 +232,113 @@ class LM(nn.Module):
                            window=cfg.sliding_window)
         x = rmsnorm(x, self.final_norm["scale"], cfg.norm_eps)
         return unembed(x, self.embed, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Forward (training): tokens -> hidden states or logits, and the aux loss
+# ---------------------------------------------------------------------------
+
+#: The reference's remat policies (``repro.runtime.train.REMAT_POLICIES``)
+#: and what each saves of a checkpointed layer body here:
+#:   "none" / None   -> no checkpointing: autograd keeps what it needs;
+#:   "full"          -> ``nothing_saveable``: ``torch.utils.checkpoint``,
+#:                      only the body's inputs kept, all else recomputed;
+#:   "dots"          -> ``checkpoint_dots``: selective checkpointing that
+#:                      saves the outputs of ``aten.mm`` and ``aten.bmm``
+#:                      (every matrix product) and recomputes the rest;
+#:   "dots_no_batch" -> ``checkpoint_dots_with_no_batch_dims``: saves only
+#:                      ``aten.mm``'s (the products without a batch
+#:                      dimension; ``bmm`` is recomputed).
+#: The hand-written kernels are not matrix products to the dispatcher
+#: (ctypes launches): under "dots" and "dots_no_batch" they are recomputed.
+REMAT_SAVED = {"dots": (torch.ops.aten.mm.default, torch.ops.aten.bmm.default),
+               "dots_no_batch": (torch.ops.aten.mm.default,)}
+REMAT_POLICIES = (None, "none", "full", *REMAT_SAVED)
+
+
+def _remat(fn: Callable, policy: Optional[str]) -> Callable:
+    """``fn`` under the named checkpoint policy."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat policy {policy!r} not in {REMAT_POLICIES}")
+    if policy in (None, "none"):
+        return fn
+    kw = {}
+    if policy in REMAT_SAVED:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, list(REMAT_SAVED[policy]))
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False, **kw)
+
+
+def _grouped(bodies: List[Callable], g: int, policy: Optional[str],
+             inner: Optional[str]) -> List[Callable]:
+    """Nested checkpointing, as the reference's ``_grouped_body``: each
+    checkpointed unit advances ``g`` layer bodies, each of which is
+    checkpointed with ``inner`` (the reference's ``remat_inner_policy or
+    remat_policy``)."""
+    if g <= 1:
+        return [_remat(b, policy) for b in bodies]
+    if len(bodies) % g:
+        raise ValueError(f"remat_group {g} does not divide layer stack "
+                         f"{len(bodies)}")
+
+    def group(members):
+        def run(h, aux):
+            for b in members:
+                h, aux = b(h, aux)
+            return h, aux
+        return run
+
+    inner_bodies = [_remat(b, inner) for b in bodies]
+    return [_remat(group(inner_bodies[i:i + g]), policy)
+            for i in range(0, len(bodies), g)]
+
+
+def forward_backbone(model: LM, tokens: torch.Tensor,
+                     remat_policy: Optional[str] = None,
+                     remat_group: int = 1,
+                     remat_inner_policy: Optional[str] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B,S) -> final hidden states (B,S,d), aux-loss scalar (the
+    MoE router losses summed over the layers).  A hybrid group of Mamba2
+    blocks and its attention block is one layer body, as in the
+    reference's scan."""
+    cfg = model.cfg
+    S = tokens.shape[1]
+    positions = torch.arange(S, device=tokens.device)[None]
+    window = cfg.sliding_window
+
+    def attn_body(blk):
+        def body(h, aux):
+            y, a = attn_block_train(blk, h, positions=positions,
+                                    window=window)
+            return y, aux + a
+        return body
+
+    def hybrid_body(grp):
+        def body(h, aux):
+            for blk in grp.mamba:
+                h, _, _ = blk(h)
+            y, a = attn_block_train(grp.attn, h, positions=positions,
+                                    window=window)
+            return y, aux + a
+        return body
+
+    make = hybrid_body if cfg.family == "hybrid" else attn_body
+    x = embed(tokens, model.embed, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for body in _grouped([make(layer) for layer in model.layers],
+                         remat_group, remat_policy,
+                         remat_inner_policy or remat_policy):
+        x, aux = body(x, aux)
+    return rmsnorm(x, model.final_norm["scale"], cfg.norm_eps), aux
+
+
+def forward_train(model: LM, tokens: torch.Tensor,
+                  remat_policy: Optional[str] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B,S) -> logits (B,S,V), aux-loss scalar."""
+    x, aux = forward_backbone(model, tokens, remat_policy=remat_policy)
+    return unembed(x, model.embed, model.cfg), aux
 
 
 # ---------------------------------------------------------------------------

@@ -679,3 +679,205 @@ def test_granite_smoke_model_serves_on_card_as_on_cpu(cuda_device):
     assert ops.COUNTERS["grouped_matmul"].value == 3 * cfg.n_layers * len(
         steps)
     assert ops.COUNTERS["ssd_scan"].value == 0
+
+
+# ---------------------------------------------------------------------------
+# gradients: the flash backward kernel, the grouped GEMM under autograd
+# ---------------------------------------------------------------------------
+
+#: float32 gradients: max |err| <= BWD_TOL x max |plain| (the same float32
+#: function summed in another order); bf16 inputs: each element within one
+#: bf16 step (2^-7 of its value) plus that, plus for dq and dk how far D =
+#: rowsum(dO o) moves with o rounded to bf16 (ref.attention_bwd_rounding)
+BWD_TOL = 1e-4
+
+
+def _flash_grads(q, k, v, do, fn, **kw):
+    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    o = fn(qs, ks, vs, **kw)
+    assert o.grad_fn is not None
+    return (o, *torch.autograd.grad(o, (qs, ks, vs), do))
+
+
+def _check_flash_grads(q, k, v, do, kw):
+    got = _flash_grads(q, k, v, do, ops.flash_attention, **kw)
+    want = _flash_grads(q.float(), k.float(), v.float(), do.float(),
+                        ref.attention_ref, **kw)
+    rounding = (*ref.attention_bwd_rounding(q, k, got[0], do, **kw), 0.0)
+    for name, g, w, r in zip("qkv", got[1:], want[1:], rounding):
+        assert g.dtype == q.dtype and g.shape == w.shape
+        err = (g.float() - w).abs()
+        bound = BWD_TOL * w.abs().max()
+        if q.dtype == torch.bfloat16:
+            bound = bound + 2 ** -7 * w.abs() + r
+        assert (err <= bound).all(), (name, err.max().item())
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=True,
+                                                       window=40),
+                                dict(causal=True, logit_cap=5.0),
+                                dict(causal=False)],
+                         ids=["causal", "window", "softcap", "noncausal"])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128, 256])
+def test_flash_backward_matches_plain_on_card(hd, kw, dtype, cuda_device):
+    """GQA 24/8, a ragged 150 rows, every head dim of the kernel: dq, dk
+    and dv against autograd through the plain version; repeated calls
+    bit-identical; one backward launch a call."""
+    g = torch.Generator().manual_seed(hd)
+    q, do = (torch.randn(1, 24, 150, hd, generator=g).to(cuda_device, dtype)
+             for _ in range(2))
+    k, v = (torch.randn(1, 8, 150, hd, generator=g).to(cuda_device, dtype)
+            for _ in range(2))
+    before = ops.COUNTERS["flash_attention_bwd"].value
+    got = _check_flash_grads(q, k, v, do, kw)
+    again = _flash_grads(q, k, v, do, ops.flash_attention, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert ops.COUNTERS["flash_attention_bwd"].value == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,Sq,Sk", [(dict(causal=False, window=8), 40, 24),
+                                      (dict(causal=True, window=4), 36, 20)],
+                         ids=["noncausal_past_keys", "causal_past_keys"])
+def test_flash_backward_rows_without_keys_on_card(kw, Sq, Sk, cuda_device):
+    g = torch.Generator().manual_seed(Sq)
+    q, do = (torch.randn(2, 4, Sq, 64, generator=g).to(cuda_device)
+             for _ in range(2))
+    k, v = (torch.randn(2, 2, Sk, 64, generator=g).to(cuda_device)
+            for _ in range(2))
+    _check_flash_grads(q, k, v, do, kw)
+
+
+@pytest.mark.cuda
+def test_flash_backward_in_the_model_layout_on_card(cuda_device):
+    """The model's (B, S, H, hd) layout (strided views for the kernel)
+    gives the (B, H, S, hd) gradients, bit for bit; kv_len is refused."""
+    g = torch.Generator().manual_seed(3)
+    q, do = (torch.randn(2, 24, 130, 64, generator=g).to(cuda_device,
+                                                         torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(2, 8, 130, 64, generator=g).to(cuda_device,
+                                                       torch.bfloat16)
+            for _ in range(2))
+    want = _flash_grads(q, k, v, do, ops.flash_attention)
+    t = lambda x: x.transpose(1, 2).contiguous()
+    got = _flash_grads(t(q), t(k), t(v), t(do), ops.flash_attention_bshd)
+    assert all(torch.equal(a.transpose(1, 2), b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="kv_len"):
+        ops.flash_attention(q.requires_grad_(True), k, v, kv_len=100)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(40, 1024, 1536, 512),
+                                   (40, 1024, 512, 1536), (4, 72, 1536, 512)],
+                         ids=["granite_w_in", "granite_w_out", "ragged_c"])
+def test_grouped_matmul_backward_matches_plain_on_card(shape, cuda_device):
+    """bf16 dx = dy w^T and dw = x^T dy, each through the TMA + wgmma
+    kernel, within one bf16 step plus 2e-4 x max |plain| of autograd
+    through the plain version."""
+    from repro_torch.kernels import moe_gemm
+    E, C, d, f = shape
+    g = torch.Generator().manual_seed(C + d)
+    x = torch.randn(E, C, d, generator=g).to(cuda_device, torch.bfloat16)
+    w = (torch.randn(E, d, f, generator=g) * d ** -0.5).to(cuda_device,
+                                                           torch.bfloat16)
+    dy = torch.randn(E, C, f, generator=g).to(cuda_device, torch.bfloat16)
+    before = (moe_gemm.bwd_launches.value,
+              moe_gemm.bf16_launches["tma"].value)
+    xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    y = ops.grouped_matmul(xs, ws)
+    got = torch.autograd.grad(y, (xs, ws), dy)
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    want = torch.autograd.grad(ref.grouped_matmul_ref(xr, wr), (xr, wr), dy)
+    torch.cuda.synchronize()
+    assert moe_gemm.bwd_launches.value == before[0] + 2
+    assert moe_gemm.bf16_launches["tma"].value == before[1] + 3
+    for a, b in zip(got, want):
+        scale = b.float().abs().max().item()
+        assert ((a.float() - b.float()).abs()
+                <= 2 ** -7 * b.float().abs() + 2e-4 * scale).all()
+
+
+@pytest.mark.cuda
+def test_ssd_scan_refuses_to_be_differentiated_on_card(cuda_device):
+    x = torch.randn(1, 64, 32, device=cuda_device, requires_grad=True)
+    dt = torch.rand(1, 64, 2, device=cuda_device)
+    B, C = (torch.randn(1, 64, 16, device=cuda_device) for _ in range(2))
+    A = -torch.rand(2, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="SSD scan has no backward"):
+        ops.ssd_scan(x, dt, B, C, A, chunk=32)
+    with torch.no_grad():
+        ops.ssd_scan(x, dt, B, C, A, chunk=32)
+
+
+@pytest.mark.cuda
+def test_no_cuda_entry_returns_a_result_autograd_cannot_see(cuda_device):
+    """Every CUDA entry of ops, given an input that requires grad, either
+    returns a result with a grad_fn or raises."""
+    dev = cuda_device
+    req = lambda *s: torch.rand(*s, device=dev).requires_grad_(True)
+    carried = [
+        ops.flash_attention(req(1, 2, 16, 16), req(1, 2, 16, 16),
+                            req(1, 2, 16, 16)),
+        ops.flash_attention_bshd(req(1, 16, 2, 16), req(1, 16, 2, 16),
+                                 req(1, 16, 2, 16)),
+        ops.grouped_matmul(req(2, 8, 16), req(2, 16, 8)),
+    ]
+    assert all(t.grad_fn is not None for t in carried)
+    refused = [
+        lambda: ops.saxpy(2.0, req(10), req(10)),
+        lambda: ops.filter_pipeline(req(8, 8) * 255),
+        lambda: ops.segmentation(req(2, 8, 8) * 255),
+        lambda: ops.nbody_accelerations(req(8, 3), torch.rand(8, device=dev)),
+        lambda: ops.nbody_step(req(8, 3), torch.zeros(8, 3, device=dev),
+                               torch.rand(8, device=dev)),
+        lambda: ops.ssd_scan(req(1, 32, 8), torch.rand(1, 32, 1, device=dev),
+                             torch.rand(1, 32, 16, device=dev),
+                             torch.rand(1, 32, 16, device=dev),
+                             -torch.rand(1, device=dev), chunk=32),
+    ]
+    for fn in refused:
+        with pytest.raises(NotImplementedError, match="backward"):
+            fn()
+
+
+@pytest.mark.cuda
+def test_granite_smoke_train_step_on_card_as_on_cpu(cuda_device):
+    """One float32 train step of granite's smoke config, the same
+    parameters and batch on the card (kernels, their backward) and on the
+    CPU (plain versions): the loss at rtol 1e-5, every gradient within
+    1e-4 x its max |g|, and the launches of one forward and backward."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.models import LM
+    from repro_torch.runtime import RuntimeConfig, make_loss_fn
+    from repro_torch.runtime.train import trainable
+    cfg = get_smoke("granite-moe-3b-a800m")
+    host = LM(cfg, dtype=torch.float32,
+              generator=torch.Generator().manual_seed(0))
+    card = LM(cfg, dtype=torch.float32, device=cuda_device)
+    card.load_state_dict(host.state_dict())
+    b = batch_at(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=2), 0)
+    loss_fn = make_loss_fn(cfg, RuntimeConfig(remat=None))
+    out = {}
+    for c in ops.COUNTERS.values():
+        c.reset()
+    for model, dev in ((host, "cpu"), (card, "cuda")):
+        params = trainable(model)
+        total, (loss, _) = loss_fn(model, b["tokens"].to(dev),
+                                   b["labels"].to(dev))
+        grads = torch.autograd.grad(total, list(params.values()))
+        out[dev] = (loss.item(), {k: g.cpu() for k, g in zip(params, grads)})
+    torch.cuda.synchronize()
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
+    for k, w in out["cpu"][1].items():
+        assert (out["cuda"][1][k] - w).abs().max() <= \
+            1e-4 * w.abs().max() + 1e-7, k
+    L = cfg.n_layers
+    assert ops.COUNTERS["flash_attention"].value == L
+    assert ops.COUNTERS["flash_attention_bwd"].value == L
+    assert ops.COUNTERS["grouped_matmul"].value == 9 * L
