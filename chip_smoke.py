@@ -52,11 +52,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "tests"))   # flash_bwd_bounds: a check's bound
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from flash_bwd_bounds import attention_bwd_rounding  # noqa: E402
 from repro_torch import suite  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (AcceleratorPlatform, DeviceInfo,  # noqa: E402
@@ -191,7 +193,7 @@ TRAIN_REMAT = "none"
 #: flash backward: float32 gradients max |err| <= BWD_TOL x max |plain|;
 #: bf16 inputs each element within one bf16 step plus that, plus for dq/dk
 #: how far D = rowsum(dO o) moves with o rounded to bf16
-#: (ref.attention_bwd_rounding)
+#: (tests/flash_bwd_bounds.py)
 BWD_TOL = 1e-4
 #: the gradient head check, on granite's first MOE_CHECK_LAYERS layers and
 #: the full-width embedding: the loss's gradients on one 1 x TRAIN_SEQ batch
@@ -1230,12 +1232,13 @@ def lm_phase(arch):
 # ---------------------------------------------------------------------------
 
 def flash_bwd_bound(B, H, KV, S, hd, dtype, causal=True):
-    """Bytes: q, k, v, o, dO and the lse read, dq, dk, dv written once.
-    Operations: five products (S, dP, dV, dK, dQ) of 2 per multiply-add
-    over the (query, key) pairs the causal mask keeps."""
+    """Bytes: q, o, dO and the float32 lse read and dq written (four
+    query-sized tensors), k and v read and dk, dv written (four key-sized
+    ones), each once.  Operations: five products (S, dP, dV, dK, dQ) of 2
+    per multiply-add over the (query, key) pairs the causal mask keeps."""
     pairs = S * (S + 1) // 2 if causal else S * S
     size = torch.finfo(dtype).bits // 8
-    nbytes = size * (6 * B * H * S * hd + 4 * B * KV * S * hd) + 4 * B * H * S
+    nbytes = size * (4 * B * H * S * hd + 4 * B * KV * S * hd) + 4 * B * H * S
     return bound_ms(nbytes, 5 * 2.0 * B * H * pairs * hd, peak_for(dtype))
 
 
@@ -1267,7 +1270,7 @@ def flash_grads_excess(q, k, v, do, kw):
              else (o - o_want).abs().max().item() / FLASH_TOL)
     expect(worst <= 1.0, f"flash forward with lse {list(q.shape)} {q.dtype}: "
            f"worst element at {worst:.3f} of its bound")
-    rounding = (*ref.attention_bwd_rounding(q, k, o, do, **kw), 0.0)
+    rounding = (*attention_bwd_rounding(q, k, o, do, **kw), 0.0)
     err_max = 0.0
     for g, w, r in zip(got, want, rounding):
         err = (g.float() - w).abs()

@@ -26,9 +26,12 @@
 // rows, the dK/dV blocks visit every query tile.
 //
 // Bound on the card: five products of 2·B·H·S²·hd operations (S, dP, dV,
-// dK, dQ; halved under the causal mask) on q, k, v, o, dO read and dq, dk,
-// dv written once: far above the H100's bytes-to-operations balance, so it
-// is bounded by operations.  This first version is simple, not fast: every
+// dK, dQ; halved under the causal mask) against q, o, dO (and lse) read and
+// dq written, k and v read and dk, dv written, each once.  With bf16 inputs
+// and causal GQA that is about 5·H·S / (8·(H + KV)) operations a byte, so on
+// an H100 (989 TFLOP/s bf16 over 3.35 TB/s) the bytes bound it below
+// S ~ 630 at 24/8 heads, granite's training length of 512 included, and the
+// operations above.  This first version is simple, not fast: every
 // product is FP32 FMAs on the CUDA cores (67 TFLOP/s, not the 989 of bf16
 // tensor cores), each thread an (8 x 4) piece of a score tile and of an
 // accumulator, operands in padded shared-memory rows (HD + 1 floats, no

@@ -131,28 +131,6 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.to(q.dtype)
 
 
-def attention_bwd_rounding(q: torch.Tensor, k: torch.Tensor,
-                           o: torch.Tensor, do: torch.Tensor, **kw
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Elementwise bounds on how far dq and dk move when the backward
-    reads the forward's output rounded to its dtype (bf16: within 2^-8 of
-    each value), as the flash backward does for D = rowsum(dO o), and not
-    the exact output autograd keeps: dS moves by P |dD|, so
-    |ddq| <= scale (P |dD|) |K| and |ddk| <= scale (P |dD|)^T |Q| (summed
-    over a kv head's query heads).  dv does not read D.  ``kw``: the
-    forward's mask, softcap and scale."""
-    hd, G = q.shape[-1], q.shape[1] // k.shape[1]
-    sc = kw.get("scale") or 1.0 / math.sqrt(hd)
-    unit = torch.finfo(o.dtype).eps / 2
-    dD = (do.float().abs() * o.float().abs()).sum(-1) * unit   # (B,H,Sq)
-    w = attention_probs(q, k, **kw) * dD[..., None]
-    eq = sc * torch.einsum("bhqk,bhkd->bhqd", w,
-                           k.float().abs().repeat_interleave(G, dim=1))
-    ek = sc * torch.einsum("bhqk,bhqd->bhkd", w, q.float().abs())
-    ek = ek.reshape(k.shape[0], k.shape[1], G, *ek.shape[2:]).sum(2)
-    return eq, ek
-
-
 # ---------------------------------------------------------------------------
 # SSD scan
 # ---------------------------------------------------------------------------

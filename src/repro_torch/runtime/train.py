@@ -97,11 +97,8 @@ def _grads(loss_fn, model: LM, params: Dict[str, torch.Tensor],
            tokens: torch.Tensor, labels: torch.Tensor):
     total, (loss, aux) = loss_fn(model, tokens, labels)
     names = list(params)
-    gs = torch.autograd.grad(total, [params[k] for k in names],
-                             allow_unused=True)
-    grads = {k: torch.zeros_like(params[k]) if g is None else g
-             for k, g in zip(names, gs)}
-    return grads, loss.detach(), aux.detach()
+    gs = torch.autograd.grad(total, [params[k] for k in names])
+    return dict(zip(names, gs)), loss.detach(), aux.detach()
 
 
 def _accumulate_grads(loss_fn, model: LM, batch: Batch, rt: RuntimeConfig):

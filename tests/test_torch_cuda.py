@@ -15,6 +15,8 @@ from repro_torch import suite
 from repro_torch.core import occupancy
 from repro_torch.kernels import ops, ref
 
+from flash_bwd_bounds import attention_bwd_rounding
+
 
 @pytest.fixture
 def cuda_device():
@@ -688,7 +690,7 @@ def test_granite_smoke_model_serves_on_card_as_on_cpu(cuda_device):
 #: float32 gradients: max |err| <= BWD_TOL x max |plain| (the same float32
 #: function summed in another order); bf16 inputs: each element within one
 #: bf16 step (2^-7 of its value) plus that, plus for dq and dk how far D =
-#: rowsum(dO o) moves with o rounded to bf16 (ref.attention_bwd_rounding)
+#: rowsum(dO o) moves with o rounded to bf16 (tests/flash_bwd_bounds.py)
 BWD_TOL = 1e-4
 
 
@@ -703,7 +705,7 @@ def _check_flash_grads(q, k, v, do, kw):
     got = _flash_grads(q, k, v, do, ops.flash_attention, **kw)
     want = _flash_grads(q.float(), k.float(), v.float(), do.float(),
                         ref.attention_ref, **kw)
-    rounding = (*ref.attention_bwd_rounding(q, k, got[0], do, **kw), 0.0)
+    rounding = (*attention_bwd_rounding(q, k, got[0], do, **kw), 0.0)
     for name, g, w, r in zip("qkv", got[1:], want[1:], rounding):
         assert g.dtype == q.dtype and g.shape == w.shape
         err = (g.float() - w).abs()

@@ -21,8 +21,8 @@ max |g| (the same float32 function summed in another order: tile by tile
 here, whole rows there); bf16 inputs, each element within one bf16 step
 (2^-7 of its value) of the float32 gradient of the same bf16 inputs plus
 that bound, plus, for dq and dk, how far D moves with the output rounded
-to bf16 (``ref.attention_bwd_rounding``), as the card checks hold the
-kernel.
+to bf16 (``flash_bwd_bounds.attention_bwd_rounding``), as the card checks
+hold the kernel.
 """
 import math
 
@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from flash_bwd_bounds import attention_bwd_rounding
 from repro.models.attention import blockwise_attention
 from repro_torch.kernels import ref
 
@@ -211,7 +212,7 @@ def test_emulated_backward_matches_autograd(B, H, KV, Sq, Sk, hd, kw, dtype):
     lse = forward_lse(q, k, **kw)
     got = emulate_backward(q, k, v, o, do, lse, **kw)
     want = plain_grads(q, k, v, do, **kw)
-    rounding = (*ref.attention_bwd_rounding(q, k, o, do, **kw), 0.0)
+    rounding = (*attention_bwd_rounding(q, k, o, do, **kw), 0.0)
     for name, g, w, r in zip("qkv", got, want, rounding):
         assert g.dtype == dtype
         err = (g.float() - w).abs()
