@@ -2,9 +2,10 @@
 """Tile shapes and knock-out builds of the port's redesigned kernels, timed
 on one CUDA card.
 
-    python3 chip_kernel_shapes.py [flash] [gmm] [ssd] [saxpy] [nbody] [sass]
+    python3 chip_kernel_shapes.py [flash] [flash_bwd] [gmm] [ssd] [saxpy]
+                                  [nbody] [sass]
 
-(no argument: all six).  Rebuilds a kernel's source with one setting
+(no argument: all seven).  Rebuilds a kernel's source with one setting
 replaced, each variant into its own library under ``build/shapes/``, all
 built at once, and times each at the main paths' shapes (CUDA-event means
 over 50 launches after a warm-up, twice), its output held to the plain
@@ -14,6 +15,13 @@ each list.
 - flash (bf16): keys a tile, cp.async stages, blocks an SM (the ``Cfg``
   alias); two builds knock one part out (the K/V loads, the lo half of
   P's product).
+- flash_bwd (bf16), at granite's training call (8, 24/8, 512, 64) causal:
+  as built, then the dK/dV kernel (``KvShape``) with 3 stages, or 16-row
+  pieces, or built for 1 block an SM, the dQ kernel (``QShape``) with 3
+  stages or 32-key pieces, and with the lo halves of P and dS
+  knocked out of each kernel's products (one bf16 rounding: its error is
+  reported); each with its three kernels' device time from
+  ``torch.profiler``.
 - gmm (bf16): tile rows and columns, TMA stages, blocks an SM (the
   ``Prefill`` alias).
 - ssd, at zamba2's call, x (1, 1536, 80 x 64) float32, chunk 256: as built
@@ -54,6 +62,7 @@ import torch.nn.functional as F
 
 import chip_smoke as cs
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import nbody as nbody_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.kernels.flash_attention import NO_WINDOW
@@ -75,6 +84,33 @@ FLASH_KNOCKOUTS = {
     "lo_product": ("        mma(acc[2 * n], pl, bv[0], bv[1]);\n"
                    "        mma(acc[2 * n + 1], pl, bv[2], bv[3]);\n", ""),
 }
+#: the flash backward's variants at hd 64: (name, a line of the source,
+#: what replaces it)
+FLASH_BWD_VARIANTS = [
+    ("kv_stages3", "  static constexpr int BQ = HD > 128 ? 32 : 64;\n"
+     "  static constexpr int STAGES = 2;",
+     "  static constexpr int BQ = HD > 128 ? 32 : 64;\n"
+     "  static constexpr int STAGES = 3;"),
+    ("kv_pieces16", "  static constexpr int PQ = HD <= 80 ? 32 : 16;",
+     "  static constexpr int PQ = 16;"),
+    ("kv_blocks1", "  static constexpr int kMinBlocks = HD <= 128 ? 2 : 1;\n"
+     "  static constexpr int BK = 16",
+     "  static constexpr int kMinBlocks = 1;\n  static constexpr int BK = 16"),
+    ("q_stages3", "  static constexpr int BK = HD > 128 ? 32 : 64;\n"
+     "  static constexpr int STAGES = 2;",
+     "  static constexpr int BK = HD > 128 ? 32 : 64;\n"
+     "  static constexpr int STAGES = 3;"),
+    ("q_pieces32", "  static constexpr int PK = 16;",
+     "  static constexpr int PK = 32;"),
+    ("kv_without_lo", "          mma(acc_v[2 * n], pl, bo[0], bo[1]);\n"
+     "          mma(acc_v[2 * n + 1], pl, bo[2], bo[3]);\n"
+     "          mma(acc_k[2 * n], sl, bq[0], bq[1]);\n"
+     "          mma(acc_k[2 * n + 1], sl, bq[2], bq[3]);\n", ""),
+    ("q_without_lo", "          mma(acc[2 * n], sl, bk[0], bk[1]);\n"
+     "          mma(acc[2 * n + 1], sl, bk[2], bk[3]);\n", ""),
+]
+#: (B, H, KV, S, hd) of the flash backward: granite's training call
+FLASH_BWD = (8, 24, 8, 512, 64)
 #: (tile rows, tile columns, stages, blocks an SM) of the grouped GEMM at
 #: C > 64
 GMM_CFG = "using Prefill = Cfg<128, 128, 3, 2>;"
@@ -122,7 +158,7 @@ NBODY_PATCHES = {
 #: blocks an SM the plan aims at, on the as-built library (the module's
 #: choice first); 0: one split
 NBODY_BLOCKS_PER_SM = [nbody_mod.BLOCKS_PER_SM, 4, 8, 32, 0]
-KINDS = ("flash", "gmm", "ssd", "saxpy", "nbody", "sass")
+KINDS = ("flash", "flash_bwd", "gmm", "ssd", "saxpy", "nbody", "sass")
 FLASH = {"zamba2": (1, 32, 32, 1536, 80), "granite": (1, 24, 8, 1536, 64)}
 GMM = {"prefill_in": (40, 384, 1536, 512), "prefill_out": (40, 384, 512, 1536),
        "ragged_c": (40, 72, 1536, 512)}
@@ -134,6 +170,8 @@ def variant(source: str, anchor: str, line: str, name: str) -> Path:
         raise RuntimeError(f"{source} no longer holds {anchor!r}")
     d = OUT / name
     (d / "csrc").mkdir(parents=True, exist_ok=True)
+    for header in CSRC.glob("*.cuh"):
+        (d / "csrc" / header.name).write_bytes(header.read_bytes())
     (d / "csrc" / source).write_text(text.replace(anchor, line))
     return _build.build(d / "csrc", d / "build")
 
@@ -149,17 +187,8 @@ def ptxas(lib: Path, kernel: str, tag: str = ""):
 def kernel_times(call, calls: int = 20):
     """Device microseconds a call of each kernel ``call`` launches, by
     name, from ``torch.profiler`` over ``calls`` calls."""
-    from torch.profiler import ProfilerActivity, profile
-    call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            call()
-        torch.cuda.synchronize()
-    return {e.key[:40]: getattr(e, "self_device_time_total",
-                                getattr(e, "self_cuda_time_total", 0)) / calls
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+    return {name[:60]: ms * 1e3
+            for name, (ms, _) in cs.profiled_kernels(call, calls).items()}
 
 
 def ssd_rows(libs, g):
@@ -217,6 +246,56 @@ def ssd_rows(libs, g):
               f"bytes) {row[name]['ptxas']}, spilling {row[name]['spills']}"
               + (f"; device us a call by kernel {row[name]['kernels_us']}"
                  if name == "ssd" else ""), flush=True)
+    return row
+
+
+def flash_bwd_rows(libs, g):
+    """The flash backward as built and its variants at ``FLASH_BWD``, bf16
+    causal: ms (twice), the worst share of ``chip_smoke.py``'s elementwise
+    bound, ptxas, and the device time of each kernel a call."""
+    B, H, KV, S, hd = FLASH_BWD
+    q, do = (torch.randn((B, H, S, hd), generator=g, device="cuda")
+             .bfloat16() for _ in range(2))
+    k, v = (torch.randn((B, KV, S, hd), generator=g, device="cuda")
+            .bfloat16() for _ in range(2))
+    o, lse = flash_mod.flash_attention_with_lse(q, k, v)
+    xs = [t.float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(ref.attention_ref(*xs), xs, do.float())
+    bounds = [cs.BWD_TOL * w.abs().max() + cs.BF16_STEP * w.abs() + r
+              for w, r in zip(want, (*cs.attention_bwd_rounding(q, k, o, do),
+                                     0.0))]
+    stream = torch.cuda.current_stream().cuda_stream
+    row = {"bound_ms": cs.flash_bwd_bound(B, H, KV, S, hd,
+                                          torch.bfloat16)[0]}
+    for name in ["flash_bwd", *(v[0] for v in FLASH_BWD_VARIANTS)]:
+        lib = _build.load(libs[name], ("flash_attention_bwd",))
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        D = torch.empty((B, H, S), device="cuda")
+
+        def call(lib=lib, grads=grads, D=D):
+            return lib.flash_attention_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), *(t.data_ptr() for t in grads),
+                D.data_ptr(), 1, B, H, KV, S, S, hd, *q.stride()[:3],
+                *k.stride()[:3], 1.0 / math.sqrt(hd), 0.0, 1, NO_WINDOW, 0,
+                stream)
+        if call():
+            raise RuntimeError(f"{name} did not launch")
+        torch.cuda.synchronize()
+        share = max(((gr.float() - w).abs() / b).max().item()
+                    for gr, w, b in zip(grads, want, bounds))
+        if share > 1.0 and "without" not in name:
+            raise RuntimeError(f"{name}: {share:.3f} of its bound")
+        row[name] = dict(ms=[cs.cuda_ms(call, REPS) for _ in range(2)],
+                         share_of_bound=share,
+                         ptxas=ptxas(libs[name], "flash_bwd_", f"Li{hd}E"),
+                         spills=spills(libs[name], "flash_bwd_"),
+                         kernels_us=kernel_times(call))
+        print(f"flash_bwd {name}: {row[name]['ms']} ms, share of bound "
+              f"{share:.3f}, device us a call by kernel "
+              f"{row[name]['kernels_us']}, ptxas (registers, spill bytes) "
+              f"{row[name]['ptxas']}, spilling {row[name]['spills']}",
+              flush=True)
     return row
 
 
@@ -409,6 +488,11 @@ def main() -> int:
                  for bk, st, mb in FLASH_VARIANTS]
         jobs += [("flash_attention.cu", *patch, f"flash_without_{name}")
                  for name, patch in FLASH_KNOCKOUTS.items()]
+    if "flash_bwd" in kinds:
+        as_built = FLASH_BWD_VARIANTS[0][1]
+        jobs += [("flash_attention_bwd.cu", as_built, as_built, "flash_bwd")]
+        jobs += [("flash_attention_bwd.cu", anchor, line, name)
+                 for name, anchor, line in FLASH_BWD_VARIANTS]
     if "gmm" in kinds:
         jobs += [("moe_gemm.cu", GMM_CFG,
                   f"using Prefill = Cfg<{bm}, {bn}, {st}, {mb}>;",
@@ -436,6 +520,8 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
     g = torch.Generator(device="cuda").manual_seed(0)
     out = {"card": card, "flash": {}, "gmm": {}}
+    if "flash_bwd" in kinds:
+        out["flash_bwd"] = flash_bwd_rows(libs, g)
     if "ssd" in kinds:
         out["ssd"] = ssd_rows(libs, g)
     if "saxpy" in kinds:

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Two builds of the port's kernels, timed in turns on one CUDA card.
 
-    python3 chip_kernel_turns.py OLD_ROOT [flash] [gmm] [saxpy] [ssd] [nbody]
+    python3 chip_kernel_turns.py OLD_ROOT [flash] [flash_bwd] [gmm] [saxpy]
+                                 [ssd] [nbody]
 
-(no case named: all five).  ``OLD_ROOT`` is the root of another checkout
+(no case named: all six).  ``OLD_ROOT`` is the root of another checkout
 of the repository (for example the parent commit, unpacked with ``git
 archive`` into a directory that ``.gitignore`` lists).  Its
 ``src/repro_torch/csrc`` is built with the same ``nvcc`` flags into
@@ -11,8 +12,11 @@ archive`` into a directory that ``.gitignore`` lists).  Its
 case then runs through each library's C entry points on the same inputs,
 at the main paths' shapes: flash attention and the grouped GEMM in bf16
 (zamba2-2.7b's and granite-moe-3b-a800m's 1536-token prefills, granite's
-grouped GEMMs at a prefill and a decode step); saxpy at one accelerator
-slot's 2e7 float32 elements; the SSD scan at zamba2's call, x (1, 1536,
+grouped GEMMs at a prefill and a decode step); the flash backward's
+``flash_attention_bwd`` in bf16 at granite's training call (8, 24/8, 512,
+64) and at zamba2's heads over 1536 tokens (1, 32/32, 1536, 80), causal,
+both builds reading one forward's output and log-sum-exp; saxpy at one
+accelerator slot's 2e7 float32 elements; the SSD scan at zamba2's call, x (1, 1536,
 80 x 64), chunk 256, in float32 (as the model feeds it) and bf16, each
 checkout's ``ssd_scan_fwd`` called with its own arguments; N-body at one
 accelerator slot's targets against all bodies at the paper's three size
@@ -20,9 +24,12 @@ classes, float32, each checkout's ``nbody_acc_f32`` called with its own
 arguments (the split design's scratch allocated once, outside the timed
 calls).  Order: old, new, library call, new, old (saxpy: five rounds of
 it, N-body three), CUDA-event means over ``REPS`` launches after a
-warm-up.  The library call (``scaled_dot_product_attention``,
-``torch.bmm``, ``torch.add``; none for the SSD scan and N-body) is a
-yardstick only.  Each build's output is held to the
+warm-up.  The library call (``scaled_dot_product_attention``, for the
+backward its gradient through ``torch.autograd.grad``; ``torch.bmm``,
+``torch.add``; none for the SSD scan and N-body) is a yardstick only.  For
+the flash backward each call's device time alone (``torch.profiler``, the
+sum of its kernels) is taken too, since the SDPA backward's CUDA-event time
+holds autograd's host dispatch.  Each build's output is held to the
 plain version under ``chip_smoke.py``'s tolerances.  The host time of one
 C call is timed too.
 
@@ -43,6 +50,7 @@ import torch.nn.functional as F
 
 import chip_smoke as cs
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import nbody as nbody_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.kernels.flash_attention import NO_WINDOW
@@ -50,6 +58,10 @@ from repro_torch.kernels.flash_attention import NO_WINDOW
 REPS = 50
 #: (B, H, KV, S, hd) causal, bf16
 FLASH = {"zamba2": (1, 32, 32, 1536, 80), "granite": (1, 24, 8, 1536, 64)}
+#: (B, H, KV, S, hd) of the flash backward, causal, bf16: granite's
+#: training call, and zamba2's heads over its longest prompt
+FLASH_BWD = {"granite_train": (8, 24, 8, 512, 64),
+             "zamba2_1536": (1, 32, 32, 1536, 80)}
 #: (E, C, d, f), bf16
 GMM = {"prefill_in": (40, 384, 1536, 512), "prefill_out": (40, 384, 512, 1536),
        "decode": (40, 8, 1536, 512)}
@@ -60,7 +72,7 @@ SAXPY_N = 2 * 10 ** 7
 #: prefill
 SSD = (1, 1536, 80, 64, 64, 256)
 #: the cases, and how many times each runs the turn sequence
-KINDS = ("flash", "gmm", "saxpy", "ssd", "nbody")
+KINDS = ("flash", "flash_bwd", "gmm", "saxpy", "ssd", "nbody")
 ROUNDS = {"saxpy": 5, "nbody": 3}
 
 
@@ -94,6 +106,45 @@ def flash_case(libs, B, H, KV, S, hd):
     lib_call = (lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=KV != H))
     return calls, errs, lib_call, bound
+
+
+def flash_bwd_case(libs, B, H, KV, S, hd):
+    """dq, dk, dv of each build's ``flash_attention_bwd`` from one forward's
+    output and log-sum-exp, held to autograd through the plain version in
+    float32 under ``chip_smoke.py``'s elementwise bound."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, do = (torch.randn((B, H, S, hd), generator=g, device="cuda").bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn((B, KV, S, hd), generator=g, device="cuda").bfloat16()
+            for _ in range(2))
+    o, lse = flash_mod.flash_attention_with_lse(q, k, v)
+    xs = [t.float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(ref.attention_ref(*xs), xs, do.float())
+    bounds = [cs.BWD_TOL * w.abs().max() + cs.BF16_STEP * w.abs() + r
+              for w, r in zip(want, (*cs.attention_bwd_rounding(q, k, o, do),
+                                     0.0))]
+    stream = torch.cuda.current_stream().cuda_stream
+    calls, errs = {}, {}
+    for name, lib in libs.items():
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        D = torch.empty((B, H, S), device="cuda")
+
+        def call(lib=lib, grads=grads, D=D, name=name):
+            checked(lib.flash_attention_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), *(t.data_ptr() for t in grads),
+                D.data_ptr(), 1, B, H, KV, S, S, hd, *q.stride()[:3],
+                *k.stride()[:3], 1.0 / math.sqrt(hd), 0.0, 1, NO_WINDOW, 0,
+                stream), f"flash_attention_bwd ({name})")
+        call()
+        torch.cuda.synchronize()
+        calls[name] = call
+        errs[name] = max(((gr.float() - w).abs() / b).max().item()
+                         for gr, w, b in zip(grads, want, bounds))
+    sdpa = cs.backward_of(lambda *t: F.scaled_dot_product_attention(
+        *t, is_causal=True, enable_gqa=KV != H), (q, k, v), do)
+    bound = cs.flash_bwd_bound(B, H, KV, S, hd, torch.bfloat16)[0]
+    return calls, errs, sdpa, bound
 
 
 def gmm_case(libs, E, C, d, f):
@@ -268,7 +319,8 @@ def main() -> int:
         return 2
     card = cs.gpu_line()
     print(card, flush=True)
-    names = ("flash_attention_fwd", "grouped_matmul_fwd", "saxpy_f32")
+    names = ("flash_attention_fwd", "flash_attention_bwd",
+             "grouped_matmul_fwd", "saxpy_f32")
     libs = {"old": _build.load(_build.build(
                 old_root / "src" / "repro_torch" / "csrc",
                 old_root / "build" / "kernels"), names),
@@ -280,6 +332,9 @@ def main() -> int:
     if "flash" in kinds:
         cases += [("flash", n, flash_case(libs, *shape), shape)
                   for n, shape in FLASH.items()]
+    if "flash_bwd" in kinds:
+        cases += [("flash_bwd", n, flash_bwd_case(libs, *shape), shape)
+                  for n, shape in FLASH_BWD.items()]
     if "gmm" in kinds:
         cases += [("gmm", n, gmm_case(libs, *shape), shape)
                   for n, shape in GMM.items()]
@@ -318,13 +373,19 @@ def main() -> int:
                  host_us={n: cs.host_us(c) for n, c in calls.items()})
         if kind == "gmm":
             r["new_tb_per_s"] = case[4] / (min(new) * 1e-3) / 1e12
+        if kind == "flash_bwd":
+            # (ms, kernels a call) of each
+            r["device_ms"] = {n: cs.device_ms(c) for n, c in
+                              (*calls.items(), ("library", lib_call))}
         out[kind][name] = r
         print(f"{kind} {name} {list(shape)}: old "
               f"{'/'.join(f'{v:.4f}' for v in old)} ms, new "
               f"{'/'.join(f'{v:.4f}' for v in new)} ms, library "
               f"{'/'.join(f'{v:.4f}' for v in lib if v is not None)} ms, "
               f"bound {bound:.4f} "
-              f"ms; host {r['host_us']} us a call", flush=True)
+              f"ms; host {r['host_us']} us a call"
+              + (f"; device time alone {r['device_ms']} ms"
+                 if "device_ms" in r else ""), flush=True)
     (cs.ROOT / "build").mkdir(exist_ok=True)
     (cs.ROOT / "build" / "kernel_turns.json").write_text(json.dumps(out,
                                                                    indent=1))

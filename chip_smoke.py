@@ -58,7 +58,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from flash_bwd_bounds import attention_bwd_rounding  # noqa: E402
+from flash_bwd_bounds import attention_bwd_rounding, cancelling  # noqa: E402
 from repro_torch import suite  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (AcceleratorPlatform, DeviceInfo,  # noqa: E402
@@ -165,7 +165,8 @@ GMM_TIMED = ("prefill_in", "prefill_out", "decode")
 NO_SPILL = ("flash_mma_kernel", "gmm_wgmma_kernel", "ssd_cb",
             "ssd_chunk_state", "ssd_state_pass", "ssd_output", "saxpy_vec4",
             "nbody_pack", "nbody_tiles", "nbody_reduce", "flash_bwd_dot",
-            "flash_bwd_dkdv", "flash_bwd_dq")
+            "flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_dkdv_mma",
+            "flash_bwd_dq_mma")
 #: the head of each model (zamba2: one hybrid group; granite: 2 layers),
 #: card (kernels, cuBLAS) against CPU (plain versions, CPU matmuls), same
 #: parameters, for the last-token logits and the cache the head fills
@@ -220,10 +221,10 @@ PROFILE_DECODE_STEPS = 8
 
 
 def reset_counts() -> None:
-    """Every kernel's launch counter, and the grouped GEMM's bf16 counters
-    by kernel, to 0."""
+    """Every kernel's launch counter, the grouped GEMM's bf16 counters by
+    kernel and the flash backward's by path, to 0."""
     for c in [*ops.COUNTERS.values(), *gmm_mod.bf16_launches.values(),
-              gmm_mod.bwd_launches]:
+              gmm_mod.bwd_launches, *flash_mod.bwd_paths.values()]:
         c.reset()
 
 
@@ -253,6 +254,61 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_device_us(event) -> float:
+    """The device time of one ``torch.profiler`` key-average entry, in
+    microseconds (the attribute's name differs between torch versions)."""
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0))
+
+
+def kernel_name(key: str) -> str:
+    """A profiler's kernel name without its unnamed namespaces, return type
+    and argument list."""
+    name = key.replace("(anonymous namespace)::", "")
+    name = name[5:] if name.startswith("void ") else name
+    return name.split("(")[0]
+
+
+def profiled_kernels(fn, reps: int = 10):
+    """{kernel name: (device ms a call, launches a call)} of the CUDA
+    kernels ``fn`` launches, from ``torch.profiler`` over ``reps`` calls
+    after a warm-up window of as many.  A profiler started late in a long
+    process can still miss the first few kernels of its window, so each
+    kernel counts its mean time a launch times its launches a call (the
+    launches seen over ``reps``, rounded up)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    windows = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: windows.append(p.key_averages())
+                 ) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    seen = {}
+    for e in windows[-1]:
+        # the schedule's step annotation shows on the device too
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.key.startswith("ProfilerStep")):
+            name = kernel_name(e.key)
+            us, n = seen.get(name, (0.0, 0))
+            seen[name] = (us + kernel_device_us(e), n + e.count)
+    expect(sum(us for us, _ in seen.values()) > 0,
+           "torch.profiler saw the card's kernels")
+    return {name: (us / n / 1e3 * math.ceil(n / reps), math.ceil(n / reps))
+            for name, (us, n) in seen.items()}
+
+
+def device_ms(fn, reps: int = 10):
+    """Device time per call of ``fn``, the sum of its CUDA kernels' device
+    time (so the host's dispatch is not in it), in ms; and the kernels a
+    call launches."""
+    kernels = profiled_kernels(fn, reps).values()
+    return sum(ms for ms, _ in kernels), sum(n for _, n in kernels)
 
 
 def bf16_excess(got: torch.Tensor, want: torch.Tensor, atol: float) -> float:
@@ -1249,12 +1305,18 @@ def grads_of(fn, inputs, dout, **kw):
     return out, torch.autograd.grad(out, xs, dout)
 
 
-def grad_ms(fn, inputs, dout, reps, **kw):
-    """Milliseconds of one backward of ``fn`` (the graph built once)."""
+def backward_of(fn, inputs, dout, **kw):
+    """A call of ``fn``'s backward for the output gradient ``dout`` through
+    ``torch.autograd.grad`` (the graph built once)."""
     xs = [t.detach().clone().requires_grad_(True) for t in inputs]
     out = fn(*xs, **kw)
-    return cuda_ms(lambda: torch.autograd.grad(out, xs, dout,
-                                               retain_graph=True), reps)
+    return lambda: torch.autograd.grad(out, xs, dout, retain_graph=True)
+
+
+def grad_ms(fn, inputs, dout, reps, **kw):
+    """Milliseconds of one backward of ``fn``, CUDA events around ``reps``
+    calls: the host's dispatch is in it where it is slower than the card."""
+    return cuda_ms(backward_of(fn, inputs, dout, **kw), reps)
 
 
 def flash_grads_excess(q, k, v, do, kw):
@@ -1312,6 +1374,14 @@ def train_kernel_phase(cfg, dev="cuda"):
         expect(ex <= 1.0, f"flash backward window/softcap {dtype}: worst "
                f"element at {ex:.3f} of its bound")
         variants[str(dtype)[6:]] = ex
+    # kv head 0 and its query heads built to cancel (tests/
+    # flash_bwd_bounds.py), where one bf16 rounding of P or dS would break
+    # the bound
+    qc, kc, vc, doc = cancelling(randn(2, 8, S, hd), randn(2, 2, S, hd),
+                                 randn(2, 2, S, hd), randn(2, 8, S, hd))
+    cancel, _ = flash_grads_excess(qc, kc, vc, doc, dict(causal=True))
+    expect(cancel <= 1.0, f"flash backward, cancelling head, bf16: worst "
+           f"element at {cancel:.3f} of its bound")
     o, lse = flash_mod.flash_attention_with_lse(q, k, v)
     kernel = lambda: flash_mod.flash_attention_backward(q, k, v, o, do, lse)
     sdpa = lambda *t: F.scaled_dot_product_attention(*t, is_causal=True,
@@ -1320,13 +1390,19 @@ def train_kernel_phase(cfg, dev="cuda"):
     for _ in range(2):                 # in turns: kernel, SDPA, kernel, SDPA
         turns["kernel"].append(cuda_ms(kernel, 20))
         turns["sdpa"].append(grad_ms(sdpa, (q, k, v), do, 20))
+    # device time alone (torch.profiler), beside the host-clocked turns
+    device = {"kernel": device_ms(kernel),
+              "sdpa": device_ms(backward_of(sdpa, (q, k, v), do))}
+    expect(device["kernel"][1] == flash_mod.BWD_KERNELS_PER_CALL,
+           f"the profiler saw every backward kernel: {device}")
     results = {"flash_attention_bwd": dict(
         max_abs_err=err, ms=sum(turns["kernel"]) / 2,
         plain_ms=grad_ms(ref.attention_ref, (q, k, v), do, 3),
         library_ms=sum(turns["sdpa"]) / 2, turns=turns,
-        shape=[B, H, KV, S, hd], dtype="bfloat16",
+        device_ms=device, shape=[B, H, KV, S, hd], dtype="bfloat16",
         bf16_worst_share_of_bound=worst,
         window_softcap_worst_share_of_bound=variants,
+        cancelling_worst_share_of_bound=cancel,
         kernels_per_call=flash_mod.BWD_KERNELS_PER_CALL,
         tolerance=f"f32: max |err| <= {BWD_TOL} x max |plain|; bf16: "
                   f"2^-7 |plain| + {BWD_TOL} x max |plain| + the "
@@ -1449,6 +1525,9 @@ def train_main_path(cfg, model):
     expect(gmm_paths == {"tma": launches["grouped_matmul"], "wmma": 0},
            f"every grouped GEMM launch took the TMA + wgmma kernel: "
            f"{gmm_paths}")
+    bwd_paths = {k: c.value for k, c in flash_mod.bwd_paths.items()}
+    expect(bwd_paths == {"mma": launches["flash_attention_bwd"], "fma": 0},
+           f"every flash backward took the tensor-core kernels: {bwd_paths}")
     expect(not any(plain.calls.values()),
            f"no plain version on the card's training path: {plain.calls}")
     print(f"train: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
@@ -1462,7 +1541,8 @@ def train_main_path(cfg, model):
                 want_launches_per_step=want,
                 grouped_matmul_backward_launches=gmm_bwd,
                 grouped_matmul_bf16_launches=gmm_paths,
-                peak_memory_bytes=peak, plain_calls=plain.calls,
+                flash_bwd_paths=bwd_paths, peak_memory_bytes=peak,
+                plain_calls=plain.calls,
                 batch=TRAIN_BATCH, seq=TRAIN_SEQ, remat=TRAIN_REMAT,
                 lr=TRAIN_LR, schedule=cfg.lr_schedule)
 
@@ -1479,24 +1559,25 @@ def train_profile(step_fn, state, batch):
         step_fn(state, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [(e.key, getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0)),
-                e.count)
+    kernels = [(e.key, kernel_device_us(e), e.count)
                for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(t for _, t, _ in kernels) / 1e6
     top = sorted(kernels, key=lambda ktn: -ktn[1])[:8]
     mine = {name: sum(t for k, t, _ in kernels if name in k) / 1e6
             for name in ("flash_mma_kernel", "flash_bwd_", "gmm_wgmma")}
+    # the backward kernels that ran: name -> (device seconds, launches)
+    bwd = {kernel_name(k): (t / 1e6, n) for k, t, n in kernels
+           if "flash_bwd_" in k}
     out = dict(wall_s=wall, device_busy_s=busy,
                kernel_launches=sum(n for _, _, n in kernels),
                idle_share=1.0 - busy / wall if busy else None,
-               hand_written_s=mine,
+               hand_written_s=mine, flash_bwd_kernels=bwd,
                top_kernels_s=[(k[:80], t / 1e6, n) for k, t, n in top])
     print(f"train profile, one step: wall {wall:.4f} s, device busy "
           f"{busy:.4f} s, {out['kernel_launches']} kernel launches; "
-          f"hand-written kernels {mine}; top {out['top_kernels_s'][:5]}",
-          flush=True)
+          f"hand-written kernels {mine}; flash backward kernels that ran "
+          f"{bwd}; top {out['top_kernels_s'][:5]}", flush=True)
     return out
 
 
@@ -1610,8 +1691,12 @@ def train_phase():
     print(f"kernel flash_attention_bwd {r['shape']} bfloat16: {r['ms']:.4f} "
           f"ms (in turns {r['turns']['kernel']}), plain {r['plain_ms']:.4f} "
           f"ms, SDPA backward {r['library_ms']:.4f} ms (in turns "
-          f"{r['turns']['sdpa']}), bound {r['bound'][0]:.4f} ms "
-          f"({r['bound'][1]}), max err {r['max_abs_err']:.3g}; forward with "
+          f"{r['turns']['sdpa']}), device time alone (ms, kernels a call): "
+          f"kernel {r['device_ms']['kernel']}, SDPA backward "
+          f"{r['device_ms']['sdpa']}; bound {r['bound'][0]:.4f} ms "
+          f"({r['bound'][1]}), max err {r['max_abs_err']:.3g}, worst share "
+          f"of the bound {r['bf16_worst_share_of_bound']:.3f} (cancelling "
+          f"head {r['cancelling_worst_share_of_bound']:.3f}); forward with "
           f"lse {r['forward_with_lse_ms']} ms", flush=True)
     for name, r in kernels["grouped_matmul_bwd"].items():
         print(f"kernel grouped_matmul backward {name} {r['shape']} bfloat16 "
@@ -1706,6 +1791,12 @@ def main() -> int:
     # the grouped GEMM's launches for gradients (dx and dw), all training's
     kernels[-1]["backward_launches"] = train[
         "grouped_matmul_backward_launches"]
+    # the flash backward's and SDPA's backward's device time alone
+    # (torch.profiler), beside their CUDA-event times above
+    device = results["flash_attention_bwd"]["device_ms"]
+    bwd = next(k for k in kernels if k["name"] == "flash_attention_bwd")
+    bwd["device_ms"], bwd["library_device_ms"] = (device["kernel"][0],
+                                                  device["sdpa"][0])
     seconds = time.perf_counter() - t_start
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_seconds": build_s,

@@ -5,8 +5,9 @@ Every ``csrc/*.cu`` file is compiled for Hopper (``sm_90a``) with
 are linked into one shared library with a plain C interface, loaded with
 ``ctypes``.  The build happens at the first launch, into
 ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``), under a name that hashes the sources and flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.
+``.gitignore``), under a name that hashes the sources, the ``*.cuh``
+headers beside them and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is.
 
 Nothing here runs at import: a machine without ``nvcc`` or a card can
 import every module of the package.
@@ -82,17 +83,23 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def library_name(csrc: Path = CSRC) -> str:
+    """The file name of ``csrc``'s library: a hash of the flags, the
+    ``*.cu`` sources and the ``*.cuh`` headers beside them."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(csrc.glob("*.cu*")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return f"librepro_torch_kernels-{digest.hexdigest()[:16]}.so"
+
+
 def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
     """Compile the ``*.cu`` files of ``csrc`` (if not built yet) into
     ``build_dir``; returns the library path."""
     global build_log
     sources = sorted(csrc.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
     build_dir.mkdir(parents=True, exist_ok=True)
-    lib = build_dir / f"librepro_torch_kernels-{digest.hexdigest()[:16]}.so"
+    lib = build_dir / library_name(csrc)
     log_path = lib.with_suffix(".log")
     if lib.exists():
         build_log = log_path.read_text() if log_path.exists() else ""

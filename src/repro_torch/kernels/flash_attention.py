@@ -7,7 +7,8 @@ out without a transposed copy (:func:`flash_attention_bshd`); only the
 head dimension must be contiguous.  The forward can also write each query
 row's log-sum-exp (``with_lse``), which the backward
 (:func:`flash_attention_backward`: three kernels a call, counted once in
-``bwd_launches``) reads to recompute the probabilities.
+``bwd_launches`` and once in ``bwd_paths`` by path: the tensor cores for
+bfloat16, FP32 FMAs for float32) reads to recompute the probabilities.
 """
 from __future__ import annotations
 
@@ -22,6 +23,10 @@ from repro_torch.kernels._build import (DTYPE_CODES, LaunchCounter,
 
 launches = LaunchCounter("flash_attention")
 bwd_launches = LaunchCounter("flash_attention_bwd")
+#: backward calls by path, chosen by dtype in the C entry: "mma" (bfloat16:
+#: the tensor-core kernels) and "fma" (float32: FP32 FMAs)
+bwd_paths = {"mma": LaunchCounter("flash_attention_bwd/mma"),
+             "fma": LaunchCounter("flash_attention_bwd/fma")}
 #: kernels one backward call launches (D = rowsum(dO o), dK/dV, dQ)
 BWD_KERNELS_PER_CALL = 3
 
@@ -172,4 +177,5 @@ def flash_attention_backward(q, k, v, o, do, lse, *, bshd: bool = False,
         float(logit_cap or 0.0), int(bool(causal)), win, q.device.index,
         stream_of(q)), "flash_attention_bwd")
     bwd_launches.add()
+    bwd_paths["mma" if q.dtype == torch.bfloat16 else "fma"].add()
     return dq, dk, dv

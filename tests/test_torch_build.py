@@ -1,5 +1,6 @@
-"""The kernel build's host-side helpers, on the CPU: the ptxas report that
-``chip_smoke.py`` checks for spills, and the alignment check that sends
+"""The kernel build's host-side helpers, on the CPU: the library's name,
+which hashes the sources and their headers; the ptxas report that
+``chip_smoke.py`` checks for spills; and the alignment check that sends
 bf16 grouped GEMMs to the TMA kernel or to the WMMA kernel."""
 import pytest
 import torch
@@ -40,3 +41,16 @@ def test_tma_rows_by_alignment(d, f, offset, tma):
     x = base[offset:offset + 2 * 3 * d].view(2, 3, d)
     w = torch.zeros(2, d, f, dtype=torch.bfloat16)
     assert moe_gemm.tma_rows(x, w) is tma
+
+
+def test_library_name_hashes_sources_and_headers(tmp_path):
+    """An edited header (csrc/flash_mma.cuh is shared by the flash
+    kernels) gives a new library name, so the kernels are rebuilt; an
+    untouched tree keeps its name, so its library is loaded as built."""
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    first = _build.library_name(tmp_path)
+    assert _build.library_name(tmp_path) == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build.library_name(tmp_path) != first
+    assert _build.library_name().startswith("librepro_torch_kernels-")

@@ -15,7 +15,7 @@ from repro_torch import suite
 from repro_torch.core import occupancy
 from repro_torch.kernels import ops, ref
 
-from flash_bwd_bounds import attention_bwd_rounding
+from flash_bwd_bounds import attention_bwd_rounding, cancelling
 
 
 @pytest.fixture
@@ -727,29 +727,54 @@ def _check_flash_grads(q, k, v, do, kw):
 def test_flash_backward_matches_plain_on_card(hd, kw, dtype, cuda_device):
     """GQA 24/8, a ragged 150 rows, every head dim of the kernel: dq, dk
     and dv against autograd through the plain version; repeated calls
-    bit-identical; one backward launch a call."""
+    bit-identical; one backward launch a call, through the tensor-core
+    kernels for bf16 and the FMA kernels for float32."""
+    from repro_torch.kernels import flash_attention as flash_mod
     g = torch.Generator().manual_seed(hd)
     q, do = (torch.randn(1, 24, 150, hd, generator=g).to(cuda_device, dtype)
              for _ in range(2))
     k, v = (torch.randn(1, 8, 150, hd, generator=g).to(cuda_device, dtype)
             for _ in range(2))
     before = ops.COUNTERS["flash_attention_bwd"].value
+    paths = {n: c.value for n, c in flash_mod.bwd_paths.items()}
     got = _check_flash_grads(q, k, v, do, kw)
     again = _flash_grads(q, k, v, do, ops.flash_attention, **kw)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert ops.COUNTERS["flash_attention_bwd"].value == before + 2
+    took = "mma" if dtype == torch.bfloat16 else "fma"
+    assert {n: c.value - paths[n] for n, c in flash_mod.bwd_paths.items()} \
+        == {"mma": 0, "fma": 0, took: 2}
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 80, 256])
+def test_flash_backward_cancelling_head_on_card(hd, cuda_device):
+    """bf16, causal, GQA 8/2 over 256 rows, kv head 0 and its query heads
+    built so that their terms nearly cancel (tests/flash_bwd_bounds.py):
+    within the bound, which a single bf16 rounding of P or dS would
+    break."""
+    g = torch.Generator().manual_seed(100 + hd)
+    q, k, v, do = cancelling(*(
+        torch.randn(2, h, 256, hd, generator=g).to(cuda_device,
+                                                   torch.bfloat16)
+        for h in (8, 2, 2, 8)))
+    _check_flash_grads(q, k, v, do, dict(causal=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kw,Sq,Sk", [(dict(causal=False, window=8), 40, 24),
-                                      (dict(causal=True, window=4), 36, 20)],
-                         ids=["noncausal_past_keys", "causal_past_keys"])
-def test_flash_backward_rows_without_keys_on_card(kw, Sq, Sk, cuda_device):
+                                      (dict(causal=True, window=4), 36, 20),
+                                      (dict(causal=True, window=0), 24, 24)],
+                         ids=["noncausal_past_keys", "causal_past_keys",
+                              "no_window"])
+def test_flash_backward_rows_without_keys_on_card(kw, Sq, Sk, dtype,
+                                                  cuda_device):
     g = torch.Generator().manual_seed(Sq)
-    q, do = (torch.randn(2, 4, Sq, 64, generator=g).to(cuda_device)
+    q, do = (torch.randn(2, 4, Sq, 64, generator=g).to(cuda_device, dtype)
              for _ in range(2))
-    k, v = (torch.randn(2, 2, Sk, 64, generator=g).to(cuda_device)
+    k, v = (torch.randn(2, 2, Sk, 64, generator=g).to(cuda_device, dtype)
             for _ in range(2))
     _check_flash_grads(q, k, v, do, kw)
 
