@@ -55,6 +55,16 @@ derivative dropped with it; granite has no attention softcap, so this one
 cannot show there: the kernel checks' softcap variant covers it),
 ``bwd_gmm_expert0_dw_zeroed`` (one expert's dw zeroed).
 ``chip_smoke.GRAD_F32_REL`` and ``GRAD_BF16_REL`` are set from these.
+``grad`` also runs zamba2-2.7b's first hybrid group (5 Mamba2 + 1
+attention layers, the full-width embedding; ``chip_smoke.
+hybrid_grad_inputs`` of data seeds 1, 3, 5): its gradients by parameter
+group (embed, ssm_proj, ssm_scalars, conv, attn, norms) against the CPU's
+float32 plain ones, sound (card f32, card bf16, CPU bf16) and with a fault
+in the SSD scan's backward: ``bwd_ssd_dB_dC_swapped`` (dB and dC in each
+other's place), ``bwd_ssd_no_state_pass`` (the reverse state pass skipped:
+each chunk's backward run on its own, no gradient carried back from the
+chunks after it), ``bwd_ssd_dA_zeroed`` (dA zeroed).
+``chip_smoke.HYBRID_GRAD_F32_REL`` is set from these.
 
     python3 chip_group_calibration.py [forward] [grad]
 
@@ -74,6 +84,7 @@ import torch
 import chip_smoke as cs
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import flash_attention as flash_mod
+from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.models import moe as moe_mod
 
 SEEDS = (1, 3, 5)
@@ -267,6 +278,46 @@ GRAD_FAULTS = {
 }
 
 
+def bwd_ssd_dB_dC_swapped(good):
+    def backward(*a, **kw):
+        dx, ddt, dB, dC, dA, dh0 = good(*a, **kw)
+        return dx, ddt, dC, dB, dA, dh0
+    return backward
+
+
+def bwd_ssd_no_state_pass(good):
+    """Each chunk's backward on its own (its start state from the forward's
+    states, no end-state gradient from the chunks after it)."""
+    def backward(x, dt, B, C, A, h0, states, cum, dy, dh_final, *, chunk):
+        nc = x.shape[1] // chunk
+        parts = []
+        for c in range(nc):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            parts.append(good(
+                *(t[:, sl].contiguous() for t in (x, dt, B, C)), A,
+                h0 if c == 0 else None, states[:, c:c + 1].contiguous(),
+                cum[:, :, sl].contiguous(), dy[:, sl].contiguous(),
+                dh_final if c == nc - 1 else None, chunk=chunk))
+        return (*(torch.cat([p[i] for p in parts], 1) for i in range(4)),
+                sum(p[4] for p in parts), parts[0][5])
+    return backward
+
+
+def bwd_ssd_dA_zeroed(good):
+    def backward(*a, **kw):
+        dx, ddt, dB, dC, dA, dh0 = good(*a, **kw)
+        return dx, ddt, dB, dC, torch.zeros_like(dA), dh0
+    return backward
+
+
+#: zamba2's faults: name -> (owner, attribute, patch of the sound function)
+HYBRID_GRAD_FAULTS = {
+    name: (ssd_mod, "ssd_scan_backward", patch) for name, patch in (
+        ("bwd_ssd_dB_dC_swapped", bwd_ssd_dB_dC_swapped),
+        ("bwd_ssd_no_state_pass", bwd_ssd_no_state_pass),
+        ("bwd_ssd_dA_zeroed", bwd_ssd_dA_zeroed))}
+
+
 def patched(fault, fn, *args):
     """``fn(*args)`` with ``fault`` put in."""
     owner, attr, patch = fault
@@ -320,6 +371,40 @@ def calibrate_grads():
     return record
 
 
+def calibrate_hybrid_grads():
+    cfg = cs.get_config(cs.HYBRID_TRAIN_ARCH)
+    model = cs.LM(cfg, device="cuda",
+                  generator=torch.Generator(device="cuda").manual_seed(0))
+    f32, bf16 = torch.float32, torch.bfloat16
+    groups = cs.HYBRID_GRAD_GROUPS
+    record = {}
+    for seed in SEEDS:
+        t0 = time.perf_counter()
+        head, state, batch = cs.hybrid_grad_inputs(cfg, model, seed)
+        want = cs.head_grads(head, state, batch, f32, "cpu")
+
+        def head_run(dtype, dev="cuda"):
+            return cs.grad_rel(cs.head_grads(head, state, batch, dtype, dev),
+                               want, groups)
+
+        row = {"head card_f32": head_run(f32), "head card_bf16":
+               head_run(bf16), "head cpu_bf16": head_run(bf16, "cpu")}
+        for name, fault in HYBRID_GRAD_FAULTS.items():
+            row[f"head f32 {name}"] = patched(fault, head_run, f32)
+            row[f"head bf16 {name}"] = patched(fault, head_run, bf16)
+        record[seed] = row
+        print(f"{cfg.arch} gradients, data seed {seed} "
+              f"({time.perf_counter() - t0:.1f} s), relative L2 against "
+              "CPU f32:", flush=True)
+        for name, r in row.items():
+            print(f"  {name}: " + ", ".join(f"{k} {v:.4g}"
+                                            for k, v in r.items()),
+                  flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return record
+
+
 def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_group_calibration: no CUDA device", file=sys.stderr)
@@ -334,6 +419,7 @@ def main(argv=None) -> int:
         record.update({arch: calibrate(arch) for arch in cs.LM_ARCHS})
     if "grad" in parts:
         record["grad " + cs.TRAIN_ARCH] = calibrate_grads()
+        record["grad " + cs.HYBRID_TRAIN_ARCH] = calibrate_hybrid_grads()
     out = cs.ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_group_calibration.json").write_text(json.dumps(record,

@@ -2,10 +2,10 @@
 """Tile shapes and knock-out builds of the port's redesigned kernels, timed
 on one CUDA card.
 
-    python3 chip_kernel_shapes.py [flash] [flash_bwd] [gmm] [ssd] [saxpy]
-                                  [nbody] [sass]
+    python3 chip_kernel_shapes.py [flash] [flash_bwd] [gmm] [ssd] [ssd_bwd]
+                                  [saxpy] [nbody] [sass]
 
-(no argument: all seven).  Rebuilds a kernel's source with one setting
+(no argument: all eight).  Rebuilds a kernel's source with one setting
 replaced, each variant into its own library under ``build/shapes/``, all
 built at once, and times each at the main paths' shapes (CUDA-event means
 over 50 launches after a warm-up, twice), its output held to the plain
@@ -30,6 +30,13 @@ each list.
   products of the TF32 split (one TF32 pass: its error is reported), the
   C.B^T pass, the decay tile's exp, every product, every split into shared
   memory.
+- ssd_bwd, the SSD scan's backward at zamba2's training call, x (8, 512,
+  80 x 64) float32, d_state 64, chunk 256: as built (with each of its
+  seven kernels' device time from ``torch.profiler``), its products'
+  depth loop unrolled 1 or 8 times (4 as built), the query-tile kernel
+  built for 1 block an SM, and every call taken by the 128-wide tiles;
+  each held to autograd through the plain version under
+  ``chip_smoke.SSD_BWD_TOL``.
 - saxpy, at one slot's 2e7 elements: 1, 2, 4 and 8 float4 loads of x and
   of y a thread, beside ``torch.add``.
 - nbody, at one slot's targets against all bodies at the paper's three
@@ -135,6 +142,21 @@ SSD_CFG = "  return NC <= 64 ? 3 : 2;"
 SSD_MIN_BLOCKS = [3, 2]
 #: (Bsz, S, nh, hd, ds, chunk): zamba2-2.7b's SSD call, 1536 tokens
 SSD = (1, 1536, 80, 64, 64, 256)
+#: the SSD backward's variants: (name, a line of the source, what replaces
+#: it)
+SSD_BWD_VARIANTS = [
+    ("unroll1", "#pragma unroll 4\n  for (int k = 0; k < K; ++k) {",
+     "#pragma unroll 1\n  for (int k = 0; k < K; ++k) {"),
+    ("unroll8", "#pragma unroll 4\n  for (int k = 0; k < K; ++k) {",
+     "#pragma unroll 8\n  for (int k = 0; k < K; ++k) {"),
+    ("queries_blocks1", "__global__ void __launch_bounds__(kThreads)\n"
+     "    ssd_bwd_queries(", "__global__ void __launch_bounds__(kThreads, 1)"
+     "\n    ssd_bwd_queries("),
+    ("tiles128", "  if (w <= 32) return launch<32>(a);\n"
+     "  if (w <= 64) return launch<64>(a);\n", ""),
+]
+#: (Bsz, S, nh, hd, ds, chunk): zamba2-2.7b's SSD call in training
+SSD_BWD = (8, 512, 80, 64, 64, 256)
 #: float4 loads of x and of y a saxpy thread issues before it stores
 SAXPY_CFG = "constexpr int kUnroll = 2;"
 SAXPY_UNROLL = [2, 1, 4, 8]
@@ -158,7 +180,8 @@ NBODY_PATCHES = {
 #: blocks an SM the plan aims at, on the as-built library (the module's
 #: choice first); 0: one split
 NBODY_BLOCKS_PER_SM = [nbody_mod.BLOCKS_PER_SM, 4, 8, 32, 0]
-KINDS = ("flash", "flash_bwd", "gmm", "ssd", "saxpy", "nbody", "sass")
+KINDS = ("flash", "flash_bwd", "gmm", "ssd", "ssd_bwd", "saxpy", "nbody",
+         "sass")
 FLASH = {"zamba2": (1, 32, 32, 1536, 80), "granite": (1, 24, 8, 1536, 64)}
 GMM = {"prefill_in": (40, 384, 1536, 512), "prefill_out": (40, 384, 512, 1536),
        "ragged_c": (40, 72, 1536, 512)}
@@ -292,6 +315,54 @@ def flash_bwd_rows(libs, g):
                          spills=spills(libs[name], "flash_bwd_"),
                          kernels_us=kernel_times(call))
         print(f"flash_bwd {name}: {row[name]['ms']} ms, share of bound "
+              f"{share:.3f}, device us a call by kernel "
+              f"{row[name]['kernels_us']}, ptxas (registers, spill bytes) "
+              f"{row[name]['ptxas']}, spilling {row[name]['spills']}",
+              flush=True)
+    return row
+
+
+def ssd_bwd_rows(libs, g):
+    """The SSD backward as built and its variants at ``SSD_BWD``: ms
+    (twice), the worst |err| as a share of SSD_BWD_TOL x max |plain| over
+    the gradients, ptxas, and (as built) each kernel's device time."""
+    Bsz, S, nh, hd, ds, chunk = SSD_BWD
+    x = torch.randn((Bsz, S, nh * hd), generator=g, device="cuda") * 0.5
+    dt = torch.nn.functional.softplus(
+        torch.randn((Bsz, S, nh), generator=g, device="cuda"))
+    Bm = torch.randn((Bsz, S, ds), generator=g, device="cuda") * 0.5
+    Cm = torch.randn((Bsz, S, ds), generator=g, device="cuda") * 0.5
+    A = -torch.exp(torch.randn(nh, generator=g, device="cuda") * 0.3)
+    dy = torch.randn(x.shape, generator=g, device="cuda")
+    main = (x, dt, Bm, Cm, A)
+    want = cs.ssd_grads(ref.ssd_scan_ref, main, None, dy, None, chunk)
+    _, _, states, cum = ssd_mod.ssd_scan_with_states(*main, chunk=chunk)
+    stream = torch.cuda.current_stream().cuda_stream
+    row = {"bound_ms": cs.ssd_bwd_bound(Bsz, S, chunk, nh, hd, ds)[0]}
+    for name in ["ssd_bwd", *(v[0] for v in SSD_BWD_VARIANTS)]:
+        lib = _build.load(libs[name], ("ssd_scan_bwd",))
+        grads = [torch.empty_like(t) for t in main]
+        buf, parts = ssd_mod.bwd_scratch(Bsz, S, nh, hd, ds, chunk, "cuda")
+
+        def call(lib=lib, grads=grads, parts=parts):
+            return lib.ssd_scan_bwd(
+                *(t.data_ptr() for t in (*main, states, cum, dy)), None,
+                *(t.data_ptr() for t in grads), None, *parts, Bsz, S, nh, hd,
+                ds, chunk, 0, stream)
+        if call():
+            raise RuntimeError(f"{name} did not launch")
+        torch.cuda.synchronize()
+        share = max((gr - w).abs().max().item()
+                    / (cs.SSD_BWD_TOL * w.abs().max().item())
+                    for gr, w in zip(grads, want))
+        if share > 1.0:
+            raise RuntimeError(f"{name}: {share:.3f} of its bound")
+        row[name] = dict(ms=[cs.cuda_ms(call, REPS) for _ in range(2)],
+                         share_of_bound=share,
+                         ptxas=ptxas(libs[name], "ssd_bwd_"),
+                         spills=spills(libs[name], "ssd_bwd_"),
+                         kernels_us=kernel_times(call))
+        print(f"ssd_bwd {name}: {row[name]['ms']} ms, share of bound "
               f"{share:.3f}, device us a call by kernel "
               f"{row[name]['kernels_us']}, ptxas (registers, spill bytes) "
               f"{row[name]['ptxas']}, spilling {row[name]['spills']}",
@@ -504,6 +575,11 @@ def main() -> int:
                  for m in SSD_MIN_BLOCKS]
         jobs += [("ssd_scan.cu", *patch, f"ssd_without_{name}")
                  for name, patch in SSD_KNOCKOUTS.items()]
+    if "ssd_bwd" in kinds:
+        as_built = SSD_BWD_VARIANTS[0][1]
+        jobs += [("ssd_scan_bwd.cu", as_built, as_built, "ssd_bwd")]
+        jobs += [("ssd_scan_bwd.cu", anchor, line, name)
+                 for name, anchor, line in SSD_BWD_VARIANTS]
     if "saxpy" in kinds:
         jobs += [("saxpy.cu", SAXPY_CFG, f"constexpr int kUnroll = {u};",
                   f"saxpy_{u}") for u in SAXPY_UNROLL]
@@ -524,6 +600,8 @@ def main() -> int:
         out["flash_bwd"] = flash_bwd_rows(libs, g)
     if "ssd" in kinds:
         out["ssd"] = ssd_rows(libs, g)
+    if "ssd_bwd" in kinds:
+        out["ssd_bwd"] = ssd_bwd_rows(libs, g)
     if "saxpy" in kinds:
         out["saxpy"] = saxpy_rows(libs, g)
     if "nbody" in kinds:

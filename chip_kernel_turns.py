@@ -2,9 +2,9 @@
 """Two builds of the port's kernels, timed in turns on one CUDA card.
 
     python3 chip_kernel_turns.py OLD_ROOT [flash] [flash_bwd] [gmm] [saxpy]
-                                 [ssd] [nbody]
+                                 [ssd] [ssd_bwd] [nbody]
 
-(no case named: all six).  ``OLD_ROOT`` is the root of another checkout
+(no case named: all seven).  ``OLD_ROOT`` is the root of another checkout
 of the repository (for example the parent commit, unpacked with ``git
 archive`` into a directory that ``.gitignore`` lists).  Its
 ``src/repro_torch/csrc`` is built with the same ``nvcc`` flags into
@@ -18,7 +18,11 @@ grouped GEMMs at a prefill and a decode step); the flash backward's
 both builds reading one forward's output and log-sum-exp; saxpy at one
 accelerator slot's 2e7 float32 elements; the SSD scan at zamba2's call, x (1, 1536,
 80 x 64), chunk 256, in float32 (as the model feeds it) and bf16, each
-checkout's ``ssd_scan_fwd`` called with its own arguments; N-body at one
+checkout's ``ssd_scan_fwd`` called with its own arguments; the SSD
+backward's ``ssd_scan_bwd`` at zamba2's training call, x (8, 512, 80 x 64)
+float32, chunk 256, from one forward's states and cum (a checkout without
+that entry point is timed as autograd through the plain version, which is
+what the kernel replaced); N-body at one
 accelerator slot's targets against all bodies at the paper's three size
 classes, float32, each checkout's ``nbody_acc_f32`` called with its own
 arguments (the split design's scratch allocated once, outside the timed
@@ -56,6 +60,7 @@ from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.kernels.flash_attention import NO_WINDOW
 
 REPS = 50
+PLAIN_REPS = 2          # a plain version's backward, where one is timed
 #: (B, H, KV, S, hd) causal, bf16
 FLASH = {"zamba2": (1, 32, 32, 1536, 80), "granite": (1, 24, 8, 1536, 64)}
 #: (B, H, KV, S, hd) of the flash backward, causal, bf16: granite's
@@ -71,8 +76,10 @@ SAXPY_N = 2 * 10 ** 7
 #: (Bsz, S, nh, hd, ds, chunk): zamba2-2.7b's SSD call at a 1536-token
 #: prefill
 SSD = (1, 1536, 80, 64, 64, 256)
+#: (Bsz, S, nh, hd, ds, chunk): zamba2-2.7b's SSD call in training
+SSD_BWD = (8, 512, 80, 64, 64, 256)
 #: the cases, and how many times each runs the turn sequence
-KINDS = ("flash", "flash_bwd", "gmm", "saxpy", "ssd", "nbody")
+KINDS = ("flash", "flash_bwd", "gmm", "saxpy", "ssd", "ssd_bwd", "nbody")
 ROUNDS = {"saxpy": 5, "nbody": 3}
 
 
@@ -254,6 +261,57 @@ def ssd_case(entries, Bsz, S, nh, hd, ds, chunk, dtype):
     return calls, errs, None, bound
 
 
+def ssd_bwd_entry(lib):
+    """The ``ssd_scan_bwd`` of a library, or None where it has none."""
+    if not hasattr(lib, "ssd_scan_bwd"):
+        return None
+    fn = lib.ssd_scan_bwd
+    fn.argtypes = _build.SIGNATURES["ssd_scan_bwd"]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ssd_bwd_case(entries, Bsz, S, nh, hd, ds, chunk):
+    """zamba2's SSD backward in training, float32, every gradient held to
+    autograd through the plain version under ``chip_smoke.SSD_BWD_TOL``;
+    a build without the entry point is timed as that autograd call."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((Bsz, S, nh * hd), generator=g, device="cuda") * 0.5
+    dt = F.softplus(torch.randn((Bsz, S, nh), generator=g, device="cuda"))
+    Bm = torch.randn((Bsz, S, ds), generator=g, device="cuda") * 0.5
+    Cm = torch.randn((Bsz, S, ds), generator=g, device="cuda") * 0.5
+    A = -torch.exp(torch.randn(nh, generator=g, device="cuda") * 0.3)
+    dy = torch.randn(x.shape, generator=g, device="cuda")
+    main = (x, dt, Bm, Cm, A)
+    want = cs.ssd_grads(ref.ssd_scan_ref, main, None, dy, None, chunk)
+    _, _, states, cum = ssd_mod.ssd_scan_with_states(*main, chunk=chunk)
+    plain = cs.backward_of(lambda *t, chunk: ref.ssd_scan_ref(
+        *t, chunk=chunk)[0], main, dy, chunk=chunk)
+    plain.plain = True          # timed over PLAIN_REPS, no host timing
+    stream = torch.cuda.current_stream().cuda_stream
+    calls, errs = {}, {}
+    for name, fn in entries.items():
+        if fn is None:
+            calls[name], errs[name] = plain, 0.0
+            continue
+        grads = [torch.empty_like(t) for t in main]
+        buf, parts = ssd_mod.bwd_scratch(Bsz, S, nh, hd, ds, chunk, "cuda")
+
+        def call(fn=fn, grads=grads, parts=parts, buf=buf, name=name):
+            checked(fn(*(t.data_ptr() for t in (*main, states, cum, dy)),
+                       None, *(t.data_ptr() for t in grads), None, *parts,
+                       Bsz, S, nh, hd, ds, chunk, 0, stream),
+                    f"ssd_scan_bwd ({name})")
+        call()
+        torch.cuda.synchronize()
+        calls[name] = call
+        errs[name] = max((gr - w).abs().max().item()
+                         / (cs.SSD_BWD_TOL * w.abs().max().item())
+                         for gr, w in zip(grads, want))
+    bound = cs.ssd_bwd_bound(Bsz, S, chunk, nh, hd, ds)[0]
+    return calls, errs, None, bound
+
+
 def nbody_entry(lib, root: Path):
     """The ``nbody_acc_f32`` of a library built from ``root``'s sources,
     with that checkout's own argument types: since the source-split design
@@ -347,6 +405,10 @@ def main() -> int:
                   for name, dtype in (("f32", torch.float32),
                                       ("bf16", torch.bfloat16))
                   for shape in [SSD]]
+    if "ssd_bwd" in kinds:
+        entries = {n: ssd_bwd_entry(lib) for n, lib in libs.items()}
+        cases += [("ssd_bwd", "train", ssd_bwd_case(entries, *SSD_BWD),
+                   SSD_BWD)]
     if "nbody" in kinds:
         entries = {"old": nbody_entry(libs["old"], old_root),
                    "new": nbody_entry(libs["new"], cs.ROOT)}
@@ -360,7 +422,8 @@ def main() -> int:
                                    f"{e:.3f} of its bound")
         old, new, lib = [], [], []
         for _ in range(ROUNDS.get(kind, 1)):
-            t = [cs.cuda_ms(c, REPS) if c else None
+            t = [cs.cuda_ms(c, PLAIN_REPS if getattr(c, "plain", False)
+                            else REPS) if c else None
                  for c in (calls["old"], calls["new"], lib_call,
                            calls["new"], calls["old"])]
             old += [t[0], t[4]]
@@ -370,13 +433,15 @@ def main() -> int:
                  library_ms=lib if len(lib) > 1 else lib[0],
                  bound_ms=bound,
                  worst_share_of_bound=errs,
-                 host_us={n: cs.host_us(c) for n, c in calls.items()})
+                 host_us={n: cs.host_us(c) for n, c in calls.items()
+                          if not getattr(c, "plain", False)})
         if kind == "gmm":
             r["new_tb_per_s"] = case[4] / (min(new) * 1e-3) / 1e12
-        if kind == "flash_bwd":
+        if kind in ("flash_bwd", "ssd_bwd"):
             # (ms, kernels a call) of each
             r["device_ms"] = {n: cs.device_ms(c) for n, c in
-                              (*calls.items(), ("library", lib_call))}
+                              (*calls.items(), ("library", lib_call))
+                              if c is not None}
         out[kind][name] = r
         print(f"{kind} {name} {list(shape)}: old "
               f"{'/'.join(f'{v:.4f}' for v in old)} ms, new "

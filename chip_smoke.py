@@ -30,7 +30,16 @@ and read just after:
   full width (bf16 parameters, float32 AdamW moments, random weights from
   seed 0) through ``make_train_step`` on ``batch_at``'s 8 x 512 tokens,
   with no plain version called, and the gradients of the model's first 2
-  layers (bf16, kernels) against the CPU's (float32, plain versions).
+  layers (bf16, kernels) against the CPU's (float32, plain versions);
+- zamba2-2.7b training, after granite's state is freed: the SSD scan's
+  backward kernel at the training shape (x 8 x 512 x 80 heads of 64,
+  d_state 64, chunk 256) and on a chained ragged tail with h0 and
+  dh_final, against autograd through the plain recurrence (timed in turns
+  with it), the gradients of the model's first hybrid group (5 Mamba2 + 1
+  attention layers, with the full-width embedding) card float32 against
+  CPU float32 by parameter group, then four full-width, full-depth steps
+  (54 layers: 45 Mamba2 + 9 attention) through ``make_train_step`` on
+  ``batch_at``'s 8 x 512 tokens, with no plain version called.
 
 Standard output ends with three lines: the card's name and power limit as
 ``nvidia-smi`` prints them, one JSON object describing each kernel
@@ -126,6 +135,10 @@ KERNELS = {
                         "src/repro/kernels/flash_attention.py:88"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:84"),
+    # the gradient of the TPU SSD kernel's function (the JAX package has no
+    # backward kernel: it differentiates its jnp chunk loop)
+    "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_scan_bwd.cu",
+                     "src/repro/kernels/ssd_scan.py:84"),
     "grouped_matmul": ("src/repro_torch/csrc/moe_gemm.cu",
                        "src/repro/kernels/moe_gemm.py:39"),
 }
@@ -216,6 +229,31 @@ GRAD_GROUPS = ("embed", "attn", "router", "experts", "norms")
 MOE_GRAD_GROUPS = ("router", "experts", "x")
 GRAD_F32_REL = 1e-2
 GRAD_BF16_REL = {"router": 0.1, "experts": 0.06, "x": 0.1}
+#: zamba2's training phase: the same batch, steps, lr and schedule, under
+#: HYBRID_TRAIN_REMAT: no activation checkpointing (it fits at a 65.3 GiB
+#: peak; PERF.md section 4)
+HYBRID_TRAIN_ARCH = "zamba2-2.7b"
+HYBRID_TRAIN_REMAT = "none"
+#: SSD backward: every gradient max |err| <= SSD_BWD_TOL x max |plain|, as
+#: the CPU emulation of the kernel is held (tests/test_torch_ssd_bwd_emu.py)
+SSD_BWD_TOL = 1e-4
+#: zamba2's gradient head check, on its first hybrid group and the
+#: full-width embedding: the loss's gradients on one 1 x TRAIN_SEQ batch by
+#: parameter group (the Mamba2 projections w_z/w_x/w_B/w_C/w_dt/w_out,
+#: their scalars A_log/D/dt_bias, the convolutions, the attention block,
+#: the norms, the embedding), card float32 against the CPU's float32 plain
+#: ones by relative L2 under HYBRID_GRAD_F32_REL.  The limit sits between
+#: sound and faulty readings (chip_group_calibration.py grad, data seeds 1,
+#: 3, 5; PERF.md): sound <= 4.73e-4 in every group; each SSD-backward
+#: fault >= 0.016 in the groups it reaches (the reverse state pass skipped
+#: 0.0161-0.0264 everywhere but the attention block, which follows the
+#: Mamba2 layers; dB and dC swapped >= 1.17 there; dA zeroed 0.249-0.261 in
+#: ssm_scalars).  bf16 gradients are noise at these random weights (card
+#: and CPU bf16 both 0.86-1.05 against CPU float32, as far as a fault), so
+#: they are reported, not bounded.
+HYBRID_GRAD_GROUPS = ("embed", "ssm_proj", "ssm_scalars", "conv", "attn",
+                      "norms")
+HYBRID_GRAD_F32_REL = 5e-3
 #: the profiled window: one prefill of the largest prompt, decode steps
 PROFILE_DECODE_STEPS = 8
 
@@ -1449,13 +1487,24 @@ def train_kernel_phase(cfg, dev="cuda"):
     return results
 
 
-def want_train_launches(cfg):
-    """Each kernel's launches in one step of the moe family: one flash
+def want_train_launches(cfg, remat: str = TRAIN_REMAT):
+    """Each kernel's launches in one step.  The moe family: one flash
     forward and backward per layer; three grouped GEMMs per layer forward,
-    each with a dx and a dw behind it."""
+    each with a dx and a dw behind it.  The hybrid family: one SSD scan
+    forward and backward per Mamba2 layer, one flash forward and backward
+    per attention layer.  Under a remat policy the kernels are recomputed
+    (they are no matrix products to the dispatcher: models/lm.py
+    REMAT_SAVED), so each forward runs twice."""
     L = cfg.n_layers
-    return {"flash_attention": L, "flash_attention_bwd": L,
-            "grouped_matmul": 9 * L, "ssd_scan": 0}
+    if cfg.family != "hybrid":
+        return {"flash_attention": L, "flash_attention_bwd": L,
+                "grouped_matmul": 9 * L, "ssd_scan": 0, "ssd_scan_bwd": 0}
+    n_attn = L // cfg.hybrid_attn_every
+    n_ssm = L - n_attn
+    again = 1 if remat in (None, "none") else 2
+    return {"flash_attention": again * n_attn, "flash_attention_bwd": n_attn,
+            "grouped_matmul": 0, "ssd_scan": again * n_ssm,
+            "ssd_scan_bwd": n_ssm}
 
 
 class PlainCalls:
@@ -1478,11 +1527,11 @@ class PlainCalls:
             setattr(ref, n, fn)
 
 
-def train_main_path(cfg, model):
+def train_main_path(cfg, model, remat: str = TRAIN_REMAT):
     """TRAIN_STEPS steps of ``make_train_step`` on ``batch_at``'s batches,
     the launch counters from 0 just before to just after."""
     opt = build_optimizer(cfg, TRAIN_LR, TRAIN_STEPS)
-    rt = RuntimeConfig(microbatches=1, remat=TRAIN_REMAT, loss_chunks=1,
+    rt = RuntimeConfig(microbatches=1, remat=remat, loss_chunks=1,
                        aux_weight=0.01)
     state = init_state(model, opt)
     step_fn = make_train_step(cfg, opt, rt)
@@ -1515,12 +1564,12 @@ def train_main_path(cfg, model):
            f"finite losses and gradient norms: {steps}")
     expect(int(state.opt.step) == TRAIN_STEPS, "the optimizer counted "
            f"{int(state.opt.step)} steps")
-    want = want_train_launches(cfg)
+    want = want_train_launches(cfg, remat)
     per_step = {k: launches[k] / TRAIN_STEPS for k in want}
     for k, n in want.items():
         expect(launches[k] == n * TRAIN_STEPS,
                f"{k}: {launches[k]} launches == {n} a step x {TRAIN_STEPS}")
-    expect(gmm_bwd == 6 * cfg.n_layers * TRAIN_STEPS,
+    expect(gmm_bwd == 6 * want["grouped_matmul"] // 9 * TRAIN_STEPS,
            f"grouped GEMM backward launches {gmm_bwd}")
     expect(gmm_paths == {"tma": launches["grouped_matmul"], "wmma": 0},
            f"every grouped GEMM launch took the TMA + wgmma kernel: "
@@ -1531,7 +1580,7 @@ def train_main_path(cfg, model):
     expect(not any(plain.calls.values()),
            f"no plain version on the card's training path: {plain.calls}")
     print(f"train: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
-          f"tokens, remat {TRAIN_REMAT}; peak memory {peak / 2 ** 30:.2f} "
+          f"tokens, remat {remat}; peak memory {peak / 2 ** 30:.2f} "
           f"GiB; launches a step {per_step} (grouped GEMM "
           f"{gmm_bwd // TRAIN_STEPS} of them backward)", flush=True)
     profile = train_profile(step_fn, state, batches[-1])
@@ -1543,7 +1592,7 @@ def train_main_path(cfg, model):
                 grouped_matmul_bf16_launches=gmm_paths,
                 flash_bwd_paths=bwd_paths, peak_memory_bytes=peak,
                 plain_calls=plain.calls,
-                batch=TRAIN_BATCH, seq=TRAIN_SEQ, remat=TRAIN_REMAT,
+                batch=TRAIN_BATCH, seq=TRAIN_SEQ, remat=remat,
                 lr=TRAIN_LR, schedule=cfg.lr_schedule)
 
 
@@ -1565,28 +1614,41 @@ def train_profile(step_fn, state, batch):
     busy = sum(t for _, t, _ in kernels) / 1e6
     top = sorted(kernels, key=lambda ktn: -ktn[1])[:8]
     mine = {name: sum(t for k, t, _ in kernels if name in k) / 1e6
-            for name in ("flash_mma_kernel", "flash_bwd_", "gmm_wgmma")}
+            for name in ("flash_mma_kernel", "flash_bwd_", "gmm_wgmma",
+                         "ssd_bwd_")}
+    mine["ssd_fwd"] = sum(t for k, t, _ in kernels
+                          if "ssd_" in k and "ssd_bwd_" not in k) / 1e6
     # the backward kernels that ran: name -> (device seconds, launches)
     bwd = {kernel_name(k): (t / 1e6, n) for k, t, n in kernels
-           if "flash_bwd_" in k}
+           if "_bwd_" in k}
     out = dict(wall_s=wall, device_busy_s=busy,
                kernel_launches=sum(n for _, _, n in kernels),
                idle_share=1.0 - busy / wall if busy else None,
-               hand_written_s=mine, flash_bwd_kernels=bwd,
+               hand_written_s=mine, bwd_kernels=bwd,
+               ssd_bwd_share=mine["ssd_bwd_"] / busy if busy else None,
                top_kernels_s=[(k[:80], t / 1e6, n) for k, t, n in top])
     print(f"train profile, one step: wall {wall:.4f} s, device busy "
           f"{busy:.4f} s, {out['kernel_launches']} kernel launches; "
-          f"hand-written kernels {mine}; flash backward kernels that ran "
+          f"hand-written kernels {mine}; backward kernels that ran "
           f"{bwd}; top {out['top_kernels_s'][:5]}", flush=True)
     return out
 
 
 def grad_group(name: str) -> str:
-    """A gradient's group in the gradient head check."""
+    """A gradient's group in the gradient head checks."""
     if name == "x":
         return "x"
     if name.startswith("embed."):
         return "embed"
+    if ".ssm." in name:                   # zamba2's Mamba2 layers
+        leaf = name.rsplit(".", 1)[1]
+        if leaf in ("A_log", "D", "dt_bias"):
+            return "ssm_scalars"
+        if leaf.startswith("conv_"):
+            return "conv"
+        return "norms" if leaf == "norm" else "ssm_proj"
+    if ".attn.attn." in name or ".attn.ffn." in name:  # zamba2's attention
+        return "attn"
     if ".attn." in name:
         return "attn"
     if name.endswith("moe.router"):
@@ -1718,6 +1780,195 @@ def train_phase():
 
 
 # ---------------------------------------------------------------------------
+# zamba2 training: the SSD backward kernel, a gradient head check, four
+# full-width steps
+# ---------------------------------------------------------------------------
+
+def ssd_bwd_bound(Bsz, S, chunk, nh, hd, ds, h0: bool = False,
+                  dh: bool = False):
+    """Bytes: x, dy, dx (each Bsz x S x nh x hd), the chunk-start states
+    and, where present, h0's and dh_final's gradients moved once; dt, ddt,
+    cum, B, C, dB, dC, A, dA.  Operations of the least algorithm (C.B^T and
+    the dCB products once per chunk, dCB summed over the heads): per (batch,
+    chunk, head) four state products of Q ds hd multiply-adds (D_c,
+    r (B . g), e (h . dy), r (g . u)) and two over the (Q, Q) lower
+    triangle of hd each (du, dG), about 3 operations an entry of the
+    triangle for L, dCB and M; per (batch, chunk) three triangle products
+    of ds (C.B^T, dCB.B, dCB^T.C); 2 operations per multiply-add."""
+    nc, tri = S // chunk, chunk * (chunk + 1) // 2
+    macs = Bsz * nc * (nh * (4 * chunk * ds * hd + 2 * tri * hd + 1.5 * tri)
+                       + 3 * tri * ds)
+    nbytes = 4 * (3 * Bsz * S * nh * hd + Bsz * nc * nh * ds * hd
+                  + Bsz * nh * ds * hd * (int(h0) + int(dh))
+                  + 3 * Bsz * S * nh + 4 * Bsz * S * ds + 2 * nh)
+    return bound_ms(nbytes, 2.0 * macs)
+
+
+def ssd_grads(fn, inputs, h0, dy, dh, chunk):
+    """fn's (y, h_final) and its gradients (dx, ddt, dB, dC, dA and, with an
+    h0, dh0) for the output gradients dy and dh (None: h_final unused)."""
+    xs = [t.detach().clone().requires_grad_(True) for t in inputs]
+    h0r = None if h0 is None else h0.detach().clone().requires_grad_(True)
+    y, h = fn(*xs, chunk=chunk, h0=h0r)
+    outs, gs = ([y, h], [dy, dh]) if dh is not None else ([y], [dy])
+    return torch.autograd.grad(outs, xs + ([] if h0r is None else [h0r]),
+                               gs)
+
+
+def ssd_grads_err(got, want, what):
+    """The largest |err| of the gradients; fails past SSD_BWD_TOL x the
+    largest |plain| of any one of them."""
+    err_max = 0.0
+    for name, g, w in zip(("dx", "ddt", "dB", "dC", "dA", "dh0"), got, want):
+        err = (g - w).abs().max().item()
+        scale = w.abs().max().item()
+        expect(math.isfinite(err) and err <= SSD_BWD_TOL * scale,
+               f"ssd backward {what} {name}: max err {err} <= {SSD_BWD_TOL} x "
+               f"{scale}")
+        err_max = max(err_max, err)
+    return err_max
+
+
+def ssd_train_kernel_phase(cfg, dev="cuda"):
+    """The SSD scan's backward kernel against autograd through the plain
+    recurrence at zamba2's training shape and on a chained ragged tail with
+    h0 and dh_final; bit-identical repeats; timed in turns with the plain
+    version's backward."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    s = cfg.ssm
+    nh, hd, ds, Q = s.n_heads(cfg.d_model), s.head_dim, s.d_state, s.chunk
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+
+    def inputs(Bsz, n):
+        x = torch.randn((Bsz, n, nh * hd), generator=g, device=dev) * 0.5
+        dt = F.softplus(torch.randn((Bsz, n, nh), generator=g, device=dev))
+        Bm = torch.randn((Bsz, n, ds), generator=g, device=dev) * 0.5
+        Cm = torch.randn((Bsz, n, ds), generator=g, device=dev) * 0.5
+        return x, dt, Bm, Cm
+
+    A = -torch.exp(torch.randn(nh, generator=g, device=dev) * 0.3)
+    x, dt, Bm, Cm = inputs(B, S)
+    main = (x, dt, Bm, Cm, A)
+    dy = torch.randn(x.shape, generator=g, device=dev)
+    got = ssd_grads(ops.ssd_scan, main, None, dy, None, Q)
+    want = ssd_grads(ref.ssd_scan_ref, main, None, dy, None, Q)
+    err = ssd_grads_err(got, want, f"{list(x.shape)}")
+    again = ssd_grads(ops.ssd_scan, main, None, dy, None, Q)
+    expect(all(torch.equal(a, b) for a, b in zip(got, again)),
+           "ssd backward: a second call gives the same bits")
+    # 512 positions in chunks of Q, then a ragged tail of its own through
+    # h0, as ssd_prefill chains a prompt's tail; an h0 into the first call
+    # and a gradient of the final state
+    tail = 232
+    xt, dtt, Bt, Ct = inputs(1, S + tail)
+    h0 = torch.randn((1, nh, ds, hd), generator=g, device=dev)
+    dyt = torch.randn(xt.shape, generator=g, device=dev)
+    dh = torch.randn((1, nh, ds, hd), generator=g, device=dev)
+
+    def chained(x, dt, Bm, Cm, A, chunk, h0):
+        y1, h1 = ops.ssd_scan(x[:, :S], dt[:, :S], Bm[:, :S], Cm[:, :S], A,
+                              chunk=Q, h0=h0)
+        y2, h2 = ops.ssd_scan(x[:, S:], dt[:, S:], Bm[:, S:], Cm[:, S:], A,
+                              chunk=tail, h0=h1)
+        return torch.cat([y1, y2], 1), h2
+    tail_in = (xt, dtt, Bt, Ct, A)
+    err_tail = ssd_grads_err(
+        ssd_grads(chained, tail_in, h0, dyt, dh, 1),
+        ssd_grads(ref.ssd_scan_ref, tail_in, h0, dyt, dh, 1),
+        f"chained {S} + {tail}, h0 and dh_final")
+    # timed: the kernel alone (the forward's states and cum as autograd
+    # keeps them) in turns with autograd through the plain version
+    _, _, states, cum = ssd_mod.ssd_scan_with_states(*main, chunk=Q)
+    kernel = lambda: ssd_mod.ssd_scan_backward(*main, None, states, cum, dy,
+                                               None, chunk=Q)
+    plain = backward_of(lambda *t, chunk: ref.ssd_scan_ref(*t, chunk=chunk
+                                                           )[0],
+                        main, dy, chunk=Q)
+    turns = {"kernel": [], "plain": []}
+    for _ in range(2):                 # in turns: kernel, plain, kernel, plain
+        turns["kernel"].append(cuda_ms(kernel, 10))
+        turns["plain"].append(cuda_ms(plain, 1))
+    device = device_ms(kernel)
+    expect(device[1] == ssd_mod.BWD_KERNELS_PER_CALL,
+           f"the profiler saw every SSD backward kernel: {device}")
+    by_kernel = {name: ms for name, (ms, _) in
+                 profiled_kernels(kernel).items()}
+    torch.cuda.synchronize()
+    return {"ssd_scan_bwd": dict(
+        max_abs_err=max(err, err_tail), chained_max_abs_err=err_tail,
+        ms=sum(turns["kernel"]) / 2, plain_ms=sum(turns["plain"]) / 2,
+        library_ms=None, turns=turns, device_ms=device[0],
+        device_ms_by_kernel=by_kernel, shape=[B, S, nh, hd, ds, Q],
+        dtype="float32", kernels_per_call=ssd_mod.BWD_KERNELS_PER_CALL,
+        tolerance=f"every gradient max |err| <= {SSD_BWD_TOL} x max |plain|",
+        bound=ssd_bwd_bound(B, S, Q, nh, hd, ds))}
+
+
+def hybrid_head_check(cfg, model, dev="cuda"):
+    """The gradients of zamba2's first hybrid group on one batch, card
+    float32 (kernels) against the CPU's float32 plain ones by parameter
+    group; card bf16 reported (see HYBRID_GRAD_F32_REL)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    head, state, batch = hybrid_grad_inputs(cfg, model)
+    want = head_grads(head, state, batch, torch.float32, "cpu")
+    cpu_s = time.perf_counter() - t0
+    torch.set_num_threads(threads)
+    f32 = grad_rel(head_grads(head, state, batch, torch.float32, dev), want,
+                   HYBRID_GRAD_GROUPS)
+    b16 = grad_rel(head_grads(head, state, batch, torch.bfloat16, dev),
+                   want, HYBRID_GRAD_GROUPS)
+    for grp in HYBRID_GRAD_GROUPS:
+        expect(math.isfinite(f32[grp]) and f32[grp] <= HYBRID_GRAD_F32_REL,
+               f"card f32 vs CPU f32 gradients of {grp}: relative L2 "
+               f"{f32[grp]} <= {HYBRID_GRAD_F32_REL}")
+        expect(math.isfinite(b16[grp]), f"finite bf16 gradients of {grp}")
+    print(f"train one hybrid group's gradients, relative L2 to CPU f32: "
+          f"card f32 {f32}; card bf16 {b16} (CPU {cpu_s:.1f} s)", flush=True)
+    return dict(f32_rel_l2=f32, bf16_rel_l2=b16, cpu_seconds=cpu_s,
+                tolerance=f"f32: {HYBRID_GRAD_F32_REL}; bf16: reported")
+
+
+def hybrid_grad_inputs(cfg, model, seed: int = 1):
+    """The head (zamba2's first hybrid group with the full-width
+    embedding), its parameters and ``batch_at``'s batch of data seed
+    ``seed``, 1 x TRAIN_SEQ."""
+    head, state = model_head(cfg, model)
+    batch = batch_at(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                global_batch=1, seed=seed), 0)
+    return head, state, batch
+
+
+def hybrid_train_phase():
+    """Training of HYBRID_TRAIN_ARCH: the SSD backward kernel, the gradient
+    head check, the main path; the model is freed before returning."""
+    cfg = get_config(HYBRID_TRAIN_ARCH)
+    kernels = ssd_train_kernel_phase(cfg)
+    r = kernels["ssd_scan_bwd"]
+    print(f"kernel ssd_scan_bwd {r['shape']} float32: {r['ms']:.4f} ms (in "
+          f"turns {r['turns']['kernel']}), autograd through the plain "
+          f"version {r['plain_ms']:.4f} ms (in turns {r['turns']['plain']}),"
+          f" device time alone {r['device_ms']:.4f} ms in "
+          f"{r['kernels_per_call']} kernels {r['device_ms_by_kernel']}; "
+          f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), max err "
+          f"{r['max_abs_err']:.3g} (chained tail "
+          f"{r['chained_max_abs_err']:.3g})", flush=True)
+    t0 = time.perf_counter()
+    model = LM(cfg, device="cuda",
+               generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"train {cfg.arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    head = hybrid_head_check(cfg, model)     # the parameters as built
+    main = train_main_path(cfg, model, HYBRID_TRAIN_REMAT)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return kernels, main, head
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1771,6 +2022,9 @@ def main() -> int:
     train_kernels, train, train_head = train_phase()
     results.update(train_kernels)
     by_path["train " + TRAIN_ARCH] = train["launches"]
+    hyb_kernels, hyb_train, hyb_head = hybrid_train_phase()
+    results.update(hyb_kernels)
+    by_path["train " + HYBRID_TRAIN_ARCH] = hyb_train["launches"]
     # each kernel's launches over the main paths, each counted from 0
     launches = {k: sum(p[k] for p in by_path.values()) for k in KERNELS}
     expect(all(n > 0 for n in launches.values()),
@@ -1779,7 +2033,7 @@ def main() -> int:
     kernels = []
     for name in ["saxpy", "filter_pipeline", "segmentation", "nbody",
                  "flash_attention", "flash_attention_bwd", "ssd_scan",
-                 "grouped_matmul"]:
+                 "ssd_scan_bwd", "grouped_matmul"]:
         r = results[name]
         source, replaces = KERNELS[name]
         kernels.append({
@@ -1797,6 +2051,9 @@ def main() -> int:
     bwd = next(k for k in kernels if k["name"] == "flash_attention_bwd")
     bwd["device_ms"], bwd["library_device_ms"] = (device["kernel"][0],
                                                   device["sdpa"][0])
+    # the SSD backward's device time alone (torch.profiler)
+    ssd_bwd = next(k for k in kernels if k["name"] == "ssd_scan_bwd")
+    ssd_bwd["device_ms"] = results["ssd_scan_bwd"]["device_ms"]
     seconds = time.perf_counter() - t_start
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_seconds": build_s,
@@ -1805,7 +2062,8 @@ def main() -> int:
               "chain": chain, "launches": launches,
               "launches_by_path": by_path, "lm_serve": lm_serve,
               "lm_head_check": lm_head, "train": train,
-              "train_head_check": train_head, "kernels": kernels}
+              "train_head_check": train_head, "train_hybrid": hyb_train,
+              "train_hybrid_head_check": hyb_head, "kernels": kernels}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

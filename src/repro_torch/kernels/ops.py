@@ -8,11 +8,13 @@ The choice is the tensor's device and nothing else: no error ever sends
 a CUDA tensor to the plain version.
 
 Gradients.  On the CPU autograd runs through the plain versions.  On the
-card, flash attention and the grouped GEMM are ``torch.autograd.Function``s
-whose backward is a hand-written kernel too (flash: its own backward
-kernels; the grouped GEMM: two more grouped GEMMs).  The other kernels have
-no backward: given a CUDA input that requires grad (with grad enabled) they
-raise, the SSD scan with :data:`NO_SSD_BACKWARD`, rather than return a
+card, flash attention, the SSD scan and the grouped GEMM are
+``torch.autograd.Function``s whose backward is a hand-written kernel too
+(flash and the SSD scan: their own backward kernels; the grouped GEMM: two
+more grouped GEMMs).  The SSD scan's backward takes float32 x, B and C (what
+the models feed it): a bfloat16 input that needs a gradient raises
+``ValueError``.  The other kernels have no backward: given a CUDA input
+that requires grad (with grad enabled) they raise, rather than return a
 result that autograd cannot see through.
 """
 from __future__ import annotations
@@ -31,12 +33,6 @@ from repro_torch.kernels import segmentation as _seg
 from repro_torch.kernels import ssd_scan as _ssd
 
 
-#: why the SSD scan cannot be trained through on the card yet
-NO_SSD_BACKWARD = ("the SSD scan has no backward kernel yet (it comes with "
-                   "the next slice of the port); training a hybrid model on "
-                   "CUDA needs it")
-
-
 def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
@@ -46,7 +42,6 @@ def _no_backward(name: str, *tensors) -> None:
     """Raise if a kernel without a backward would be differentiated."""
     if _needs_grad(*tensors):
         raise NotImplementedError(
-            NO_SSD_BACKWARD if name == "ssd_scan" else
             f"the {name} kernel has no backward: call it on tensors that "
             "do not require grad, or under torch.no_grad()")
 
@@ -144,14 +139,44 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.transpose(1, 2)
 
 
+class _SSDScan(torch.autograd.Function):
+    """The SSD scan with its backward kernel: the forward keeps the chunks'
+    starting states and the within-chunk cumsum of dt * A from its
+    scratch.  A final-state gradient that autograd does not have (the
+    training path never uses h_final) stays None: no zeros are made."""
+
+    @staticmethod
+    def forward(ctx, x, dt, B, C, A, h0, chunk: int):
+        y, h, states, cum = _ssd.ssd_scan_with_states(x, dt, B, C, A,
+                                                      chunk=chunk, h0=h0)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, B, C, A, h0, states, cum)
+        ctx.chunk = chunk
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, B, C, A, h0, states, cum = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        grads = _ssd.ssd_scan_backward(
+            x, dt, B, C, A, h0, states, cum, dy,
+            None if dh is None else dh.contiguous(), chunk=ctx.chunk)
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad)), None)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
              C: torch.Tensor, A: torch.Tensor, *, chunk: int,
              h0: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked Mamba2 SSD -> (y in x's dtype, final state float32)."""
     if x.is_cuda:
-        _no_backward("ssd_scan", x, dt, B, C, A, h0)
-        return _ssd.ssd_scan(x, dt, B, C, A, chunk=chunk, h0=h0)
+        if not _needs_grad(x, dt, B, C, A, h0):
+            return _ssd.ssd_scan(x, dt, B, C, A, chunk=chunk, h0=h0)
+        if x.dtype != torch.float32:
+            raise ValueError(f"the SSD scan's backward takes float32 x, B "
+                             f"and C, got {x.dtype}")
+        return _SSDScan.apply(x, dt, B, C, A, h0, chunk)
     return ref.ssd_scan_ref(x, dt, B, C, A, chunk=chunk, h0=h0)
 
 
@@ -192,4 +217,5 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 COUNTERS = {c.name: c for c in (_saxpy.launches, _filter.launches,
                                 _seg.launches, _nbody.launches,
                                 _flash.launches, _ssd.launches,
-                                _gmm.launches, _flash.bwd_launches)}
+                                _gmm.launches, _flash.bwd_launches,
+                                _ssd.bwd_launches)}

@@ -1,6 +1,9 @@
 """The Mamba2 SSD chunk scan on the card, launching ``csrc/ssd_scan.cu``
 (four kernels a call: C.B^T per chunk, each chunk's own end state, the
-state passing over the chunks, the outputs)."""
+state passing over the chunks, the outputs), and its gradient, launching
+``csrc/ssd_scan_bwd.cu`` (seven kernels a call: C.B^T, each chunk's own
+state gradient, the reverse state pass, key tiles, query tiles, d cum, the
+fixed-order sums over heads and chunks)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -12,11 +15,13 @@ from repro_torch.kernels._build import (DTYPE_CODES, LaunchCounter,
                                         stream_of)
 
 launches = LaunchCounter("ssd_scan")
+bwd_launches = LaunchCounter("ssd_scan_bwd")
 
 MAX_CHUNK = 256          # positions of a chunk
 MAX_DIM = 128            # head_dim and d_state, each a multiple of 16
 #: kernels one call launches
 KERNELS_PER_CALL = 4
+BWD_KERNELS_PER_CALL = 7
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -34,18 +39,9 @@ def scratch(Bsz: int, S: int, nh: int, hd: int, ds: int, chunk: int,
             torch.empty((Bsz, nh, S), dtype=torch.float32, device=device))
 
 
-def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
-             C: torch.Tensor, A: torch.Tensor, *, chunk: int,
-             h0: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD on contiguous CUDA tensors.
-
-    x (Bsz, S, nh*hd) and B/C (Bsz, S, ds) float32 or bfloat16 (one dtype);
-    dt (Bsz, S, nh), A (nh,) and h0 (Bsz, nh, ds, hd) float32.  Returns
-    y (Bsz, S, nh*hd) in x's dtype and the final state (Bsz, nh, ds, hd)
-    float32.  S must be a multiple of ``chunk`` (1..256).
-    """
-    require(x, "x", ndim=3, dtypes=_DTYPES)
+def _check(x, dt, B, C, A, chunk, h0, dtypes=_DTYPES):
+    """The inputs' checks; returns (Bsz, S, nh, hd, ds)."""
+    require(x, "x", ndim=3, dtypes=dtypes)
     dev = x.device
     require(dt, "dt", ndim=3, device=dev)
     require(B, "B", ndim=3, device=dev, dtypes=(x.dtype,))
@@ -73,11 +69,26 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
         if tuple(h0.shape) != (Bsz, nh, ds, hd):
             raise ValueError(f"h0 {tuple(h0.shape)} is not "
                              f"{(Bsz, nh, ds, hd)}")
-    # the kernels read x, B, C and h0 four elements at a time: a view that
-    # does not start on 16 bytes is copied to one that does
-    x, B, C = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, B, C))
-    if h0 is not None and h0.data_ptr() % 16:
-        h0 = h0.clone()
+    return Bsz, S, nh, hd, ds
+
+
+def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``t``, or a copy that starts on 16 bytes (the kernels read four
+    elements at a time)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
+def ssd_scan_with_states(x: torch.Tensor, dt: torch.Tensor,
+                         B: torch.Tensor, C: torch.Tensor, A: torch.Tensor,
+                         *, chunk: int, h0: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor, torch.Tensor]:
+    """:func:`ssd_scan`, also returning what the kernels leave in their
+    scratch for the backward: each chunk's starting state (Bsz, S/chunk,
+    nh, ds, hd) and the within-chunk cumsum of dt * A (Bsz, nh, S)."""
+    Bsz, S, nh, hd, ds = _check(x, dt, B, C, A, chunk, h0)
+    dev = x.device
+    x, B, C, h0 = (_aligned(t) for t in (x, B, C, h0))
     y = torch.empty_like(x)
     h = torch.empty((Bsz, nh, ds, hd), dtype=torch.float32, device=dev)
     states, cb, cum = scratch(Bsz, S, nh, hd, ds, chunk, dev)
@@ -88,4 +99,85 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
         DTYPE_CODES[x.dtype], Bsz, S, nh, hd, ds, chunk, dev.index,
         stream_of(x)), "ssd_scan")
     launches.add()
+    return y, h, states, cum
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+             C: torch.Tensor, A: torch.Tensor, *, chunk: int,
+             h0: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD on contiguous CUDA tensors.
+
+    x (Bsz, S, nh*hd) and B/C (Bsz, S, ds) float32 or bfloat16 (one dtype);
+    dt (Bsz, S, nh), A (nh,) and h0 (Bsz, nh, ds, hd) float32.  Returns
+    y (Bsz, S, nh*hd) in x's dtype and the final state (Bsz, nh, ds, hd)
+    float32.  S must be a multiple of ``chunk`` (1..256).
+    """
+    y, h, _, _ = ssd_scan_with_states(x, dt, B, C, A, chunk=chunk, h0=h0)
     return y, h
+
+
+def bwd_scratch(Bsz: int, S: int, nh: int, hd: int, ds: int, chunk: int,
+                device):
+    """The backward's float32 scratch, one allocation: C.B^T (Bsz, nc,
+    qp, qp); the chunks' end-state gradients (Bsz, nc, nh, ds, hd); each
+    head's share of dB and of dC (Bsz, nc, nh, chunk, ds); d cum's parts by
+    key, by query and T (Bsz, nh, S); e_last <h, g> and dA's shares (Bsz,
+    nc, nh).  Each part starts on 256 bytes."""
+    nc, qp = S // chunk, -(-chunk // 64) * 64
+    sizes = [Bsz * nc * qp * qp, Bsz * nc * nh * ds * hd,
+             Bsz * S * nh * ds, Bsz * S * nh * ds,
+             Bsz * nh * S, Bsz * nh * S, Bsz * nh * S,
+             Bsz * nc * nh, Bsz * nc * nh]
+    offsets, n = [], 0
+    for size in sizes:
+        offsets.append(n)
+        n += -(-size // 64) * 64
+    buf = torch.empty(max(n, 1), dtype=torch.float32, device=device)
+    return buf, [buf.data_ptr() + 4 * o for o in offsets]
+
+
+def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+                      C: torch.Tensor, A: torch.Tensor,
+                      h0: Optional[torch.Tensor], states: torch.Tensor,
+                      cum: torch.Tensor, dy: torch.Tensor,
+                      dh_final: Optional[torch.Tensor], *, chunk: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor, torch.Tensor,
+                                 Optional[torch.Tensor]]:
+    """The gradient of :func:`ssd_scan` for the output gradients ``dy``
+    (like x) and ``dh_final`` (Bsz, nh, ds, hd, or None for zero), from the
+    inputs and the ``states`` and ``cum`` :func:`ssd_scan_with_states`
+    returned.  Every tensor float32 and contiguous.  Returns (dx, ddt, dB,
+    dC, dA, dh0), float32; dh0 is None when ``h0`` is."""
+    Bsz, S, nh, hd, ds = _check(x, dt, B, C, A, chunk, h0,
+                                dtypes=(torch.float32,))
+    dev = x.device
+    nc = S // chunk
+    require(states, "states", ndim=5, device=dev)
+    require(cum, "cum", ndim=3, device=dev)
+    require(dy, "dy", ndim=3, device=dev)
+    if tuple(states.shape) != (Bsz, nc, nh, ds, hd) \
+            or tuple(cum.shape) != (Bsz, nh, S) or dy.shape != x.shape:
+        raise ValueError(f"states {tuple(states.shape)}, cum "
+                         f"{tuple(cum.shape)}, dy {tuple(dy.shape)} do not "
+                         f"fit x {tuple(x.shape)}")
+    if dh_final is not None:
+        require(dh_final, "dh_final", ndim=4, device=dev)
+        if tuple(dh_final.shape) != (Bsz, nh, ds, hd):
+            raise ValueError(f"dh_final {tuple(dh_final.shape)} is not "
+                             f"{(Bsz, nh, ds, hd)}")
+    dh_final = _aligned(dh_final)
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    dA = torch.empty_like(A)
+    dh0 = None if h0 is None else torch.empty(
+        (Bsz, nh, ds, hd), dtype=torch.float32, device=dev)
+    buf, parts = bwd_scratch(Bsz, S, nh, hd, ds, chunk, dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    check_launch(library().ssd_scan_bwd(
+        *map(ptr, (x, dt, B, C, A, states, cum, dy, dh_final, dx, ddt, dB,
+                   dC, dA, dh0)), *parts, Bsz, S, nh, hd, ds, chunk,
+        dev.index, stream_of(x)), "ssd_scan_bwd")
+    bwd_launches.add()
+    return dx, ddt, dB, dC, dA, dh0

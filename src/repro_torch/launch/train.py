@@ -6,8 +6,7 @@ checkpoints every ``--ckpt-every`` steps with keep-K, restore from the
 latest on ``--resume``, the per-arch LR recipe (wsd or cosine), and the
 optional int8 + error-feedback gradient sync (``--compress``, over a
 ``torch.distributed`` group of one process).  Runs on CUDA unless
-``--device cpu`` is given.  On the card the hybrid family stops before
-the first step: its SSD scan has no backward kernel yet.
+``--device cpu`` is given.
 
 Usage:
     python -m repro_torch.launch.train --arch granite-moe-3b-a800m \\
@@ -29,7 +28,6 @@ from repro_torch.checkpoint import (CheckpointManager, state_from_tree,
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.core.executor import resolve_device
 from repro_torch.data import DataConfig, batch_at
-from repro_torch.kernels import ops
 from repro_torch.models import LM
 from repro_torch.optim import (AdamW, AdamWConfig, cosine_schedule,
                                wsd_schedule)
@@ -83,8 +81,6 @@ def main(argv=None) -> int:
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     device = resolve_device(args.device)
-    if device.type == "cuda" and cfg.ssm is not None:
-        raise NotImplementedError(f"{cfg.arch}: {ops.NO_SSD_BACKWARD}")
     print(f"[train] arch={cfg.arch} params={cfg.param_count()/1e6:.1f}M "
           f"schedule={cfg.lr_schedule} device={device}")
 

@@ -54,3 +54,28 @@ def test_library_name_hashes_sources_and_headers(tmp_path):
     (tmp_path / "h.cuh").write_text("// two\n")
     assert _build.library_name(tmp_path) != first
     assert _build.library_name().startswith("librepro_torch_kernels-")
+
+
+def c_entries():
+    """Each ``extern "C"`` entry of csrc/*.cu -> its parameters' C types
+    (pointer or not), from the source."""
+    import re
+    out = {}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        text = re.sub(r"//[^\n]*", "", src.read_text())
+        for m in re.finditer(r'extern "C" int (\w+)\((.*?)\)\s*\{', text,
+                             re.S):
+            params = [p.strip() for p in m.group(2).split(",")]
+            out[m.group(1)] = ["*" in p or p.startswith("cudaStream_t")
+                               for p in params]
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_ctypes_signature_matches_the_c_entry(name):
+    """ctypes passes what SIGNATURES declares: each C entry's parameters,
+    one for one, a pointer (or the stream) where the source takes one."""
+    entries = c_entries()
+    assert set(entries) == set(_build.SIGNATURES)
+    pointer = [t is _build.ctypes.c_void_p for t in _build.SIGNATURES[name]]
+    assert pointer == entries[name]

@@ -831,14 +831,195 @@ def test_grouped_matmul_backward_matches_plain_on_card(shape, cuda_device):
 
 @pytest.mark.cuda
 def test_ssd_scan_refuses_to_be_differentiated_on_card(cuda_device):
-    x = torch.randn(1, 64, 32, device=cuda_device, requires_grad=True)
+    """The backward takes float32 x, B and C: a bfloat16 input that needs a
+    gradient raises, and does not take the plain version; without grad
+    bf16 runs the forward kernel."""
+    x = torch.randn(1, 64, 32, device=cuda_device,
+                    dtype=torch.bfloat16).requires_grad_(True)
     dt = torch.rand(1, 64, 2, device=cuda_device)
-    B, C = (torch.randn(1, 64, 16, device=cuda_device) for _ in range(2))
+    B, C = (torch.randn(1, 64, 16, device=cuda_device, dtype=torch.bfloat16)
+            for _ in range(2))
     A = -torch.rand(2, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="SSD scan has no backward"):
+    with pytest.raises(ValueError, match="float32"):
         ops.ssd_scan(x, dt, B, C, A, chunk=32)
     with torch.no_grad():
         ops.ssd_scan(x, dt, B, C, A, chunk=32)
+
+
+def _ssd_grads(fn, inputs, h0, dy, dh, chunk):
+    """fn's gradients (dx, ddt, dB, dC, dA, and dh0 when h0 is given) for
+    the output gradients dy and dh (None: h_final unused)."""
+    xs = [t.detach().clone().requires_grad_(True) for t in inputs]
+    h0r = None if h0 is None else h0.detach().clone().requires_grad_(True)
+    y, h = fn(*xs, chunk=chunk, h0=h0r)
+    outs, gs = ([y, h], [dy, dh]) if dh is not None else ([y], [dy])
+    return torch.autograd.grad(outs, xs + ([] if h0r is None else [h0r]),
+                               gs)
+
+
+def _ssd_grads_within_bound(got, want):
+    """max |err| <= 1e-4 x max |g| for each gradient, as the CPU emulation
+    of the kernel is held (tests/test_torch_ssd_bwd_emu.py)."""
+    assert len(got) == len(want)
+    for name, g, w in zip(("dx", "ddt", "dB", "dC", "dA", "dh0"), got, want):
+        assert torch.isfinite(g).all(), name
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item(), \
+            name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bsz,S,nh,hd,ds,chunk,h0,dh", [
+    (1, 64, 2, 16, 16, 16, False, False),
+    (2, 96, 2, 16, 64, 16, True, True),
+    (1, 300, 3, 16, 16, 100, True, False),
+    (1, 232, 2, 64, 64, 232, False, True),
+    (2, 384, 3, 48, 80, 128, True, True),
+    (1, 260, 2, 128, 128, 130, True, True),
+    (1, 192, 2, 16, 128, 64, False, True),
+    (1, 200, 2, 128, 16, 40, True, False),
+    (8, 512, 80, 64, 64, 256, False, False),
+], ids=["chunk16", "chunk16_h0_dh", "chunk100_h0", "chunk232_dh", "hd48_ds80",
+        "hd128_ds128", "hd16_ds128", "hd128_ds16", "zamba2_training"])
+def test_ssd_backward_matches_plain_on_card(Bsz, S, nh, hd, ds, chunk, h0,
+                                            dh, cuda_device):
+    """``ops.ssd_scan``'s gradients (the forward kernel, then the backward
+    kernel under autograd) against autograd through the plain recurrence,
+    h0 and dh_final each present and absent; the last case is zamba2's
+    training shape (8 x 512 tokens, 80 heads of 64, d_state 64)."""
+    inputs = _ssd_inputs(Bsz, S, nh, hd, ds, torch.float32, cuda_device,
+                         seed=hd + ds + chunk)
+    g = torch.Generator().manual_seed(chunk)
+    rand = lambda *s: torch.randn(*s, generator=g).to(cuda_device)
+    h0t = rand(Bsz, nh, ds, hd) if h0 else None
+    dy = rand(Bsz, S, nh * hd)
+    dht = rand(Bsz, nh, ds, hd) if dh else None
+    before = ops.COUNTERS["ssd_scan_bwd"].value
+    got = _ssd_grads(ops.ssd_scan, inputs, h0t, dy, dht, chunk)
+    torch.cuda.synchronize()
+    assert ops.COUNTERS["ssd_scan_bwd"].value == before + 1
+    want = _ssd_grads(ref.ssd_scan_ref, inputs, h0t, dy, dht, chunk)
+    _ssd_grads_within_bound(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tail", [1, 37, 232])
+def test_ssd_backward_tail_chained_on_card(tail, cuda_device):
+    """512 positions in chunks of 256, then a ragged tail as one chunk of
+    its own through h0, as ``ssd_prefill`` chains them: the gradients of
+    both calls together against the recurrence over the whole sequence."""
+    S, nh, hd, ds = 512, 4, 64, 64
+    inputs = _ssd_inputs(1, S + tail, nh, hd, ds, torch.float32,
+                         cuda_device, seed=tail)
+    dy = torch.randn(1, S + tail, nh * hd,
+                     generator=torch.Generator().manual_seed(tail)).to(
+        cuda_device)
+
+    def chained(x, dt, Bm, Cm, A, chunk, h0):
+        y1, h1 = ops.ssd_scan(x[:, :S], dt[:, :S], Bm[:, :S], Cm[:, :S], A,
+                              chunk=256)
+        y2, h2 = ops.ssd_scan(x[:, S:], dt[:, S:], Bm[:, S:], Cm[:, S:], A,
+                              chunk=tail, h0=h1)
+        return torch.cat([y1, y2], 1), h2
+    before = ops.COUNTERS["ssd_scan_bwd"].value
+    got = _ssd_grads(chained, inputs, None, dy, None, 1)
+    torch.cuda.synchronize()
+    assert ops.COUNTERS["ssd_scan_bwd"].value == before + 2
+    _ssd_grads_within_bound(got, _ssd_grads(ref.ssd_scan_ref, inputs, None,
+                                            dy, None, 1))
+
+
+@pytest.mark.cuda
+def test_ssd_backward_strong_decay_and_repeats_on_card(cuda_device):
+    """A decay so strong (A x 40) that exp(cum_q - cum_k) above the diagonal
+    overflows: selected, never multiplied, so no NaN; and no float atomics,
+    so a second call gives the same bits."""
+    x, dt, Bm, Cm, A = _ssd_inputs(1, 256, 2, 32, 32, torch.float32,
+                                   cuda_device, seed=9)
+    inputs = (x, dt, Bm, Cm, A * 40.0)
+    g = torch.Generator().manual_seed(9)
+    h0 = torch.randn(1, 2, 32, 32, generator=g).to(cuda_device)
+    dy = torch.randn(1, 256, 64, generator=g).to(cuda_device)
+    dh = torch.randn(1, 2, 32, 32, generator=g).to(cuda_device)
+    got = _ssd_grads(ops.ssd_scan, inputs, h0, dy, dh, 128)
+    again = _ssd_grads(ops.ssd_scan, inputs, h0, dy, dh, 128)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _ssd_grads_within_bound(got, _ssd_grads(ref.ssd_scan_ref, inputs, h0,
+                                            dy, dh, 128))
+
+
+@pytest.mark.cuda
+def test_ssd_backward_repeats_bit_for_bit_at_zamba2_shape_on_card(
+        cuda_device):
+    """At the training shape every sum over heads, chunks and batch is a
+    fixed-order pass: two calls of the backward give the same bits, one
+    launch count each."""
+    from repro_torch.kernels import ssd_scan as tssd
+    x, dt, Bm, Cm, A = _ssd_inputs(8, 512, 80, 64, 64, torch.float32,
+                                   cuda_device, seed=5)
+    _, _, states, cum = tssd.ssd_scan_with_states(x, dt, Bm, Cm, A,
+                                                  chunk=256)
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(5)).to(
+        cuda_device)
+    before = tssd.bwd_launches.value
+    first = tssd.ssd_scan_backward(x, dt, Bm, Cm, A, None, states, cum, dy,
+                                   None, chunk=256)
+    second = tssd.ssd_scan_backward(x, dt, Bm, Cm, A, None, states, cum, dy,
+                                    None, chunk=256)
+    torch.cuda.synchronize()
+    assert tssd.bwd_launches.value == before + 2
+    assert first[5] is None and second[5] is None
+    assert all(torch.equal(a, b) for a, b in zip(first[:5], second[:5]))
+
+
+@pytest.mark.cuda
+def test_zamba2_launcher_trains_on_card(cuda_device, capsys):
+    """``launch.train`` of the hybrid family on the card (it stopped before
+    its first step while the SSD scan had no backward kernel)."""
+    from repro_torch.launch import train as tlaunch
+    assert tlaunch.main(["--arch", "zamba2-2.7b", "--smoke", "--steps",
+                         "2"]) == 0
+    out = capsys.readouterr().out
+    assert "[train] done" in out and "device=cuda" in out
+
+
+@pytest.mark.cuda
+def test_zamba2_smoke_train_step_on_card_as_on_cpu(cuda_device):
+    """One float32 train step of zamba2's smoke config, the same parameters
+    and batch on the card (kernels, their backward) and on the CPU (plain
+    versions): the loss at rtol 1e-5, every gradient within 1e-4 x its
+    max |g| (plus 1e-7), and the launches of one forward and backward."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.models import LM
+    from repro_torch.runtime import RuntimeConfig, make_loss_fn
+    from repro_torch.runtime.train import trainable
+    cfg = get_smoke("zamba2-2.7b")
+    host = LM(cfg, dtype=torch.float32,
+              generator=torch.Generator().manual_seed(0))
+    card = LM(cfg, dtype=torch.float32, device=cuda_device)
+    card.load_state_dict(host.state_dict())
+    b = batch_at(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=2), 0)
+    loss_fn = make_loss_fn(cfg, RuntimeConfig(remat=None))
+    out = {}
+    for c in ops.COUNTERS.values():
+        c.reset()
+    for model, dev in ((host, "cpu"), (card, "cuda")):
+        params = trainable(model)
+        total, (loss, _) = loss_fn(model, b["tokens"].to(dev),
+                                   b["labels"].to(dev))
+        grads = torch.autograd.grad(total, list(params.values()))
+        out[dev] = (loss.item(), {k: g.cpu() for k, g in zip(params, grads)})
+    torch.cuda.synchronize()
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
+    for k, w in out["cpu"][1].items():
+        assert (out["cuda"][1][k] - w).abs().max() <= \
+            1e-4 * w.abs().max() + 1e-7, k
+    groups = len(card.layers)
+    mamba = sum(len(grp.mamba) for grp in card.layers)
+    assert ops.COUNTERS["ssd_scan"].value == mamba
+    assert ops.COUNTERS["ssd_scan_bwd"].value == mamba
+    assert ops.COUNTERS["flash_attention"].value == groups
+    assert ops.COUNTERS["flash_attention_bwd"].value == groups
 
 
 @pytest.mark.cuda
@@ -853,6 +1034,10 @@ def test_no_cuda_entry_returns_a_result_autograd_cannot_see(cuda_device):
         ops.flash_attention_bshd(req(1, 16, 2, 16), req(1, 16, 2, 16),
                                  req(1, 16, 2, 16)),
         ops.grouped_matmul(req(2, 8, 16), req(2, 16, 8)),
+        *ops.ssd_scan(req(1, 32, 16), torch.rand(1, 32, 1, device=dev),
+                      torch.rand(1, 32, 16, device=dev),
+                      torch.rand(1, 32, 16, device=dev),
+                      -torch.rand(1, device=dev), chunk=32),
     ]
     assert all(t.grad_fn is not None for t in carried)
     refused = [
@@ -862,10 +1047,6 @@ def test_no_cuda_entry_returns_a_result_autograd_cannot_see(cuda_device):
         lambda: ops.nbody_accelerations(req(8, 3), torch.rand(8, device=dev)),
         lambda: ops.nbody_step(req(8, 3), torch.zeros(8, 3, device=dev),
                                torch.rand(8, device=dev)),
-        lambda: ops.ssd_scan(req(1, 32, 8), torch.rand(1, 32, 1, device=dev),
-                             torch.rand(1, 32, 16, device=dev),
-                             torch.rand(1, 32, 16, device=dev),
-                             -torch.rand(1, device=dev), chunk=32),
     ]
     for fn in refused:
         with pytest.raises(NotImplementedError, match="backward"):

@@ -251,7 +251,13 @@ def test_model_init_follows_the_scale_rules():
     lambda: tssd.ssd_scan(torch.ones(1, 16, 32), torch.ones(1, 16, 2),
                           torch.ones(1, 16, 16), torch.ones(1, 16, 16),
                           -torch.ones(2), chunk=16),
-], ids=["flash_attention", "flash_attention_bshd", "ssd_scan"])
+    lambda: tssd.ssd_scan_backward(
+        torch.ones(1, 16, 32), torch.ones(1, 16, 2), torch.ones(1, 16, 16),
+        torch.ones(1, 16, 16), -torch.ones(2), None,
+        torch.ones(1, 1, 2, 16, 16), torch.ones(1, 2, 16),
+        torch.ones(1, 16, 32), None, chunk=16),
+], ids=["flash_attention", "flash_attention_bshd", "ssd_scan",
+        "ssd_scan_backward"])
 def test_kernel_wrappers_refuse_host_tensors(call):
     with pytest.raises(ValueError, match="CUDA tensor"):
         call()
