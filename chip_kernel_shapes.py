@@ -31,12 +31,15 @@ each list.
   C.B^T pass, the decay tile's exp, every product, every split into shared
   memory.
 - ssd_bwd, the SSD scan's backward at zamba2's training call, x (8, 512,
-  80 x 64) float32, d_state 64, chunk 256: as built (with each of its
-  seven kernels' device time from ``torch.profiler``), its products'
-  depth loop unrolled 1 or 8 times (4 as built), the query-tile kernel
-  built for 1 block an SM, and every call taken by the 128-wide tiles;
-  each held to autograd through the plain version under
-  ``chip_smoke.SSD_BWD_TOL``.
+  80 x 64) float32, d_state 64, chunk 256: as built, called with its own
+  groups of heads, with one head a group (the heads not grouped), 8 and 16
+  heads a group, and one group of all heads; with the lo passes of its split products knocked
+  out (one TF32 pass: its error is reported), and the key kernel's
+  query-tile products, their staging, or M's sums knocked out; the query
+  kernel built for 2 blocks an SM; each with its eight kernels' device
+  time from
+  ``torch.profiler``, and each checked build held to autograd through the
+  plain version under ``chip_smoke.SSD_BWD_TOL``.
 - saxpy, at one slot's 2e7 elements: 1, 2, 4 and 8 float4 loads of x and
   of y a thread, beside ``torch.add``.
 - nbody, at one slot's targets against all bodies at the paper's three
@@ -142,19 +145,44 @@ SSD_CFG = "  return NC <= 64 ? 3 : 2;"
 SSD_MIN_BLOCKS = [3, 2]
 #: (Bsz, S, nh, hd, ds, chunk): zamba2-2.7b's SSD call, 1536 tokens
 SSD = (1, 1536, 80, 64, 64, 256)
-#: the SSD backward's variants: (name, a line of the source, what replaces
-#: it)
+#: the SSD backward's builds besides the source's: (name, a line of the
+#: source or of a header it includes, what replaces it).  Knocked out (the
+#: output is then wrong; only the one-TF32-pass build's error is reported):
+#: the lo passes of every split product; in the key kernel, the two products
+#: of its query-tile steps (dG and du), their staging (dy, G and L), and M's
+#: sums with dCB's accumulation (dG's product then goes too).  Built
+#: otherwise: the query kernel for 2 blocks an SM (128 registers, it
+#: spills)
 SSD_BWD_VARIANTS = [
-    ("unroll1", "#pragma unroll 4\n  for (int k = 0; k < K; ++k) {",
-     "#pragma unroll 1\n  for (int k = 0; k < K; ++k) {"),
-    ("unroll8", "#pragma unroll 4\n  for (int k = 0; k < K; ++k) {",
-     "#pragma unroll 8\n  for (int k = 0; k < K; ++k) {"),
-    ("queries_blocks1", "__global__ void __launch_bounds__(kThreads)\n"
-     "    ssd_bwd_queries(", "__global__ void __launch_bounds__(kThreads, 1)"
+    ("without_lo", ("      mma_tf32(acc[n], al, bh0, bh1);\n"
+                    "      mma_tf32(acc[n], ah, bl0, bl1);\n",
+                    "            mma_tf32(c, al[j], bh0, bh1);\n"
+                    "            mma_tf32(c, ah[j], bl0, bl1);\n"),
+     ("", "")),
+    ("without_key_products",
+     ("      product32<false, true, kUn, kOneM>(dacc, D, U,\n"
+      "                                         min(kTile, hd - ec * kTile), "
+      "f);\n",
+      "        if (i == ec)\n          product32<true, false, kUn, kOneM>("
+      "keep[i], Gt, D,"),
+     ("", "        if (false)\n          product32<true, false, kUn, kOneM>("
+      "keep[i], Gt, D,")),
+    ("without_key_staging", "    put(p1, D, Same());\n    if (ec == 0)\n",
+     "    if (false)\n"),
+    ("without_key_m", "      if (ec == NE - 1) {\n        // dCB_h = dG o L",
+     "      if (false) {\n        // dCB_h = dG o L"),
+    ("queries_blocks2", "__global__ void __launch_bounds__(kThreads, 1)\n"
+     "    ssd_bwd_queries(", "__global__ void __launch_bounds__(kThreads, 2)"
      "\n    ssd_bwd_queries("),
-    ("tiles128", "  if (w <= 32) return launch<32>(a);\n"
-     "  if (w <= 64) return launch<64>(a);\n", ""),
 ]
+#: groups of heads the as-built backward is also called with, besides its
+#: own choice (``ssd_scan.head_groups``): one head a group (the heads not
+#: grouped: every head's dCB tiles and state terms go to scratch), 8 and 16
+#: heads a group, and all heads in one group
+SSD_BWD_GROUPS = {"one_head_a_group": lambda nh: nh,
+                  "8_heads_a_group": lambda nh: -(-nh // 8),
+                  "16_heads_a_group": lambda nh: -(-nh // 16),
+                  "one_group": lambda nh: 1}
 #: (Bsz, S, nh, hd, ds, chunk): zamba2-2.7b's SSD call in training
 SSD_BWD = (8, 512, 80, 64, 64, 256)
 #: float4 loads of x and of y a saxpy thread issues before it stores
@@ -187,15 +215,29 @@ GMM = {"prefill_in": (40, 384, 1536, 512), "prefill_out": (40, 384, 512, 1536),
        "ragged_c": (40, 72, 1536, 512)}
 
 
-def variant(source: str, anchor: str, line: str, name: str) -> Path:
+def variant(source: str, anchor, line, name: str) -> Path:
+    """``source`` built alone with ``anchor`` replaced by ``line`` (or each
+    of a tuple of anchors by its line), in the source or, where the source
+    does not hold it, in a header the source includes."""
     text = (CSRC / source).read_text()
-    if anchor not in text:
-        raise RuntimeError(f"{source} no longer holds {anchor!r}")
+    headers = {h.name: h.read_text() for h in CSRC.glob("*.cuh")}
+    pairs = (zip(anchor, line) if isinstance(anchor, tuple)
+             else [(anchor, line)])
+    for anchor, line in pairs:
+        if anchor in text:
+            text = text.replace(anchor, line)
+            continue
+        owner = [n for n, h in headers.items()
+                 if anchor in h and f'#include "{n}"' in text]
+        if not owner:
+            raise RuntimeError(f"{source} and its headers no longer hold "
+                               f"{anchor!r}")
+        headers[owner[0]] = headers[owner[0]].replace(anchor, line)
     d = OUT / name
     (d / "csrc").mkdir(parents=True, exist_ok=True)
-    for header in CSRC.glob("*.cuh"):
-        (d / "csrc" / header.name).write_bytes(header.read_bytes())
-    (d / "csrc" / source).write_text(text.replace(anchor, line))
+    for header, body in headers.items():
+        (d / "csrc" / header).write_text(body)
+    (d / "csrc" / source).write_text(text)
     return _build.build(d / "csrc", d / "build")
 
 
@@ -323,9 +365,10 @@ def flash_bwd_rows(libs, g):
 
 
 def ssd_bwd_rows(libs, g):
-    """The SSD backward as built and its variants at ``SSD_BWD``: ms
-    (twice), the worst |err| as a share of SSD_BWD_TOL x max |plain| over
-    the gradients, ptxas, and (as built) each kernel's device time."""
+    """The SSD backward as built, called with its own groups of heads and
+    with SSD_BWD_GROUPS, and its variants at ``SSD_BWD``: ms (twice), the
+    worst |err| as a share of SSD_BWD_TOL x max |plain| over the gradients,
+    ptxas, and each kernel's device time."""
     Bsz, S, nh, hd, ds, chunk = SSD_BWD
     x = torch.randn((Bsz, S, nh * hd), generator=g, device="cuda") * 0.5
     dt = torch.nn.functional.softplus(
@@ -338,32 +381,40 @@ def ssd_bwd_rows(libs, g):
     want = cs.ssd_grads(ref.ssd_scan_ref, main, None, dy, None, chunk)
     _, _, states, cum = ssd_mod.ssd_scan_with_states(*main, chunk=chunk)
     stream = torch.cuda.current_stream().cuda_stream
-    row = {"bound_ms": cs.ssd_bwd_bound(Bsz, S, chunk, nh, hd, ds)[0]}
-    for name in ["ssd_bwd", *(v[0] for v in SSD_BWD_VARIANTS)]:
-        lib = _build.load(libs[name], ("ssd_scan_bwd",))
+    own = ssd_mod.head_groups(Bsz, S, nh, chunk)
+    row = {"bound_ms": cs.ssd_bwd_bound(Bsz, S, chunk, nh, hd, ds)[0],
+           "groups": own}
+    runs = [("ssd_bwd", "ssd_bwd", own)]
+    runs += [(name, "ssd_bwd", f(nh)) for name, f in SSD_BWD_GROUPS.items()]
+    runs += [(v[0], v[0], own) for v in SSD_BWD_VARIANTS]
+    for name, build, groups in runs:
+        lib = _build.load(libs[build], ("ssd_scan_bwd",))
         grads = [torch.empty_like(t) for t in main]
-        buf, parts = ssd_mod.bwd_scratch(Bsz, S, nh, hd, ds, chunk, "cuda")
+        buf, parts = ssd_mod.bwd_scratch(Bsz, S, nh, hd, ds, chunk, groups,
+                                         "cuda")
 
-        def call(lib=lib, grads=grads, parts=parts):
+        def call(lib=lib, grads=grads, parts=parts, groups=groups):
             return lib.ssd_scan_bwd(
                 *(t.data_ptr() for t in (*main, states, cum, dy)), None,
                 *(t.data_ptr() for t in grads), None, *parts, Bsz, S, nh, hd,
-                ds, chunk, 0, stream)
+                ds, chunk, groups, 0, stream)
         if call():
             raise RuntimeError(f"{name} did not launch")
         torch.cuda.synchronize()
         share = max((gr - w).abs().max().item()
                     / (cs.SSD_BWD_TOL * w.abs().max().item())
                     for gr, w in zip(grads, want))
-        if share > 1.0:
+        if share > 1.0 and "without" not in name:
             raise RuntimeError(f"{name}: {share:.3f} of its bound")
         row[name] = dict(ms=[cs.cuda_ms(call, REPS) for _ in range(2)],
-                         share_of_bound=share,
-                         ptxas=ptxas(libs[name], "ssd_bwd_"),
-                         spills=spills(libs[name], "ssd_bwd_"),
+                         groups=groups, share_of_bound=share,
+                         scratch_mb=buf.numel() * 4 / 1e6,
+                         ptxas=ptxas(libs[build], "ssd_bwd_"),
+                         spills=spills(libs[build], "ssd_bwd_"),
                          kernels_us=kernel_times(call))
-        print(f"ssd_bwd {name}: {row[name]['ms']} ms, share of bound "
-              f"{share:.3f}, device us a call by kernel "
+        print(f"ssd_bwd {name} ({groups} groups): {row[name]['ms']} ms, "
+              f"share of bound {share:.3f}, scratch "
+              f"{row[name]['scratch_mb']:.1f} MB, device us a call by kernel "
               f"{row[name]['kernels_us']}, ptxas (registers, spill bytes) "
               f"{row[name]['ptxas']}, spilling {row[name]['spills']}",
               flush=True)
@@ -576,7 +627,7 @@ def main() -> int:
         jobs += [("ssd_scan.cu", *patch, f"ssd_without_{name}")
                  for name, patch in SSD_KNOCKOUTS.items()]
     if "ssd_bwd" in kinds:
-        as_built = SSD_BWD_VARIANTS[0][1]
+        as_built = SSD_BWD_VARIANTS[-1][1]
         jobs += [("ssd_scan_bwd.cu", as_built, as_built, "ssd_bwd")]
         jobs += [("ssd_scan_bwd.cu", anchor, line, name)
                  for name, anchor, line in SSD_BWD_VARIANTS]

@@ -18,11 +18,13 @@ grouped GEMMs at a prefill and a decode step); the flash backward's
 both builds reading one forward's output and log-sum-exp; saxpy at one
 accelerator slot's 2e7 float32 elements; the SSD scan at zamba2's call, x (1, 1536,
 80 x 64), chunk 256, in float32 (as the model feeds it) and bf16, each
-checkout's ``ssd_scan_fwd`` called with its own arguments; the SSD
-backward's ``ssd_scan_bwd`` at zamba2's training call, x (8, 512, 80 x 64)
-float32, chunk 256, from one forward's states and cum (a checkout without
-that entry point is timed as autograd through the plain version, which is
-what the kernel replaced); N-body at one
+checkout's ``ssd_scan_fwd`` called with its own arguments, the two
+builds' y and h compared bit for bit; the SSD backward's ``ssd_scan_bwd``
+at zamba2's training call, x (8, 512, 80 x 64) float32, chunk 256, from
+one forward's states and cum, each checkout's called with its own
+arguments and scratch (a checkout without that entry point is timed as
+autograd through the plain version, which is what the kernel replaced);
+N-body at one
 accelerator slot's targets against all bodies at the paper's three size
 classes, float32, each checkout's ``nbody_acc_f32`` called with its own
 arguments (the split design's scratch allocated once, outside the timed
@@ -44,6 +46,7 @@ non-zero without a card.
 from __future__ import annotations
 
 import ctypes
+import importlib.util
 import json
 import math
 import sys
@@ -235,7 +238,7 @@ def ssd_case(entries, Bsz, S, nh, hd, ds, chunk, dtype):
     sy = max(1.0, wy.float().abs().max().item())
     sh = max(1.0, wh.abs().max().item())
     stream = torch.cuda.current_stream().cuda_stream
-    calls, errs = {}, {}
+    calls, errs, outs = {}, {}, {}
     for name, (fn, scratch) in entries.items():
         y = torch.empty_like(x)
         h = torch.empty((Bsz, nh, ds, hd), device="cuda")
@@ -257,18 +260,35 @@ def ssd_case(entries, Bsz, S, nh, hd, ds, chunk, dtype):
               else (y - wy).abs().max().item() / (cs.SSD_TOL * sy))
         eh = (h - wh).abs().max().item() / (cs.SSD_TOL * sh)
         calls[name], errs[name] = call, max(ey, eh)
+        outs[name] = (y, h)
+    # the two builds' y and h, bit for bit (a change that moves code
+    # between the sources must not move a bit)
+    same = all(torch.equal(a, b) for a, b in zip(outs["old"], outs["new"]))
     bound = cs.ssd_bound(Bsz, S, chunk, nh, hd, ds, dtype)[0]
-    return calls, errs, None, bound
+    return calls, errs, None, bound, same
 
 
-def ssd_bwd_entry(lib):
-    """The ``ssd_scan_bwd`` of a library, or None where it has none."""
+def ssd_bwd_entry(lib, root: Path):
+    """The ``ssd_scan_bwd`` of a library built from ``root``'s sources,
+    with that checkout's own argument types (read from its C declaration)
+    and its own scratch (its ``kernels/ssd_scan.py``'s ``bwd_scratch``, and
+    ``head_groups`` where it has one); None where it has no backward."""
     if not hasattr(lib, "ssd_scan_bwd"):
         return None
+    csrc = root / "src" / "repro_torch"
+    text = (csrc / "csrc" / "ssd_scan_bwd.cu").read_text()
+    decl = text[text.index('extern "C" int ssd_scan_bwd'):]
+    params = decl[decl.index("(") + 1:decl.index(")")].split(",")
     fn = lib.ssd_scan_bwd
-    fn.argtypes = _build.SIGNATURES["ssd_scan_bwd"]
+    fn.argtypes = [ctypes.c_void_p if "*" in p or "cudaStream_t" in p
+                   else ctypes.c_int for p in params]
     fn.restype = ctypes.c_int
-    return fn
+    spec = importlib.util.spec_from_file_location(
+        f"ssd_scan_of_{abs(hash(str(root)))}",
+        csrc / "kernels" / "ssd_scan.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return fn, mod
 
 
 def ssd_bwd_case(entries, Bsz, S, nh, hd, ds, chunk):
@@ -290,17 +310,25 @@ def ssd_bwd_case(entries, Bsz, S, nh, hd, ds, chunk):
     plain.plain = True          # timed over PLAIN_REPS, no host timing
     stream = torch.cuda.current_stream().cuda_stream
     calls, errs = {}, {}
-    for name, fn in entries.items():
-        if fn is None:
+    for name, entry in entries.items():
+        if entry is None:
             calls[name], errs[name] = plain, 0.0
             continue
+        fn, mod = entry
         grads = [torch.empty_like(t) for t in main]
-        buf, parts = ssd_mod.bwd_scratch(Bsz, S, nh, hd, ds, chunk, "cuda")
+        if hasattr(mod, "head_groups"):
+            groups = [mod.head_groups(Bsz, S, nh, chunk)]
+            buf, parts = mod.bwd_scratch(Bsz, S, nh, hd, ds, chunk,
+                                         *groups, "cuda")
+        else:
+            groups = []
+            buf, parts = mod.bwd_scratch(Bsz, S, nh, hd, ds, chunk, "cuda")
 
-        def call(fn=fn, grads=grads, parts=parts, buf=buf, name=name):
+        def call(fn=fn, grads=grads, parts=parts, buf=buf, name=name,
+                 groups=groups):
             checked(fn(*(t.data_ptr() for t in (*main, states, cum, dy)),
                        None, *(t.data_ptr() for t in grads), None, *parts,
-                       Bsz, S, nh, hd, ds, chunk, 0, stream),
+                       Bsz, S, nh, hd, ds, chunk, *groups, 0, stream),
                     f"ssd_scan_bwd ({name})")
         call()
         torch.cuda.synchronize()
@@ -406,7 +434,8 @@ def main() -> int:
                                       ("bf16", torch.bfloat16))
                   for shape in [SSD]]
     if "ssd_bwd" in kinds:
-        entries = {n: ssd_bwd_entry(lib) for n, lib in libs.items()}
+        entries = {"old": ssd_bwd_entry(libs["old"], old_root),
+                   "new": ssd_bwd_entry(libs["new"], cs.ROOT)}
         cases += [("ssd_bwd", "train", ssd_bwd_case(entries, *SSD_BWD),
                    SSD_BWD)]
     if "nbody" in kinds:
@@ -437,6 +466,8 @@ def main() -> int:
                           if not getattr(c, "plain", False)})
         if kind == "gmm":
             r["new_tb_per_s"] = case[4] / (min(new) * 1e-3) / 1e12
+        if kind == "ssd":
+            r["bit_identical"] = case[4]
         if kind in ("flash_bwd", "ssd_bwd"):
             # (ms, kernels a call) of each
             r["device_ms"] = {n: cs.device_ms(c) for n, c in
@@ -450,7 +481,9 @@ def main() -> int:
               f"bound {bound:.4f} "
               f"ms; host {r['host_us']} us a call"
               + (f"; device time alone {r['device_ms']} ms"
-                 if "device_ms" in r else ""), flush=True)
+                 if "device_ms" in r else "")
+              + (f"; old and new y, h bit-identical: {r['bit_identical']}"
+                 if "bit_identical" in r else ""), flush=True)
     (cs.ROOT / "build").mkdir(exist_ok=True)
     (cs.ROOT / "build" / "kernel_turns.json").write_text(json.dumps(out,
                                                                    indent=1))

@@ -174,12 +174,13 @@ GMM_SHAPES = {"prefill_in": (40, 384, 1536, 512),
               "odd": (3, 37, 65, 41)}
 #: the shapes timed beside torch.bmm
 GMM_TIMED = ("prefill_in", "prefill_out", "decode")
-#: the redesigned kernels, whose ptxas report must show no spills
+#: the redesigned kernels, whose ptxas report must show no spills (every
+#: kernel of the SSD backward: "ssd_bwd_")
 NO_SPILL = ("flash_mma_kernel", "gmm_wgmma_kernel", "ssd_cb",
             "ssd_chunk_state", "ssd_state_pass", "ssd_output", "saxpy_vec4",
             "nbody_pack", "nbody_tiles", "nbody_reduce", "flash_bwd_dot",
             "flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_dkdv_mma",
-            "flash_bwd_dq_mma")
+            "flash_bwd_dq_mma", "ssd_bwd_")
 #: the head of each model (zamba2: one hybrid group; granite: 2 layers),
 #: card (kernels, cuBLAS) against CPU (plain versions, CPU matmuls), same
 #: parameters, for the last-token logits and the cache the head fills

@@ -58,9 +58,10 @@ SIGNATURES: Dict[str, List] = {
     # dtype, batch, S, nh, hd, ds, chunk, device, stream
     "ssd_scan_fwd": [*[_P] * 11, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, dt, B, C, A, states, cum, dy, dh_final (or NULL), dx, ddt, dB,
-    # dC, dA, dh0 (or NULL), scratch cb, g, dBh, dCh, daK, daQ, T, hg, dAp,
-    # batch, S, nh, hd, ds, chunk, device, stream (all float32)
-    "ssd_scan_bwd": [*[_P] * 24, *[_I] * 7, _P],
+    # dC, dA, dh0 (or NULL), scratch cb, g, cum64 (double), dCBp, dBsp,
+    # dCsp, daK, daQ, T, rowp, hgp, dAp, batch, S, nh, hd, ds, chunk,
+    # groups, device, stream
+    "ssd_scan_bwd": [*[_P] * 27, *[_I] * 8, _P],
     # x, w, y, dtype, E, C, d, f, device, stream
     "grouped_matmul_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, w, y, E, C, d, f, device, stream (bfloat16)

@@ -1,9 +1,10 @@
 """The Mamba2 SSD chunk scan on the card, launching ``csrc/ssd_scan.cu``
 (four kernels a call: C.B^T per chunk, each chunk's own end state, the
 state passing over the chunks, the outputs), and its gradient, launching
-``csrc/ssd_scan_bwd.cu`` (seven kernels a call: C.B^T, each chunk's own
-state gradient, the reverse state pass, key tiles, query tiles, d cum, the
-fixed-order sums over heads and chunks)."""
+``csrc/ssd_scan_bwd.cu`` (eight kernels a call: the within-chunk cumsum in
+double, C.B^T, each chunk's own state gradient, the reverse state pass,
+query tiles and key tiles by groups of heads, d cum, dB and dC from dCB
+summed over the groups), every product on the tensor cores in split TF32."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -21,7 +22,11 @@ MAX_CHUNK = 256          # positions of a chunk
 MAX_DIM = 128            # head_dim and d_state, each a multiple of 16
 #: kernels one call launches
 KERNELS_PER_CALL = 4
-BWD_KERNELS_PER_CALL = 7
+BWD_KERNELS_PER_CALL = 8
+#: most heads one block of the backward's query and key kernels walks
+GROUP_HEADS = 4
+#: blocks of the key kernel the head groups aim at (4 x an H100's 132 SMs)
+GROUP_FILL = 528
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -117,18 +122,36 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     return y, h
 
 
+def head_groups(Bsz: int, S: int, nh: int, chunk: int) -> int:
+    """How many groups of heads the backward's query and key kernels take,
+    each walking its heads in order and summing dCB and the state terms of
+    dB and dC over them: at most GROUP_HEADS heads a group, fewer where
+    (batch, chunk, key tile) blocks alone would not reach GROUP_FILL."""
+    nc, n_t = S // chunk, -(-chunk // 64)
+    per = max(1, min(GROUP_HEADS, nh * Bsz * nc * n_t // GROUP_FILL))
+    return max(1, -(-nh // per))
+
+
 def bwd_scratch(Bsz: int, S: int, nh: int, hd: int, ds: int, chunk: int,
-                device):
-    """The backward's float32 scratch, one allocation: C.B^T (Bsz, nc,
-    qp, qp); the chunks' end-state gradients (Bsz, nc, nh, ds, hd); each
-    head's share of dB and of dC (Bsz, nc, nh, chunk, ds); d cum's parts by
-    key, by query and T (Bsz, nh, S); e_last <h, g> and dA's shares (Bsz,
-    nc, nh).  Each part starts on 256 bytes."""
-    nc, qp = S // chunk, -(-chunk // 64) * 64
-    sizes = [Bsz * nc * qp * qp, Bsz * nc * nh * ds * hd,
-             Bsz * S * nh * ds, Bsz * S * nh * ds,
-             Bsz * nh * S, Bsz * nh * S, Bsz * nh * S,
-             Bsz * nc * nh, Bsz * nc * nh]
+                groups: int, device):
+    """The backward's scratch, one float32 allocation: C.B^T (Bsz, nc, qp,
+    qp); the chunks' end-state gradients (Bsz, nc, nh, ds, hd); the
+    within-chunk cumsum in double (Bsz, nh, S); each group's dCB tiles at or
+    below the diagonal (Bsz, nc, groups, n_t (n_t + 1) / 2, 64, 64) and its
+    shares of dB's and dC's state terms (Bsz, nc, groups, qp, ds); d cum's
+    parts by key (Bsz, nh, S), by query and half of 64 columns (Bsz, nh, 2,
+    S), T (Bsz, nh, S), and by key tile and half of its columns (Bsz, nh,
+    n_t, 2, S); <h_c, g> by warp of the state pass (Bsz, nc, nh, ds * hd /
+    128); dA's shares (Bsz, nc, nh).  qp is the chunk rounded up to 64, n_t =
+    qp / 64.  Each part starts on 256 bytes."""
+    nc, n_t = S // chunk, -(-chunk // 64)
+    qp = n_t * 64
+    sizes = [Bsz * nc * qp * qp, Bsz * nc * nh * ds * hd, 2 * Bsz * nh * S,
+             Bsz * nc * groups * n_t * (n_t + 1) // 2 * 64 * 64,
+             Bsz * nc * groups * qp * ds, Bsz * nc * groups * qp * ds,
+             Bsz * nh * S, 2 * Bsz * nh * S, Bsz * nh * S,
+             2 * Bsz * nh * n_t * S, Bsz * nc * nh * ds * hd // 128,
+             Bsz * nc * nh]
     offsets, n = [], 0
     for size in sizes:
         offsets.append(n)
@@ -167,17 +190,19 @@ def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
         if tuple(dh_final.shape) != (Bsz, nh, ds, hd):
             raise ValueError(f"dh_final {tuple(dh_final.shape)} is not "
                              f"{(Bsz, nh, ds, hd)}")
-    dh_final = _aligned(dh_final)
+    x, B, C, states, dy, dh_final = (_aligned(t) for t in (
+        x, B, C, states, dy, dh_final))
     dx, ddt = torch.empty_like(x), torch.empty_like(dt)
     dB, dC = torch.empty_like(B), torch.empty_like(C)
     dA = torch.empty_like(A)
     dh0 = None if h0 is None else torch.empty(
         (Bsz, nh, ds, hd), dtype=torch.float32, device=dev)
-    buf, parts = bwd_scratch(Bsz, S, nh, hd, ds, chunk, dev)
+    groups = head_groups(Bsz, S, nh, chunk)
+    buf, parts = bwd_scratch(Bsz, S, nh, hd, ds, chunk, groups, dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     check_launch(library().ssd_scan_bwd(
         *map(ptr, (x, dt, B, C, A, states, cum, dy, dh_final, dx, ddt, dB,
-                   dC, dA, dh0)), *parts, Bsz, S, nh, hd, ds, chunk,
+                   dC, dA, dh0)), *parts, Bsz, S, nh, hd, ds, chunk, groups,
         dev.index, stream_of(x)), "ssd_scan_bwd")
     bwd_launches.add()
     return dx, ddt, dB, dC, dA, dh0

@@ -878,14 +878,17 @@ def _ssd_grads_within_bound(got, want):
     (1, 192, 2, 16, 128, 64, False, True),
     (1, 200, 2, 128, 16, 40, True, False),
     (8, 512, 80, 64, 64, 256, False, False),
+    (2, 300, 5, 64, 128, 150, True, True),
 ], ids=["chunk16", "chunk16_h0_dh", "chunk100_h0", "chunk232_dh", "hd48_ds80",
-        "hd128_ds128", "hd16_ds128", "hd128_ds16", "zamba2_training"])
+        "hd128_ds128", "hd16_ds128", "hd128_ds16", "zamba2_training",
+        "hd64_ds128_chunk150"])
 def test_ssd_backward_matches_plain_on_card(Bsz, S, nh, hd, ds, chunk, h0,
                                             dh, cuda_device):
     """``ops.ssd_scan``'s gradients (the forward kernel, then the backward
     kernel under autograd) against autograd through the plain recurrence,
-    h0 and dh_final each present and absent; the last case is zamba2's
-    training shape (8 x 512 tokens, 80 heads of 64, d_state 64)."""
+    h0 and dh_final each present and absent; zamba2's training shape (8 x
+    512 tokens, 80 heads of 64, d_state 64), and head_dim 64 against
+    d_state 128 on chunks of 150 (no multiple of 64)."""
     inputs = _ssd_inputs(Bsz, S, nh, hd, ds, torch.float32, cuda_device,
                          seed=hd + ds + chunk)
     g = torch.Generator().manual_seed(chunk)

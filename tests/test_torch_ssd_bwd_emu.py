@@ -2,31 +2,43 @@
 
 ``csrc/ssd_scan_bwd.cu`` computes the gradient of the chunked SSD scan
 from the forward's chunk-start states and its within-chunk cumsum of
-dt * A, in seven launches:
+dt * A, in eight launches:
 
-  0. C.B^T of each chunk (shared by the heads);
-  1. per (chunk, head) D_c = sum_q e_q C_q (x) dy_q, e_q = exp(cum_q);
-  2. the reverse state pass over the chunks: g starts at dh_final (or 0),
+  0. the within-chunk cumsum of dt * A again, in double, once per (batch,
+     chunk, head);
+  1. C.B^T of each chunk (shared by the heads);
+  2. per (chunk, head) D_c = sum_q e_q C_q (x) dy_q, e_q = exp(cum_q);
+  3. the reverse state pass over the chunks: g starts at dh_final (or 0),
      each chunk's g (the gradient of its end state) replaces its D_c, and
      g <- exp(cum_last) g + D_c; what reaches chunk 0 is dh0;
-  3. per key tile: du_k = sum_{q>=k} G[q,k] dy_q + r_k (B_k . g) with
-     G = (C B^T) o L, L[q,k] = exp(cum_q - cum_k) selected to 0 above the
-     diagonal, r_k = exp(cum_last - cum_k); dx = dt du, ddt gets <x, du>;
-     dG = dy u^T (u = dt x), dCB_h = dG o L, and this head's
-     dB_k = sum_q dCB_h[q,k] C_q + r_k (g . u_k); column sums of
-     M = dCB_h o (C B^T) and T_k = r_k <B_k (x) u_k, g> for d cum;
-  4. per query tile: this head's dC_q = sum_k dCB_h[q,k] B_k
-     + e_q (h_c . dy_q); row sums of M and e_q <dy_q, C_q h_c>; on the
-     chunk's last tile e_last <h_c, g>;
-  5. per (chunk, head) d cum (rows - columns of M, the state terms, at the
+  4. per (query tile, group of heads), the heads in order: e_q <dy_q,
+     C_q h_c> from the product C_q . h_c, and dC's state term sum over
+     (head, e) of e_q dy_q[e] h_c[., e] into the group's share;
+  5. per (key tile, group of heads), the heads in order:
+     du_k = r_k (B_k . g) + sum_{q>=k} G[q,k] dy_q with G = (C B^T) o L,
+     L[q,k] = exp(cum_q - cum_k) selected to 0 above the diagonal,
+     r_k = exp(cum_last - cum_k); dx = dt du, ddt gets <x, du>;
+     T_k = <u_k, r_k (B_k . g)> (u = dt x, as staged: hi + lo); dB's
+     state term sum over
+     (head, e) of r_k u_k[e] g[., e]; and dG = dy u^T formed once per
+     (head, query tile), dCB_h = dG o L summed over the group's heads, and
+     M = dCB_h o (C B^T), whose row sums (by key tile) and column sums are
+     taken from the same bits of each entry, k < q;
+  6. per (chunk, head) d cum (rows - columns of M, the state terms, at the
      last position e_last <h_c, g> + sum_k T_k), its reverse cumsum dla,
      ddt += A dla, and this chunk's share of dA, sum dla dt;
-  6. dB and dC summed over the heads, dA over batch and chunks, in a fixed
-     order (no atomics).
+  7. dCB summed over the groups in order, dB_k = sum_q dCB[q,k] C_q and
+     dC_q = sum_k dCB[q,k] B_k plus the groups' state terms; dA summed
+     over batch and chunks in order (no atomics anywhere).
 
-The emulation repeats that decomposition, its 64-row tiles and its
-reduction order in PyTorch, float32, and is held to autograd through the
-port's ``ref.ssd_scan_ref`` and to ``jax.vjp`` of the JAX package's
+Every product runs on the tensor cores as mma.sync m16n8k8 in TF32 with
+each operand split into hi = tf32(v) and lo = tf32(v - hi), issued per
+8-deep step as lo.hi, hi.lo, hi.hi into a float32 accumulator.  The
+emulation repeats that decomposition, its 64-row tiles, its groups of
+heads (``ssd_scan.head_groups``), its fixed-order sums and that rounding
+(``tf32`` of ``tests/test_torch_ssd_split.py``, the forward's emulation) in
+PyTorch, float32, and is held to autograd through the port's
+``ref.ssd_scan_ref`` and to ``jax.vjp`` of the JAX package's
 ``repro.kernels.ref.ssd_scan_ref`` on the same inputs (made with numpy from
 a seed): chunks of 16 and of sizes that are no multiple of 64, head_dim and
 d_state of 16 and 64, h0 and dh_final each present and absent, a ragged
@@ -34,7 +46,12 @@ tail chained through h0 as ``ssd_prefill`` calls it, and a decay so strong
 (dt * A near -30 within a chunk) that exp(cum_q - cum_k) above the
 diagonal overflows.  Tolerance: max |err| <= 1e-4 x max |g| for each
 gradient (the same float32 function summed in another order: chunk by
-chunk and tile by tile here, token by token there).
+chunk and tile by tile here, token by token there).  Two cases show why
+the design is as it is: with large terms that cancel, one TF32 pass breaks
+the bound and the split keeps it; and under strong decay at chunk 256, M's
+row and column sums taken from two products rounded apart (dG, and the
+transposed u dy^T issued pass by pass) break dA's bound, which the shared
+bits keep.
 """
 import jax
 import jax.numpy as jnp
@@ -44,6 +61,8 @@ import torch
 
 from repro.kernels import ref as jref
 from repro_torch.kernels import ref
+from repro_torch.kernels.ssd_scan import head_groups
+from test_torch_ssd_split import cancelling_inputs, tf32
 
 TOL = 1e-4
 TILE = 64
@@ -72,6 +91,25 @@ def forward_states(x, dt, B, C, A, h0, chunk):
     return cum, states
 
 
+def mma(a, b, split=True, by_step=True):
+    """a @ b as the kernels' tensor-core products form it: per 8-deep step
+    of the depth, lo(a).hi(b), hi(a).lo(b), hi(a).hi(b) into a float32
+    accumulator (split), or hi(a).hi(b) alone (one TF32 pass).
+    ``by_step=False`` issues the same passes pass by pass over the whole
+    depth instead, as a product laid out otherwise might: the same
+    function, each entry rounded apart."""
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32(a - ah), tf32(b - bh)
+    passes = ((al, bh), (ah, bl), (ah, bh)) if split else ((ah, bh),)
+    steps = [slice(k, k + 8) for k in range(0, a.shape[1], 8)]
+    order = ([(s, p) for s in steps for p in passes] if by_step
+             else [(s, p) for p in passes for s in steps])
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    for s, (x, y) in order:
+        acc = acc + x[:, s] @ y[s]
+    return acc
+
+
 def tile(t, r0, limit):
     """Rows [r0, r0 + 64) of a 2-D tensor, zeros past ``limit``."""
     out = torch.zeros((TILE, t.shape[1]), dtype=t.dtype)
@@ -85,6 +123,11 @@ def vec(t, r0, limit):
     return tile(t[:, None], r0, limit)[:, 0]
 
 
+def padded(t, chunk):
+    """A chunk's rows in whole 64-row tiles, zeros past ``chunk``."""
+    return torch.cat([tile(t, r0, chunk) for r0 in range(0, chunk, TILE)])
+
+
 def below(q0, k0):
     """k < q within one (query tile, key tile): the pairs whose M terms
     reach d cum (the diagonal's cancel, and are left out)"""
@@ -93,9 +136,9 @@ def below(q0, k0):
 
 
 def chunk_cum(dt, a):
-    """A chunk's cumsum of dt * a, summed in float64 as the kernels sum it
-    (load_chunk): exponents are differences of cums, which float32 would
-    carry at |cum| x 2^-24 of absolute error."""
+    """A chunk's cumsum of dt * a, summed in float64 as the first kernel
+    sums it: exponents are differences of cums, which float32 would carry
+    at |cum| x 2^-24 of absolute error."""
     return (dt.double() * float(a)).cumsum(0)
 
 
@@ -114,32 +157,49 @@ def decay(a64, q0, k0, chunk):
         torch.tensor(0.0))
 
 
-def emulate_backward(x, dt, B, C, A, h0, states, cum, dy, dh_final, chunk):
+def emulate_backward(x, dt, B, C, A, h0, states, cum, dy, dh_final, chunk,
+                     split=True, shared_bits=True, groups=None):
     """(dx, ddt, dB, dC, dA, dh0) as the kernels compute them; dh0 is None
-    when h0 is."""
+    when h0 is.  ``split=False``: every product in one TF32 pass;
+    ``shared_bits=False``: M's column sums from a second product of dG,
+    the transposed u dy^T issued pass by pass, each entry rounded apart
+    from the row sums'.  ``groups``: of heads, as the caller passes them to
+    the kernel (``head_groups`` unless given)."""
     Bsz, S, dih = x.shape
     nh, ds = dt.shape[-1], B.shape[-1]
     hd, nc = dih // nh, S // chunk
     n_t = -(-chunk // TILE)
+    qp = n_t * TILE
+    groups = groups or head_groups(Bsz, S, nh, chunk)
+    per = -(-nh // groups)
+    mm = lambda a, b: mma(a, b.contiguous(), split)
+    zero = torch.tensor(0.0)
     xs, dys = x.reshape(Bsz, S, nh, hd), dy.reshape(Bsz, S, nh, hd)
     dx = torch.zeros(Bsz, S, nh, hd)
     ddt = torch.zeros(Bsz, S, nh)
-    daK, daQ, Tk = (torch.zeros(Bsz, nh, S) for _ in range(3))
-    hg = torch.zeros(Bsz, nc, nh)
-    dB_h = torch.zeros(Bsz, nc, nh, chunk, ds)
-    dC_h = torch.zeros(Bsz, nc, nh, chunk, ds)
+    dB = torch.zeros(Bsz, S, ds)
+    dC = torch.zeros(Bsz, S, ds)
     dA_part = torch.zeros(Bsz, nc, nh)
     g_end = torch.zeros(Bsz, nc, nh, ds, hd)
     dh0 = None if h0 is None else torch.zeros(Bsz, nh, ds, hd)
+    # 0. the cumsum in double
+    a64 = torch.zeros(Bsz, nc, nh, chunk, dtype=torch.float64)
+    for b in range(Bsz):
+        for c in range(nc):
+            for h in range(nh):
+                a64[b, c, h] = chunk_cum(dt[b, c * chunk:(c + 1) * chunk, h],
+                                         A[h])
+    # 2.-3. D_c, then the reverse state pass
     for b in range(Bsz):
         for h in range(nh):
-            # 1.-2. D_c, then the reverse state pass
             g = (torch.zeros(ds, hd) if dh_final is None
                  else dh_final[b, h].clone())
             for c in reversed(range(nc)):
                 sl = slice(c * chunk, (c + 1) * chunk)
-                e = torch.exp(chunk_cum(dt[b, sl, h], A[h]).float())
-                D = (C[b, sl] * e[:, None]).T @ dys[b, sl, h]
+                e = padded(torch.exp(a64[b, c, h].float())[:, None],
+                           chunk)[:, 0]
+                D = mm((padded(C[b, sl], chunk) * e[:, None]).T,
+                       padded(dys[b, sl, h], chunk))
                 g_end[b, c, h] = g
                 g = torch.exp(cum[b, h, c * chunk + chunk - 1]) * g + D
             if dh0 is not None:
@@ -147,80 +207,108 @@ def emulate_backward(x, dt, B, C, A, h0, states, cum, dy, dh_final, chunk):
     for b in range(Bsz):
         for c in range(nc):
             r0 = c * chunk
-            Cc, Bc = C[b, r0:r0 + chunk], B[b, r0:r0 + chunk]
-            for h in range(nh):
-                a64 = chunk_cum(dt[b, r0:r0 + chunk, h], A[h])
-                last = a64[-1]
-                dtc = dt[b, r0:r0 + chunk, h]
-                xc, dyc = xs[b, r0:r0 + chunk, h], dys[b, r0:r0 + chunk, h]
-                u = xc * dtc[:, None]
-                g, hc = g_end[b, c, h], states[b, c, h]
-                # 3. key tiles
-                for kt in range(n_t):
-                    k0 = kt * TILE
+            sl = slice(r0, r0 + chunk)
+            Cc, Bc = padded(C[b, sl], chunk), padded(B[b, sl], chunk)
+            # 1. C.B^T, tiles at or below the diagonal
+            cb = torch.zeros(qp, qp)
+            for qt in range(n_t):
+                for kt in range(qt + 1):
+                    q0, k0 = qt * TILE, kt * TILE
+                    cb[q0:q0 + TILE, k0:k0 + TILE] = mm(
+                        Cc[q0:q0 + TILE], Bc[k0:k0 + TILE].T)
+            # 4. query tiles: e_q <dy_q, C_q h_c>, dC's state term by group
+            R = torch.zeros(nh, qp)
+            dCs = torch.zeros(groups, qp, ds)
+            for qt in range(n_t):
+                q0 = qt * TILE
+                Cq = Cc[q0:q0 + TILE]
+                for h in range(nh):
+                    hc = states[b, c, h]
+                    dyq = tile(dys[b, sl, h], q0, chunk)
+                    e = torch.where(torch.arange(q0, q0 + TILE) < chunk,
+                                    torch.exp(vec(a64[b, c, h], q0, chunk)
+                                              .float()), zero)
+                    R[h, q0:q0 + TILE] = e * (dyq * mm(Cq, hc)).sum(1)
+                    dCs[h // per, q0:q0 + TILE] += e[:, None] * mm(dyq, hc.T)
+            # 5. key tiles: du, T, dB's state term, dG once, dCB, M
+            dCBp = torch.zeros(groups, qp, qp)
+            dBs = torch.zeros(groups, qp, ds)
+            rowp = torch.zeros(nh, n_t, qp)
+            col = torch.zeros(nh, qp)
+            T = torch.zeros(nh, qp)
+            for kt in range(n_t):
+                k0 = kt * TILE
+                Bk = Bc[k0:k0 + TILE]
+                for h in range(nh):
+                    a = a64[b, c, h]
                     r = torch.where(torch.arange(k0, k0 + TILE) < chunk,
-                                    torch.exp((last - vec(a64, k0, chunk))
-                                              .float()), torch.tensor(0.0))
-                    Bk, uk = tile(Bc, k0, chunk), tile(u, k0, chunk)
-                    du = (Bk @ g) * r[:, None]
-                    dBk = (uk @ g.T) * r[:, None]
-                    T = (Bk * dBk).sum(1)
-                    col = torch.zeros(TILE)
+                                    torch.exp((a[-1] - vec(a, k0, chunk))
+                                              .float()), zero)
+                    dtc = dt[b, sl, h]
+                    xk = tile(xs[b, sl, h], k0, chunk)
+                    uk = xk * vec(dtc, k0, chunk)[:, None]
+                    g = g_end[b, c, h]
+                    du = mm(Bk, g) * r[:, None]
+                    # T from u as staged: hi + lo
+                    us = tf32(uk) + tf32(uk - tf32(uk))
+                    T[h, k0:k0 + TILE] = (us * du).sum(1)
+                    dBs[h // per, k0:k0 + TILE] += mm(uk, g.T) * r[:, None]
+                    colk = torch.zeros(TILE)
                     for qt in range(kt, n_t):
                         q0 = qt * TILE
-                        L = decay(a64, q0, k0, chunk)
-                        CB = tile(Cc, q0, chunk) @ Bk.T
-                        dyq = tile(dyc, q0, chunk)
-                        du += (CB * L).T @ dyq
-                        dCB = (dyq @ uk.T) * L
-                        col += torch.where(below(q0, k0), dCB * CB,
-                                           torch.tensor(0.0)).sum(0)
-                        dBk += dCB.T @ tile(Cc, q0, chunk)
+                        L = decay(a, q0, k0, chunk)
+                        CB = cb[q0:q0 + TILE, k0:k0 + TILE]
+                        dyq = tile(dys[b, sl, h], q0, chunk)
+                        dCBh = mm(dyq, uk.T) * L
+                        M = dCBh * CB
+                        Mc = M if shared_bits else (mma(
+                            uk, dyq.T.contiguous(), split,
+                            by_step=False).T * L) * CB
+                        keep = below(q0, k0)
+                        rowp[h, kt, q0:q0 + TILE] = torch.where(
+                            keep, M, zero).sum(1)
+                        colk += torch.where(keep, Mc, zero).sum(0)
+                        dCBp[h // per, q0:q0 + TILE, k0:k0 + TILE] += dCBh
+                        du += mm((CB * L).T, dyq)
                     n = min(TILE, chunk - k0)
-                    sl = slice(r0 + k0, r0 + k0 + n)
-                    dx[b, sl, h] = (du * vec(dtc, k0, chunk)[:, None])[:n]
-                    ddt[b, sl, h] = (tile(xc, k0, chunk) * du).sum(1)[:n]
-                    dB_h[b, c, h, k0:k0 + n] = dBk[:n]
-                    daK[b, h, sl] = -col[:n]
-                    Tk[b, h, sl] = T[:n]
-                # 4. query tiles
-                for qt in range(n_t):
-                    q0 = qt * TILE
-                    e = torch.where(torch.arange(q0, q0 + TILE) < chunk,
-                                    torch.exp(vec(a64, q0, chunk).float()),
-                                    torch.tensor(0.0))
-                    Cq, dyq = tile(Cc, q0, chunk), tile(dyc, q0, chunk)
-                    dCq = (dyq @ hc.T) * e[:, None]
-                    R = (Cq * dCq).sum(1)
-                    row = torch.zeros(TILE)
-                    for kt in range(qt + 1):
-                        k0 = kt * TILE
-                        L = decay(a64, q0, k0, chunk)
-                        Bk = tile(Bc, k0, chunk)
-                        CB = Cq @ Bk.T
-                        dCB = (dyq @ tile(u, k0, chunk).T) * L
-                        row += torch.where(below(q0, k0), dCB * CB,
-                                           torch.tensor(0.0)).sum(1)
-                        dCq += dCB @ Bk
-                    n = min(TILE, chunk - q0)
-                    dC_h[b, c, h, q0:q0 + n] = dCq[:n]
-                    daQ[b, h, r0 + q0:r0 + q0 + n] = (row + R)[:n]
-                    if q0 + TILE >= chunk:
-                        hg[b, c, h] = torch.exp(last.float()) * (hc * g).sum()
-                # 5. d cum by position, its reverse cumsum, plus the
-                # exclusive cumsum of T and e_last <h_c, g>
-                sl = slice(r0, r0 + chunk)
-                da = daK[b, h, sl] + daQ[b, h, sl]
-                dla = (da.flip(0).cumsum(0).flip(0) + Tk[b, h, sl].cumsum(0)
-                       - Tk[b, h, sl] + hg[b, c, h])
+                    rows = slice(r0 + k0, r0 + k0 + n)
+                    dx[b, rows, h] = (du * vec(dtc, k0, chunk)[:, None])[:n]
+                    ddt[b, rows, h] = (xk * du).sum(1)[:n]
+                    col[h, k0:k0 + TILE] = colk
+            # 6. d cum by position, its reverse cumsum, plus the exclusive
+            # cumsum of T and e_last <h_c, g>
+            for h in range(nh):
+                hg = torch.exp(a64[b, c, h, -1].float()) * (
+                    states[b, c, h] * g_end[b, c, h]).sum()
+                da = (-col[h] + R[h])[:chunk]
+                for kt in range(n_t):
+                    da = da + rowp[h, kt, :chunk]
+                Th = T[h, :chunk]
+                dla = (Th.cumsum(0) - Th + hg) + da.flip(0).cumsum(0).flip(0)
                 ddt[b, sl, h] += A[h] * dla
-                dA_part[b, c, h] = (dla * dtc).sum()
-    # 6. fixed-order sums over the heads, and over batch and chunks
-    dB = torch.zeros(Bsz, S, ds)
-    dC = torch.zeros(Bsz, S, ds)
-    for h in range(nh):
-        dB += dB_h[:, :, h].reshape(Bsz, S, ds)
-        dC += dC_h[:, :, h].reshape(Bsz, S, ds)
+                dA_part[b, c, h] = (dla * dt[b, sl, h]).sum()
+            # 7. dCB and the state terms summed over the groups in order,
+            # then dB and dC
+            dCB, dBsum, dCsum = dCBp[0].clone(), dBs[0].clone(), dCs[0].clone()
+            for grp in range(1, groups):
+                dCB += dCBp[grp]
+                dBsum += dBs[grp]
+                dCsum += dCs[grp]
+            for t in range(n_t):
+                t0 = t * TILE
+                accB = torch.zeros(TILE, ds)
+                for qt in range(t, n_t):
+                    q0 = qt * TILE
+                    accB += mm(dCB[q0:q0 + TILE, t0:t0 + TILE].T,
+                               Cc[q0:q0 + TILE])
+                accC = torch.zeros(TILE, ds)
+                for kt in range(t + 1):
+                    k0 = kt * TILE
+                    accC += mm(dCB[t0:t0 + TILE, k0:k0 + TILE],
+                               Bc[k0:k0 + TILE])
+                n = min(TILE, chunk - t0)
+                dB[b, r0 + t0:r0 + t0 + n] = (accB + dBsum[t0:t0 + TILE])[:n]
+                dC[b, r0 + t0:r0 + t0 + n] = (accC + dCsum[t0:t0 + TILE])[:n]
     dA = torch.zeros(nh)
     for b in range(Bsz):
         for c in range(nc):
@@ -275,21 +363,29 @@ def jax_grads(x, dt, B, C, A, h0, dy, dh_final, chunk):
     return (*got[:5], got[5] if h0 is not None else None)
 
 
-def emulate(x, dt, B, C, A, h0, dy, dh_final, chunk):
+def emulate(x, dt, B, C, A, h0, dy, dh_final, chunk, **kw):
     cum, states = forward_states(x, dt, B, C, A, h0, chunk)
     return emulate_backward(x, dt, B, C, A, h0, states, cum, dy, dh_final,
-                            chunk)
+                            chunk, **kw)
 
 
-def assert_close(got, want):
+def worst(got, want):
+    """The largest max |err| / (TOL x max |want|) over the gradients, and
+    its gradient's name."""
+    shares = {}
     for name, g, w in zip(NAMES, got, want):
         if w is None:
             assert g is None, name
             continue
-        err = (g - w).abs().max().item()
-        scale = w.abs().max().item()
         assert torch.isfinite(g).all(), name
-        assert err <= TOL * scale, (name, err, scale)
+        shares[name] = ((g - w).abs().max() / (TOL * w.abs().max())).item()
+    name = max(shares, key=shares.get)
+    return shares[name], name
+
+
+def assert_close(got, want):
+    share, name = worst(got, want)
+    assert share <= 1.0, (name, share)
 
 
 CASES = [
@@ -320,6 +416,16 @@ def test_emulated_backward_matches_jax_vjp(Bsz, S, nh, hd, ds, chunk, h0,
     arrays = inputs(Bsz, S, nh, hd, ds, h0=h0, dh_final=dh, seed=chunk + 1)
     assert_close(emulate(*as_torch(arrays), chunk),
                  jax_grads(*arrays, chunk))
+
+
+@pytest.mark.parametrize("groups", [1, 2, 3])
+def test_groups_of_heads_match_autograd(groups):
+    """Three heads in one group, in groups of two and one, and one a
+    group: dCB and the state terms of dB and dC summed over a group's
+    heads in order, then over the groups in order."""
+    args = as_torch(inputs(2, 256, 3, 64, 64, h0=True, dh_final=True,
+                           seed=groups))
+    assert_close(emulate(*args, 128, groups=groups), plain_grads(*args, 128))
 
 
 @pytest.mark.parametrize("tail", [1, 37, 100])
@@ -357,3 +463,30 @@ def test_strong_decay_gives_no_nan(hd, ds):
     got = emulate(*args, 64)
     assert all(torch.isfinite(g).all() for g in got)
     assert_close(got, plain_grads(*args, 64))
+
+
+def test_cancelling_terms_need_the_split():
+    """B and C whose first two components are large and cancel in C.B
+    (``cancelling_inputs`` of the forward's emulation): one TF32 pass of
+    every product leaves the gradients far outside 1e-4 x max |g|; the hi/lo
+    split keeps every one inside."""
+    x, dt, Bm, Cm, A = cancelling_inputs()
+    dy = np.random.default_rng(3).normal(size=x.shape).astype(np.float32)
+    args = as_torch([x, dt, Bm, Cm, A, None, dy, None])
+    want = plain_grads(*args, 16)
+    assert_close(emulate(*args, 16), want)
+    assert worst(emulate(*args, 16, split=False), want)[0] > 1.0
+
+
+def test_shared_bits_keep_dA_under_strong_decay():
+    """A x 40 at chunk 256: M's row sums and column sums taken from the same
+    bits of each entry keep dA within 1e-4 x max |dA|; the column sums from
+    a second product of dG (the transposed u dy^T, its passes issued pass
+    by pass, so each entry is rounded apart from the row sums') break dA's
+    bound, by more than 10x."""
+    args = as_torch(inputs(1, 256, 2, 64, 64, h0=True, dh_final=True,
+                           seed=1, a_scale=0.0, a_mult=40.0))
+    want = plain_grads(*args, 256)
+    assert_close(emulate(*args, 256), want)
+    share, name = worst(emulate(*args, 256, shared_bits=False), want)
+    assert (name, share > 10.0) == ("dA", True)
