@@ -381,8 +381,10 @@ def ssd_bwd_rows(libs, g):
     want = cs.ssd_grads(ref.ssd_scan_ref, main, None, dy, None, chunk)
     _, _, states, cum = ssd_mod.ssd_scan_with_states(*main, chunk=chunk)
     stream = torch.cuda.current_stream().cuda_stream
-    own = ssd_mod.head_groups(Bsz, S, nh, chunk)
+    own = ssd_mod.head_groups(nh)
     row = {"bound_ms": cs.ssd_bwd_bound(Bsz, S, chunk, nh, hd, ds)[0],
+           "bound_split_tf32_ms": cs.ssd_bwd_split_bound(Bsz, S, chunk, nh,
+                                                         hd, ds)[0],
            "groups": own}
     runs = [("ssd_bwd", "ssd_bwd", own)]
     runs += [(name, "ssd_bwd", f(nh)) for name, f in SSD_BWD_GROUPS.items()]

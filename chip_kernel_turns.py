@@ -317,7 +317,7 @@ def ssd_bwd_case(entries, Bsz, S, nh, hd, ds, chunk):
         fn, mod = entry
         grads = [torch.empty_like(t) for t in main]
         if hasattr(mod, "head_groups"):
-            groups = [mod.head_groups(Bsz, S, nh, chunk)]
+            groups = [mod.head_groups(nh)]
             buf, parts = mod.bwd_scratch(Bsz, S, nh, hd, ds, chunk,
                                          *groups, "cuda")
         else:

@@ -1797,12 +1797,37 @@ def ssd_bwd_bound(Bsz, S, chunk, nh, hd, ds, h0: bool = False,
     triangle for L, dCB and M; per (batch, chunk) three triangle products
     of ds (C.B^T, dCB.B, dCB^T.C); 2 operations per multiply-add."""
     nc, tri = S // chunk, chunk * (chunk + 1) // 2
-    macs = Bsz * nc * (nh * (4 * chunk * ds * hd + 2 * tri * hd + 1.5 * tri)
+    macs = (ssd_bwd_products(Bsz, S, chunk, nh, hd, ds)
+            + Bsz * nc * nh * 1.5 * tri)
+    return bound_ms(ssd_bwd_bytes(Bsz, S, chunk, nh, hd, ds, h0, dh),
+                    2.0 * macs)
+
+
+def ssd_bwd_split_bound(Bsz, S, chunk, nh, hd, ds, h0: bool = False,
+                        dh: bool = False):
+    """The bound at the rate of the instructions the kernel issues: the
+    least algorithm's products (``ssd_bwd_bound`` without the elementwise
+    work on the triangle), each issued three times (split TF32: lo.hi +
+    hi.lo + hi.hi), at the TF32 tensor-core peak; bytes as
+    ``ssd_bwd_bound``."""
+    return bound_ms(ssd_bwd_bytes(Bsz, S, chunk, nh, hd, ds, h0, dh),
+                    3.0 * 2.0 * ssd_bwd_products(Bsz, S, chunk, nh, hd, ds),
+                    PEAK_TF32_PER_S)
+
+
+def ssd_bwd_products(Bsz, S, chunk, nh, hd, ds):
+    """Multiply-adds of the least algorithm's products (``ssd_bwd_bound``)."""
+    nc, tri = S // chunk, chunk * (chunk + 1) // 2
+    return Bsz * nc * (nh * (4 * chunk * ds * hd + 2 * tri * hd)
                        + 3 * tri * ds)
-    nbytes = 4 * (3 * Bsz * S * nh * hd + Bsz * nc * nh * ds * hd
-                  + Bsz * nh * ds * hd * (int(h0) + int(dh))
-                  + 3 * Bsz * S * nh + 4 * Bsz * S * ds + 2 * nh)
-    return bound_ms(nbytes, 2.0 * macs)
+
+
+def ssd_bwd_bytes(Bsz, S, chunk, nh, hd, ds, h0, dh):
+    """The bytes ``ssd_bwd_bound`` counts."""
+    nc = S // chunk
+    return 4 * (3 * Bsz * S * nh * hd + Bsz * nc * nh * ds * hd
+                + Bsz * nh * ds * hd * (int(h0) + int(dh))
+                + 3 * Bsz * S * nh + 4 * Bsz * S * ds + 2 * nh)
 
 
 def ssd_grads(fn, inputs, h0, dy, dh, chunk):
@@ -1902,7 +1927,8 @@ def ssd_train_kernel_phase(cfg, dev="cuda"):
         device_ms_by_kernel=by_kernel, shape=[B, S, nh, hd, ds, Q],
         dtype="float32", kernels_per_call=ssd_mod.BWD_KERNELS_PER_CALL,
         tolerance=f"every gradient max |err| <= {SSD_BWD_TOL} x max |plain|",
-        bound=ssd_bwd_bound(B, S, Q, nh, hd, ds))}
+        bound=ssd_bwd_bound(B, S, Q, nh, hd, ds),
+        bound_split_tf32=ssd_bwd_split_bound(B, S, Q, nh, hd, ds))}
 
 
 def hybrid_head_check(cfg, model, dev="cuda"):
@@ -1952,7 +1978,9 @@ def hybrid_train_phase():
           f"version {r['plain_ms']:.4f} ms (in turns {r['turns']['plain']}),"
           f" device time alone {r['device_ms']:.4f} ms in "
           f"{r['kernels_per_call']} kernels {r['device_ms_by_kernel']}; "
-          f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), max err "
+          f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}; at the "
+          f"split-TF32 tensor-core rate {r['bound_split_tf32'][0]:.4f} ms, "
+          f"{r['bound_split_tf32'][1]}), max err "
           f"{r['max_abs_err']:.3g} (chained tail "
           f"{r['chained_max_abs_err']:.3g})", flush=True)
     t0 = time.perf_counter()
@@ -2055,6 +2083,12 @@ def main() -> int:
     # the SSD backward's device time alone (torch.profiler)
     ssd_bwd = next(k for k in kernels if k["name"] == "ssd_scan_bwd")
     ssd_bwd["device_ms"] = results["ssd_scan_bwd"]["device_ms"]
+    # both SSD kernels issue split-TF32 products: their bound at that rate,
+    # beside the FP32 one in bound_ms
+    for k in kernels:
+        if k["name"] in ("ssd_scan", "ssd_scan_bwd"):
+            k["bound_split_tf32_ms"] = results[k["name"]][
+                "bound_split_tf32"][0]
     seconds = time.perf_counter() - t_start
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_seconds": build_s,

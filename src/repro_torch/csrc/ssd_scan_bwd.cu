@@ -76,9 +76,10 @@
 //      d_state): dCB's products with C (dB) and B (dC), plus the groups'
 //      state terms in order; the first block also sums dA over batch and
 //      chunks in order.
-// Groups of heads: the caller picks how many (4 heads a group at zamba2's
-// training shape, 1280 blocks of the key kernel; 8 measured within a few
-// percent of it, 16 slower, PERF.md); each group keeps its dCB tiles in
+// Groups of heads: the caller picks how many (kernels/ssd_scan.py takes 4
+// heads a group, the last ragged: at zamba2's training shape 20 groups, 1280
+// blocks of the key kernel; 8 measured within a few percent of it, 16
+// slower, PERF.md); each group keeps its dCB tiles in
 // shared memory while it walks its heads, so dB and dC are products once
 // per (batch, chunk) and not once per head.  The key kernel stages three
 // split pieces at a time (u, then B and g, or dy and G with L) and holds

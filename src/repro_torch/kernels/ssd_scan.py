@@ -23,10 +23,9 @@ MAX_DIM = 128            # head_dim and d_state, each a multiple of 16
 #: kernels one call launches
 KERNELS_PER_CALL = 4
 BWD_KERNELS_PER_CALL = 8
-#: most heads one block of the backward's query and key kernels walks
+#: heads one block of the backward's query and key kernels walks (the last
+#: group may hold fewer)
 GROUP_HEADS = 4
-#: blocks of the key kernel the head groups aim at (4 x an H100's 132 SMs)
-GROUP_FILL = 528
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -122,14 +121,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     return y, h
 
 
-def head_groups(Bsz: int, S: int, nh: int, chunk: int) -> int:
+def head_groups(nh: int) -> int:
     """How many groups of heads the backward's query and key kernels take,
     each walking its heads in order and summing dCB and the state terms of
-    dB and dC over them: at most GROUP_HEADS heads a group, fewer where
-    (batch, chunk, key tile) blocks alone would not reach GROUP_FILL."""
-    nc, n_t = S // chunk, -(-chunk // 64)
-    per = max(1, min(GROUP_HEADS, nh * Bsz * nc * n_t // GROUP_FILL))
-    return max(1, -(-nh // per))
+    dB and dC over them: GROUP_HEADS heads a group, the last ragged."""
+    return max(1, -(-nh // GROUP_HEADS))
 
 
 def bwd_scratch(Bsz: int, S: int, nh: int, hd: int, ds: int, chunk: int,
@@ -197,7 +193,7 @@ def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     dA = torch.empty_like(A)
     dh0 = None if h0 is None else torch.empty(
         (Bsz, nh, ds, hd), dtype=torch.float32, device=dev)
-    groups = head_groups(Bsz, S, nh, chunk)
+    groups = head_groups(nh)
     buf, parts = bwd_scratch(Bsz, S, nh, hd, ds, chunk, groups, dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     check_launch(library().ssd_scan_bwd(

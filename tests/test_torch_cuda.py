@@ -905,6 +905,39 @@ def test_ssd_backward_matches_plain_on_card(Bsz, S, nh, hd, ds, chunk, h0,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hd,ds,groups", [
+    (128, 128, 1), (128, 128, 2), (128, 128, 3), (128, 128, 4),
+    (128, 128, 5), (64, 128, 2), (128, 64, 2), (64, 64, 2),
+], ids=["hd128_ds128_one_group", "hd128_ds128_3_2", "hd128_ds128_2_2_1",
+        "hd128_ds128_2_2_1_empty", "hd128_ds128_one_head_a_group",
+        "hd64_ds128_3_2", "hd128_ds64_3_2", "hd64_ds64_3_2"])
+def test_ssd_backward_groups_of_heads_on_card(hd, ds, groups, monkeypatch,
+                                              cuda_device):
+    """5 heads taken by the query and key kernels in ``groups`` groups of
+    ceil(5 / groups), the last ragged (3 + 2, 2 + 2 + 1) or, at 4 groups,
+    empty: dCB and the state terms of dB and dC summed over each group's
+    heads in shared memory, then over the groups, for every build of
+    head_dim and d_state in one or two 64-wide pieces; chunks of 150, h0
+    and dh_final present."""
+    from repro_torch.kernels import ssd_scan as tssd
+    monkeypatch.setattr(tssd, "head_groups", lambda nh: groups)
+    Bsz, S, nh, chunk = 2, 300, 5, 150
+    inputs = _ssd_inputs(Bsz, S, nh, hd, ds, torch.float32, cuda_device,
+                         seed=groups + hd + ds)
+    g = torch.Generator().manual_seed(groups)
+    rand = lambda *s: torch.randn(*s, generator=g).to(cuda_device)
+    h0t = rand(Bsz, nh, ds, hd)
+    dy = rand(Bsz, S, nh * hd)
+    dht = rand(Bsz, nh, ds, hd)
+    before = ops.COUNTERS["ssd_scan_bwd"].value
+    got = _ssd_grads(ops.ssd_scan, inputs, h0t, dy, dht, chunk)
+    torch.cuda.synchronize()
+    assert ops.COUNTERS["ssd_scan_bwd"].value == before + 1
+    want = _ssd_grads(ref.ssd_scan_ref, inputs, h0t, dy, dht, chunk)
+    _ssd_grads_within_bound(got, want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("tail", [1, 37, 232])
 def test_ssd_backward_tail_chained_on_card(tail, cuda_device):
     """512 positions in chunks of 256, then a ragged tail as one chunk of

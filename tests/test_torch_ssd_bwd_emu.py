@@ -170,7 +170,7 @@ def emulate_backward(x, dt, B, C, A, h0, states, cum, dy, dh_final, chunk,
     hd, nc = dih // nh, S // chunk
     n_t = -(-chunk // TILE)
     qp = n_t * TILE
-    groups = groups or head_groups(Bsz, S, nh, chunk)
+    groups = groups or head_groups(nh)
     per = -(-nh // groups)
     mm = lambda a, b: mma(a, b.contiguous(), split)
     zero = torch.tensor(0.0)
@@ -425,6 +425,15 @@ def test_groups_of_heads_match_autograd(groups):
     heads in order, then over the groups in order."""
     args = as_torch(inputs(2, 256, 3, 64, 64, h0=True, dh_final=True,
                            seed=groups))
+    assert_close(emulate(*args, 128, groups=groups), plain_grads(*args, 128))
+
+
+@pytest.mark.parametrize("groups", [2, 4])
+def test_ragged_groups_of_heads_match_autograd(groups):
+    """Five heads in groups of ceil(5 / groups): 3 + 2, and 2 + 2 + 1 with
+    a fourth group that holds no head and adds zeros."""
+    args = as_torch(inputs(2, 256, 5, 32, 32, h0=True, dh_final=True,
+                           seed=groups + 10))
     assert_close(emulate(*args, 128, groups=groups), plain_grads(*args, 128))
 
 
