@@ -13,7 +13,17 @@ and read just after:
 
 - the scheduler: ``Session`` -> ``Scheduler`` -> ``ThreadedExecutor``,
   host fission slots plus two CUDA-stream slots on ``cuda:0``, over the
-  paper's four benchmark SCTs at the paper's sizes, every output checked;
+  paper's five benchmark SCTs at the paper's sizes (the FFT's bodies are
+  cuFFT: it has no hand-written kernel), every output checked, and a
+  filter -> filter chain resident on the card between its steps;
+- the main path's own gates (``repro_torch.bench``: locality, pipeline and
+  the telemetry smoke, at their full sizes, each on its own schedulers,
+  the accelerator slots on CUDA streams), every deterministic gate held
+  and the wall-clock ratios recorded, each accelerator slot span of the
+  exported trace (``build/trace_torch.json``) held to at least its
+  work's CUDA-event time; the quickstart; flash attention's forward and
+  backward at head dims 84 and 96 (padded up to 128) against the plain
+  version, and dim 84 timed beside 80 and 128;
 - LM serving, two models in turn, each at full width in bf16 with random
   weights from a seed, behind ``ServeEngine``: 8 requests of 256 to 1536
   prompt tokens and 32 new tokens each.  zamba2-2.7b (54 layers, d_model
@@ -50,7 +60,9 @@ record is written to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
 import math
 import os
@@ -69,6 +81,10 @@ import torch.nn.functional as F  # noqa: E402
 
 from flash_bwd_bounds import attention_bwd_rounding, cancelling  # noqa: E402
 from repro_torch import suite  # noqa: E402
+from repro_torch.bench import locality as gate_locality  # noqa: E402
+from repro_torch.bench import pipeline as gate_pipeline  # noqa: E402
+from repro_torch.bench import telemetry_smoke as gate_telemetry  # noqa: E402
+from repro_torch.examples import quickstart  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (AcceleratorPlatform, DeviceInfo,  # noqa: E402
                               ExecutionSlot, HostPlatform, JobGraph,
@@ -99,10 +115,18 @@ PEAK_TF32_PER_S = 495e12          # dense, tensor cores
 
 #: the paper's sizes (benchmarks/paper_suite.py BENCHMARKS); segmentation
 #: is cut from its largest class (3840 planes, ~15 GiB in and out on the
-#: host) to 512 planes for the run's time
+#: host) to 512 planes for the run's time; the FFT runs its largest class,
+#: 1024 FFTs of 65536 float32 (256 MiB in)
 SIZE = {"saxpy": 5 * 10 ** 7, "filter_pipeline": 8192, "nbody": 32768,
-        "segmentation": 512}
-ORDER = ["saxpy", "segmentation", "filter_pipeline", "nbody"]
+        "segmentation": 512, "fft": 1024}
+ORDER = ["saxpy", "segmentation", "filter_pipeline", "nbody", "fft"]
+#: the SCTs whose bodies run no hand-written kernel (the FFT is cuFFT, as
+#: the JAX package computes it with jnp.fft outside any Pallas kernel)
+NO_KERNEL = ("fft",)
+#: FFT -> iFFT on the card against numpy's float64 FFT on the host, over
+#: FFT_CHECK_ROWS rows drawn from seed 0: max |err| <= FFT_TOL x max |ref|
+FFT_TOL = 1e-5
+FFT_CHECK_ROWS = 64
 REQUESTS = 3
 SHARE_A = 0.8           # accelerator share of the KB profile carried in
 OVERLAP = 2             # CUDA streams on cuda:0
@@ -394,8 +418,11 @@ def make_inputs(seed: int = 0):
     nbody = {"pos": pos, "vel": pinned(torch.zeros((nb, 3), device=dev)),
              "all_pos": pos,
              "mass": pinned(torch.rand(nb, generator=g, device=dev) + 0.1)}
+    sig = pinned(torch.randn((SIZE["fft"], suite.FFT_ELEMS), generator=g,
+                             device=dev))
     return {"saxpy": saxpy, "segmentation": {"vol": vol},
-            "filter_pipeline": {"img": img, "seed": 7}, "nbody": nbody}
+            "filter_pipeline": {"img": img, "seed": 7}, "nbody": nbody,
+            "fft": {"sig": sig}}
 
 
 def sct_for(name: str):
@@ -419,7 +446,8 @@ def make_scheduler(balancer=None) -> Scheduler:
         dims = {"saxpy": (classes[0],), "segmentation": (classes[0], 1024,
                                                          1024),
                 "filter_pipeline": (classes[0], classes[0]),
-                "nbody": (classes[0], 3)}[name]
+                "nbody": (classes[0], 3),
+                "fft": (classes[0], suite.FFT_ELEMS)}[name]
         kb.store(Profile(sct_id=sct.unique_id(), workload=Workload(dims),
                          share_a=SHARE_A,
                          config=PlatformConfig(fission_level=FISSION,
@@ -624,6 +652,21 @@ def check_outputs(name: str, arrays, run) -> float:
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
             worst = max(worst, (got - want).abs().max().item())
         return worst
+    if name == "fft":
+        rows = np.sort(np.random.default_rng(0).choice(
+            arrays["sig"].shape[0], FFT_CHECK_ROWS, replace=False))
+        x = arrays["sig"][rows].numpy().astype(np.float64)
+        want = np.fft.ifft(np.fft.fft(x, axis=1).real, axis=1).real
+        got = out["sig_out"][rows].numpy()
+        expect(out["sig_out"].shape == arrays["sig"].shape
+               and out["sig_out"].dtype == torch.float32
+               and bool(torch.isfinite(out["sig_out"]).all()),
+               "fft: finite float32 outputs of the input's shape")
+        err = float(np.abs(got - want).max())
+        expect(err <= FFT_TOL * np.abs(want).max(),
+               f"fft -> ifft: max err {err} <= {FFT_TOL} x max |ref| "
+               f"{np.abs(want).max()}")
+        return err
     pos = arrays["pos"].to(dev)
     vel = arrays["vel"].to(dev)
     acc64 = ref.nbody_ref(pos.double(), arrays["mass"].to(dev).double(),
@@ -654,7 +697,7 @@ def units_by_class(run):
 
 
 def main_path(sched: Scheduler, inputs):
-    need = {k: 0 for k in ORDER}
+    need = {k: 0 for k in ORDER if k not in NO_KERNEL}
     requests = []
     reset_counts()
     with Session(sched) as session:
@@ -664,9 +707,11 @@ def main_path(sched: Scheduler, inputs):
                 t0 = time.perf_counter()
                 run = session.run(sct_for(name), **arrays).get()
                 seconds = time.perf_counter() - t0
+                expect(run.stats.ok, f"main {name} #{r} ran without a "
+                       f"fault: {[f.message for f in run.stats.failures]}")
                 err = check_outputs(name, arrays, run)
-                kernel = "nbody" if name == "nbody" else name
-                need[kernel] += gpu_segments(run)
+                if name not in NO_KERNEL:
+                    need[name] += gpu_segments(run)
                 requests.append(dict(
                     sct=name, request=r, action=run.action,
                     share_a=run.profile.share_a, seconds=seconds,
@@ -717,6 +762,10 @@ def chain_phase(arrays, need):
             merge_bytes=[r.stats.merge_bytes for r in runs])
         if residency is None:
             expect(head.stats.resident, "chain handoff stayed resident")
+            resident = [r.stats.merge_bytes for r in runs if r.stats.resident]
+            expect(resident and max(resident) == 0,
+                   f"resident chain steps copied no bytes at merge: "
+                   f"{resident}")
             handle = head.resident_handle
             on_card = [env["mid"].device.type
                        for env, slot in zip(handle.envs, handle.part.slots)
@@ -729,6 +778,170 @@ def chain_phase(arrays, need):
     expect(torch.equal(outs[None], outs[False]),
            "resident chain bit-identical to the merged chain")
     return info
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the main path's own gates on CUDA-stream slots, the quickstart,
+# and flash attention at head dims padded up to an instantiated one
+# ---------------------------------------------------------------------------
+
+def gates_phase():
+    """The three gates of ``repro_torch.bench`` in this process, at their
+    full sizes, each on its own schedulers and sessions, with the
+    accelerator slots on CUDA streams of ``cuda:0``.  Every deterministic
+    gate must hold; the wall-clock ones are recorded.  The telemetry
+    smoke's trace goes to ``build/trace_torch.json``, and every clean
+    accelerator slot span in it must last at least its work's CUDA-event
+    time (the span closes after the stream's synchronize)."""
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    gates = {}
+    for name, mod, n in (("locality", gate_locality, 1 << 20),
+                         ("pipeline", gate_pipeline, 1 << 20)):
+        t0 = time.perf_counter()
+        res = mod.bench(False, n, "cuda")
+        seconds = time.perf_counter() - t0
+        det, wall = mod.deterministic_failures(res), mod.wall_failures(res)
+        expect(not det, f"gate {name} on the card: {det}")
+        gates[name] = dict(res, seconds=seconds, wall_failures=wall)
+    loc, pipe = gates["locality"], gates["pipeline"]
+    print(f"gate locality: hit_rate={loc['plan_cache_hit_rate']:.3f} "
+          f"plan_cache={loc['recurrent']['plan_cache']} "
+          f"resident_merge_bytes={loc['chain']['resident_merge_bytes']} "
+          f"bit_identical={loc['bit_identical']}/"
+          f"{loc['bit_identical_faulted']} "
+          f"retries={loc['faulted_retries']} | wall: recurrent overhead "
+          f"{loc['recurrent']['overhead_reduction_x']:.3f}x, chain "
+          f"{loc['chain']['overhead_reduction_x']:.3f}x | "
+          f"{loc['seconds']:.1f}s", flush=True)
+    th, gpc, fus = pipe["threaded"], pipe["graph_plan_cache"], pipe["fusion"]
+    print(f"gate pipeline: virtual_gain="
+          f"{pipe['virtual_throughput']['throughput_gain_x']:.3f}x "
+          f"in_flight={pipe['virtual_overlap']['max_concurrent_nodes']} "
+          f"bit_identical={th['bit_identical']}/"
+          f"{th['bit_identical_faulted']} node_retries={th['node_retries']} "
+          f"graph_hits={gpc['graph_hits']} locks="
+          f"{gpc['decide_locks_second']}/{gpc['plan_locks_second']} "
+          f"preplanned={gpc['preplanned_nodes']}/{gpc['nodes']} "
+          f"fused={fus['fused_actions']}/{fus['requests']} "
+          f"fused_bit_identical={fus['bit_identical']}/"
+          f"{fus['bit_identical_faulted']} | wall: throughput "
+          f"{th['wall_throughput_gain_x']:.3f}x (floor 1.0: "
+          f"{'held' if not pipe['wall_failures'] else 'missed'}), distinct "
+          f"{th['wall_distinct_gain_x']:.3f}x | {pipe['seconds']:.1f}s",
+          flush=True)
+
+    trace_path = out_dir / "trace_torch.json"
+    t0 = time.perf_counter()
+    tel = gate_telemetry.smoke(str(trace_path), "cuda")
+    expect(not tel["deterministic_failures"],
+           f"gate telemetry_smoke on the card: "
+           f"{tel['deterministic_failures']}")
+    spans = gate_telemetry.slot_spans(json.loads(trace_path.read_text()))
+    card = [sp for sp in spans if sp["device"].startswith("gpu")
+            and "fault" not in sp["args"]]
+    expect(card and all("device_ms" in sp["args"] for sp in card),
+           f"accelerator slot spans carry their CUDA-event time: {card}")
+    ratios = [sp["us"] / (sp["args"]["device_ms"] * 1e3) for sp in card]
+    expect(min(ratios) >= 1.0,
+           f"every accelerator slot span lasts at least its CUDA-event "
+           f"time: span / device time {ratios}")
+    gates["telemetry_smoke"] = dict(
+        tel, seconds=time.perf_counter() - t0, trace=str(trace_path),
+        card_slot_spans=[dict(device=sp["device"], us=sp["us"],
+                              device_ms=sp["args"]["device_ms"])
+                         for sp in card])
+    print(f"gate telemetry_smoke: events={tel['trace_events']} "
+          f"retry_spans={tel['retry_spans']} retries={tel['stats_retries']} "
+          f"kinds={tel['event_kinds']} card slot spans={len(card)}, span / "
+          f"CUDA-event time min {min(ratios):.3f} | wall: no-op span "
+          f"{tel['noop_span_cost_us']:.3f} us (bound "
+          f"{gate_telemetry.NOOP_SPAN_BOUND * 1e6:.0f})", flush=True)
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        quickstart.main(["--device", "cuda"])
+    lines = buf.getvalue().strip().splitlines()
+    expect(lines[-1] == "quickstart OK", f"quickstart on the card: {lines}")
+    gates["quickstart"] = dict(lines=lines,
+                               seconds=time.perf_counter() - t0)
+    print("quickstart: " + " | ".join(lines), flush=True)
+    return gates
+
+
+#: head dims the flash kernels are not instantiated for, held on the card
+#: through the padding (84: examples/train_lm.py's)
+FLASH_PAD_DIMS = (84, 96)
+#: the timed flash call: (B, H, KV, S) at the bf16 training shape's layout
+FLASH_PAD_TIMED = (8, 24, 8, 512)
+
+
+def flash_padding_phase():
+    """Flash forward (with and without the log-sum-exp) and backward, bf16
+    and float32, at head dims padded up to an instantiated one, GQA 4/2,
+    causal and windowed, against the plain version at dim 80's bounds;
+    then dim 84 timed beside 80 and 128 (the forward also by its device
+    time alone, pads and slice included)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    worst = {}
+    before = ops.COUNTERS["flash_attention"].value, \
+        ops.COUNTERS["flash_attention_bwd"].value
+    calls = 0
+    for hd in FLASH_PAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, kw in (("causal", dict(causal=True)),
+                             ("window", dict(causal=True, window=40))):
+                q, do = (torch.randn(2, 4, 150, hd, generator=g,
+                                     device=dev).to(dtype)
+                         for _ in range(2))
+                k, v = (torch.randn(2, 2, 150, hd, generator=g,
+                                    device=dev).to(dtype) for _ in range(2))
+                got = ops.flash_attention(q, k, v, **kw)
+                want = ref.attention_ref(q.float(), k.float(), v.float(),
+                                         **kw)
+                fwd = (bf16_excess(got, want, FLASH_TOL)
+                       if dtype == torch.bfloat16
+                       else (got - want).abs().max().item() / FLASH_TOL)
+                expect(got.shape == q.shape and fwd <= 1.0,
+                       f"flash hd {hd} {dtype} {name}: forward at {fwd:.3f} "
+                       f"of its bound")
+                both, _ = flash_grads_excess(q, k, v, do, kw)
+                worst[f"hd{hd} {str(dtype)[6:]} {name}"] = max(fwd, both)
+                calls += 1
+    torch.cuda.synchronize()
+    launched = (ops.COUNTERS["flash_attention"].value - before[0],
+                ops.COUNTERS["flash_attention_bwd"].value - before[1])
+    expect(launched == (2 * calls, calls),
+           f"the padded calls launched the kernels: {launched}")
+
+    B, H, KV, S = FLASH_PAD_TIMED
+    timed = {}
+    for hd in (80, 84, 128):
+        q, do = (torch.randn(B, H, S, hd, generator=g, device=dev)
+                 .to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(B, KV, S, hd, generator=g, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        fwd_device_ms, launched_a_call = device_ms(
+            lambda: ops.flash_attention(q, k, v), 10)
+        timed[hd] = dict(
+            ms=cuda_ms(lambda: ops.flash_attention(q, k, v), 20),
+            device_ms=fwd_device_ms, kernels_a_call=launched_a_call,
+            bwd_ms=grad_ms(ops.flash_attention, (q, k, v), do, 10),
+            bound=flash_bound(B, H, KV, S, S, hd, torch.bfloat16),
+            bwd_bound=flash_bwd_bound(B, H, KV, S, hd, torch.bfloat16))
+    print(f"kernel flash_attention hd84 (bf16, causal, {B}x{H}/{KV}x{S}, "
+          f"padded to 128): " + ", ".join(
+              f"hd {hd} {t['ms']:.4f} ms (device {t['device_ms']:.4f} in "
+              f"{t['kernels_a_call']} kernels; bound {t['bound'][0]:.4f}), "
+              f"backward {t['bwd_ms']:.4f} ms (bound "
+              f"{t['bwd_bound'][0]:.4f})" for hd, t in timed.items())
+          + f"; worst share of the bounds over hd {FLASH_PAD_DIMS}: "
+          f"{max(worst.values()):.3f}", flush=True)
+    return dict(worst=worst, launches=list(launched),
+                timed={str(hd): t for hd, t in timed.items()},
+                shape=list(FLASH_PAD_TIMED))
 
 
 # ---------------------------------------------------------------------------
@@ -2042,6 +2255,8 @@ def main() -> int:
 
     requests, chain, launches = main_path(sched, inputs)
     del inputs
+    gates = gates_phase()
+    flash_pad = flash_padding_phase()
     by_path = {"scheduler": dict(launches)}
     lm_serve, lm_head = {}, {}
     for arch in LM_ARCHS:
@@ -2094,7 +2309,8 @@ def main() -> int:
               "cuda": torch.version.cuda, "build_seconds": build_s,
               "ptxas": regs, "seconds": seconds,
               "kernel_phase": results, "requests": requests,
-              "chain": chain, "launches": launches,
+              "chain": chain, "gates": gates,
+              "flash_padding": flash_pad, "launches": launches,
               "launches_by_path": by_path, "lm_serve": lm_serve,
               "lm_head_check": lm_head, "train": train,
               "train_head_check": train_head, "train_hybrid": hyb_train,

@@ -704,9 +704,11 @@ class ThreadedExecutor:
                         if kind == "stall":
                             time.sleep(self.injector.stall_seconds)
                     if on_card:
-                        out_env, written, event = self._run_on_card(
-                            sct, part, arrays, seg, resident, targets,
-                            slot.device)
+                        out_env, written, event, device_ms = \
+                            self._run_on_card(sct, part, arrays, seg,
+                                              resident, targets, slot.device)
+                        if device_ms is not None:
+                            sp.note(device_ms=device_ms)
                     else:
                         env = self._segment_env(part, arrays, seg, resident)
                         out_env = sct.apply(env)
@@ -862,17 +864,28 @@ class ThreadedExecutor:
                      targets: Dict[str, _OutputTarget], slot_device: str):
         """One segment on an accelerator slot, inside its queue's stream:
         inputs host→device, the body's kernels, outputs device→host into
-        the pinned merge buffers, then a stream synchronise."""
+        the pinned merge buffers, then a stream synchronise.
+
+        With tracing on, the segment's work is bracketed by timing events
+        and its device milliseconds are returned (else ``None``): the slot
+        span that encloses this call closes only after the synchronise,
+        so it is never shorter than them."""
         stream = self._stream(slot_device)
+        timed = self.telemetry.tracer.enabled
         with torch.cuda.stream(stream):
+            start = None
+            if timed:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record(stream)
             env = self._segment_env(part, arrays, seg, resident,
                                     device=stream.device)
             out_env = sct.apply(env)
             written = self._direct_write(out_env, seg, targets)
-            event = torch.cuda.Event()
+            event = torch.cuda.Event(enable_timing=timed)
             event.record(stream)
         stream.synchronize()
-        return out_env, written, event
+        device_ms = start.elapsed_time(event) if timed else None
+        return out_env, written, event, device_ms
 
     def last_class_times(self) -> Tuple[float, float]:
         n_a = self._last_n_a

@@ -9,6 +9,14 @@ row's log-sum-exp (``with_lse``), which the backward
 (:func:`flash_attention_backward`: three kernels a call, counted once in
 ``bwd_launches`` and once in ``bwd_paths`` by path: the tensor cores for
 bfloat16, FP32 FMAs for float32) reads to recompute the probabilities.
+
+The kernels are instantiated for the head dims in ``HEAD_DIMS``.  Any
+other head dim up to the largest of them runs through
+:func:`padded_call`: q, k, v (and o and dO for the backward) get zero
+columns up to the next instantiated dim, the scale stays 1/sqrt(true head
+dim), and the outputs are sliced back.  Zero columns add nothing to Q K^T,
+so P and the log-sum-exp are unchanged, and the padded columns of P V,
+dQ, dK and dV are dropped.  Above the largest dim the call raises.
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels._build import (DTYPE_CODES, LaunchCounter,
                                         check_launch, library, require,
@@ -33,6 +42,8 @@ BWD_KERNELS_PER_CALL = 3
 #: head dims the kernel is instantiated for (every config of the repo:
 #: 64, 80, 128, 256; the smaller ones for the smoke configs)
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+#: the largest head dim a call takes (there is nothing to pad it up to)
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 #: window passed for "no window": ``k > q - 2**30`` holds for every key
 NO_WINDOW = 1 << 30
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -45,6 +56,39 @@ def _check(t: torch.Tensor, name: str, like: Optional[torch.Tensor]) -> None:
         raise ValueError(f"{name} must be contiguous in its last dimension")
     if like is not None and t.dtype != like.dtype:
         raise ValueError(f"{name} is {t.dtype}, q is {like.dtype}")
+
+
+def padded_dim(hd: int) -> int:
+    """The instantiated head dim a call at ``hd`` runs at: the smallest of
+    ``HEAD_DIMS`` that is at least ``hd``."""
+    for d in HEAD_DIMS:
+        if d >= hd:
+            return d
+    raise ValueError(f"head_dim {hd} is above {MAX_HEAD_DIM}, the largest "
+                     "head dim the flash kernels take")
+
+
+def padded_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                *more: torch.Tensor, launch, scale: Optional[float] = None,
+                **kw):
+    """``launch(q, k, v, *more, scale=..., **kw)`` at an instantiated head
+    dim.  At a dim of ``HEAD_DIMS`` this is the call itself.  At another
+    dim every 4-D argument (q, k, v, and o and dO for the backward) gets
+    zero columns up to :func:`padded_dim`, the scale is fixed at
+    1/sqrt(true head dim), and every 4-D result is sliced back to the true
+    head dim (contiguous); anything else (lse) passes through unchanged."""
+    hd = q.shape[-1]
+    hp = padded_dim(hd)
+    if hp == hd:
+        return launch(q, k, v, *more, scale=scale, **kw)
+    sc = scale if scale is not None else 1.0 / math.sqrt(hd)
+    four_d = lambda t: isinstance(t, torch.Tensor) and t.ndim == 4
+    args = [F.pad(t, (0, hp - hd)) if four_d(t) else t
+            for t in (q, k, v, *more)]
+    out = launch(*args, scale=sc, **kw)
+    back = [t[..., :hd].contiguous() if four_d(t) else t
+            for t in (out if isinstance(out, tuple) else (out,))]
+    return tuple(back) if isinstance(out, tuple) else back[0]
 
 
 def _launch(q, k, v, o, *, lse: Optional[torch.Tensor] = None,

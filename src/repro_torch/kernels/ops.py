@@ -19,6 +19,7 @@ result that autograd cannot see through.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -91,12 +92,16 @@ def nbody_step(pos: torch.Tensor, vel: torch.Tensor, mass: torch.Tensor,
 
 class _FlashAttention(torch.autograd.Function):
     """The flash kernel with its backward kernel: the forward keeps each
-    row's log-sum-exp for the backward to recompute P from."""
+    row's log-sum-exp for the backward to recompute P from.  Both
+    directions go through the head-dim padding
+    (:func:`~repro_torch.kernels.flash_attention.padded_call`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bshd: bool, kw: dict):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o, lse = _flash.flash_attention_with_lse(q, k, v, bshd=bshd, **kw)
+        o, lse = _flash.padded_call(
+            q, k, v, launch=functools.partial(
+                _flash.flash_attention_with_lse, bshd=bshd), **kw)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.bshd, ctx.kw = bshd, kw
         return o
@@ -104,15 +109,16 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = _flash.flash_attention_backward(
-            q, k, v, o, do.contiguous(), lse, bshd=ctx.bshd, **ctx.kw)
+        dq, dk, dv = _flash.padded_call(
+            q, k, v, o, do.contiguous(), lse, launch=functools.partial(
+                _flash.flash_attention_backward, bshd=ctx.bshd), **ctx.kw)
         return dq, dk, dv, None, None
 
 
 def _flash_cuda(q, k, v, bshd: bool, kw: dict) -> torch.Tensor:
     if not _needs_grad(q, k, v):
         fwd = _flash.flash_attention_bshd if bshd else _flash.flash_attention
-        return fwd(q, k, v, **kw)
+        return _flash.padded_call(q, k, v, launch=fwd, **kw)
     if kw.get("kv_len") is not None:
         raise ValueError("the flash attention backward does not take kv_len")
     return _FlashAttention.apply(q, k, v, bshd, kw)

@@ -2,16 +2,22 @@
 
 Each body calls :mod:`repro_torch.kernels.ops`, so an accelerator slot
 launches the hand-written CUDA kernel and a host fission slot runs the
-plain version.  The elementary partitioning units are the paper's (one
-element, one image line, one body, one 1024x1024 plane), as are
-``flops/bytes_per_item``; ``BENCHMARKS`` carries the paper's size
-classes (Table 2 / Table 3).
+plain version.  The FFT SCT is the exception: its bodies are
+``torch.fft`` (cuFFT on the card), as the JAX package computes it with
+``jnp.fft`` and has no kernel of its own for it.  The elementary
+partitioning units are the paper's (one element, one image line, one
+FFT, one body, one 1024x1024 plane), as are ``flops/bytes_per_item``;
+``BENCHMARKS`` carries the paper's size classes (Table 2 / Table 3).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
-from repro_torch.core import SCT, Loop, LoopState, Map, kernel, scalar, vector
+import torch
+
+from repro_torch.core import (SCT, Loop, LoopState, Map, Pipeline, kernel,
+                              scalar, vector)
 from repro_torch.kernels import ops
 
 NBODY_DT = 0.01
@@ -45,6 +51,36 @@ def filter_pipeline_sct(width: int = 1024, *, src: str = "img",
     return Map(k)
 
 
+FFT_ELEMS = 512 * 1024 // 8        # one 512 KiB FFT (f64 complex pairs)
+
+
+def _fft(x: torch.Tensor) -> torch.Tensor:
+    if not x.numel():       # a slot without units (MKL refuses empty FFTs)
+        return x.new_empty(x.shape)
+    return torch.fft.fft(x, dim=1).real.to(x.dtype)
+
+
+def _ifft(x: torch.Tensor) -> torch.Tensor:
+    if not x.numel():
+        return x.new_empty(x.shape)
+    return torch.fft.ifft(x, dim=1).real.to(x.dtype)
+
+
+def fft_sct() -> SCT:
+    """FFT -> iFFT of each row, the real part kept after each; epu = one
+    whole FFT (the paper's 512 KiB)."""
+    lg = math.log2(FFT_ELEMS)
+    k1 = kernel(_fft, name="fft", inputs=[vector("sig", epu=1)],
+                outputs=[vector("freq", epu=1)],
+                flops_per_item=5 * FFT_ELEMS * lg,
+                bytes_per_item=16 * FFT_ELEMS)
+    k2 = kernel(_ifft, name="ifft", inputs=[vector("freq", epu=1)],
+                outputs=[vector("sig_out", epu=1)],
+                flops_per_item=5 * FFT_ELEMS * lg,
+                bytes_per_item=16 * FFT_ELEMS)
+    return Pipeline(k1, k2)
+
+
 def _nbody_body(pos, vel, all_pos, mass):
     return ops.nbody_step(pos, vel, mass, NBODY_DT, all_pos=all_pos)
 
@@ -66,6 +102,7 @@ def nbody_sct(n_bodies: int, iterations: int = 1) -> SCT:
 BENCHMARKS: Dict[str, Tuple] = {
     "filter_pipeline": (lambda n: filter_pipeline_sct(n),
                         [1024, 2048, 4096, 8192], "image size (px)"),
+    "fft": (lambda n: fft_sct(), [256, 512, 1024], "#FFTs (512KiB each)"),
     "nbody": (lambda n: nbody_sct(n), [8192, 16384, 32768], "bodies"),
     "saxpy": (lambda n: saxpy_sct(),
               [10 ** 6, 10 ** 7, 5 * 10 ** 7], "elements"),

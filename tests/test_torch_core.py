@@ -264,7 +264,8 @@ def _modules_after(code):
         [sys.executable, "-c", code + "\nimport sys, json\n"
          "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
          "or m.startswith('jax.') or m == 'repro' "
-         "or m.startswith('repro.'))))"],
+         "or m.startswith('repro.') or m == 'benchmarks' "
+         "or m.startswith('benchmarks.'))))"],
         capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=120)
     assert out.returncode == 0, out.stderr
     return json.loads(out.stdout.strip().splitlines()[-1])
@@ -273,11 +274,18 @@ def _modules_after(code):
 @pytest.mark.parametrize("code", [
     "import repro_torch, repro_torch.core, repro_torch.kernels.ops, "
     "repro_torch.suite",
+    *(f"import repro_torch.{name}" for name in (
+        "bench.locality", "bench.pipeline", "bench.telemetry_smoke",
+        "bench.report", "examples.quickstart")),
     *("import importlib.util\n"
       f"spec = importlib.util.spec_from_file_location('{name}', "
       f"'{name}.py')\n"
       "spec.loader.exec_module(importlib.util.module_from_spec(spec))"
-      for name in ("chip_smoke", "chip_kernel_turns", "chip_kernel_shapes")),
-], ids=["package", "chip_smoke", "chip_kernel_turns", "chip_kernel_shapes"])
+      for name in ("chip_smoke", "chip_kernel_turns", "chip_kernel_shapes",
+                   "chip_group_calibration")),
+], ids=["package", "bench.locality", "bench.pipeline",
+        "bench.telemetry_smoke", "bench.report", "examples.quickstart",
+        "chip_smoke", "chip_kernel_turns", "chip_kernel_shapes",
+        "chip_group_calibration"])
 def test_port_imports_neither_jax_nor_the_reference(code):
     assert _modules_after(code) == []

@@ -1125,3 +1125,75 @@ def test_granite_smoke_train_step_on_card_as_on_cpu(cuda_device):
     assert ops.COUNTERS["flash_attention"].value == L
     assert ops.COUNTERS["flash_attention_bwd"].value == L
     assert ops.COUNTERS["grouped_matmul"].value == 9 * L
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=True,
+                                                       window=40)],
+                         ids=["causal", "window"])
+@pytest.mark.parametrize("hd", [84, 96])
+def test_flash_padded_head_dims_match_plain_on_card(hd, kw, dtype,
+                                                    cuda_device):
+    """Head dims the kernels are not instantiated for run padded up to 128
+    (scale 1/sqrt(hd)): forward, forward with lse and backward, GQA 4/2,
+    against the plain version at the other dims' bounds; each call
+    launches the kernels."""
+    g = torch.Generator().manual_seed(hd)
+    q, do = (torch.randn(2, 4, 150, hd, generator=g).to(cuda_device, dtype)
+             for _ in range(2))
+    k, v = (torch.randn(2, 2, 150, hd, generator=g).to(cuda_device, dtype)
+            for _ in range(2))
+    before = (ops.COUNTERS["flash_attention"].value,
+              ops.COUNTERS["flash_attention_bwd"].value)
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ref.attention_ref(q, k, v, **kw)
+    rtol, atol = (3e-4, 3e-4) if dtype == torch.float32 else (2 ** -7, 3e-4)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    assert got.shape == q.shape and got.is_contiguous()
+    _check_flash_grads(q, k, v, do, kw)
+    torch.cuda.synchronize()
+    assert (ops.COUNTERS["flash_attention"].value,
+            ops.COUNTERS["flash_attention_bwd"].value) == \
+        (before[0] + 2, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_flash_refuses_head_dims_above_256_on_card(cuda_device):
+    q = torch.randn(1, 2, 8, 264, device=cuda_device)
+    with pytest.raises(ValueError, match="above 256"):
+        ops.flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate", ["locality", "pipeline", "telemetry_smoke"])
+def test_gate_on_cuda_stream_slots(gate, cuda_device, tmp_path):
+    """Each gate of ``repro_torch.bench`` at its smoke size with the
+    accelerator slots on CUDA streams: every deterministic gate holds
+    (wall-clock ratios are not asserted); the telemetry smoke's clean
+    accelerator slot spans each last at least their CUDA-event time."""
+    import json
+    from repro_torch.bench import locality, pipeline, telemetry_smoke
+    if gate == "telemetry_smoke":
+        trace = tmp_path / "trace.json"
+        res = telemetry_smoke.smoke(str(trace), "cuda")
+        assert res["deterministic_failures"] == []
+        spans = [s for s in telemetry_smoke.slot_spans(
+            json.loads(trace.read_text()))
+            if s["device"].startswith("gpu") and "fault" not in s["args"]]
+        assert spans and all(s["us"] >= s["args"]["device_ms"] * 1e3
+                             for s in spans)
+        return
+    mod = {"locality": locality, "pipeline": pipeline}[gate]
+    res = mod.bench(True, (1 << 19) if gate == "locality" else (1 << 18),
+                    "cuda")
+    assert mod.deterministic_failures(res) == []
+
+
+@pytest.mark.cuda
+def test_quickstart_on_card(cuda_device, capsys):
+    from repro_torch.examples import quickstart
+    quickstart.main(["--device", "cuda"])
+    assert capsys.readouterr().out.strip().splitlines()[-1] == \
+        "quickstart OK"
