@@ -1,6 +1,7 @@
 """The paper's main path in the port against the JAX package, on the CPU.
 
-Each scenario follows one test of the JAX package's own main-path suites
+Each scenario follows one test (or several small ones of one class) of the
+JAX package's own main-path suites
 (``test_locality.py``, ``test_graph_plan_cache.py``, ``test_fusion.py``,
 ``test_admission.py``, ``test_telemetry.py``, ``test_faults.py``).  It
 runs once per package on the same seeded numpy inputs (the port's
