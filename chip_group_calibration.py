@@ -66,9 +66,23 @@ each chunk's backward run on its own, no gradient carried back from the
 chunks after it), ``bwd_ssd_dA_zeroed`` (dA zeroed).
 ``chip_smoke.HYBRID_GRAD_F32_REL`` is set from these.
 
-    python3 chip_group_calibration.py [forward] [grad]
+``family`` does the same for the families added later:
+the serving heads of ``chip_smoke.HEAD_ARCHS`` (mamba2-1.3b's first 2
+layers with the SSD faults above; minicpm-2b's first 2 layers, gemma2-2b's
+first local/global pair and internvl2-26b's first 2 layers, with its 256
+frontend embeddings, with the flash faults), read against the CPU float32
+run as above; ``chip_smoke.CUT_ARCHS`` at their cut depth (mixtral-8x22b
+with the flash and MoE faults, command-r-plus-104b with the flash faults),
+read against the same model's float32 run through the plain versions on
+the card, as ``chip_smoke.cut_phase`` holds them; and the gradient heads of
+``chip_smoke.FAMILY_TRAIN_ARCHS`` (mamba2 with the SSD-backward faults,
+minicpm and gemma2 with the flash-backward faults; gemma2's softcap shows
+``bwd_flash_softcap_ignored``), from which ``chip_smoke.FAMILY_GRAD_F32_REL``
+is set.
 
-(no argument: both).  The full record goes to
+    python3 chip_group_calibration.py [forward] [grad] [family]
+
+(no argument: all three).  The full record goes to
 ``build/chip_group_calibration.json``.
 """
 from __future__ import annotations
@@ -160,31 +174,40 @@ def route_not_renormalised(x2d, p, cfg):
 #: of the head's parameters, by model
 FLASH_FAULTS = {f.__name__: wrap(ops, "flash_attention_bshd", f) for f in (
     flash_noncausal, flash_misplaced_tile, flash_scale_1_over_hd)}
+SSD_FAULTS = {f.__name__: wrap(ops, "ssd_scan", f)
+              for f in (ssd_no_carry, ssd_B_C_swapped, ssd_dt_shift)}
+MOE_FAULTS = {
+    "moe_w_in_experts_swapped": moe_w_in_experts_swapped,
+    "moe_w_in_w_gate_swapped": moe_w_in_w_gate_swapped,
+    "moe_no_capacity_drop": (moe_mod, "capacity",
+                             lambda good: keep_every_slot),
+    "moe_weights_not_renormalised": (moe_mod, "route",
+                                     lambda good: route_not_renormalised),
+}
 FAULTS = {
-    "zamba2-2.7b": dict(FLASH_FAULTS, **{
-        f.__name__: wrap(ops, "ssd_scan", f)
-        for f in (ssd_no_carry, ssd_B_C_swapped, ssd_dt_shift)}),
-    "granite-moe-3b-a800m": dict(FLASH_FAULTS, **{
-        "moe_w_in_experts_swapped": moe_w_in_experts_swapped,
-        "moe_w_in_w_gate_swapped": moe_w_in_w_gate_swapped,
-        "moe_no_capacity_drop": (moe_mod, "capacity",
-                                 lambda good: keep_every_slot),
-        "moe_weights_not_renormalised": (moe_mod, "route",
-                                         lambda good: route_not_renormalised),
-    }),
+    "zamba2-2.7b": dict(FLASH_FAULTS, **SSD_FAULTS),
+    "granite-moe-3b-a800m": dict(FLASH_FAULTS, **MOE_FAULTS),
+    "mamba2-1.3b": SSD_FAULTS,
+    "minicpm-2b": FLASH_FAULTS,
+    "gemma2-2b": FLASH_FAULTS,
+    "internvl2-26b": FLASH_FAULTS,
+    "mixtral-8x22b": dict(FLASH_FAULTS, **MOE_FAULTS),
+    "command-r-plus-104b": FLASH_FAULTS,
 }
 
 
-def faulty(head, state, tokens, fault, moe_in, dtype=torch.bfloat16):
+def faulty(head, state, tokens, fault, moe_in, dtype=torch.bfloat16,
+           extras=None):
     """A card prefill of the head with ``fault`` put in."""
     if callable(fault):
         return cs.head_prefill(head, fault(state), tokens, dtype, "cuda",
-                               moe_in)
+                               moe_in, extras)
     module, attr, patch = fault
     good = getattr(module, attr)
     setattr(module, attr, patch(good))
     try:
-        return cs.head_prefill(head, state, tokens, dtype, "cuda", moe_in)
+        return cs.head_prefill(head, state, tokens, dtype, "cuda", moe_in,
+                               extras)
     finally:
         setattr(module, attr, good)
 
@@ -208,23 +231,25 @@ def calibrate(arch):
     head, state = cs.model_head(cfg, model)
     del model
     torch.cuda.empty_cache()
-    names = cs.HEAD_OUTPUTS[cfg.family]
+    names = cs.head_outputs(cfg)
     f32, bf16 = torch.float32, torch.bfloat16
+    sound = [("card_f32", f32, "cuda"), ("card_bf16", bf16, "cuda")]
+    if arch not in cs.HEAD_NO_CPU_BF16:
+        sound.append(("cpu_bf16", bf16, "cpu"))
     record = {}
     for seed in SEEDS:
-        tokens = torch.from_numpy(np.random.default_rng(seed).integers(
-            0, cfg.vocab, (1, cs.LM_CHECK_TOKENS)))
+        tokens, extras = cs.head_check_inputs(cfg, seed)
         t0 = time.perf_counter()
         moe_in = (cs.moe_inputs(head, state, tokens, "cpu")[0][0]
                   if cfg.moe is not None else None)
-        want = cs.head_prefill(head, state, tokens, f32, "cpu", moe_in)
+        want = cs.head_prefill(head, state, tokens, f32, "cpu", moe_in,
+                               extras)
         runs = {name: cs.head_prefill(head, state, tokens, dtype, dev,
-                                      moe_in)
-                for name, dtype, dev in (("card_f32", f32, "cuda"),
-                                         ("card_bf16", bf16, "cuda"),
-                                         ("cpu_bf16", bf16, "cpu"))}
+                                      moe_in, extras)
+                for name, dtype, dev in sound}
         for name, fault in FAULTS[arch].items():
-            runs[name] = faulty(head, state, tokens, fault, moe_in)
+            runs[name] = faulty(head, state, tokens, fault, moe_in,
+                                extras=extras)
         row = {name: {k: cs.rel_l2(r[k], want[k]) for k in names}
                for name, r in runs.items()}
         if cfg.moe is not None:
@@ -243,6 +268,60 @@ def calibrate(arch):
                                              for k, v in r.items())
                                    if isinstance(r, dict) else str(r)),
                   flush=True)
+    return record
+
+
+def calibrate_cut(arch):
+    """``chip_smoke.cut_phase``'s check: the cut model in bf16 on the
+    kernels, sound and with each fault, against its float32 run through
+    the plain versions on the card, for three prompts."""
+    cfg = cs.get_config(arch).scaled(n_layers=cs.CUT_LAYERS)
+    model = cs.LM(cfg, dtype=torch.float32, device="cuda",
+                  generator=torch.Generator(device="cuda").manual_seed(0))
+
+    def run(tokens):
+        logits, cache = cs.prefill(model, tokens)
+        return {"logits": logits[:, :cfg.vocab].float(),
+                "k": cache["k"].float(), "v": cache["v"].float()}
+
+    wants = {}
+    for seed in SEEDS:
+        tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab, (1, cs.LM_CHECK_TOKENS))).cuda()
+        with cs.plain_on_card():
+            wants[seed] = (tokens, run(tokens))
+    card_f32 = {seed: run(tokens) for seed, (tokens, _) in wants.items()}
+    model.to(torch.bfloat16)
+    torch.cuda.empty_cache()
+    record = {}
+    for seed, (tokens, want) in wants.items():
+        runs = {"card_f32": card_f32[seed], "card_bf16": run(tokens)}
+        for name, fault in FAULTS[arch].items():
+            if callable(fault):
+                saved = {k: v.clone() for k, v in model.state_dict().items()}
+                model.load_state_dict(fault(saved))
+                runs[name] = run(tokens)
+                model.load_state_dict(saved)
+                del saved
+            else:
+                module, attr, patch = fault
+                good = getattr(module, attr)
+                setattr(module, attr, patch(good))
+                try:
+                    runs[name] = run(tokens)
+                finally:
+                    setattr(module, attr, good)
+        row = {name: {k: cs.rel_l2(r[k], want[k]) for k in want}
+               for name, r in runs.items()}
+        record[seed] = row
+        print(f"{arch} cut to {cs.CUT_LAYERS} layers, seed {seed}, relative "
+              "L2 against the plain float32 run on the card:", flush=True)
+        for name, r in row.items():
+            print(f"  {name}: " + ", ".join(f"{k} {v:.4g}"
+                                            for k, v in r.items()),
+                  flush=True)
+    del model
+    torch.cuda.empty_cache()
     return record
 
 
@@ -405,12 +484,51 @@ def calibrate_hybrid_grads():
     return record
 
 
+def calibrate_family_grads(arch):
+    """The gradient head of one of ``chip_smoke.FAMILY_TRAIN_ARCHS``, sound
+    and with the backward faults that reach it, as
+    ``chip_smoke.grad_head_check`` reads it."""
+    cfg = cs.get_config(arch)
+    model = cs.LM(cfg, device="cuda",
+                  generator=torch.Generator(device="cuda").manual_seed(0))
+    f32, bf16 = torch.float32, torch.bfloat16
+    groups = cs.FAMILY_GRAD_GROUPS[arch]
+    faults = (HYBRID_GRAD_FAULTS if cfg.ssm is not None else
+              {k: GRAD_FAULTS[k] for k in ("bwd_flash_dk_dv_swapped",
+                                           "bwd_flash_softcap_ignored")})
+    record = {}
+    for seed in SEEDS:
+        t0 = time.perf_counter()
+        head, state, batch = cs.hybrid_grad_inputs(cfg, model, seed)
+        want = cs.head_grads(head, state, batch, f32, "cpu")
+
+        def head_run(dtype, dev="cuda"):
+            return cs.grad_rel(cs.head_grads(head, state, batch, dtype, dev),
+                               want, groups)
+
+        row = {"head card_f32": head_run(f32), "head card_bf16":
+               head_run(bf16)}
+        for name, fault in faults.items():
+            row[f"head f32 {name}"] = patched(fault, head_run, f32)
+        record[seed] = row
+        print(f"{cfg.arch} gradients, data seed {seed} "
+              f"({time.perf_counter() - t0:.1f} s), relative L2 against "
+              "CPU f32:", flush=True)
+        for name, r in row.items():
+            print(f"  {name}: " + ", ".join(f"{k} {v:.4g}"
+                                            for k, v in r.items()),
+                  flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return record
+
+
 def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_group_calibration: no CUDA device", file=sys.stderr)
         return 2
     parts = set((sys.argv[1:] if argv is None else argv)
-                or ("forward", "grad"))
+                or ("forward", "grad", "family"))
     print(cs.gpu_line(), flush=True)
     _build.library()
     torch.set_num_threads(os.cpu_count() or 1)
@@ -420,6 +538,12 @@ def main(argv=None) -> int:
     if "grad" in parts:
         record["grad " + cs.TRAIN_ARCH] = calibrate_grads()
         record["grad " + cs.HYBRID_TRAIN_ARCH] = calibrate_hybrid_grads()
+    if "family" in parts:
+        record.update({arch: calibrate(arch) for arch in cs.HEAD_ARCHS})
+        record.update({f"{arch} {cs.CUT_LAYERS} layers": calibrate_cut(arch)
+                       for arch in cs.CUT_ARCHS})
+        record.update({"grad " + arch: calibrate_family_grads(arch)
+                       for arch in cs.FAMILY_TRAIN_ARCHS})
     out = cs.ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_group_calibration.json").write_text(json.dumps(record,

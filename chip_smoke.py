@@ -49,7 +49,19 @@ and read just after:
   attention layers, with the full-width embedding) card float32 against
   CPU float32 by parameter group, then four full-width, full-depth steps
   (54 layers: 45 Mamba2 + 9 attention) through ``make_train_step`` on
-  ``batch_at``'s 8 x 512 tokens, with no plain version called.
+  ``batch_at``'s 8 x 512 tokens, with no plain version called;
+- the other families, each model freed before the next: mamba2-1.3b,
+  minicpm-2b, gemma2-2b, nemotron-4-15b and internvl2-26b served at full
+  width and depth behind ``ServeEngine`` (4 requests of 256-1536 prompt
+  tokens, 16 new tokens each), each kernel first held to its plain
+  version at the arch's shapes; gemma2 once more past its 4096-token
+  window, internvl2 with 256 frontend embeddings; a head check card
+  against CPU for one model of each family; mixtral-8x22b and
+  command-r-plus-104b at full width with their depth cut to 2 layers,
+  their kernels held to the plain versions on the card; mamba2, minicpm
+  and gemma2 trained at full width and depth (4 steps each, a gradient
+  head check, no plain version called); ``repro_torch.examples.train_lm``
+  run to a checkpoint and resumed from it.
 
 Standard output ends with three lines: the card's name and power limit as
 ``nvidia-smi`` prints them, one JSON object describing each kernel
@@ -66,6 +78,7 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -84,7 +97,7 @@ from repro_torch import suite  # noqa: E402
 from repro_torch.bench import locality as gate_locality  # noqa: E402
 from repro_torch.bench import pipeline as gate_pipeline  # noqa: E402
 from repro_torch.bench import telemetry_smoke as gate_telemetry  # noqa: E402
-from repro_torch.examples import quickstart  # noqa: E402
+from repro_torch.examples import quickstart, train_lm  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (AcceleratorPlatform, DeviceInfo,  # noqa: E402
                               ExecutionSlot, HostPlatform, JobGraph,
@@ -220,7 +233,37 @@ NO_SPILL = ("flash_mma_kernel", "gmm_wgmma_kernel", "ssd_cb",
 GROUP_F32_TOL = 1e-3
 GROUP_BF16_REL = {"zamba2-2.7b": {"logits": 0.3, "h": 0.05},
                   "granite-moe-3b-a800m": {"logits": 0.5, "k": 0.08,
-                                           "v": 0.08, "moe": 0.1}}
+                                           "v": 0.08, "moe": 0.1},
+                  "mamba2-1.3b": {"logits": 0.05, "h": 0.05},
+                  "minicpm-2b": {"logits": 0.4, "k": 0.1, "v": 0.1},
+                  "gemma2-2b": {"logits": 0.05, "k_local": 0.01,
+                                "v_local": 0.01, "k_global": 0.05,
+                                "v_global": 0.05},
+                  "internvl2-26b": {"logits": 0.56, "k": 0.09, "v": 0.09},
+                  "mixtral-8x22b": {"logits": 0.5, "k": 0.09, "v": 0.09},
+                  "command-r-plus-104b": {"logits": 0.55, "k": 0.09,
+                                          "v": 0.09}}
+#: the later entries' readings (chip_group_calibration.py family, prompt
+#: seeds 1, 3, 5; PERF.md): sound bf16 runs (card, and CPU where it runs)
+#: against the planted faults (flash: the causal mask dropped, a key tile
+#: misplaced, the scale 1/hd; SSD: B and C swapped, dt one position late;
+#: MoE: experts' w_in swapped, w_in and w_gate swapped, no capacity drop,
+#: weights not renormalised):
+#:   mamba2 logits <= 0.0144 vs >= 0.288, h <= 0.0113 vs >= 0.899 (the SSD
+#:   state carried across chunks decays to nothing within a 256-token
+#:   chunk at the init's A = -1: dropping the carry does not show);
+#:   minicpm logits <= 0.193 vs >= 0.689, k/v <= 0.0270 vs >= 0.229;
+#:   gemma2 logits <= 0.0071 vs >= 0.545, global k/v <= 0.0117 vs >=
+#:   0.536; its local k/v come before any attention (no fault reaches
+#:   them: 0.0038 and 0.0033, limits 2.7-3x that);
+#:   internvl2 (with its frontend embeddings) logits <= 0.522 vs >=
+#:   0.595, the narrowest gap, k/v <= 0.0517 vs >= 0.127;
+#:   mixtral at 2 layers, against the plain float32 run on the card,
+#:   logits <= 0.409 vs >= 0.619, k/v <= 0.0598 vs >= 0.131 (no MoE fault
+#:   shows in bf16 past the attention output: 0.229-0.412; the float32
+#:   check, within 1e-5 of its bound's scale when sound, is the MoE's);
+#:   command-r-plus at 2 layers logits <= 0.452 vs >= 0.646, k/v <=
+#:   0.0642 vs >= 0.125
 #: granite's head: its first layers
 MOE_CHECK_LAYERS = 2
 #: the training phase: granite at full width, batch x sequence tokens a
@@ -281,6 +324,62 @@ HYBRID_GRAD_GROUPS = ("embed", "ssm_proj", "ssm_scalars", "conv", "attn",
 HYBRID_GRAD_F32_REL = 5e-3
 #: the profiled window: one prefill of the largest prompt, decode steps
 PROFILE_DECODE_STEPS = 8
+#: where the families' phases run (the card; a rehearsal on the host sets
+#: "cpu")
+CARD = "cuda"
+#: the other families, served in turn at full width and depth (bf16, random
+#: weights from seed 0) behind ServeEngine: 4 slots, capacity 2048, 4
+#: requests of 256-1536 prompt tokens and 16 new tokens each
+FAMILY_ARCHS = ("mamba2-1.3b", "minicpm-2b", "gemma2-2b", "nemotron-4-15b",
+                "internvl2-26b")
+FAMILY_REQUESTS, FAMILY_MAX_NEW = 4, 16
+#: their head checks (one model of each family: ssm, dense, local/global,
+#: vlm; nemotron's dense stack is minicpm's with another MLP, both plain
+#: PyTorch around the same flash kernel); the CPU's bf16 run is left out
+#: where the head is too large for the CPU in the run's time
+HEAD_ARCHS = ("mamba2-1.3b", "minicpm-2b", "gemma2-2b", "internvl2-26b")
+HEAD_NO_CPU_BF16 = ("gemma2-2b", "internvl2-26b")
+#: gemma2 past its sliding window: one request of WINDOW_PROMPT tokens at
+#: capacity WINDOW_CAPACITY, then WINDOW_DECODE decode steps through the
+#: rolling local cache
+WINDOW_ARCH = "gemma2-2b"
+WINDOW_PROMPT, WINDOW_CAPACITY, WINDOW_DECODE = 5120, 8192, 8
+#: the VLM's stub frontend: one direct prefill with frontend embeddings of
+#: (1, frontend_positions, d_model) from generator seed 7
+VLM_ARCH = "internvl2-26b"
+#: the configurations too large for one card, at full width with their depth
+#: cut to CUT_LAYERS (mixtral's 56 layers hold 1.41e11 parameters, 281 GB in
+#: bf16; command-r-plus's 64 hold 1.07e11, 214 GB): one CUT_PROMPT-token
+#: prefill and CUT_DECODE decode steps on the kernels, and the same model
+#: in float32 through the kernels and through the plain versions on the
+#: card at LM_CHECK_TOKENS tokens
+CUT_ARCHS = ("mixtral-8x22b", "command-r-plus-104b")
+CUT_LAYERS, CUT_PROMPT, CUT_DECODE = 2, 1536, 8
+#: trained in turn at full width and depth, TRAIN_STEPS steps of
+#: TRAIN_BATCH x TRAIN_SEQ tokens, the launcher's recipe for the arch
+#: (minicpm: WSD), no activation checkpointing (each fits: PERF.md)
+FAMILY_TRAIN_ARCHS = ("mamba2-1.3b", "minicpm-2b", "gemma2-2b")
+FAMILY_TRAIN_REMAT = "none"
+#: their gradient head checks: the head's gradients on one 1 x TRAIN_SEQ
+#: batch by parameter group, card float32 against the CPU's float32 plain
+#: ones by relative L2 under FAMILY_GRAD_F32_REL; bf16 reported.  Readings
+#: (chip_group_calibration.py family, data seeds 1, 3, 5): sound mamba2 <=
+#: 8.1e-6, minicpm <= 4.3e-4, gemma2 <= 5.1e-5; faults: the SSD backward's
+#: reverse state pass skipped >= 0.0165 in every group, dB and dC swapped
+#: >= 0.656, dA zeroed 0.341-0.389 in ssm_scalars; the flash backward's dK
+#: and dV swapped >= 0.837; gemma2's softcap left out of the backward NaN
+FAMILY_GRAD_GROUPS = {"mamba2-1.3b": ("embed", "ssm_proj", "ssm_scalars",
+                                      "conv", "norms"),
+                      "minicpm-2b": ("embed", "attn", "ffn", "norms"),
+                      "gemma2-2b": ("embed", "attn", "ffn", "norms")}
+FAMILY_GRAD_F32_REL = 5e-3
+#: repro_torch.examples.train_lm on the card: a first run to TRAIN_LM_STEPS[0]
+#: (saved at its end), a second from the same directory to
+#: TRAIN_LM_STEPS[1].  The loss is not held to a fall: with the reference's
+#: recipe and init it does not fall in 300 steps, in this port on the card
+#: (9.72 -> 9.83) or in the JAX package's example on the CPU (ROADMAP.md
+#: section 3)
+TRAIN_LM_STEPS = (40, 60)
 
 
 def reset_counts() -> None:
@@ -1197,13 +1296,13 @@ def moe_kernel_phase(cfg):
     return results
 
 
-def lm_prompts(cfg):
-    """LM_REQUESTS prompts, lengths drawn from seed 0 in LM_PROMPTS; for
+def lm_prompts(cfg, n_requests: int = LM_REQUESTS):
+    """``n_requests`` prompts, lengths drawn from seed 0 in LM_PROMPTS; for
     an SSM model at least one a multiple of the SSD chunk (no tail) and two
     not (a tail)."""
     rng = np.random.default_rng(0)
     lengths = [int(n) for n in rng.integers(LM_PROMPTS[0], LM_PROMPTS[1] + 1,
-                                            LM_REQUESTS)]
+                                            n_requests)]
     if cfg.ssm is not None:
         Q = cfg.ssm.chunk
         if not any(n % Q == 0 for n in lengths):
@@ -1214,27 +1313,32 @@ def lm_prompts(cfg):
 
 
 def want_launches(cfg, lengths, decode_steps):
-    """Each LM kernel's launches over the requests: zamba2 one flash call
-    per hybrid group and one SSD call per Mamba2 layer (two when the prompt
-    has a ragged tail) per prefill; granite one flash call per layer per
-    prefill and three grouped GEMMs per layer per prefill and decode step."""
-    if cfg.family == "hybrid":
-        groups = cfg.n_layers // cfg.hybrid_attn_every
-        mamba = groups * (cfg.hybrid_attn_every - 1)
-        Q = cfg.ssm.chunk
-        return {"flash_attention": groups * len(lengths),
-                "ssd_scan": sum(mamba * (2 if n > Q and n % Q else 1)
-                                for n in lengths),
-                "grouped_matmul": 0}
-    return {"flash_attention": cfg.n_layers * len(lengths), "ssd_scan": 0,
-            "grouped_matmul": 3 * cfg.n_layers * (len(lengths)
-                                                  + decode_steps)}
+    """Each LM kernel's launches over the requests: one flash call per
+    attention layer per prefill (zamba2: one per hybrid group; gemma2: the
+    local and the global layer of each pair; mamba2: none), one SSD call
+    per Mamba2 layer per prefill (two when the prompt has a ragged tail),
+    and for a MoE model three grouped GEMMs per layer per prefill and decode
+    step (a decode step runs neither flash nor the SSD scan)."""
+    n_attn = sum(cfg.is_attention_layer(i) for i in range(cfg.n_layers))
+    n_ssm = cfg.n_layers - n_attn
+    Q = cfg.ssm.chunk if cfg.ssm is not None else 0
+    return {"flash_attention": n_attn * len(lengths),
+            "ssd_scan": sum(n_ssm * (2 if Q and n > Q and n % Q else 1)
+                            for n in lengths),
+            "grouped_matmul": (3 * cfg.n_layers * (len(lengths)
+                                                   + decode_steps)
+                               if cfg.moe is not None else 0)}
 
 
-def lm_main_path(cfg, model):
-    """8 requests through ServeEngine on cuda:0; the LM kernels' launch
-    counters from 0 just before to just after."""
-    prompts = lm_prompts(cfg)
+def lm_main_path(cfg, model, n_requests: int = LM_REQUESTS,
+                 max_new: int = LM_MAX_NEW, prompts=None, slots=LM_SLOTS,
+                 capacity=LM_CAPACITY):
+    """``n_requests`` requests (``prompts``, default ``lm_prompts``) of
+    ``max_new`` tokens through ServeEngine on cuda:0; the LM kernels'
+    launch counters from 0 just before to just after, and the peak memory
+    over the run."""
+    prompts = prompts if prompts is not None else lm_prompts(cfg, n_requests)
+    n_requests = len(prompts)
     prefills, decode = [], {"seconds": 0.0, "tokens": 0, "steps": 0}
     bad = []
 
@@ -1248,23 +1352,26 @@ def lm_main_path(cfg, model):
         if not torch.isfinite(logits).all():
             bad.append(f"{kind} of {n}")
 
-    engine = ServeEngine(cfg, model, slots=LM_SLOTS, capacity=LM_CAPACITY,
+    engine = ServeEngine(cfg, model, slots=slots, capacity=capacity,
                          temperature=0.0, on_step=on_step)
     for p in prompts:
-        engine.submit(p, max_new=LM_MAX_NEW)
+        engine.submit(p, max_new=max_new)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     done = engine.run_to_completion()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     launches = {k: c.value for k, c in ops.COUNTERS.items()}
     gmm_paths = {k: c.value for k, c in gmm_mod.bf16_launches.items()}
 
     expect(not bad, f"non-finite logits: {bad}")
-    expect(len(done) == LM_REQUESTS and len(prefills) == LM_REQUESTS,
-           f"{len(done)} of {LM_REQUESTS} done, {len(prefills)} prefills")
+    expect(len(done) == n_requests and len(prefills) == n_requests,
+           f"{len(done)} of {n_requests} done, {len(prefills)} prefills")
     for r in done:
-        expect(len(r.out) == LM_MAX_NEW
+        expect(len(r.out) == max_new
                and all(0 <= t < cfg.vocab for t in r.out),
                f"request {r.rid}: {len(r.out)} tokens in the vocab")
     lengths = [len(p) for p in prompts]
@@ -1278,27 +1385,39 @@ def lm_main_path(cfg, model):
         print(f"lm prefill {n} tokens: {sec:.4f} s", flush=True)
     tok_s = decode["tokens"] / decode["seconds"]
     print(f"lm decode: {decode['tokens']} tokens in {decode['steps']} steps, "
-          f"{decode['seconds']:.3f} s, {tok_s:.1f} tokens/s; all 8 requests "
-          f"in {seconds:.2f} s", flush=True)
+          f"{decode['seconds']:.3f} s, {tok_s:.1f} tokens/s; all "
+          f"{n_requests} requests in {seconds:.2f} s, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB", flush=True)
     return dict(prompt_lengths=lengths, prefill_seconds=prefills,
                 decode=decode, decode_tokens_per_s=tok_s, seconds=seconds,
+                peak_memory_bytes=peak, cache_shapes={
+                    k: list(v.shape) for k, v in engine.cache.items()},
                 launches=launches, want_launches=want,
                 grouped_matmul_bf16_launches=gmm_paths,
                 first_tokens=[r.out[:8] for r in done])
 
 
-#: what the head check compares, by family: the last-token logits, the
-#: cache the head fills, and for the MoE family the first layer's MoE FFN
-#: on a shared input (``head_prefill``)
-HEAD_OUTPUTS = {"hybrid": ("logits", "h"), "moe": ("logits", "k", "v", "moe")}
+def head_outputs(cfg):
+    """What the head check compares: the last-token logits, the cache the
+    head fills (the SSM state h; k and v, gemma2's by local and global
+    layer), and for the MoE family the first layer's MoE FFN on a shared
+    input (``head_prefill``)."""
+    if cfg.ssm is not None:
+        return ("logits", "h")
+    if cfg.local_global_pattern:
+        return ("logits", "k_local", "v_local", "k_global", "v_global")
+    return ("logits", "k", "v") + (("moe",) if cfg.moe is not None else ())
 
 
 def model_head(cfg, model):
     """The config and parameters of the model's head, with its full-width
     embedding: zamba2's first hybrid group (5 Mamba2 + 1 attention
-    layers), granite's first MOE_CHECK_LAYERS layers."""
+    layers), gemma2's first local/global pair, any other model's first
+    MOE_CHECK_LAYERS layers."""
     if cfg.family == "hybrid":
         n, blocks = cfg.hybrid_attn_every, 1
+    elif cfg.local_global_pattern:
+        n, blocks = 2, 1
     else:
         n = blocks = MOE_CHECK_LAYERS
     keep = tuple(f"layers.{i}." for i in range(blocks))
@@ -1337,7 +1456,7 @@ def head_routes(head, state, tokens, dev):
             for h, p in moe_inputs(head, state, tokens, dev)]
 
 
-def head_prefill(head, state, tokens, dtype, dev, moe_in=None):
+def head_prefill(head, state, tokens, dtype, dev, moe_in=None, extras=None):
     """The last-token logits over the vocab and the cache entries of the
     head's prefill, on ``dev`` in ``dtype``: kernels on the card, plain
     versions on the CPU.  For the MoE family also ``moe``: the first
@@ -1347,12 +1466,14 @@ def head_prefill(head, state, tokens, dtype, dev, moe_in=None):
     init rule (fan-in = the heads axis) q and k reach ~14 per element, the
     softmax is near argmax, bf16 rounding flips which key wins, and the
     attention output (~70 per element) drowns the MoE's (~0.3) in the
-    residual stream."""
+    residual stream.  ``extras`` (a VLM's ``frontend_embeds``) go to the
+    prefill in ``dtype``."""
     m = head_model(head, state, dtype, dev)
-    logits, cache = prefill(m, tokens.to(dev))
+    logits, cache = prefill(m, tokens.to(dev), **{
+        k: v.to(dev, dtype) for k, v in (extras or {}).items()})
     # the padded vocab tail is masked to -2^30 on every run: left out
     out = {"logits": logits[:, :head.vocab].float().cpu()}
-    for k in HEAD_OUTPUTS[head.family][1:]:
+    for k in head_outputs(head)[1:]:
         out[k] = (moe_mod.moe_ffn(moe_in.to(dev, dtype), m.layers[0]["moe"],
                                   head)[0] if k == "moe"
                   else cache[k]).float().cpu()
@@ -1384,13 +1505,28 @@ def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got - want).norm() / want.norm()).item()
 
 
+def head_check_inputs(cfg, seed: int = 1):
+    """The head check's 512-token prompt of ``seed``, and for a VLM its
+    frontend embeddings (1, frontend_positions, d_model) drawn from a
+    generator of the same seed."""
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (1, LM_CHECK_TOKENS)))
+    extras = {}
+    if cfg.frontend_positions:
+        extras["frontend_embeds"] = torch.randn(
+            (1, cfg.frontend_positions, cfg.d_model),
+            generator=torch.Generator().manual_seed(seed))
+    return tokens, extras
+
+
 def lm_head_check(cfg, model):
     """The model's head at full width: its own parameters on the card
     (kernels) and on the CPU (plain versions, chosen by device), one
-    512-token prompt, in float32 and in bf16."""
+    512-token prompt (and a VLM's frontend embeddings), in float32 and in
+    bf16.  The CPU's bf16 run, which only shows how far bf16 alone moves
+    the head, is left out for the archs of HEAD_NO_CPU_BF16."""
     head, state = model_head(cfg, model)
-    rng = np.random.default_rng(1)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (1, LM_CHECK_TOKENS)))
+    tokens, extras = head_check_inputs(cfg)
     runs, cpu_s = {}, 0.0
     threads = torch.get_num_threads()
     torch.set_num_threads(os.cpu_count() or 1)
@@ -1398,9 +1534,12 @@ def lm_head_check(cfg, model):
               else None)
     for dtype in (torch.float32, torch.bfloat16):
         for dev in ("cuda", "cpu"):
+            if (dtype, dev) == (torch.bfloat16, "cpu") \
+                    and cfg.arch in HEAD_NO_CPU_BF16:
+                continue
             t0 = time.perf_counter()
             runs[dtype, dev] = head_prefill(head, state, tokens, dtype, dev,
-                                            moe_in)
+                                            moe_in, extras)
             if dev == "cpu":
                 cpu_s += time.perf_counter() - t0
     routes = route_check(head, state, tokens) if cfg.moe else None
@@ -1408,7 +1547,7 @@ def lm_head_check(cfg, model):
     f32, bf16 = torch.float32, torch.bfloat16
     limits = GROUP_BF16_REL[cfg.arch]
     out = {}
-    for name in HEAD_OUTPUTS[cfg.family]:
+    for name in head_outputs(cfg):
         want = runs[f32, "cpu"][name]
         got = runs[f32, "cuda"][name]
         scale = want.abs().max().item()
@@ -1416,9 +1555,10 @@ def lm_head_check(cfg, model):
         # k/v are stored in bf16: one bf16 step apart where the float32
         # values round to neighbours
         ex32 = (bf16_excess(got, want, GROUP_F32_TOL * scale)
-                if name in ("k", "v") else e32 / (GROUP_F32_TOL * scale))
+                if name[0] in "kv" else e32 / (GROUP_F32_TOL * scale))
         rel16 = rel_l2(runs[bf16, "cuda"][name], want)
-        noise = rel_l2(runs[bf16, "cpu"][name], want)
+        noise = (rel_l2(runs[bf16, "cpu"][name], want)
+                 if (bf16, "cpu") in runs else None)
         expect(math.isfinite(e32) and ex32 <= 1.0,
                f"card vs CPU {name}, float32: max err {e32} (max {scale}), "
                f"worst element at {ex32:.3f} of its bound")
@@ -1429,6 +1569,7 @@ def lm_head_check(cfg, model):
                          f32_share_of_bound=ex32, bf16_card_rel_l2=rel16,
                          bf16_cpu_rel_l2=noise)
     what = ("one group" if cfg.family == "hybrid"
+            else "one local/global pair" if cfg.local_global_pattern
             else f"{MOE_CHECK_LAYERS} layers")
     print(f"lm {what} card vs CPU: {out} (CPU {cpu_s:.1f} s)", flush=True)
     if routes is not None:
@@ -1437,7 +1578,7 @@ def lm_head_check(cfg, model):
               f"differ; k-th vs (k+1)-th probability gap where they do: "
               f"{routes['gaps_where_differ']}; smallest gap of any token "
               f"{routes['nearest_kth_gap']:.3g}", flush=True)
-    f32_rule = (f"{GROUP_F32_TOL} x max |CPU f32|" if cfg.family == "hybrid"
+    f32_rule = (f"{GROUP_F32_TOL} x max |CPU f32|" if cfg.ssm is not None
                 else f"logits {GROUP_F32_TOL} x max |CPU f32|; k/v 2^-7 |CPU| "
                      f"+ {GROUP_F32_TOL} x max |CPU| elementwise")
     return dict(out, routes=routes, cpu_seconds=cpu_s, tolerance=(
@@ -1496,14 +1637,7 @@ def lm_phase(arch):
     """One model: its kernels at its shapes, its main path, a profiled
     window and the head check; the model is freed before returning."""
     cfg = get_config(arch)
-    t0 = time.perf_counter()
-    model = LM(cfg, device="cuda",
-               generator=torch.Generator(device="cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"lm {cfg.arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{n_params / 1e9:.2f}e9 parameters in bf16, built in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    model = build_model(cfg)
     kernels = (lm_kernel_phase(cfg) if cfg.family == "hybrid"
                else moe_kernel_phase(cfg))
     for name, r in kernels.items():
@@ -1702,23 +1836,19 @@ def train_kernel_phase(cfg, dev="cuda"):
 
 
 def want_train_launches(cfg, remat: str = TRAIN_REMAT):
-    """Each kernel's launches in one step.  The moe family: one flash
-    forward and backward per layer; three grouped GEMMs per layer forward,
-    each with a dx and a dw behind it.  The hybrid family: one SSD scan
-    forward and backward per Mamba2 layer, one flash forward and backward
-    per attention layer.  Under a remat policy the kernels are recomputed
-    (they are no matrix products to the dispatcher: models/lm.py
-    REMAT_SAVED), so each forward runs twice."""
+    """Each kernel's launches in one step: one flash forward and backward
+    per attention layer, one SSD scan forward and backward per Mamba2
+    layer, and for the moe family three grouped GEMMs per layer forward,
+    each with a dx and a dw behind it.  Under a remat policy the kernels
+    are recomputed (they are no matrix products to the dispatcher:
+    models/lm.py REMAT_SAVED), so each forward runs twice."""
     L = cfg.n_layers
-    if cfg.family != "hybrid":
-        return {"flash_attention": L, "flash_attention_bwd": L,
-                "grouped_matmul": 9 * L, "ssd_scan": 0, "ssd_scan_bwd": 0}
-    n_attn = L // cfg.hybrid_attn_every
+    n_attn = sum(cfg.is_attention_layer(i) for i in range(L))
     n_ssm = L - n_attn
     again = 1 if remat in (None, "none") else 2
     return {"flash_attention": again * n_attn, "flash_attention_bwd": n_attn,
-            "grouped_matmul": 0, "ssd_scan": again * n_ssm,
-            "ssd_scan_bwd": n_ssm}
+            "grouped_matmul": (again * 3 + 6) * L if cfg.moe else 0,
+            "ssd_scan": again * n_ssm, "ssd_scan_bwd": n_ssm}
 
 
 class PlainCalls:
@@ -1783,7 +1913,7 @@ def train_main_path(cfg, model, remat: str = TRAIN_REMAT):
     for k, n in want.items():
         expect(launches[k] == n * TRAIN_STEPS,
                f"{k}: {launches[k]} launches == {n} a step x {TRAIN_STEPS}")
-    expect(gmm_bwd == 6 * want["grouped_matmul"] // 9 * TRAIN_STEPS,
+    expect(gmm_bwd == (6 * cfg.n_layers if cfg.moe else 0) * TRAIN_STEPS,
            f"grouped GEMM backward launches {gmm_bwd}")
     expect(gmm_paths == {"tma": launches["grouped_matmul"], "wmma": 0},
            f"every grouped GEMM launch took the TMA + wgmma kernel: "
@@ -1865,6 +1995,8 @@ def grad_group(name: str) -> str:
         return "attn"
     if ".attn." in name:
         return "attn"
+    if ".ffn." in name:                   # a dense block's MLP
+        return "ffn"
     if name.endswith("moe.router"):
         return "router"
     if "moe." in name:
@@ -1979,12 +2111,7 @@ def train_phase():
               f"(dx + dw): {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"torch.bmm backward {r['library_ms']:.4f} ms, bound "
               f"{r['bound'][0]:.4f} ms ({r['bound'][1]})", flush=True)
-    t0 = time.perf_counter()
-    model = LM(cfg, device="cuda",
-               generator=torch.Generator(device="cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    print(f"train {cfg.arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    model = build_model(cfg)
     head = train_head_check(cfg, model)      # the parameters as built
     main = train_main_path(cfg, model)
     del model
@@ -2144,10 +2271,13 @@ def ssd_train_kernel_phase(cfg, dev="cuda"):
         bound_split_tf32=ssd_bwd_split_bound(B, S, Q, nh, hd, ds))}
 
 
-def hybrid_head_check(cfg, model, dev="cuda"):
-    """The gradients of zamba2's first hybrid group on one batch, card
+def grad_head_check(cfg, model, groups, limit, dev="cuda"):
+    """The gradients of the model's head (``model_head``: zamba2's first
+    hybrid group, gemma2's first local/global pair, any other model's first
+    2 layers; the full-width embedding) on one 1 x TRAIN_SEQ batch, card
     float32 (kernels) against the CPU's float32 plain ones by parameter
-    group; card bf16 reported (see HYBRID_GRAD_F32_REL)."""
+    group under ``limit``; card bf16 reported (see HYBRID_GRAD_F32_REL,
+    FAMILY_GRAD_F32_REL)."""
     threads = torch.get_num_threads()
     torch.set_num_threads(os.cpu_count() or 1)
     t0 = time.perf_counter()
@@ -2155,19 +2285,21 @@ def hybrid_head_check(cfg, model, dev="cuda"):
     want = head_grads(head, state, batch, torch.float32, "cpu")
     cpu_s = time.perf_counter() - t0
     torch.set_num_threads(threads)
+    expect(set(map(grad_group, want)) == set(groups),
+           f"every gradient in a group: {sorted(set(map(grad_group, want)))}")
     f32 = grad_rel(head_grads(head, state, batch, torch.float32, dev), want,
-                   HYBRID_GRAD_GROUPS)
+                   groups)
     b16 = grad_rel(head_grads(head, state, batch, torch.bfloat16, dev),
-                   want, HYBRID_GRAD_GROUPS)
-    for grp in HYBRID_GRAD_GROUPS:
-        expect(math.isfinite(f32[grp]) and f32[grp] <= HYBRID_GRAD_F32_REL,
-               f"card f32 vs CPU f32 gradients of {grp}: relative L2 "
-               f"{f32[grp]} <= {HYBRID_GRAD_F32_REL}")
+                   want, groups)
+    for grp in groups:
+        expect(math.isfinite(f32[grp]) and f32[grp] <= limit,
+               f"{cfg.arch} card f32 vs CPU f32 gradients of {grp}: "
+               f"relative L2 {f32[grp]} <= {limit}")
         expect(math.isfinite(b16[grp]), f"finite bf16 gradients of {grp}")
-    print(f"train one hybrid group's gradients, relative L2 to CPU f32: "
-          f"card f32 {f32}; card bf16 {b16} (CPU {cpu_s:.1f} s)", flush=True)
+    print(f"train {cfg.arch} head's gradients, relative L2 to CPU f32: card "
+          f"f32 {f32}; card bf16 {b16} (CPU {cpu_s:.1f} s)", flush=True)
     return dict(f32_rel_l2=f32, bf16_rel_l2=b16, cpu_seconds=cpu_s,
-                tolerance=f"f32: {HYBRID_GRAD_F32_REL}; bf16: reported")
+                tolerance=f"f32: {limit}; bf16: reported")
 
 
 def hybrid_grad_inputs(cfg, model, seed: int = 1):
@@ -2196,18 +2328,408 @@ def hybrid_train_phase():
           f"{r['bound_split_tf32'][1]}), max err "
           f"{r['max_abs_err']:.3g} (chained tail "
           f"{r['chained_max_abs_err']:.3g})", flush=True)
-    t0 = time.perf_counter()
-    model = LM(cfg, device="cuda",
-               generator=torch.Generator(device="cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    print(f"train {cfg.arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
-    head = hybrid_head_check(cfg, model)     # the parameters as built
+    model = build_model(cfg)
+    head = grad_head_check(cfg, model, HYBRID_GRAD_GROUPS,
+                           HYBRID_GRAD_F32_REL)   # the parameters as built
     main = train_main_path(cfg, model, HYBRID_TRAIN_REMAT)
     del model
     gc.collect()
     torch.cuda.empty_cache()
     return kernels, main, head
+
+
+# ---------------------------------------------------------------------------
+# the other families: mamba2, minicpm, gemma2, nemotron and internvl2 served
+# at full width and depth; mixtral and command-r-plus at full width with
+# their depth cut; mamba2, minicpm and gemma2 trained; the train_lm example
+# ---------------------------------------------------------------------------
+
+def build_model(cfg, dtype=torch.bfloat16):
+    """``cfg``'s model on the card, random weights from seed 0."""
+    t0 = time.perf_counter()
+    model = LM(cfg, dtype=dtype, device=CARD,
+               generator=torch.Generator(device=CARD).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"lm {cfg.arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.2f}e9 parameters in {str(dtype)[6:]}, built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return model
+
+
+def flash_kw(cfg, window=None):
+    """The flash call a layer of ``cfg`` makes."""
+    return dict(causal=True, window=window, logit_cap=cfg.attn_softcap,
+                scale=cfg.attn_scale)
+
+
+def family_kernel_phase(cfg):
+    """Each kernel of the arch's serving path against its plain version at
+    the arch's own shapes, bf16 as the model calls it, each timed beside
+    its plain version and the library's call: flash at the largest prompt
+    (gemma2 also over WINDOW_PROMPT tokens with its window in force), the
+    SSD scan at mamba2's (1536 tokens, float32 x as the model feeds it,
+    then a chained tail), the grouped GEMM at mixtral's prefill."""
+    dev = torch.device(CARD)
+    g = torch.Generator(device=dev).manual_seed(0)
+    bf16 = torch.bfloat16
+    results = {}
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    if cfg.n_heads:
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        shapes = [(LM_PROMPTS[1], cfg.sliding_window if
+                   cfg.sliding_window and not cfg.local_global_pattern
+                   else None)]
+        if cfg.arch == WINDOW_ARCH:
+            shapes.append((WINDOW_PROMPT, cfg.sliding_window))
+        for S, window in shapes:
+            kw = flash_kw(cfg, window)
+            q, k, v = randn(1, H, S, hd), randn(1, KV, S, hd), randn(1, KV, S,
+                                                                     hd)
+            got, want = ops.flash_attention(q, k, v, **kw), \
+                ref.attention_ref(q, k, v, **kw)
+            ex = bf16_excess(got, want, FLASH_TOL)
+            expect(ex <= 1.0, f"flash {cfg.arch} {[1, H, KV, S, hd]} {kw}: "
+                   f"worst element at {ex:.3f} of its bound")
+            sdpa_kw = dict(is_causal=True, enable_gqa=True, scale=cfg.attn_scale)
+            lib = (None if window or cfg.attn_softcap else cuda_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, **sdpa_kw),
+                10))
+            results[f"flash_attention {cfg.arch} S{S}"] = dict(
+                max_abs_err=(got.float() - want.float()).abs().max().item(),
+                ms=cuda_ms(lambda: ops.flash_attention(q, k, v, **kw), 10),
+                plain_ms=cuda_ms(lambda: ref.attention_ref(q, k, v, **kw), 2),
+                library_ms=lib, shape=[1, H, KV, S, hd], dtype="bfloat16",
+                kw={k_: v_ for k_, v_ in kw.items() if v_},
+                bf16_worst_share_of_bound=ex,
+                tolerance=f"bf16: |err| <= 2^-7 |plain| + {FLASH_TOL} "
+                          "elementwise",
+                bound=flash_bound(1, H, KV, S, S, hd, bf16, window=window))
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        nh, shd, ds, Q = s.n_heads(cfg.d_model), s.head_dim, s.d_state, \
+            s.chunk
+        S, tail = LM_PROMPTS[1], 232
+        f32 = torch.float32
+        x = randn(1, S + tail, nh * shd, dtype=f32) * 0.5
+        dt = F.softplus(randn(1, S + tail, nh, dtype=f32))
+        Bm = randn(1, S + tail, ds, dtype=f32) * 0.5
+        Cm = randn(1, S + tail, ds, dtype=f32) * 0.5
+        A = -torch.exp(randn(nh, dtype=f32) * 0.3)
+        main = (x[:, :S], dt[:, :S], Bm[:, :S], Cm[:, :S], A)
+        y1, h1 = ops.ssd_scan(*main, chunk=Q)
+        y2, h2 = ops.ssd_scan(x[:, S:], dt[:, S:], Bm[:, S:], Cm[:, S:], A,
+                              chunk=tail, h0=h1)
+        wy, wh = ref.ssd_scan_ref(x, dt, Bm, Cm, A, chunk=1)
+        err_y = (torch.cat([y1, y2], 1) - wy).abs().max().item()
+        err_h = (h2 - wh).abs().max().item()
+        sy, sh = wy.abs().max().item(), wh.abs().max().item()
+        expect(err_y <= SSD_TOL * max(1.0, sy)
+               and err_h <= SSD_TOL * max(1.0, sh),
+               f"ssd {cfg.arch} f32 + chained tail: y err {err_y} (max "
+               f"{sy}), h err {err_h} (max {sh})")
+        results[f"ssd_scan {cfg.arch}"] = dict(
+            max_abs_err=max(err_y, err_h),
+            ms=cuda_ms(lambda: ops.ssd_scan(*main, chunk=Q), 10),
+            plain_ms=cuda_ms(lambda: ref.ssd_scan_ref(*main, chunk=Q), 2),
+            library_ms=None, shape=[1, S, nh, shd, ds, Q], dtype="float32",
+            tolerance=f"{SSD_TOL} x max(1, max |y|) and x max(1, max |h|)",
+            bound=ssd_bound(1, S, Q, nh, shd, ds, f32),
+            bound_split_tf32=ssd_split_bound(1, S, Q, nh, shd, ds, f32))
+    if cfg.moe is not None:
+        E, d, f = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff
+        C = moe_mod.capacity(cfg, CUT_PROMPT)
+        for name, (d_, f_) in (("w_in", (d, f)), ("w_out", (f, d))):
+            x = randn(E, C, d_)
+            w = (torch.randn((E, d_, f_), generator=g, device=dev)
+                 * d_ ** -0.5).to(bf16)
+            expect(bool(gmm_mod.tma_rows(x, w)),
+                   f"{cfg.arch} grouped GEMM {name} takes the TMA kernel")
+            got, want = ops.grouped_matmul(x, w), ref.grouped_matmul_ref(x, w)
+            scale = want.float().abs().max().item()
+            ex = bf16_excess(got, want, GMM_TOL * scale)
+            expect(ex <= 1.0, f"grouped_matmul {cfg.arch} {name} "
+                   f"{[E, C, d_, f_]}: worst element at {ex:.3f} of its "
+                   "bound")
+            results[f"grouped_matmul {cfg.arch} {name}"] = dict(
+                max_abs_err=(got.float() - want.float()).abs().max().item(),
+                ms=cuda_ms(lambda: ops.grouped_matmul(x, w), 10),
+                plain_ms=cuda_ms(lambda: ref.grouped_matmul_ref(x, w), 3),
+                library_ms=cuda_ms(lambda: torch.bmm(x, w), 10),
+                shape=[E, C, d_, f_], dtype="bfloat16",
+                bf16_worst_share_of_bound=ex,
+                tolerance=f"bf16: |err| <= 2^-7 |plain| + {GMM_TOL} x max "
+                          "|plain| elementwise",
+                bound=gmm_bound(E, C, d_, f_, bf16))
+    torch.cuda.synchronize()
+    for name, r in results.items():
+        print(f"kernel {name} {r['shape']} {r['dtype']}: {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, "
+              f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), max err "
+              f"{r['max_abs_err']:.3g}", flush=True)
+    return results
+
+
+def window_phase(cfg, model):
+    """gemma2 past its window: one WINDOW_PROMPT-token request at capacity
+    WINDOW_CAPACITY through ServeEngine.  Its local layers mask in flash
+    (window 4096 < 5120), prefill rolls their cache into 4096 rows, and the
+    decode steps run under the window."""
+    expect(WINDOW_PROMPT > cfg.sliding_window, "the prompt passes the window")
+    prompt = np.random.default_rng(4).integers(
+        0, cfg.vocab, WINDOW_PROMPT).tolist()
+    serve = lm_main_path(cfg, model, max_new=WINDOW_DECODE + 1,
+                         prompts=[prompt], slots=1, capacity=WINDOW_CAPACITY)
+    pairs = cfg.n_layers // 2
+    expect(serve["cache_shapes"]["k_local"][2] == cfg.sliding_window
+           and serve["cache_shapes"]["k_global"][2] == WINDOW_CAPACITY,
+           f"a rolling local cache of the window's rows: "
+           f"{serve['cache_shapes']}")
+    expect(serve["decode"]["steps"] == WINDOW_DECODE
+           and serve["launches"]["flash_attention"] == 2 * pairs,
+           f"{WINDOW_DECODE} decode steps, flash once a layer: {serve}")
+    print(f"lm {cfg.arch} past its window: {WINDOW_PROMPT} tokens at "
+          f"capacity {WINDOW_CAPACITY}, local cache "
+          f"{serve['cache_shapes']['k_local']}", flush=True)
+    return serve
+
+
+def frontend_phase(cfg, model):
+    """internvl2's stub frontend: a direct prefill of a 1536-token prompt
+    whose first frontend_positions positions are precomputed embeddings
+    (1, 256, 6144), drawn from generator seed 7; finite logits that differ
+    from the same prompt's without them, one flash call a layer."""
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (1, LM_PROMPTS[1]))).to(CARD)
+    fe = torch.randn((1, cfg.frontend_positions, cfg.d_model),
+                     generator=torch.Generator(device=CARD).manual_seed(7),
+                     device=CARD).to(torch.bfloat16)
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(model, tokens, capacity=LM_CAPACITY,
+                            frontend_embeds=fe)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {k: c.value for k, c in ops.COUNTERS.items()}
+    plain, _ = prefill(model, tokens, capacity=LM_CAPACITY)
+    moved = (logits.float() - plain.float()).abs().max().item()
+    expect(bool(torch.isfinite(logits).all()) and moved > 0,
+           f"finite logits that the frontend moves (by {moved})")
+    expect(launches["flash_attention"] == cfg.n_layers,
+           f"one flash call a layer: {launches}")
+    print(f"lm {cfg.arch} frontend: {cfg.frontend_positions} embeddings of "
+          f"{cfg.d_model} in a {LM_PROMPTS[1]}-token prefill, {sec:.4f} s; "
+          f"logits moved by up to {moved:.3g}", flush=True)
+    return dict(seconds=sec, launches=launches, max_logit_move=moved,
+                frontend_shape=list(fe.shape))
+
+
+def family_phase(arch):
+    """One model of the other families: its kernels at its shapes, its main
+    path, a profiled window, gemma2 past its window, internvl2's frontend,
+    and the head check; the model is freed before returning."""
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    kernels = family_kernel_phase(cfg)
+    serve = lm_main_path(cfg, model, FAMILY_REQUESTS, FAMILY_MAX_NEW)
+    serve["profile"] = lm_profile(cfg, model)
+    if cfg.arch == WINDOW_ARCH:
+        serve["window"] = window_phase(cfg, model)
+    if cfg.arch == VLM_ARCH:
+        serve["frontend"] = frontend_phase(cfg, model)
+    head = lm_head_check(cfg, model) if arch in HEAD_ARCHS else None
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return kernels, serve, head
+
+
+@contextlib.contextmanager
+def plain_on_card():
+    """The model's kernel calls through their plain versions, whatever the
+    device (the kernels' counters stay where they are)."""
+    names = ("flash_attention_bshd", "grouped_matmul", "ssd_scan")
+    saved = {n: getattr(ops, n) for n in names}
+    ops.flash_attention_bshd = lambda q, k, v, **kw: ref.attention_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        **kw).transpose(1, 2)
+    ops.grouped_matmul = ref.grouped_matmul_ref
+    ops.ssd_scan = ref.ssd_scan_ref
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+
+
+def cut_phase(arch):
+    """A configuration too large for the card, at full width with its depth
+    cut to CUT_LAYERS: the model in float32 through the kernels against
+    the plain versions on the card (one LM_CHECK_TOKENS prompt: the last
+    logits and the k/v cache), then cast to bf16 and held to the same
+    plain float32 run by relative L2, then its kernels at its shapes and
+    one CUT_PROMPT-token request of CUT_DECODE decode steps through
+    ServeEngine."""
+    cfg = get_config(arch).scaled(n_layers=CUT_LAYERS)
+    model = build_model(cfg, torch.float32)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, LM_CHECK_TOKENS))).to(CARD)
+
+    def run():
+        logits, cache = prefill(model, tokens)
+        return {"logits": logits[:, :cfg.vocab].float(),
+                "k": cache["k"].float(), "v": cache["v"].float()}
+
+    t0 = time.perf_counter()
+    with plain_on_card():
+        want = run()
+    plain_s = time.perf_counter() - t0
+    got = run()
+    model.to(torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    got16 = run()
+    limits = GROUP_BF16_REL[cfg.arch]
+    out = {}
+    for name in ("logits", "k", "v"):
+        w, g32 = want[name], got[name]
+        scale = w.abs().max().item()
+        e32 = (g32 - w).abs().max().item()
+        ex32 = (bf16_excess(g32, w, GROUP_F32_TOL * scale) if name != "logits"
+                else e32 / (GROUP_F32_TOL * scale))
+        rel16 = rel_l2(got16[name], w)
+        expect(math.isfinite(e32) and ex32 <= 1.0,
+               f"{arch} {CUT_LAYERS} layers, kernels vs plain float32 "
+               f"{name}: max err {e32} (max {scale}), worst element at "
+               f"{ex32:.3f} of its bound")
+        expect(math.isfinite(rel16) and rel16 <= limits[name],
+               f"{arch} {CUT_LAYERS} layers, kernels bf16 vs plain float32 "
+               f"{name}: relative L2 {rel16} <= {limits[name]}")
+        out[name] = dict(max_abs=scale, f32_max_abs_err=e32,
+                         f32_share_of_bound=ex32, bf16_rel_l2=rel16)
+    print(f"lm {arch} cut to {CUT_LAYERS} layers, kernels vs plain versions "
+          f"on the card: {out} (plain float32 {plain_s:.2f} s)", flush=True)
+    check = dict(out, plain_seconds=plain_s, tolerance=(
+        f"f32: logits {GROUP_F32_TOL} x max |plain|; k/v 2^-7 |plain| + "
+        f"{GROUP_F32_TOL} x max |plain| elementwise; bf16: relative L2 <= "
+        f"{limits}"))
+    kernels = family_kernel_phase(cfg)
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab,
+                                               CUT_PROMPT).tolist()
+    serve = lm_main_path(cfg, model, max_new=CUT_DECODE + 1, prompts=[prompt],
+                         slots=1)
+    expect(serve["decode"]["steps"] == CUT_DECODE,
+           f"{CUT_DECODE} decode steps: {serve['decode']}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return kernels, serve, check
+
+
+def flash_train_check(cfg):
+    """Flash's forward (with its log-sum-exp) and backward at the arch's
+    training shape (TRAIN_BATCH x TRAIN_SEQ, its heads, softcap and scale)
+    against autograd through the plain version, the backward timed beside
+    the SDPA backward where SDPA computes the same function."""
+    g = torch.Generator(device=CARD).manual_seed(0)
+    B, S, H, KV, hd = (TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim)
+    q, do = (torch.randn((B, H, S, hd), generator=g, device=CARD)
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, KV, S, hd), generator=g, device=CARD)
+            .to(torch.bfloat16) for _ in range(2))
+    kw = flash_kw(cfg)
+    worst, err = flash_grads_excess(q, k, v, do, kw)
+    expect(worst <= 1.0, f"flash backward {cfg.arch} {[B, H, KV, S, hd]} "
+           f"{kw}: worst element at {worst:.3f} of its bound")
+    o, lse = flash_mod.flash_attention_with_lse(q, k, v, **kw)
+    kernel = lambda: flash_mod.flash_attention_backward(q, k, v, o, do, lse,
+                                                        **kw)
+    lib = None
+    if not cfg.attn_softcap:
+        lib = grad_ms(lambda *t: F.scaled_dot_product_attention(
+            *t, is_causal=True, enable_gqa=True, scale=cfg.attn_scale),
+            (q, k, v), do, 10)
+    r = dict(max_abs_err=err, ms=cuda_ms(kernel, 10),
+             plain_ms=grad_ms(ref.attention_ref, (q, k, v), do, 2, **kw),
+             library_ms=lib, shape=[B, H, KV, S, hd], dtype="bfloat16",
+             kw={k_: v_ for k_, v_ in kw.items() if v_},
+             bf16_worst_share_of_bound=worst,
+             bound=flash_bwd_bound(B, H, KV, S, hd, torch.bfloat16))
+    print(f"kernel flash_attention_bwd {cfg.arch} {r['shape']} bfloat16 "
+          f"{r['kw']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
+          f"backward {lib}, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), "
+          f"worst share of the bound {worst:.3f}", flush=True)
+    return r
+
+
+def family_train_phase(arch):
+    """Training of one of FAMILY_TRAIN_ARCHS at full width and depth: its
+    kernels' gradients at the training shape, the gradient head check, the
+    main path; the model is freed before returning."""
+    cfg = get_config(arch)
+    if cfg.ssm is not None:
+        kernels = ssd_train_kernel_phase(cfg)
+        r = kernels["ssd_scan_bwd"]
+        print(f"kernel ssd_scan_bwd {cfg.arch} {r['shape']} float32: "
+              f"{r['ms']:.4f} ms, autograd through the plain version "
+              f"{r['plain_ms']:.4f} ms, device time alone "
+              f"{r['device_ms']:.4f} ms; bound {r['bound'][0]:.4f} ms "
+              f"({r['bound'][1]}; split TF32 {r['bound_split_tf32'][0]:.4f}"
+              f" ms), max err {r['max_abs_err']:.3g}", flush=True)
+    else:
+        kernels = {"flash_attention_bwd": flash_train_check(cfg)}
+    model = build_model(cfg)
+    head = grad_head_check(cfg, model, FAMILY_GRAD_GROUPS[cfg.arch],
+                           FAMILY_GRAD_F32_REL)
+    main = train_main_path(cfg, model, FAMILY_TRAIN_REMAT)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return kernels, main, head
+
+
+def train_lm_phase():
+    """``repro_torch.examples.train_lm`` on the card as a user runs it, with
+    its checkpoints under build/: to TRAIN_LM_STEPS[0] steps, then again
+    from the same directory to TRAIN_LM_STEPS[1], which resumes at the
+    saved step; every logged loss finite.  Each step is 2 microbatches
+    under remat "dots", so each layer's flash forward runs twice a
+    microbatch (models/lm.py REMAT_SAVED) and its backward once."""
+    ckpt = ROOT / "build" / "train_lm_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    runs, outs = [], []
+    reset_counts()
+    t0 = time.perf_counter()
+    for steps in TRAIN_LM_STEPS:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            runs.append(train_lm.main(["--steps", str(steps),
+                                       "--ckpt-dir", str(ckpt)]))
+        outs.append(buf.getvalue())
+        print("train_lm: " + " | ".join(outs[-1].strip().splitlines()),
+              flush=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: c.value for k, c in ops.COUNTERS.items()}
+    cfg = train_lm.config_100m()
+    n_steps = TRAIN_LM_STEPS[1]
+    want = {"flash_attention": 4 * cfg.n_layers * n_steps,
+            "flash_attention_bwd": 2 * cfg.n_layers * n_steps}
+    expect(runs[0]["start"] == 0 and runs[1]["start"] == TRAIN_LM_STEPS[0]
+           and f"resumed from step {TRAIN_LM_STEPS[0]}" in outs[1],
+           f"the second run resumed at the saved step: {runs}")
+    expect(all(math.isfinite(r[k]) for r in runs
+               for k in ("first_loss", "final_loss")),
+           f"finite losses: {runs}")
+    for k, n in want.items():
+        expect(launches[k] == n, f"train_lm {k}: {launches[k]} launches == "
+               f"{n}")
+    return dict(runs=runs, seconds=seconds, launches=launches,
+                want_launches=want, steps=list(TRAIN_LM_STEPS))
 
 
 # ---------------------------------------------------------------------------
@@ -2269,6 +2791,44 @@ def main() -> int:
     hyb_kernels, hyb_train, hyb_head = hybrid_train_phase()
     results.update(hyb_kernels)
     by_path["train " + HYBRID_TRAIN_ARCH] = hyb_train["launches"]
+    families = {}
+    for arch in FAMILY_ARCHS:
+        fk, serve, head = family_phase(arch)
+        results.update(fk)
+        families[arch] = dict(serve=serve, head_check=head)
+        by_path[arch] = serve["launches"]
+        for extra in ("window", "frontend"):
+            if extra in serve:
+                by_path[f"{arch} {extra}"] = serve[extra]["launches"]
+    for arch in CUT_ARCHS:
+        fk, serve, check = cut_phase(arch)
+        results.update(fk)
+        families[arch] = dict(serve=serve, cut_check=check,
+                              layers=CUT_LAYERS)
+        by_path[f"{arch} {CUT_LAYERS} layers"] = serve["launches"]
+    for arch in FAMILY_TRAIN_ARCHS:
+        fk, main_, head = family_train_phase(arch)
+        results.update({f"{k} {arch} train": v for k, v in fk.items()})
+        families[arch].update(train=main_, train_head_check=head)
+        by_path["train " + arch] = main_["launches"]
+    example = train_lm_phase()
+    by_path["train_lm"] = example["launches"]
+    summary = {}
+    for arch, fam in families.items():
+        sv = fam["serve"]
+        row = {"prefill_s_per_request": [round(sec, 4) for _, sec in
+                                         sv["prefill_seconds"]],
+               "decode_tokens_per_s": round(sv["decode_tokens_per_s"], 1),
+               "serve_peak_gib": round(sv["peak_memory_bytes"] / 2 ** 30, 2)}
+        if "train" in fam:
+            st = fam["train"]["steps"][1:]
+            row.update(train_step_s=[round(x["seconds"], 3) for x in st],
+                       train_tokens_per_s=[round(x["tokens_per_s"])
+                                           for x in st],
+                       train_peak_gib=round(fam["train"]["peak_memory_bytes"]
+                                            / 2 ** 30, 2))
+        summary[arch] = row
+        print(f"family {arch}: {row}", flush=True)
     # each kernel's launches over the main paths, each counted from 0
     launches = {k: sum(p[k] for p in by_path.values()) for k in KERNELS}
     expect(all(n > 0 for n in launches.values()),
@@ -2314,7 +2874,9 @@ def main() -> int:
               "launches_by_path": by_path, "lm_serve": lm_serve,
               "lm_head_check": lm_head, "train": train,
               "train_head_check": train_head, "train_hybrid": hyb_train,
-              "train_hybrid_head_check": hyb_head, "kernels": kernels}
+              "train_hybrid_head_check": hyb_head, "families": families,
+              "family_summary": summary, "train_lm": example,
+              "kernels": kernels}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

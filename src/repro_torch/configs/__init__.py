@@ -1,6 +1,7 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
-It holds only the architectures the port runs so far.  ``get_config(name)``
+It holds the JAX package's architectures but whisper-large-v3, whose
+encoder-decoder family the port does not run yet.  ``get_config(name)``
 returns the published configuration, ``get_smoke(name)`` a reduced
 same-family variant for CPU tests; any other name raises ``KeyError``
 naming the architectures the port has.
@@ -9,10 +10,13 @@ from __future__ import annotations
 
 from typing import Dict, List
 
-from repro_torch.configs import granite_moe_3b, zamba2_2_7b
+from repro_torch.configs import (command_r_plus, gemma2_2b, granite_moe_3b,
+                                 internvl2_26b, mamba2_1_3b, minicpm_2b,
+                                 mixtral_8x22b, nemotron_4_15b, zamba2_2_7b)
 from repro_torch.models.config import ModelConfig
 
-_MODULES = (zamba2_2_7b, granite_moe_3b)
+_MODULES = (zamba2_2_7b, granite_moe_3b, mamba2_1_3b, minicpm_2b, gemma2_2b,
+            nemotron_4_15b, internvl2_26b, command_r_plus, mixtral_8x22b)
 
 ARCHS: Dict[str, object] = {m.ARCH: m for m in _MODULES}
 

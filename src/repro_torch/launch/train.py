@@ -5,8 +5,9 @@ flags and its loop: deterministic stateless data, atomic asynchronous
 checkpoints every ``--ckpt-every`` steps with keep-K, restore from the
 latest on ``--resume``, the per-arch LR recipe (wsd or cosine), and the
 optional int8 + error-feedback gradient sync (``--compress``, over a
-``torch.distributed`` group of one process).  Runs on CUDA unless
-``--device cpu`` is given.
+``torch.distributed`` group of one process).  A VLM's batches carry
+``frontend_embeds`` drawn once from a seeded generator, as the reference's
+do.  Runs on CUDA unless ``--device cpu`` is given.
 
 Usage:
     python -m repro_torch.launch.train --arch granite-moe-3b-a800m \\
@@ -101,6 +102,17 @@ def main(argv=None) -> int:
     dc = DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
                     global_batch=args.batch, seed=args.seed)
 
+    # a VLM's stub frontend: the same (batch, P, d) embeddings every step,
+    # from generator seed 7.  The reference draws them from PRNGKey(7):
+    # another generator, so the two launchers' embeddings differ (parity
+    # tests pass their own).
+    extras = {}
+    if cfg.frontend_positions:
+        gen = torch.Generator(device=device).manual_seed(7)
+        extras["frontend_embeds"] = torch.randn(
+            (args.batch, cfg.frontend_positions, cfg.d_model),
+            generator=gen, device=device).to(torch.bfloat16)
+
     start = 0
     mgr: Optional[CheckpointManager] = None
     if args.ckpt_dir:
@@ -117,7 +129,8 @@ def main(argv=None) -> int:
         t0 = time.time()
         tokens_per_step = args.batch * args.seq_len
         for step in range(start, args.steps):
-            state, metrics = step_fn(state, batch_at(dc, step))
+            state, metrics = step_fn(state, {**batch_at(dc, step),
+                                             **extras})
             if (step + 1) % args.log_every == 0 or step == args.steps - 1:
                 m = {k: float(v) for k, v in metrics.items()}
                 dt = time.time() - t0

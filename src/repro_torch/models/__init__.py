@@ -1,6 +1,7 @@
-"""LM substrate of the port: configs, layers, attention, Mamba2 (SSD) and
-the hybrid model assembly, with prefill through the hand-written flash
-attention and SSD scan kernels on CUDA."""
+"""LM substrate of the port: configs, layers, attention, Mamba2 (SSD), the
+MoE FFN and the model assembly of every decoder family (dense, local/global
+pairs, VLM, MoE, SSM, hybrid), with prefill through the hand-written flash
+attention, SSD scan and grouped GEMM kernels on CUDA."""
 from repro_torch.models.config import ModelConfig, MoEConfig, SSMConfig
 from repro_torch.models.convert import from_jax_params
 from repro_torch.models.layers import ParamDef, Params

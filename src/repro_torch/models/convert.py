@@ -1,14 +1,21 @@
 """Carry a JAX-package parameter tree into the port's modules.
 
-The JAX package keeps parameters as a nested dict of stacked arrays.  For
-the hybrid family ``layers`` is ``{"mamba": leaves of shape (g, m, ...),
-"attn": leaves of shape (g, ...)}``; for the plain stack (the moe family)
-``layers`` is one block's tree with leaves of shape (L, ...).
+The JAX package keeps parameters as a nested dict of stacked arrays.  Its
+``layers`` is, by family:
+
+  * ssm (mamba2), and the plain stack (the dense, vlm and moe families):
+    one block's tree with leaves of shape (L, ...);
+  * hybrid (zamba2): ``{"mamba": leaves of shape (g, m, ...), "attn":
+    leaves of shape (g, ...)}``;
+  * local/global pairs (gemma2): ``{"local": leaves of shape (pairs, ...),
+    "global": leaves of shape (pairs, ...)}``.
+
 :func:`from_jax_params` takes that tree as numpy arrays (``jax.device_get``
 of it, or any array-likes ``numpy.asarray`` accepts) and returns an
-:class:`~repro_torch.models.lm.LM` holding the same numbers: group ``i``'s
-Mamba2 block ``j`` from index ``[i, j]`` and its attention block from
-``[i]``, or block ``i`` of the plain stack from ``[i]``.
+:class:`~repro_torch.models.lm.LM` holding the same numbers: block ``i``
+of a stack from index ``[i]``, group ``i``'s Mamba2 block ``j`` from
+``[i, j]`` and its attention block from ``[i]``, pair ``i``'s two blocks
+from ``[i]`` of ``local`` and of ``global``.
 """
 from __future__ import annotations
 
@@ -52,12 +59,17 @@ def from_jax_params(cfg: ModelConfig, tree: Dict[str, Any], *,
         _fill(getattr(model, top), tree[top], (), f"{top}.")
     layers = tree["layers"]
     for i, grp in enumerate(model.layers):
-        if cfg.family != "hybrid":
+        if cfg.family == "hybrid":
+            for j, blk in enumerate(grp.mamba):
+                _fill(blk, layers["mamba"], (i, j),
+                      f"layers.mamba[{i},{j}].")
+            _fill(grp.attn, layers["attn"], (i,), f"layers.attn[{i}].")
+        elif cfg.local_global_pattern:
+            for side in ("local", "global"):
+                _fill(grp._modules[side], layers[side], (i,),
+                      f"layers.{side}[{i}].")
+        else:
             _fill(grp, layers, (i,), f"layers[{i}].")
-            continue
-        for j, blk in enumerate(grp.mamba):
-            _fill(blk, layers["mamba"], (i, j), f"layers.mamba[{i},{j}].")
-        _fill(grp.attn, layers["attn"], (i,), f"layers.attn[{i}].")
     extra = set(tree) - {"embed", "final_norm", "layers"}
     if extra:
         raise KeyError(f"parameters the port's {cfg.family} model does not "

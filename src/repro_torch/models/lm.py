@@ -1,12 +1,18 @@
-"""Model assembly for the ``hybrid`` family (zamba2: Mamba2 blocks with an
-attention block every ``hybrid_attn_every`` layers) and the ``moe`` family
-(granite-moe: a plain stack of attention blocks whose FFN is a
-mixture of experts).
+"""Model assembly of the decoder LMs: the ``ssm`` family (mamba2: a stack
+of Mamba2 blocks), the ``hybrid`` family (zamba2: Mamba2 blocks with an
+attention block every ``hybrid_attn_every`` layers), gemma2's pairs of a
+local (sliding-window) and a global attention block, and the plain stack
+of attention blocks, whose FFN is an MLP (the ``dense`` and ``vlm``
+families) or a mixture of experts (the ``moe`` family).  A VLM's frontend
+is a stub, as in the JAX package: precomputed embeddings
+(``frontend_embeds``) replace the first ``frontend_positions`` positions.
 
 The JAX package scans over stacked per-layer parameters; here the stack
-is a Python loop over an ``nn.ModuleList``: ``LM.layers`` holds one
+is a Python loop over an ``nn.ModuleList``: ``LM.layers`` holds
+``n_layers`` :class:`MambaBlock`\\ s for the ssm family, one
 :class:`HybridGroup` per period (``period - 1`` :class:`MambaBlock`\\ s and
-one :class:`AttnBlock`) for the hybrid family, and ``n_layers``
+one :class:`AttnBlock`) for the hybrid family, ``n_layers / 2``
+:class:`LocalGlobalPair`\\ s for local/global pairs, and ``n_layers``
 :class:`AttnBlock`\\ s for the plain stack.  Entry points, as in the JAX
 package:
 
@@ -19,8 +25,9 @@ package:
 
 The decode cache keeps the JAX package's key names, layout and dtypes
 (``h`` float32, the rest bfloat16); :func:`decode_step` updates it in
-place (the JAX engine donates it) and returns it.  Other families raise
-``NotImplementedError``: they come in later slices of the port.
+place (the JAX engine donates it) and returns it.  The encoder-decoder
+(``audio``) family and learned positions raise ``NotImplementedError``:
+they come in a later slice of the port.
 """
 from __future__ import annotations
 
@@ -46,12 +53,9 @@ from repro_torch.models.moe import moe_defs, moe_ffn
 Cache = Dict[str, torch.Tensor]
 
 #: the families the port runs
-PORTED = ("hybrid", "moe")
+PORTED = ("dense", "moe", "ssm", "hybrid", "vlm")
 #: where each family not ported yet is planned (ROADMAP.md, queue 1)
-_LATER = {"ssm": "the ssm/dense/local-global slice",
-          "dense": "the ssm/dense/local-global slice",
-          "vlm": "the ssm/dense/local-global slice",
-          "audio": "the enc-dec slice"}
+_LATER = {"audio": "the enc-dec slice"}
 
 
 def _check_ported(cfg: ModelConfig) -> None:
@@ -60,13 +64,10 @@ def _check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.arch}: the {cfg.family} family is not ported yet; "
             f"it comes with {where}")
-    if cfg.local_global_pattern:
+    if not cfg.use_rope:
         raise NotImplementedError(
-            f"{cfg.arch}: local/global layer pairs are not ported yet; "
-            f"they come with {_LATER['dense']}")
-    if not cfg.use_rope or cfg.frontend_positions:
-        raise NotImplementedError(
-            f"{cfg.arch}: learned positions and frontends are not ported")
+            f"{cfg.arch}: learned positions are not ported yet; they come "
+            f"with {_LATER['audio']}")
 
 
 def _hybrid_groups(cfg: ModelConfig) -> Tuple[int, int]:
@@ -182,6 +183,23 @@ class MambaBlock(Params):
         return x + y, hs, conv
 
 
+class LocalGlobalPair(nn.Module):
+    """gemma2's pair: a local (sliding-window) attention block, then a
+    global one.  The children are named ``local`` and ``global`` with
+    nothing between them and the pair, so the parameters' JAX paths are
+    ``layers/local/...`` and ``layers/global/...`` (``global`` is a Python
+    keyword: the second block is read as ``pair.global_``)."""
+
+    def __init__(self, cfg: ModelConfig, **kw):
+        super().__init__()
+        self.local = AttnBlock(cfg, **kw)
+        self.add_module("global", AttnBlock(cfg, **kw))
+
+    @property
+    def global_(self) -> AttnBlock:
+        return self._modules["global"]
+
+
 class HybridGroup(nn.Module):
     """One period of the hybrid stack: ``period - 1`` Mamba2 blocks, then
     one attention block."""
@@ -194,7 +212,7 @@ class HybridGroup(nn.Module):
 
 
 class LM(nn.Module):
-    """A hybrid or plain-stack (MoE) decoder LM.  ``generator`` draws the
+    """A decoder LM of any ported family.  ``generator`` draws the
     parameters by the JAX package's scale rules; without one they are left
     uninitialised."""
 
@@ -205,33 +223,35 @@ class LM(nn.Module):
         self.cfg = cfg
         kw = dict(dtype=dtype, device=device, generator=generator)
         self.embed = Params(embed_defs(cfg), **kw)
-        if cfg.family == "hybrid":
+        if cfg.family == "ssm":
+            layers = [MambaBlock(cfg, **kw) for _ in range(cfg.n_layers)]
+        elif cfg.family == "hybrid":
             g, m = _hybrid_groups(cfg)
-            self.layers = nn.ModuleList(HybridGroup(cfg, m, **kw)
-                                        for _ in range(g))
+            layers = [HybridGroup(cfg, m, **kw) for _ in range(g)]
+        elif cfg.local_global_pattern:
+            layers = [LocalGlobalPair(cfg, **kw)
+                      for _ in range(cfg.n_layers // 2)]
         else:
-            self.layers = nn.ModuleList(AttnBlock(cfg, **kw)
-                                        for _ in range(cfg.n_layers))
+            layers = [AttnBlock(cfg, **kw) for _ in range(cfg.n_layers)]
+        self.layers = nn.ModuleList(layers)
         self.final_norm = Params(rmsnorm_def(cfg.d_model), **kw)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, **extras) -> torch.Tensor:
         """tokens (B,S) -> logits (B,S,V)."""
-        cfg = self.cfg
-        S = tokens.shape[1]
-        positions = torch.arange(S, device=tokens.device)[None]
-        x = embed(tokens, self.embed, cfg)
-        if cfg.family == "hybrid":
-            for grp in self.layers:
-                for blk in grp.mamba:
-                    x, _, _ = blk(x)
-                x, _ = grp.attn(x, positions=positions, causal=True,
-                                window=cfg.sliding_window)
-        else:
-            for blk in self.layers:
-                x, _ = blk(x, positions=positions, causal=True,
-                           window=cfg.sliding_window)
-        x = rmsnorm(x, self.final_norm["scale"], cfg.norm_eps)
-        return unembed(x, self.embed, cfg)
+        return forward_train(self, tokens, **extras)[0]
+
+
+def _embed_input(model: LM, tokens: torch.Tensor,
+                 extras: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The token embeddings; for a frontend, its precomputed embeddings
+    (``extras["frontend_embeds"]``, (B, P, d)) replace the first P
+    positions."""
+    cfg = model.cfg
+    x = embed(tokens, model.embed, cfg)
+    if cfg.frontend_positions and "frontend_embeds" in extras:
+        fe = extras["frontend_embeds"].to(x.dtype)
+        x = torch.cat([fe, x[:, fe.shape[1]:]], dim=1)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -296,12 +316,12 @@ def _grouped(bodies: List[Callable], g: int, policy: Optional[str],
 def forward_backbone(model: LM, tokens: torch.Tensor,
                      remat_policy: Optional[str] = None,
                      remat_group: int = 1,
-                     remat_inner_policy: Optional[str] = None
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                     remat_inner_policy: Optional[str] = None,
+                     **extras) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B,S) -> final hidden states (B,S,d), aux-loss scalar (the
     MoE router losses summed over the layers).  A hybrid group of Mamba2
-    blocks and its attention block is one layer body, as in the
-    reference's scan."""
+    blocks and its attention block is one layer body, as is a local/global
+    pair, as in the reference's scan."""
     cfg = model.cfg
     S = tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)[None]
@@ -323,8 +343,24 @@ def forward_backbone(model: LM, tokens: torch.Tensor,
             return y, aux + a
         return body
 
-    make = hybrid_body if cfg.family == "hybrid" else attn_body
-    x = embed(tokens, model.embed, cfg)
+    def mamba_body(blk):
+        def body(h, aux):
+            y, _, _ = blk(h)
+            return y, aux
+        return body
+
+    def pair_body(pair):
+        def body(h, aux):
+            h, a1 = attn_block_train(pair.local, h, positions=positions,
+                                     window=window)
+            h, a2 = attn_block_train(pair.global_, h, positions=positions)
+            return h, aux + a1 + a2
+        return body
+
+    make = (mamba_body if cfg.family == "ssm"
+            else hybrid_body if cfg.family == "hybrid"
+            else pair_body if cfg.local_global_pattern else attn_body)
+    x = _embed_input(model, tokens, extras)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for body in _grouped([make(layer) for layer in model.layers],
                          remat_group, remat_policy,
@@ -334,10 +370,11 @@ def forward_backbone(model: LM, tokens: torch.Tensor,
 
 
 def forward_train(model: LM, tokens: torch.Tensor,
-                  remat_policy: Optional[str] = None
+                  remat_policy: Optional[str] = None, **extras
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B,S) -> logits (B,S,V), aux-loss scalar."""
-    x, aux = forward_backbone(model, tokens, remat_policy=remat_policy)
+    x, aux = forward_backbone(model, tokens, remat_policy=remat_policy,
+                              **extras)
     return unembed(x, model.embed, model.cfg), aux
 
 
@@ -350,6 +387,14 @@ def cache_defs(cfg: ModelConfig, batch: int, capacity: int
     """Shapes of the decode cache, by the JAX package's key names."""
     _check_ported(cfg)
     KV, hd = cfg.n_kv_heads, cfg.head_dim
+    if cfg.family == "ssm":
+        return _ssm_cache_defs(cfg, cfg.n_layers, batch, lead=())
+    if cfg.local_global_pattern:
+        pairs, w = cfg.n_layers // 2, min(cfg.sliding_window, capacity)
+        return {"k_local": (pairs, batch, w, KV, hd),
+                "v_local": (pairs, batch, w, KV, hd),
+                "k_global": (pairs, batch, capacity, KV, hd),
+                "v_global": (pairs, batch, capacity, KV, hd)}
     cap = min(capacity, cfg.sliding_window) if cfg.sliding_window \
         else capacity
     if cfg.family == "hybrid":
@@ -399,43 +444,56 @@ def _pad_cap(k: torch.Tensor, c: int) -> torch.Tensor:
 
 
 def prefill(model: LM, tokens: torch.Tensor,
-            capacity: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
+            capacity: Optional[int] = None, **extras
+            ) -> Tuple[torch.Tensor, Cache]:
     """tokens (B,S) -> last-token logits (B,V), cache of capacity
     ``capacity`` (default S)."""
     cfg = model.cfg
     S = tokens.shape[1]
     cap = capacity or S
     positions = torch.arange(S, device=tokens.device)[None]
-    x = embed(tokens, model.embed, cfg)
+    x = _embed_input(model, tokens, extras)
     W = min(cfg.sliding_window, cap) if cfg.sliding_window else cap
     per: Dict[str, List[torch.Tensor]] = {k: [] for k in
                                           cache_defs(cfg, 1, cap)}
 
-    def attn(blk: AttnBlock, x: torch.Tensor) -> torch.Tensor:
-        x, (k, v) = blk(x, positions=positions, window=cfg.sliding_window)
-        kk = _fit_window(k, S, W) if cfg.sliding_window else _pad_cap(k, W)
-        vv = _fit_window(v, S, W) if cfg.sliding_window else _pad_cap(v, W)
-        per["k"].append(kk.to(torch.bfloat16))
-        per["v"].append(vv.to(torch.bfloat16))
+    def attn(blk: AttnBlock, x: torch.Tensor, window: Optional[int],
+             k_key: str = "k", v_key: str = "v") -> torch.Tensor:
+        """One attention block; its k/v packed into a rolling cache of W
+        rows under a window, else padded to the capacity."""
+        x, (k, v) = blk(x, positions=positions, window=window)
+        fit = ((lambda t: _fit_window(t, S, W)) if window
+               else (lambda t: _pad_cap(t, cap)))
+        per[k_key].append(fit(k).to(torch.bfloat16))
+        per[v_key].append(fit(v).to(torch.bfloat16))
         return x
 
-    if cfg.family != "hybrid":
-        for blk in model.layers:
-            x = attn(blk, x)
-    else:
+    def mamba(blocks, out: Dict[str, List[torch.Tensor]], x: torch.Tensor
+              ) -> torch.Tensor:
+        for blk in blocks:
+            x, hf, conv = blk(x)
+            out["h"].append(hf.float())
+            for k in ("x", "B", "C"):
+                out["conv_" + k].append(conv[k])
+        return x
+
+    if cfg.family == "ssm":
+        x = mamba(model.layers, per, x)
+    elif cfg.family == "hybrid":
         for grp in model.layers:
-            mc: Dict[str, List[torch.Tensor]] = {k: [] for k in
-                                                 ("h", "conv_x", "conv_B",
-                                                  "conv_C")}
-            for blk in grp.mamba:
-                x, hf, conv = blk(x)
-                mc["h"].append(hf.float())
-                mc["conv_x"].append(conv["x"])
-                mc["conv_B"].append(conv["B"])
-                mc["conv_C"].append(conv["C"])
+            mc: Dict[str, List[torch.Tensor]] = {
+                k: [] for k in ("h", "conv_x", "conv_B", "conv_C")}
+            x = mamba(grp.mamba, mc, x)
             for k, vals in mc.items():
                 per[k].append(torch.stack(vals))
-            x = attn(grp.attn, x)
+            x = attn(grp.attn, x, cfg.sliding_window)
+    elif cfg.local_global_pattern:
+        for pair in model.layers:
+            x = attn(pair.local, x, cfg.sliding_window, "k_local", "v_local")
+            x = attn(pair.global_, x, None, "k_global", "v_global")
+    else:
+        for blk in model.layers:
+            x = attn(blk, x, cfg.sliding_window)
     cache = {k: torch.stack(vals) for k, vals in per.items()}
     x = rmsnorm(x[:, -1:], model.final_norm["scale"], cfg.norm_eps)
     logits = unembed(x, model.embed, cfg)
@@ -449,31 +507,51 @@ def prefill(model: LM, tokens: torch.Tensor,
 def decode_step(model: LM, cache: Cache, token: torch.Tensor, pos: int
                 ) -> Tuple[torch.Tensor, Cache]:
     """token (B,), pos -> logits (B,V); ``cache`` is updated in place and
-    returned."""
+    returned.  A rolling cache (its rows equal to the sliding window) is
+    decoded under the window; a cache shorter than the window holds every
+    position and is decoded without one, as in the JAX package."""
     cfg = model.cfg
     x = embed(token[:, None], model.embed, cfg)
-    W = cache["k"].shape[2]
-    window = (cfg.sliding_window
-              if cfg.sliding_window and W == cfg.sliding_window else None)
-    if cfg.family != "hybrid":
+
+    def window_of(k_cache: torch.Tensor) -> Optional[int]:
+        W = k_cache.shape[2]
+        return (cfg.sliding_window
+                if cfg.sliding_window and W == cfg.sliding_window else None)
+
+    def mamba(blk: MambaBlock, x: torch.Tensor, idx) -> torch.Tensor:
+        x, hs, conv = blk.decode(
+            x, h=cache["h"][idx],
+            conv_state={k: cache["conv_" + k][idx] for k in ("x", "B", "C")})
+        cache["h"][idx] = hs
+        for k in ("x", "B", "C"):
+            cache["conv_" + k][idx] = conv[k]
+        return x
+
+    if cfg.family == "ssm":
         for i, blk in enumerate(model.layers):
-            x = blk.decode(x, k_cache=cache["k"][i], v_cache=cache["v"][i],
-                           pos=pos, window=window)
-    else:
+            x = mamba(blk, x, i)
+    elif cfg.family == "hybrid":
+        window = window_of(cache["k"])
         for i, grp in enumerate(model.layers):
             for j, blk in enumerate(grp.mamba):
-                x, hs, conv = blk.decode(
-                    x, h=cache["h"][i, j],
-                    conv_state={"x": cache["conv_x"][i, j],
-                                "B": cache["conv_B"][i, j],
-                                "C": cache["conv_C"][i, j]})
-                cache["h"][i, j] = hs
-                cache["conv_x"][i, j] = conv["x"]
-                cache["conv_B"][i, j] = conv["B"]
-                cache["conv_C"][i, j] = conv["C"]
+                x = mamba(blk, x, (i, j))
             x = grp.attn.decode(x, k_cache=cache["k"][i],
                                 v_cache=cache["v"][i], pos=pos,
                                 window=window)
+    elif cfg.local_global_pattern:
+        window = window_of(cache["k_local"])
+        for i, pair in enumerate(model.layers):
+            x = pair.local.decode(x, k_cache=cache["k_local"][i],
+                                  v_cache=cache["v_local"][i], pos=pos,
+                                  window=window)
+            x = pair.global_.decode(x, k_cache=cache["k_global"][i],
+                                    v_cache=cache["v_global"][i], pos=pos,
+                                    window=None)
+    else:
+        window = window_of(cache["k"])
+        for i, blk in enumerate(model.layers):
+            x = blk.decode(x, k_cache=cache["k"][i], v_cache=cache["v"][i],
+                           pos=pos, window=window)
     x = rmsnorm(x, model.final_norm["scale"], cfg.norm_eps)
     logits = unembed(x, model.embed, cfg)
     return logits[:, 0], cache

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -21,14 +21,15 @@ import torch.nn.functional as F
 from repro_torch.core.executor import resolve_device
 from repro_torch.core.faults import ExecutionError
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import LM, Cache, decode_step, init_cache, prefill
+from repro_torch.models.lm import (LM, Cache, cache_defs, decode_step,
+                                   init_cache, prefill)
 
 
 def make_prefill_step(cfg: ModelConfig, capacity: Optional[int] = None):
-    """(model, tokens) -> (last-token logits (B,V), cache)."""
+    """(model, tokens, **extras) -> (last-token logits (B,V), cache)."""
 
-    def prefill_step(model: LM, tokens: torch.Tensor):
-        return prefill(model, tokens, capacity=capacity)
+    def prefill_step(model: LM, tokens: torch.Tensor, **extras):
+        return prefill(model, tokens, capacity=capacity, **extras)
 
     return prefill_step
 
@@ -101,6 +102,7 @@ class ServeEngine:
 
         self.cache: Cache = init_cache(cfg, slots, capacity,
                                        device=self.device)
+        self._batch_dims = batch_dims(cfg, capacity)
         self.cur_token = torch.zeros(slots, dtype=torch.long,
                                      device=self.device)
         self.pos = 0
@@ -171,7 +173,7 @@ class ServeEngine:
             prompt = torch.tensor(req.prompt, dtype=torch.long,
                                   device=self.device)[None]
             logits, c1 = self._prefill1(self.model, prompt)
-            _splice(self.cache, c1, i)
+            _splice(self.cache, c1, i, self._batch_dims)
             first = greedy(logits)[0]
             token = int(first)
             if self.on_step is not None:
@@ -186,19 +188,27 @@ class ServeEngine:
                 self.active[i] = req
 
 
-def _splice(cache: Cache, one: Cache, slot: int) -> Cache:
+def batch_dims(cfg: ModelConfig, capacity: int) -> Dict[str, int]:
+    """Each cache key's batch dim: where its shapes at batch 1 and at batch
+    2 differ.  (The reference looks for a dim where the prefill tensor is 1
+    and the pool's is not, which a pool of one slot does not have.)"""
+    one, two = cache_defs(cfg, 1, capacity), cache_defs(cfg, 2, capacity)
+    return {k: next(d for d, (a, b) in enumerate(zip(one[k], two[k]))
+                    if a != b) for k in one}
+
+
+def _splice(cache: Cache, one: Cache, slot: int,
+            bdims: Dict[str, int]) -> Cache:
     """Insert a batch-1 prefill cache into slot ``slot`` of the pool cache,
     in place.
 
-    Pool and prefill caches share keys and rank; the batch dim is the
-    (first) dim where the prefill tensor is 1 and the pool tensor is
-    ``slots``.  Shorter seq dims (prefill capacity < pool capacity) are
-    zero-padded at the tail.
+    Pool and prefill caches share keys and rank; ``bdims`` gives each
+    key's batch dim (:func:`batch_dims`).  Shorter seq dims (prefill
+    capacity < pool capacity) are zero-padded at the tail.
     """
     for k, v in cache.items():
         src = one[k].to(v.dtype)
-        bdim = next(d for d in range(v.ndim)
-                    if src.shape[d] == 1 and v.shape[d] != src.shape[d])
+        bdim = bdims[k]
         pads = []
         for d in reversed(range(src.ndim)):
             pads += [0, 0 if d == bdim else v.shape[d] - src.shape[d]]

@@ -80,11 +80,14 @@ def init_state(model: LM, optimizer: AdamW, *,
 
 
 def make_loss_fn(cfg: ModelConfig, rt: RuntimeConfig):
-    """(model, tokens, labels) -> (loss + aux_weight * aux, (loss, aux))."""
-    def loss_fn(model: LM, tokens: torch.Tensor, labels: torch.Tensor):
+    """(model, tokens, labels, extras) -> (loss + aux_weight * aux, (loss,
+    aux)); ``extras`` (a VLM's ``frontend_embeds``) go to the model."""
+    def loss_fn(model: LM, tokens: torch.Tensor, labels: torch.Tensor,
+                extras: Optional[Batch] = None):
         x, aux = forward_backbone(model, tokens, remat_policy=rt.remat,
                                   remat_group=rt.remat_group,
-                                  remat_inner_policy=rt.remat_inner)
+                                  remat_inner_policy=rt.remat_inner,
+                                  **(extras or {}))
         tot, cnt = chunked_xent(x, model.embed, cfg, labels,
                                 chunks=rt.loss_chunks)
         loss = tot / torch.clamp(cnt, min=1.0)
@@ -94,8 +97,8 @@ def make_loss_fn(cfg: ModelConfig, rt: RuntimeConfig):
 
 
 def _grads(loss_fn, model: LM, params: Dict[str, torch.Tensor],
-           tokens: torch.Tensor, labels: torch.Tensor):
-    total, (loss, aux) = loss_fn(model, tokens, labels)
+           tokens: torch.Tensor, labels: torch.Tensor, extras: Batch):
+    total, (loss, aux) = loss_fn(model, tokens, labels, extras)
     names = list(params)
     gs = torch.autograd.grad(total, [params[k] for k in names])
     return dict(zip(names, gs)), loss.detach(), aux.detach()
@@ -105,12 +108,15 @@ def _accumulate_grads(loss_fn, model: LM, batch: Batch, rt: RuntimeConfig):
     """Gradients of the batch's loss, by parameter name, and the loss and
     aux averaged over the microbatches.  With M > 1 microbatches dividing
     the batch, the batch is taken M slices in turn and the gradients summed
-    in float32; otherwise (the reference's fallback) in one pass."""
+    in float32; otherwise (the reference's fallback) in one pass.  Every
+    batch key but the tokens and the labels is an extra of the model's,
+    sliced with them."""
     params = dict(model.named_parameters())
     tokens, labels = batch["tokens"], batch["labels"]
+    extras = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
     M, B = rt.microbatches, tokens.shape[0]
     if M <= 1 or B % M:
-        return _grads(loss_fn, model, params, tokens, labels)
+        return _grads(loss_fn, model, params, tokens, labels, extras)
     n = B // M
     g_acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
              for k, p in params.items()}
@@ -118,7 +124,8 @@ def _accumulate_grads(loss_fn, model: LM, batch: Batch, rt: RuntimeConfig):
     for i in range(M):
         part = slice(i * n, (i + 1) * n)
         g, loss, aux = _grads(loss_fn, model, params, tokens[part],
-                              labels[part])
+                              labels[part],
+                              {k: v[part] for k, v in extras.items()})
         for k in g_acc:
             g_acc[k] += g[k].float()
         l_acc, a_acc = l_acc + loss, a_acc + aux

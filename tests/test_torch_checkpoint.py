@@ -30,7 +30,9 @@ from repro_torch.runtime import RuntimeConfig, init_state, make_train_step
 
 torch.set_num_threads(1)
 
-ARCHS = ("zamba2-2.7b", "granite-moe-3b-a800m")
+ARCHS = ("zamba2-2.7b", "granite-moe-3b-a800m", "mamba2-1.3b", "minicpm-2b",
+         "gemma2-2b", "nemotron-4-15b", "internvl2-26b",
+         "command-r-plus-104b", "mixtral-8x22b")
 
 
 def flat(tree, prefix=""):

@@ -276,7 +276,8 @@ def _modules_after(code):
     "repro_torch.suite",
     *(f"import repro_torch.{name}" for name in (
         "bench.locality", "bench.pipeline", "bench.telemetry_smoke",
-        "bench.report", "examples.quickstart")),
+        "bench.report", "examples.quickstart", "examples.train_lm",
+        "configs")),
     *("import importlib.util\n"
       f"spec = importlib.util.spec_from_file_location('{name}', "
       f"'{name}.py')\n"
@@ -285,7 +286,7 @@ def _modules_after(code):
                    "chip_group_calibration")),
 ], ids=["package", "bench.locality", "bench.pipeline",
         "bench.telemetry_smoke", "bench.report", "examples.quickstart",
-        "chip_smoke", "chip_kernel_turns", "chip_kernel_shapes",
+        "examples.train_lm", "configs", "chip_smoke", "chip_kernel_turns", "chip_kernel_shapes",
         "chip_group_calibration"])
 def test_port_imports_neither_jax_nor_the_reference(code):
     assert _modules_after(code) == []

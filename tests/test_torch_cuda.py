@@ -217,12 +217,18 @@ def test_flash_attention_matches_plain_on_card(dtype, kw, hd, cuda_device):
     (1, 24, 8, 300, 300, 64, dict(causal=True)),
     (2, 4, 2, 77, 77, 80, dict(causal=True)),
     (1, 4, 4, 77, 200, 128, dict(causal=False)),
-], ids=["gqa_24_8", "ragged_rows", "sq_not_sk"])
+    (1, 96, 8, 1536, 1536, 128, dict(causal=True)),
+    (1, 36, 36, 1536, 1536, 64, dict(causal=True)),
+    (1, 48, 8, 1536, 1536, 128, dict(causal=True, window=1000)),
+], ids=["gqa_24_8", "ragged_rows", "sq_not_sk", "command_r_gqa_96_8",
+        "minicpm_36_36", "mixtral_gqa_48_8_window"])
 def test_flash_attention_bf16_shapes_on_card(B, H, KV, Sq, Sk, hd, kw,
                                              cuda_device):
     """bf16 (the tensor-core kernel): granite's GQA 24/8 at head_dim 64,
-    query rows that leave a ragged last 64-row tile, and fewer queries than
-    keys, each within one bf16 step (2^-7 of the value) plus 3e-4."""
+    query rows that leave a ragged last 64-row tile, fewer queries than
+    keys, command-r-plus's 96/8 and minicpm's 36/36 at a 1536-token prompt,
+    mixtral's 48/8 with a window in force, each within one bf16 step (2^-7
+    of the value) plus 3e-4."""
     g = torch.Generator().manual_seed(Sq + hd)
     q = torch.randn(B, H, Sq, hd, generator=g).to(cuda_device,
                                                   torch.bfloat16)
@@ -351,7 +357,9 @@ def test_ssd_scan_tail_chained_on_card(tail, cuda_device):
     (1, 192, 2, 16, 128, 64),
     (1, 200, 2, 128, 16, 40),
     (2, 384, 3, 48, 80, 128),
-], ids=["hd16_ds16", "hd128_ds128", "hd16_ds128", "hd128_ds16", "batch2"])
+    (8, 512, 64, 64, 128, 256),
+], ids=["hd16_ds16", "hd128_ds128", "hd16_ds128", "hd128_ds16", "batch2",
+        "mamba2_training"])
 def test_ssd_scan_shapes_on_card(Bsz, S, nh, hd, ds, chunk, dtype,
                                  cuda_device):
     """head_dim and d_state at 16 and 128, chunks that are no multiple of
@@ -571,12 +579,64 @@ def test_smoke_model_serves_on_card_as_on_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "minicpm-2b", "gemma2-2b",
+                                  "nemotron-4-15b", "internvl2-26b",
+                                  "command-r-plus-104b", "mixtral-8x22b"])
+def test_family_smoke_model_serves_on_card_as_on_cpu(arch, cuda_device):
+    """Each new family's smoke config in float32: prefill logits and cache
+    on the card (kernels) against the CPU (plain versions), a 24-token
+    prompt past gemma2's and mixtral's 16-token window; then greedy
+    serving through the kernels, with one flash launch per attention layer
+    and one or two SSD launches per Mamba2 layer per prefill, and three
+    grouped GEMMs per MoE layer per prefill and decode step."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import LM, prefill
+    from repro_torch.runtime import ServeEngine
+    cfg = get_smoke(arch)
+    card = LM(cfg, dtype=torch.float32, device=cuda_device,
+              generator=torch.Generator(device=cuda_device).manual_seed(0))
+    host = LM(cfg, dtype=torch.float32)
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    toks = torch.randint(0, cfg.vocab, (1, 24),
+                         generator=torch.Generator().manual_seed(1))
+    lc, cc = prefill(card, toks.to(cuda_device), capacity=32)
+    lh, ch = prefill(host, toks, capacity=32)
+    torch.testing.assert_close(lc.cpu(), lh, rtol=1e-3, atol=1e-3)
+    for k in ch:
+        # bf16 cache rows: one bf16 step apart where they round apart
+        tol = 1e-3 if k == "h" else 2 ** -7
+        torch.testing.assert_close(cc[k].float().cpu(), ch[k].float(),
+                                   rtol=tol, atol=1e-3)
+    for c in ops.COUNTERS.values():
+        c.reset()
+    steps = []
+    eng = ServeEngine(cfg, card, slots=2, capacity=32,
+                      on_step=lambda kind, *a: steps.append(kind))
+    lengths = (20, 24, 9)
+    for n in lengths:
+        eng.submit(torch.randint(0, cfg.vocab, (n,)).tolist(), max_new=5)
+    done = eng.run_to_completion()
+    assert sorted(len(r.out) for r in done) == [5, 5, 5]
+    n_attn = sum(cfg.is_attention_layer(i) for i in range(cfg.n_layers))
+    assert ops.COUNTERS["flash_attention"].value == n_attn * 3
+    if cfg.ssm is not None:
+        Q = cfg.ssm.chunk
+        assert ops.COUNTERS["ssd_scan"].value == cfg.n_layers * sum(
+            2 if n > Q and n % Q else 1 for n in lengths)
+    moe_calls = 3 * cfg.n_layers * len(steps) if cfg.moe is not None else 0
+    assert ops.COUNTERS["grouped_matmul"].value == moe_calls
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(3, 37, 65, 41), (40, 8, 1536, 512),
                                    (40, 384, 512, 1536),
-                                   (40, 384, 1536, 512), (4, 72, 1536, 512)],
+                                   (40, 384, 1536, 512), (4, 72, 1536, 512),
+                                   (8, 480, 6144, 16384),
+                                   (8, 480, 16384, 6144)],
                          ids=["odd", "decode", "prefill_w_out",
-                              "prefill_in", "ragged_c"])
+                              "prefill_in", "ragged_c", "mixtral_w_in",
+                              "mixtral_w_out"])
 def test_grouped_matmul_matches_plain_on_card(shape, dtype, cuda_device):
     """Weights of std 1/sqrt(d), as the model draws them.  float32: max
     |err| <= 2e-4 x max |plain|; bf16: both sum in float32 and round once,
@@ -748,6 +808,26 @@ def test_flash_backward_matches_plain_on_card(hd, kw, dtype, cuda_device):
 
 
 @pytest.mark.cuda
+def test_flash_gemma2_window_in_force_on_card(cuda_device):
+    """gemma2's local layer past its window: bf16, 8 query and 4 kv heads
+    of 256, softcap 50, scale 1/16, window 4096 over 5120 tokens; the
+    forward within one bf16 step plus 3e-4 of the plain version, the
+    gradients within the backward's bound."""
+    g = torch.Generator().manual_seed(256)
+    q, do = (torch.randn(1, 8, 5120, 256, generator=g).to(cuda_device,
+                                                         torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(1, 4, 5120, 256, generator=g).to(cuda_device,
+                                                        torch.bfloat16)
+            for _ in range(2))
+    kw = dict(causal=True, window=4096, logit_cap=50.0, scale=256 ** -0.5)
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), **kw)
+    torch.testing.assert_close(got.float(), want, rtol=2 ** -7, atol=3e-4)
+    _check_flash_grads(q, k, v, do, kw)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("hd", [64, 80, 256])
 def test_flash_backward_cancelling_head_on_card(hd, cuda_device):
     """bf16, causal, GQA 8/2 over 256 rows, kv head 0 and its query heads
@@ -879,9 +959,10 @@ def _ssd_grads_within_bound(got, want):
     (1, 200, 2, 128, 16, 40, True, False),
     (8, 512, 80, 64, 64, 256, False, False),
     (2, 300, 5, 64, 128, 150, True, True),
+    (8, 512, 64, 64, 128, 256, False, False),
 ], ids=["chunk16", "chunk16_h0_dh", "chunk100_h0", "chunk232_dh", "hd48_ds80",
         "hd128_ds128", "hd16_ds128", "hd128_ds16", "zamba2_training",
-        "hd64_ds128_chunk150"])
+        "hd64_ds128_chunk150", "mamba2_training"])
 def test_ssd_backward_matches_plain_on_card(Bsz, S, nh, hd, ds, chunk, h0,
                                             dh, cuda_device):
     """``ops.ssd_scan``'s gradients (the forward kernel, then the backward

@@ -87,19 +87,19 @@ def test_config_is_the_jax_packages(models):
 
 
 def test_registry_names_the_ported_archs():
-    """An arch the port lacks raises KeyError naming those it has; a
-    family not ported yet raises NotImplementedError naming its slice."""
+    """An arch the port lacks raises KeyError naming those it has; the
+    family not ported yet (the encoder-decoder) raises NotImplementedError
+    naming its slice."""
     with pytest.raises(KeyError, match="zamba2-2.7b.*granite-moe-3b-a800m"):
-        configs.get_config("mixtral-8x22b")
-    from repro_torch.models.config import ModelConfig, SSMConfig
-    j = jget_smoke("mamba2-1.3b")
-    ssm = ModelConfig(**{**{f: getattr(j, f) for f in
-                            ModelConfig.__dataclass_fields__},
-                         "ssm": SSMConfig(**vars(j.ssm))})
-    assert ssm.family == "ssm"
+        configs.get_config("whisper-large-v3")
+    from repro_torch.models.config import ModelConfig
+    j = jget_smoke("whisper-large-v3")
+    audio = ModelConfig(**{f: getattr(j, f) for f in
+                           ModelConfig.__dataclass_fields__})
+    assert audio.family == "audio" and audio.enc_dec
     with pytest.raises(NotImplementedError,
-                       match="ssm family .*ssm/dense/local-global slice"):
-        LM(ssm)
+                       match="audio family .*enc-dec slice"):
+        LM(audio)
 
 
 def test_ssd_prefill_and_decode_match_jax(models):
