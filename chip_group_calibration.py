@@ -78,11 +78,23 @@ the card, as ``chip_smoke.cut_phase`` holds them; and the gradient heads of
 ``chip_smoke.FAMILY_TRAIN_ARCHS`` (mamba2 with the SSD-backward faults,
 minicpm and gemma2 with the flash-backward faults; gemma2's softcap shows
 ``bwd_flash_softcap_ignored``), from which ``chip_smoke.FAMILY_GRAD_F32_REL``
-is set.
+is set.  ``family`` also runs whisper-large-v3 (``whisper`` alone runs only
+it): its head (the first encoder and decoder layers, the full-width
+embeddings, a 224-token prompt over 1500 frames, 3 decode steps after it)
+with the flash faults and its own: ``encoder_causal`` (the encoder under
+the causal mask), ``cross_decoder_kv`` (the cross-attention fed the
+decoder's own stream for its keys and values; the cache keeps the
+encoder's), ``no_sinusoids`` (the encoder's positions left out),
+``decode_position_plus_1`` (a decode step's learned position taken one
+row late), behind ``chip_smoke.GROUP_BF16_REL["whisper-large-v3"]``; and
+its gradient head with the flash backward's dK and dV swapped,
+``encoder_causal`` and ``no_sinusoids`` (``cross_decoder_kv`` leaves the
+encoder out of the loss: no gradient to compare), behind
+``chip_smoke.WHISPER_GRAD_F32_REL``.
 
-    python3 chip_group_calibration.py [forward] [grad] [family]
+    python3 chip_group_calibration.py [forward] [grad] [family] [whisper]
 
-(no argument: all three).  The full record goes to
+(no argument: the first three).  The full record goes to
 ``build/chip_group_calibration.json``.
 """
 from __future__ import annotations
@@ -99,6 +111,7 @@ import chip_smoke as cs
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
+from repro_torch.models import lm as lm_mod
 from repro_torch.models import moe as moe_mod
 
 SEEDS = (1, 3, 5)
@@ -135,6 +148,27 @@ def ssd_B_C_swapped(ssd, x, dt, B, C, A, *, chunk, h0=None):
 
 def ssd_dt_shift(ssd, x, dt, B, C, A, *, chunk, h0=None):
     return ssd(x, torch.roll(dt, 1, dims=1), B, C, A, chunk=chunk, h0=h0)
+
+
+def encoder_causal(flash, q, k, v, **kw):
+    """The encoder's calls (as many queries as keys, no mask) run under the
+    causal mask."""
+    if not kw.get("causal", True) and q.shape[1] == k.shape[1]:
+        kw = dict(kw, causal=True)
+    return flash(q, k, v, **kw)
+
+
+def cross_decoder_kv(cross, p, y, cfg, enc):
+    out, _ = cross(p, y, cfg, y)
+    return out, cross(p, y, cfg, enc)[1]
+
+
+def no_sinusoids(sinusoids, *a, **kw):
+    return torch.zeros_like(sinusoids(*a, **kw))
+
+
+def decode_position_plus_1(position, model, pos):
+    return position(model, pos + 1)
 
 
 def wrap(module, attr, fault):
@@ -184,6 +218,13 @@ MOE_FAULTS = {
     "moe_weights_not_renormalised": (moe_mod, "route",
                                      lambda good: route_not_renormalised),
 }
+WHISPER_FAULTS = {
+    "encoder_causal": wrap(ops, "flash_attention_bshd", encoder_causal),
+    "cross_decoder_kv": wrap(lm_mod, "_cross_part", cross_decoder_kv),
+    "no_sinusoids": wrap(lm_mod, "_sinusoids", no_sinusoids),
+    "decode_position_plus_1": wrap(lm_mod, "_decode_position",
+                                   decode_position_plus_1),
+}
 FAULTS = {
     "zamba2-2.7b": dict(FLASH_FAULTS, **SSD_FAULTS),
     "granite-moe-3b-a800m": dict(FLASH_FAULTS, **MOE_FAULTS),
@@ -193,6 +234,7 @@ FAULTS = {
     "internvl2-26b": FLASH_FAULTS,
     "mixtral-8x22b": dict(FLASH_FAULTS, **MOE_FAULTS),
     "command-r-plus-104b": FLASH_FAULTS,
+    "whisper-large-v3": dict(FLASH_FAULTS, **WHISPER_FAULTS),
 }
 
 
@@ -492,10 +534,17 @@ def calibrate_family_grads(arch):
     model = cs.LM(cfg, device="cuda",
                   generator=torch.Generator(device="cuda").manual_seed(0))
     f32, bf16 = torch.float32, torch.bfloat16
-    groups = cs.FAMILY_GRAD_GROUPS[arch]
-    faults = (HYBRID_GRAD_FAULTS if cfg.ssm is not None else
-              {k: GRAD_FAULTS[k] for k in ("bwd_flash_dk_dv_swapped",
-                                           "bwd_flash_softcap_ignored")})
+    if cfg.enc_dec:
+        groups = cs.WHISPER_GRAD_GROUPS
+        faults = {"bwd_flash_dk_dv_swapped":
+                  GRAD_FAULTS["bwd_flash_dk_dv_swapped"],
+                  **{k: WHISPER_FAULTS[k] for k in (
+                      "encoder_causal", "no_sinusoids")}}
+    else:
+        groups = cs.FAMILY_GRAD_GROUPS[arch]
+        faults = (HYBRID_GRAD_FAULTS if cfg.ssm is not None else
+                  {k: GRAD_FAULTS[k] for k in ("bwd_flash_dk_dv_swapped",
+                                               "bwd_flash_softcap_ignored")})
     record = {}
     for seed in SEEDS:
         t0 = time.perf_counter()
@@ -544,6 +593,10 @@ def main(argv=None) -> int:
                        for arch in cs.CUT_ARCHS})
         record.update({"grad " + arch: calibrate_family_grads(arch)
                        for arch in cs.FAMILY_TRAIN_ARCHS})
+    if parts & {"family", "whisper"}:
+        record[cs.WHISPER_ARCH] = calibrate(cs.WHISPER_ARCH)
+        record["grad " + cs.WHISPER_ARCH] = calibrate_family_grads(
+            cs.WHISPER_ARCH)
     out = cs.ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_group_calibration.json").write_text(json.dumps(record,

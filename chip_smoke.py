@@ -61,7 +61,21 @@ and read just after:
   their kernels held to the plain versions on the card; mamba2, minicpm
   and gemma2 trained at full width and depth (4 steps each, a gradient
   head check, no plain version called); ``repro_torch.examples.train_lm``
-  run to a checkpoint and resumed from it.
+  run to a checkpoint and resumed from it;
+- whisper-large-v3, the encoder-decoder, at full width and depth (32
+  encoder and 32 decoder layers, d_model 1280, 20 heads of 64; bf16,
+  random weights from seed 0): flash's forward and backward at its shapes
+  (the encoder's non-causal 1500 frames, the cross-attention's queries
+  against 1500 keys, the decoder's causal 448 tokens) against the plain
+  version in float32 and bf16, timed beside SDPA; 4 requests with their
+  own 1500 frames and 4-token prompts, prefilled together at capacity 448
+  and decoded 60 greedy steps through ``prefill`` and ``decode_step`` (the
+  engine, like the JAX package's, takes no frames), then one request with
+  a 224-token prompt and 32 steps; a profiled prefill and 8 decode steps;
+  its head (the first encoder and decoder layers, the full-width
+  embeddings) card against CPU, through the cross-attention cache and 3
+  decode steps; its head's gradients; four training steps of 8 x 448
+  tokens over 8 x 1500 frames.
 
 Standard output ends with three lines: the card's name and power limit as
 ``nvidia-smi`` prints them, one JSON object describing each kernel
@@ -231,6 +245,12 @@ NO_SPILL = ("flash_mma_kernel", "gmm_wgmma_kernel", "ssd_cb",
 #: between the readings of sound runs and of runs with a deliberate fault
 #: (chip_group_calibration.py, PERF.md)
 GROUP_F32_TOL = 1e-3
+#: whisper's head decodes from the bf16 cache each run wrote itself, where
+#: one element a bf16 step apart (0.25 in xk at |39|) moves its near-argmax
+#: attention: its float32 decode logits are held by relative L2 under
+#: DECODE_F32_REL (card f32 readings <= 2.8e-3, chip_group_calibration.py
+#: family, seeds 1, 3, 5; max |err| reached 3.5x GROUP_F32_TOL's bound)
+DECODE_F32_REL = 1e-2
 GROUP_BF16_REL = {"zamba2-2.7b": {"logits": 0.3, "h": 0.05},
                   "granite-moe-3b-a800m": {"logits": 0.5, "k": 0.08,
                                            "v": 0.08, "moe": 0.1},
@@ -242,7 +262,10 @@ GROUP_BF16_REL = {"zamba2-2.7b": {"logits": 0.3, "h": 0.05},
                   "internvl2-26b": {"logits": 0.56, "k": 0.09, "v": 0.09},
                   "mixtral-8x22b": {"logits": 0.5, "k": 0.09, "v": 0.09},
                   "command-r-plus-104b": {"logits": 0.55, "k": 0.09,
-                                          "v": 0.09}}
+                                          "v": 0.09},
+                  "whisper-large-v3": {"logits": 0.5, "k": 0.01, "v": 0.01,
+                                       "xk": 0.12, "xv": 0.12,
+                                       "decode": 0.4}}
 #: the later entries' readings (chip_group_calibration.py family, prompt
 #: seeds 1, 3, 5; PERF.md): sound bf16 runs (card, and CPU where it runs)
 #: against the planted faults (flash: the causal mask dropped, a key tile
@@ -263,7 +286,17 @@ GROUP_BF16_REL = {"zamba2-2.7b": {"logits": 0.3, "h": 0.05},
 #:   shows in bf16 past the attention output: 0.229-0.412; the float32
 #:   check, within 1e-5 of its bound's scale when sound, is the MoE's);
 #:   command-r-plus at 2 layers logits <= 0.452 vs >= 0.646, k/v <=
-#:   0.0642 vs >= 0.125
+#:   0.0642 vs >= 0.125;
+#:   whisper's head (its first encoder and decoder layers, a 224-token
+#:   prompt over 1500 frames, 3 decode steps; faults also: the encoder
+#:   causal, the cross-attention fed the decoder's own stream, the
+#:   sinusoids left out, the decode position one row late) logits <=
+#:   0.259 vs >= 0.726, xk/xv <= 0.0385 vs >= 0.252, decode <= 0.276 vs
+#:   >= 0.524 (the late position; the others >= 0.542); k/v come before
+#:   any attention (no fault reaches them: <= 0.00316, limits ~3x that);
+#:   with one decoder layer the causal mask dropped moves neither the last
+#:   token's logits nor the cache, and the cross-attention fed the
+#:   decoder's stream only the logits (>= 1.331)
 #: granite's head: its first layers
 MOE_CHECK_LAYERS = 2
 #: the training phase: granite at full width, batch x sequence tokens a
@@ -338,7 +371,7 @@ FAMILY_REQUESTS, FAMILY_MAX_NEW = 4, 16
 #: PyTorch around the same flash kernel); the CPU's bf16 run is left out
 #: where the head is too large for the CPU in the run's time
 HEAD_ARCHS = ("mamba2-1.3b", "minicpm-2b", "gemma2-2b", "internvl2-26b")
-HEAD_NO_CPU_BF16 = ("gemma2-2b", "internvl2-26b")
+HEAD_NO_CPU_BF16 = ("gemma2-2b", "internvl2-26b", "whisper-large-v3")
 #: gemma2 past its sliding window: one request of WINDOW_PROMPT tokens at
 #: capacity WINDOW_CAPACITY, then WINDOW_DECODE decode steps through the
 #: rolling local cache
@@ -380,6 +413,35 @@ FAMILY_GRAD_F32_REL = 5e-3
 #: (9.72 -> 9.83) or in the JAX package's example on the CPU (ROADMAP.md
 #: section 3)
 TRAIN_LM_STEPS = (40, 60)
+#: whisper-large-v3, served and trained at full width and depth: capacity
+#: WHISPER_CAPACITY (Whisper's decoder context, arXiv:2212.04356); one batch
+#: of WHISPER_BATCH requests, each with its own (enc_frames, d_model) frames
+#: from generator seed 7 and a WHISPER_PROMPT-token prompt, decoded
+#: WHISPER_DECODE greedy steps; then one request of WHISPER_LONG_PROMPT
+#: tokens (the previous window's text, on which long-form transcription
+#: conditions) decoded WHISPER_LONG_DECODE steps.  Training: TRAIN_BATCH x
+#: WHISPER_CAPACITY tokens a step over TRAIN_BATCH x enc_frames frames,
+#: remat none
+WHISPER_ARCH = "whisper-large-v3"
+WHISPER_CAPACITY = 448
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_DECODE = 4, 4, 60
+WHISPER_LONG_PROMPT, WHISPER_LONG_DECODE = 224, 32
+WHISPER_TRAIN_REMAT = "none"
+#: its head check decodes HEAD_DECODE steps after a WHISPER_LONG_PROMPT
+#: prompt (the decode position and the cross-attention cache are read only
+#: there)
+HEAD_DECODE = 3
+#: its gradient head check: card float32 against CPU float32 by relative L2
+#: under WHISPER_GRAD_F32_REL, by parameter group; bf16 reported.  Readings
+#: (chip_group_calibration.py family, data seeds 1, 3, 5): sound <= 4.17e-3
+#: (the decoder's FFN 3.2e-4; near-argmax attention at these weights: the
+#: other families' heads read <= 4.3e-4); the flash backward's dK and dV
+#: swapped >= 0.97 in every group but the decoder's FFN, which comes after
+#: every attention; the encoder causal >= 0.557, the sinusoids left out
+#: >= 0.669 in every group
+WHISPER_GRAD_GROUPS = ("embed", "pos_embed", "enc_attn", "enc_ffn", "attn",
+                       "xattn", "ffn", "norms")
+WHISPER_GRAD_F32_REL = 1e-2
 
 
 def reset_counts() -> None:
@@ -1057,7 +1119,7 @@ def flash_bound(B, H, KV, Sq, Sk, hd, dtype, **kw):
     keeps in this call."""
     qp = torch.arange(Sq)[:, None]
     kp = torch.arange(Sk)[None, :]
-    keep = kp < kw.get("kv_len", Sk)
+    keep = (kp < kw.get("kv_len", Sk)).expand(Sq, Sk)
     if kw.get("causal", True):
         keep = keep & (kp <= qp)
     if kw.get("window") is not None:
@@ -1400,30 +1462,36 @@ def lm_main_path(cfg, model, n_requests: int = LM_REQUESTS,
 def head_outputs(cfg):
     """What the head check compares: the last-token logits, the cache the
     head fills (the SSM state h; k and v, gemma2's by local and global
-    layer), and for the MoE family the first layer's MoE FFN on a shared
-    input (``head_prefill``)."""
+    layer, whisper's also its cross-attention's xk and xv), for the MoE
+    family the first layer's MoE FFN on a shared input, and for whisper the
+    logits of HEAD_DECODE decode steps (``head_prefill``)."""
     if cfg.ssm is not None:
         return ("logits", "h")
     if cfg.local_global_pattern:
         return ("logits", "k_local", "v_local", "k_global", "v_global")
+    if cfg.enc_dec:
+        return ("logits", "k", "v", "xk", "xv", "decode")
     return ("logits", "k", "v") + (("moe",) if cfg.moe is not None else ())
 
 
 def model_head(cfg, model):
     """The config and parameters of the model's head, with its full-width
     embedding: zamba2's first hybrid group (5 Mamba2 + 1 attention
-    layers), gemma2's first local/global pair, any other model's first
-    MOE_CHECK_LAYERS layers."""
+    layers), gemma2's first local/global pair, whisper's first encoder and
+    first decoder layer (with the encoder's final norm and the learned
+    positions), any other model's first MOE_CHECK_LAYERS layers."""
     if cfg.family == "hybrid":
         n, blocks = cfg.hybrid_attn_every, 1
-    elif cfg.local_global_pattern:
-        n, blocks = 2, 1
+    elif cfg.local_global_pattern or cfg.enc_dec:
+        n, blocks = (1 if cfg.enc_dec else 2), 1
     else:
         n = blocks = MOE_CHECK_LAYERS
-    keep = tuple(f"layers.{i}." for i in range(blocks))
+    stacks = ("layers.", "encoder.layers.")
+    keep = tuple(f"{st}{i}." for st in stacks for i in range(blocks))
     state = {k: v for k, v in model.state_dict().items()
-             if not k.startswith("layers.") or k.startswith(keep)}
-    return cfg.scaled(n_layers=n), state
+             if not k.startswith(stacks) or k.startswith(keep)}
+    head = cfg.scaled(n_layers=n, n_enc_layers=1 if cfg.enc_dec else 0)
+    return head, state
 
 
 def head_model(head, state, dtype, dev):
@@ -1467,13 +1535,24 @@ def head_prefill(head, state, tokens, dtype, dev, moe_in=None, extras=None):
     softmax is near argmax, bf16 rounding flips which key wins, and the
     attention output (~70 per element) drowns the MoE's (~0.3) in the
     residual stream.  ``extras`` (a VLM's ``frontend_embeds``) go to the
-    prefill in ``dtype``."""
+    prefill in ``dtype`` (whisper's ``frames``).  Whisper's prefill then
+    decodes HEAD_DECODE steps, fed the prompt's first tokens (the same in
+    every run), its cache copied first (the steps write it in place)."""
     m = head_model(head, state, dtype, dev)
-    logits, cache = prefill(m, tokens.to(dev), **{
+    S = tokens.shape[1]
+    logits, cache = prefill(m, tokens.to(dev), capacity=S + (
+        HEAD_DECODE if head.enc_dec else 0), **{
         k: v.to(dev, dtype) for k, v in (extras or {}).items()})
     # the padded vocab tail is masked to -2^30 on every run: left out
     out = {"logits": logits[:, :head.vocab].float().cpu()}
     for k in head_outputs(head)[1:]:
+        if k == "decode":
+            steps, live = [], {n: c.clone() for n, c in cache.items()}
+            for i in range(HEAD_DECODE):
+                lg, live = decode_step(m, live, tokens[:, i].to(dev), S + i)
+                steps.append(lg[:, :head.vocab].float().cpu())
+            out[k] = torch.stack(steps)
+            continue
         out[k] = (moe_mod.moe_ffn(moe_in.to(dev, dtype), m.layers[0]["moe"],
                                   head)[0] if k == "moe"
                   else cache[k]).float().cpu()
@@ -1506,15 +1585,19 @@ def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def head_check_inputs(cfg, seed: int = 1):
-    """The head check's 512-token prompt of ``seed``, and for a VLM its
-    frontend embeddings (1, frontend_positions, d_model) drawn from a
-    generator of the same seed."""
+    """The head check's 512-token prompt of ``seed`` (whisper's
+    WHISPER_LONG_PROMPT tokens), and for a VLM its frontend embeddings (1,
+    frontend_positions, d_model), for whisper its frames (1, enc_frames,
+    d_model), drawn from a generator of the same seed."""
     rng = np.random.default_rng(seed)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (1, LM_CHECK_TOKENS)))
+    n = WHISPER_LONG_PROMPT if cfg.enc_dec else LM_CHECK_TOKENS
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (1, n)))
     extras = {}
-    if cfg.frontend_positions:
-        extras["frontend_embeds"] = torch.randn(
-            (1, cfg.frontend_positions, cfg.d_model),
+    stub = (("frames", cfg.enc_frames) if cfg.enc_dec
+            else ("frontend_embeds", cfg.frontend_positions))
+    if stub[1]:
+        extras[stub[0]] = torch.randn(
+            (1, stub[1], cfg.d_model),
             generator=torch.Generator().manual_seed(seed))
     return tokens, extras
 
@@ -1552,10 +1635,13 @@ def lm_head_check(cfg, model):
         got = runs[f32, "cuda"][name]
         scale = want.abs().max().item()
         e32 = (got - want).abs().max().item()
-        # k/v are stored in bf16: one bf16 step apart where the float32
-        # values round to neighbours
+        # k/v (and whisper's xk/xv) are stored in bf16: one bf16 step apart
+        # where the float32 values round to neighbours; whisper's decode
+        # steps read those rows, so its decode logits by relative L2
         ex32 = (bf16_excess(got, want, GROUP_F32_TOL * scale)
-                if name[0] in "kv" else e32 / (GROUP_F32_TOL * scale))
+                if name[0] in "kv" or name in ("xk", "xv")
+                else rel_l2(got, want) / DECODE_F32_REL if name == "decode"
+                else e32 / (GROUP_F32_TOL * scale))
         rel16 = rel_l2(runs[bf16, "cuda"][name], want)
         noise = (rel_l2(runs[bf16, "cpu"][name], want)
                  if (bf16, "cpu") in runs else None)
@@ -1570,6 +1656,7 @@ def lm_head_check(cfg, model):
                          bf16_cpu_rel_l2=noise)
     what = ("one group" if cfg.family == "hybrid"
             else "one local/global pair" if cfg.local_global_pattern
+            else "one encoder and one decoder layer" if cfg.enc_dec
             else f"{MOE_CHECK_LAYERS} layers")
     print(f"lm {what} card vs CPU: {out} (CPU {cpu_s:.1f} s)", flush=True)
     if routes is not None:
@@ -1580,56 +1667,64 @@ def lm_head_check(cfg, model):
               f"{routes['nearest_kth_gap']:.3g}", flush=True)
     f32_rule = (f"{GROUP_F32_TOL} x max |CPU f32|" if cfg.ssm is not None
                 else f"logits {GROUP_F32_TOL} x max |CPU f32|; k/v 2^-7 |CPU| "
-                     f"+ {GROUP_F32_TOL} x max |CPU| elementwise")
+                     f"+ {GROUP_F32_TOL} x max |CPU| elementwise" + (
+                         f"; decode relative L2 {DECODE_F32_REL}"
+                         if cfg.enc_dec else ""))
     return dict(out, routes=routes, cpu_seconds=cpu_s, tolerance=(
         f"f32: {f32_rule}; bf16: ||card bf16 - CPU f32|| / ||CPU f32|| <= "
         f"{limits}"))
+
+
+def profile_steps(what: str, fn):
+    """``fn()`` under ``torch.profiler``: device busy time against the host
+    clock, and the kernels that took the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [(e.key, getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0)),
+                e.count)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(t for _, t, _ in kernels) / 1e6
+    launches = sum(n for _, _, n in kernels)
+    top = sorted(kernels, key=lambda ktn: -ktn[1])[:6]
+    # the SSD scan's four kernels, summed
+    ssd = [(t, n) for k, t, n in kernels if "ssd_" in k]
+    out = dict(wall_s=wall, device_busy_s=busy, kernel_launches=launches,
+               idle_share=1.0 - busy / wall if busy else None,
+               ssd_s=sum(t for t, _ in ssd) / 1e6,
+               ssd_launches=sum(n for _, n in ssd),
+               top_kernels_s=[(k[:80], t / 1e6, n) for k, t, n in top])
+    print(f"lm profile {what}: wall {wall:.4f} s, device busy "
+          f"{busy:.4f} s, {launches} kernel launches; SSD kernels "
+          f"{out['ssd_s']:.4f} s in {out['ssd_launches']} "
+          f"launches; top {out['top_kernels_s'][:3]}", flush=True)
+    return out
 
 
 def lm_profile(cfg, model):
     """Device busy time against the host clock, from ``torch.profiler``:
     one prefill of the largest prompt, then PROFILE_DECODE_STEPS decode
     steps at LM_SLOTS slots; the kernels that took the most device time."""
-    from torch.profiler import ProfilerActivity, profile
     tokens = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab, (1, LM_PROMPTS[1]))).cuda()
     cache = init_cache(cfg, LM_SLOTS, LM_CAPACITY, device="cuda")
     token = torch.zeros(LM_SLOTS, dtype=torch.long, device="cuda")
     prefill(model, tokens, capacity=LM_CAPACITY)        # warm-up
-    out = {}
-    for what in ("prefill", "decode"):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            if what == "prefill":
-                prefill(model, tokens, capacity=LM_CAPACITY)
-            else:
-                for i in range(PROFILE_DECODE_STEPS):
-                    decode_step(model, cache, token, LM_PROMPTS[1] + i)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        kernels = [(e.key, getattr(e, "self_device_time_total",
-                                   getattr(e, "self_cuda_time_total", 0)),
-                    e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = sum(t for _, t, _ in kernels) / 1e6
-        launches = sum(n for _, _, n in kernels)
-        top = sorted(kernels, key=lambda ktn: -ktn[1])[:6]
-        # the SSD scan's four kernels, summed
-        ssd = [(t, n) for k, t, n in kernels if "ssd_" in k]
-        out[what] = dict(wall_s=wall, device_busy_s=busy,
-                         kernel_launches=launches,
-                         idle_share=1.0 - busy / wall if busy else None,
-                         ssd_s=sum(t for t, _ in ssd) / 1e6,
-                         ssd_launches=sum(n for _, n in ssd),
-                         top_kernels_s=[(k[:80], t / 1e6, n)
-                                        for k, t, n in top])
-        print(f"lm profile {what}: wall {wall:.4f} s, device busy "
-              f"{busy:.4f} s, {launches} kernel launches; SSD kernels "
-              f"{out[what]['ssd_s']:.4f} s in {out[what]['ssd_launches']} "
-              f"launches; top {out[what]['top_kernels_s'][:3]}", flush=True)
+
+    def decode():
+        for i in range(PROFILE_DECODE_STEPS):
+            decode_step(model, cache, token, LM_PROMPTS[1] + i)
+
+    out = {"prefill": profile_steps("prefill", lambda: prefill(
+        model, tokens, capacity=LM_CAPACITY))}
+    out["decode"] = profile_steps("decode", decode)
     return out
 
 
@@ -1673,14 +1768,17 @@ def lm_phase(arch):
 # LM training: the kernels' gradients, four full-width steps, a head check
 # ---------------------------------------------------------------------------
 
-def flash_bwd_bound(B, H, KV, S, hd, dtype, causal=True):
+def flash_bwd_bound(B, H, KV, S, hd, dtype, causal=True, Sk=None):
     """Bytes: q, o, dO and the float32 lse read and dq written (four
     query-sized tensors), k and v read and dk, dv written (four key-sized
     ones), each once.  Operations: five products (S, dP, dV, dK, dQ) of 2
-    per multiply-add over the (query, key) pairs the causal mask keeps."""
-    pairs = S * (S + 1) // 2 if causal else S * S
+    per multiply-add over the (query, key) pairs the causal mask keeps
+    (``Sk`` keys, S by default; without the mask every pair)."""
+    Sk = S if Sk is None else Sk
+    pairs = S * (S + 1) // 2 if causal else S * Sk
     size = torch.finfo(dtype).bits // 8
-    nbytes = size * (4 * B * H * S * hd + 4 * B * KV * S * hd) + 4 * B * H * S
+    nbytes = (size * (4 * B * H * S * hd + 4 * B * KV * Sk * hd)
+              + 4 * B * H * S)
     return bound_ms(nbytes, 5 * 2.0 * B * H * pairs * hd, peak_for(dtype))
 
 
@@ -1837,7 +1935,8 @@ def train_kernel_phase(cfg, dev="cuda"):
 
 def want_train_launches(cfg, remat: str = TRAIN_REMAT):
     """Each kernel's launches in one step: one flash forward and backward
-    per attention layer, one SSD scan forward and backward per Mamba2
+    per attention layer (whisper: per encoder layer and per decoder layer's
+    attention and cross-attention), one SSD scan forward and backward per Mamba2
     layer, and for the moe family three grouped GEMMs per layer forward,
     each with a dx and a dw behind it.  Under a remat policy the kernels
     are recomputed (they are no matrix products to the dispatcher:
@@ -1845,6 +1944,8 @@ def want_train_launches(cfg, remat: str = TRAIN_REMAT):
     L = cfg.n_layers
     n_attn = sum(cfg.is_attention_layer(i) for i in range(L))
     n_ssm = L - n_attn
+    if cfg.enc_dec:       # the encoder's layers, the decoder's cross-attention
+        n_attn += cfg.n_enc_layers + L
     again = 1 if remat in (None, "none") else 2
     return {"flash_attention": again * n_attn, "flash_attention_bwd": n_attn,
             "grouped_matmul": (again * 3 + 6) * L if cfg.moe else 0,
@@ -1871,18 +1972,39 @@ class PlainCalls:
             setattr(ref, n, fn)
 
 
+def train_extras(cfg, batch: int):
+    """What an encoder-decoder's batches carry besides the tokens: the
+    launcher's frames, (batch, enc_frames, d_model) bf16 from generator
+    seed 7 (``repro_torch.launch.train``)."""
+    if not cfg.enc_dec:
+        return {}
+    return {"frames": torch.randn(
+        (batch, cfg.enc_frames, cfg.d_model), device=CARD,
+        generator=torch.Generator(device=CARD).manual_seed(7)).to(
+            torch.bfloat16)}
+
+
+def train_seq(cfg) -> int:
+    """Tokens a sequence in training: whisper's decoder context, else
+    TRAIN_SEQ."""
+    return WHISPER_CAPACITY if cfg.enc_dec else TRAIN_SEQ
+
+
 def train_main_path(cfg, model, remat: str = TRAIN_REMAT):
-    """TRAIN_STEPS steps of ``make_train_step`` on ``batch_at``'s batches,
-    the launch counters from 0 just before to just after."""
+    """TRAIN_STEPS steps of ``make_train_step`` on ``batch_at``'s batches
+    (and an encoder-decoder's frames), the launch counters from 0 just
+    before to just after."""
     opt = build_optimizer(cfg, TRAIN_LR, TRAIN_STEPS)
     rt = RuntimeConfig(microbatches=1, remat=remat, loss_chunks=1,
                        aux_weight=0.01)
     state = init_state(model, opt)
     step_fn = make_train_step(cfg, opt, rt)
-    dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+    seq = train_seq(cfg)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=seq,
                     global_batch=TRAIN_BATCH, seed=0)
-    batches = [batch_at(dc, i) for i in range(TRAIN_STEPS)]
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    extras = train_extras(cfg, TRAIN_BATCH)
+    batches = [{**batch_at(dc, i), **extras} for i in range(TRAIN_STEPS)]
+    tokens = TRAIN_BATCH * seq
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     steps = []
@@ -1903,9 +2025,14 @@ def train_main_path(cfg, model, remat: str = TRAIN_REMAT):
     gmm_paths = {k: c.value for k, c in gmm_mod.bf16_launches.items()}
     gmm_bwd = gmm_mod.bwd_launches.value
     peak = torch.cuda.max_memory_allocated()
-    expect(all(math.isfinite(s[k]) for s in steps
-               for k in ("loss", "aux_loss", "grad_norm")),
-           f"finite losses and gradient norms: {steps}")
+    # whisper's gradient norm overflows float32 at the reference's init
+    # (x30-50 a layer pair, in both packages: ROADMAP.md section 3), so
+    # clipping scales its steps to 0 and only the decay moves it
+    finite = ("loss", "aux_loss") + (() if cfg.enc_dec else ("grad_norm",))
+    expect(all(math.isfinite(s[k]) for s in steps for k in finite),
+           f"finite {finite}: {steps}")
+    expect(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+           "finite parameters after the steps")
     expect(int(state.opt.step) == TRAIN_STEPS, "the optimizer counted "
            f"{int(state.opt.step)} steps")
     want = want_train_launches(cfg, remat)
@@ -1923,7 +2050,7 @@ def train_main_path(cfg, model, remat: str = TRAIN_REMAT):
            f"every flash backward took the tensor-core kernels: {bwd_paths}")
     expect(not any(plain.calls.values()),
            f"no plain version on the card's training path: {plain.calls}")
-    print(f"train: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+    print(f"train: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {seq} "
           f"tokens, remat {remat}; peak memory {peak / 2 ** 30:.2f} "
           f"GiB; launches a step {per_step} (grouped GEMM "
           f"{gmm_bwd // TRAIN_STEPS} of them backward)", flush=True)
@@ -1936,7 +2063,7 @@ def train_main_path(cfg, model, remat: str = TRAIN_REMAT):
                 grouped_matmul_bf16_launches=gmm_paths,
                 flash_bwd_paths=bwd_paths, peak_memory_bytes=peak,
                 plain_calls=plain.calls,
-                batch=TRAIN_BATCH, seq=TRAIN_SEQ, remat=remat,
+                batch=TRAIN_BATCH, seq=seq, remat=remat,
                 lr=TRAIN_LR, schedule=cfg.lr_schedule)
 
 
@@ -1980,10 +2107,16 @@ def train_profile(step_fn, state, batch):
 
 def grad_group(name: str) -> str:
     """A gradient's group in the gradient head checks."""
-    if name == "x":
-        return "x"
+    if name in ("x", "pos_embed"):
+        return name
     if name.startswith("embed."):
         return "embed"
+    if name.startswith("encoder.layers."):     # whisper's encoder
+        for part in ("attn", "ffn"):
+            if f".{part}." in name:
+                return "enc_" + part
+    if ".xattn." in name:                  # whisper's cross-attention
+        return "xattn"
     if ".ssm." in name:                   # zamba2's Mamba2 layers
         leaf = name.rsplit(".", 1)[1]
         if leaf in ("A_log", "D", "dt_bias"):
@@ -2005,13 +2138,15 @@ def grad_group(name: str) -> str:
 
 
 def head_grads(head, state, batch, dtype, dev):
-    """The head's gradients (float32, CPU) for one batch, on ``dev`` in
-    ``dtype``: kernels and their backward on the card, plain versions on
-    the CPU."""
+    """The head's gradients (float32, CPU) for one batch (its extras, an
+    encoder-decoder's frames, in ``dtype``), on ``dev`` in ``dtype``:
+    kernels and their backward on the card, plain versions on the CPU."""
     m = head_model(head, state, dtype, dev)
     params = trainable(m)
+    extras = {k: v.to(dev, dtype) for k, v in batch.items()
+              if k not in ("tokens", "labels")}
     total, _ = make_loss_fn(head, RuntimeConfig(remat=None))(
-        m, batch["tokens"].to(dev), batch["labels"].to(dev))
+        m, batch["tokens"].to(dev), batch["labels"].to(dev), extras)
     grads = torch.autograd.grad(total, list(params.values()))
     return {k: g.float().cpu() for k, g in zip(params, grads)}
 
@@ -2303,12 +2438,17 @@ def grad_head_check(cfg, model, groups, limit, dev="cuda"):
 
 
 def hybrid_grad_inputs(cfg, model, seed: int = 1):
-    """The head (zamba2's first hybrid group with the full-width
-    embedding), its parameters and ``batch_at``'s batch of data seed
-    ``seed``, 1 x TRAIN_SEQ."""
+    """The head (``model_head``), its parameters and ``batch_at``'s batch of
+    data seed ``seed``, 1 x TRAIN_SEQ (whisper: 1 x WHISPER_CAPACITY, with
+    frames (1, enc_frames, d_model) drawn from a generator of that
+    seed)."""
     head, state = model_head(cfg, model)
-    batch = batch_at(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+    batch = batch_at(DataConfig(vocab=cfg.vocab, seq_len=train_seq(cfg),
                                 global_batch=1, seed=seed), 0)
+    if cfg.enc_dec:
+        batch["frames"] = torch.randn(
+            (1, cfg.enc_frames, cfg.d_model),
+            generator=torch.Generator().manual_seed(seed))
     return head, state, batch
 
 
@@ -2733,6 +2873,220 @@ def train_lm_phase():
 
 
 # ---------------------------------------------------------------------------
+# whisper-large-v3: the encoder-decoder served and trained at full width and
+# depth
+# ---------------------------------------------------------------------------
+
+def whisper_kernel_phase(cfg):
+    """Flash at whisper's shapes, float32 and bf16, against its plain
+    version on the card, each timed beside SDPA with its bound: the forward
+    as serving calls it (the encoder's WHISPER_BATCH x 1500 frames without
+    a mask; the cross-attention's 4- and 224-token queries against 1500
+    keys), the backward at the training shapes (the encoder's TRAIN_BATCH
+    x 1500 frames, the cross-attention's 448 queries against them, the
+    decoder's causal 448 tokens) against autograd through the plain
+    version, SDPA's backward through autograd too."""
+    dev = torch.device(CARD)
+    g = torch.Generator(device=dev).manual_seed(0)
+    H, KV, hd, n = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.enc_frames
+    results = {}
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        for what, B, Sq, Sk in (
+                ("encoder", WHISPER_BATCH, n, n),
+                ("cross", WHISPER_BATCH, WHISPER_PROMPT, n),
+                ("cross", WHISPER_BATCH, WHISPER_LONG_PROMPT, n)):
+            q = randn(B, H, Sq, hd, dtype=dtype)
+            k, v = randn(B, KV, Sk, hd, dtype=dtype), randn(B, KV, Sk, hd,
+                                                            dtype=dtype)
+            got = ops.flash_attention(q, k, v, causal=False)
+            want = ref.attention_ref(q, k, v, causal=False)
+            err = (got.float() - want.float()).abs().max().item()
+            worst = (bf16_excess(got, want, FLASH_TOL)
+                     if dtype == torch.bfloat16 else err / FLASH_TOL)
+            shape = [B, H, KV, Sq, Sk, hd]
+            expect(worst <= 1.0, f"flash {WHISPER_ARCH} {what} {shape} {dt}:"
+                   f" worst element at {worst:.3f} of its bound")
+            results[f"flash_attention {WHISPER_ARCH} {what} Sq{Sq} {dt}"] = \
+                dict(max_abs_err=err, worst_share_of_bound=worst,
+                     ms=cuda_ms(lambda: ops.flash_attention(
+                         q, k, v, causal=False), 10),
+                     plain_ms=cuda_ms(lambda: ref.attention_ref(
+                         q, k, v, causal=False), 2),
+                     library_ms=cuda_ms(
+                         lambda: F.scaled_dot_product_attention(q, k, v),
+                         10),
+                     shape=shape, dtype=dt, kw={"causal": False},
+                     bound=flash_bound(B, H, KV, Sq, Sk, hd, dtype,
+                                       causal=False))
+        for what, Sq, Sk, causal in (
+                ("encoder", n, n, False),
+                ("cross", WHISPER_CAPACITY, n, False),
+                ("decoder", WHISPER_CAPACITY, WHISPER_CAPACITY, True)):
+            B = TRAIN_BATCH
+            q, do = randn(B, H, Sq, hd, dtype=dtype), randn(B, H, Sq, hd,
+                                                            dtype=dtype)
+            k, v = randn(B, KV, Sk, hd, dtype=dtype), randn(B, KV, Sk, hd,
+                                                            dtype=dtype)
+            kw = dict(causal=causal)
+            worst, err = flash_grads_excess(q, k, v, do, kw)
+            shape = [B, H, KV, Sq, Sk, hd]
+            expect(worst <= 1.0, f"flash backward {WHISPER_ARCH} {what} "
+                   f"{shape} {dt}: worst element at {worst:.3f} of its "
+                   "bound")
+            o, lse = flash_mod.flash_attention_with_lse(q, k, v, **kw)
+            results[f"flash_attention_bwd {WHISPER_ARCH} {what} {dt}"] = \
+                dict(max_abs_err=err, worst_share_of_bound=worst,
+                     ms=cuda_ms(lambda: flash_mod.flash_attention_backward(
+                         q, k, v, o, do, lse, **kw), 10),
+                     plain_ms=grad_ms(ref.attention_ref, (q, k, v), do, 2,
+                                      **kw),
+                     library_ms=grad_ms(
+                         lambda *t: F.scaled_dot_product_attention(
+                             *t, is_causal=causal), (q, k, v), do, 10),
+                     shape=shape, dtype=dt, kw=kw,
+                     bound=flash_bwd_bound(B, H, KV, Sq, hd, dtype, causal,
+                                           Sk=Sk))
+    torch.cuda.synchronize()
+    for name, r in results.items():
+        print(f"kernel {name} {r['shape']}: {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound "
+              f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), max err "
+              f"{r['max_abs_err']:.3g}, worst share of its tolerance "
+              f"{r['worst_share_of_bound']:.3f}", flush=True)
+    return results
+
+
+def whisper_serve(cfg, model):
+    """Whisper served as the JAX package's own tests drive it, through
+    ``prefill`` and ``decode_step`` (its engine takes no frames): a batch of
+    WHISPER_BATCH requests, each with its own frames (generator seed 7) and
+    a WHISPER_PROMPT-token prompt, prefilled at capacity WHISPER_CAPACITY
+    and decoded WHISPER_DECODE greedy steps, each step's tokens read by the
+    host as the engine reads them; then one WHISPER_LONG_PROMPT-token
+    request decoded WHISPER_LONG_DECODE steps, each shape warmed up first.
+    Each run's launch counts from 0 just before to just after: one flash
+    call per encoder layer and two per decoder layer (attention,
+    cross-attention) a prefill, none a decode step."""
+    gen = torch.Generator(device=CARD).manual_seed(7)
+    rng = np.random.default_rng(0)
+    per_prefill = cfg.n_enc_layers + 2 * cfg.n_layers
+    shapes = (("batch", WHISPER_BATCH, WHISPER_PROMPT, WHISPER_DECODE),
+              ("long", 1, WHISPER_LONG_PROMPT, WHISPER_LONG_DECODE))
+    for _, B, S, _ in shapes:      # warm-up at each shape, before the counts
+        _, cache = prefill(model, torch.zeros((B, S), dtype=torch.long,
+                                              device=CARD),
+                           capacity=WHISPER_CAPACITY, frames=torch.zeros(
+                               (B, cfg.enc_frames, cfg.d_model),
+                               dtype=torch.bfloat16, device=CARD))
+        decode_step(model, cache, torch.zeros(B, dtype=torch.long,
+                                              device=CARD), S)
+    del cache
+    runs = {}
+    for name, B, S, steps in shapes:
+        frames = torch.randn((B, cfg.enc_frames, cfg.d_model), generator=gen,
+                             device=CARD).to(torch.bfloat16)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))).to(CARD)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        logits, cache = prefill(model, tokens, capacity=WHISPER_CAPACITY,
+                                frames=frames)
+        tok = torch.argmax(logits, -1)
+        out = [tok.tolist()]
+        prefill_s = time.perf_counter() - t0
+        at_prefill = ops.COUNTERS["flash_attention"].value
+        finite = [bool(torch.isfinite(logits).all())]
+        t0 = time.perf_counter()
+        for i in range(steps):
+            logits, cache = decode_step(model, cache, tok, S + i)
+            tok = torch.argmax(logits, -1)
+            out.append(tok.tolist())
+        decode_s = time.perf_counter() - t0
+        finite.append(bool(torch.isfinite(logits).all()))
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: c.value for k, c in ops.COUNTERS.items()}
+        expect(all(finite), f"whisper {name}: finite logits")
+        expect(all(0 <= t < cfg.vocab for row in out for t in row),
+               f"whisper {name}: tokens in the vocab")
+        expect(at_prefill == launches["flash_attention"] == per_prefill
+               and not any(n for k, n in launches.items()
+                           if k != "flash_attention"),
+               f"whisper {name}: {per_prefill} flash calls a prefill, none a "
+               f"decode step, no other kernel: {launches}")
+        tok_s = B * steps / decode_s
+        print(f"lm prefill {B} x {S} tokens over {B} x {cfg.enc_frames} "
+              f"frames: {prefill_s:.4f} s", flush=True)
+        print(f"lm decode: {B * steps} tokens in {steps} steps, "
+              f"{decode_s:.3f} s, {tok_s:.1f} tokens/s; peak memory "
+              f"{peak / 2 ** 30:.2f} GiB", flush=True)
+        runs[name] = dict(batch=B, prompt=S, decode_steps=steps,
+                          prefill_seconds=prefill_s, decode_seconds=decode_s,
+                          decode_tokens_per_s=tok_s, peak_memory_bytes=peak,
+                          launches=launches, first_tokens=[
+                              [row[j] for row in out[:8]] for j in range(B)])
+    return dict(runs=runs,
+                prefill_seconds=[(r["batch"] * r["prompt"],
+                                  r["prefill_seconds"])
+                                 for r in runs.values()],
+                decode_tokens_per_s=runs["batch"]["decode_tokens_per_s"],
+                peak_memory_bytes=max(r["peak_memory_bytes"]
+                                      for r in runs.values()),
+                launches={k: sum(r["launches"][k] for r in runs.values())
+                          for k in ops.COUNTERS})
+
+
+def whisper_profile(cfg, model):
+    """``torch.profiler`` over one prefill of WHISPER_BATCH requests with
+    their frames (generator seed 9) and PROFILE_DECODE_STEPS decode steps
+    after it."""
+    frames = torch.randn((WHISPER_BATCH, cfg.enc_frames, cfg.d_model),
+                         generator=torch.Generator(device=CARD).manual_seed(9),
+                         device=CARD).to(torch.bfloat16)
+    tokens = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab, (WHISPER_BATCH, WHISPER_PROMPT))).to(CARD)
+    token = tokens[:, 0]
+    prefill(model, tokens, capacity=WHISPER_CAPACITY, frames=frames)  # warm
+    kept = {}
+
+    def run_prefill():
+        kept["cache"] = prefill(model, tokens, capacity=WHISPER_CAPACITY,
+                                frames=frames)[1]
+
+    def decode():
+        for i in range(PROFILE_DECODE_STEPS):
+            decode_step(model, kept["cache"], token, WHISPER_PROMPT + i)
+
+    out = {"prefill": profile_steps("prefill", run_prefill)}
+    out["decode"] = profile_steps("decode", decode)
+    return out
+
+
+def whisper_phase():
+    """whisper-large-v3: flash at its shapes, the model served, a profiled
+    window, the head check, the gradient head check, then the training
+    main path; the model is freed before returning."""
+    cfg = get_config(WHISPER_ARCH)
+    kernels = whisper_kernel_phase(cfg)
+    model = build_model(cfg)
+    serve = whisper_serve(cfg, model)
+    serve["profile"] = whisper_profile(cfg, model)
+    head = lm_head_check(cfg, model)
+    grads = grad_head_check(cfg, model, WHISPER_GRAD_GROUPS,
+                            WHISPER_GRAD_F32_REL)   # the parameters as built
+    train = train_main_path(cfg, model, WHISPER_TRAIN_REMAT)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return kernels, serve, head, grads, train
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2811,6 +3165,12 @@ def main() -> int:
         results.update({f"{k} {arch} train": v for k, v in fk.items()})
         families[arch].update(train=main_, train_head_check=head)
         by_path["train " + arch] = main_["launches"]
+    wk, w_serve, w_head, w_grads, w_train = whisper_phase()
+    results.update(wk)
+    families[WHISPER_ARCH] = dict(serve=w_serve, head_check=w_head,
+                                  train=w_train, train_head_check=w_grads)
+    by_path[WHISPER_ARCH] = w_serve["launches"]
+    by_path["train " + WHISPER_ARCH] = w_train["launches"]
     example = train_lm_phase()
     by_path["train_lm"] = example["launches"]
     summary = {}

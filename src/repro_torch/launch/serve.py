@@ -2,7 +2,9 @@
 
 Continuous slot-based batching over a synthetic request stream: requests
 join mid-flight as slots free up, and throughput is reported as decoded
-tokens/s.  Runs on CUDA unless ``--device cpu`` is given.
+tokens/s.  Runs on CUDA unless ``--device cpu`` is given.  An
+encoder-decoder arch (whisper-large-v3) is refused, as the JAX launcher
+refuses it: its requests need audio frames.
 
 Usage:
     python -m repro_torch.launch.serve --arch zamba2-2.7b --smoke \
@@ -38,6 +40,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.enc_dec:
+        raise SystemExit(f"{cfg.arch}: enc-dec serving needs audio frames; "
+                         "use examples/serve_llm.py patterns instead")
     device = resolve_device(args.device)
     print(f"[serve] arch={cfg.arch} device={device} slots={args.slots} "
           f"capacity={args.capacity}")

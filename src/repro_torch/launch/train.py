@@ -5,9 +5,10 @@ flags and its loop: deterministic stateless data, atomic asynchronous
 checkpoints every ``--ckpt-every`` steps with keep-K, restore from the
 latest on ``--resume``, the per-arch LR recipe (wsd or cosine), and the
 optional int8 + error-feedback gradient sync (``--compress``, over a
-``torch.distributed`` group of one process).  A VLM's batches carry
-``frontend_embeds`` drawn once from a seeded generator, as the reference's
-do.  Runs on CUDA unless ``--device cpu`` is given.
+``torch.distributed`` group of one process).  An encoder-decoder's batches
+carry ``frames`` and a VLM's ``frontend_embeds``, drawn once from a seeded
+generator, as the reference's do.  Runs on CUDA unless ``--device cpu`` is
+given.
 
 Usage:
     python -m repro_torch.launch.train --arch granite-moe-3b-a800m \\
@@ -102,15 +103,19 @@ def main(argv=None) -> int:
     dc = DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
                     global_batch=args.batch, seed=args.seed)
 
-    # a VLM's stub frontend: the same (batch, P, d) embeddings every step,
-    # from generator seed 7.  The reference draws them from PRNGKey(7):
-    # another generator, so the two launchers' embeddings differ (parity
-    # tests pass their own).
+    # the stub frontends: the same bf16 embeddings every step, the
+    # encoder-decoder's (batch, enc_frames, d) frames or a VLM's (batch, P,
+    # d), from generator seed 7.  The reference draws them from
+    # PRNGKey(7): another generator, so the two launchers' embeddings
+    # differ (parity tests pass their own).
     extras = {}
-    if cfg.frontend_positions:
+    stub = (("frames", cfg.enc_frames) if cfg.enc_dec
+            else ("frontend_embeds", cfg.frontend_positions)
+            if cfg.frontend_positions else None)
+    if stub is not None:
         gen = torch.Generator(device=device).manual_seed(7)
-        extras["frontend_embeds"] = torch.randn(
-            (args.batch, cfg.frontend_positions, cfg.d_model),
+        extras[stub[0]] = torch.randn(
+            (args.batch, stub[1], cfg.d_model),
             generator=gen, device=device).to(torch.bfloat16)
 
     start = 0

@@ -41,6 +41,15 @@ def _project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, H * hd)).view(*x.shape[:-1], H, hd)
 
 
+def query(x: torch.Tensor, p: Params) -> torch.Tensor:
+    """The query projection alone, (B,S,d) -> (B,S,H,hd), with its bias
+    (a decode step's cross-attention reads its keys from the cache)."""
+    q = _project_heads(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    return q
+
+
 def qkv(x: torch.Tensor, p: Params, cfg: ModelConfig,
         positions: Optional[torch.Tensor] = None,
         kv_x: Optional[torch.Tensor] = None,
@@ -48,11 +57,9 @@ def qkv(x: torch.Tensor, p: Params, cfg: ModelConfig,
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Project to (B,S,H,hd) / (B,Skv,KV,hd); optionally rope."""
     src = x if kv_x is None else kv_x
-    q = _project_heads(x, p["wq"])
+    q = query(x, p)
     k = _project_heads(src, p["wk"])
     v = _project_heads(src, p["wv"])
-    if "bq" in p:
-        q = q + p["bq"]
     if rope and positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)

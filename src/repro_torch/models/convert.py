@@ -8,14 +8,19 @@ The JAX package keeps parameters as a nested dict of stacked arrays.  Its
   * hybrid (zamba2): ``{"mamba": leaves of shape (g, m, ...), "attn":
     leaves of shape (g, ...)}``;
   * local/global pairs (gemma2): ``{"local": leaves of shape (pairs, ...),
-    "global": leaves of shape (pairs, ...)}``.
+    "global": leaves of shape (pairs, ...)}``;
+  * the encoder-decoder (whisper): the decoder's blocks, with their
+    cross-attention, as the plain stack's, beside ``encoder`` (``layers``
+    with leaves of shape (n_enc_layers, ...), ``final_norm``) and the
+    learned positions ``pos_embed`` (max_pos, d).
 
 :func:`from_jax_params` takes that tree as numpy arrays (``jax.device_get``
 of it, or any array-likes ``numpy.asarray`` accepts) and returns an
 :class:`~repro_torch.models.lm.LM` holding the same numbers: block ``i``
 of a stack from index ``[i]``, group ``i``'s Mamba2 block ``j`` from
 ``[i, j]`` and its attention block from ``[i]``, pair ``i``'s two blocks
-from ``[i]`` of ``local`` and of ``global``.
+from ``[i]`` of ``local`` and of ``global``, encoder block ``i`` from
+``[i]`` of ``encoder/layers``.
 """
 from __future__ import annotations
 
@@ -29,6 +34,15 @@ from repro_torch.models.layers import Params
 from repro_torch.models.lm import LM
 
 
+def _copy(param: torch.Tensor, value: Any, where: str) -> None:
+    arr = np.asarray(value)
+    if tuple(arr.shape) != tuple(param.shape):
+        raise ValueError(f"{where}: shape {arr.shape} does not match the "
+                         f"port's {tuple(param.shape)}")
+    with torch.no_grad():
+        param.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+
+
 def _fill(module: Params, tree: Dict[str, Any], index: tuple,
           where: str) -> None:
     for name, value in tree.items():
@@ -37,13 +51,8 @@ def _fill(module: Params, tree: Dict[str, Any], index: tuple,
         if isinstance(value, dict):
             _fill(module[name], value, index, f"{where}{name}.")
             continue
-        arr = np.asarray(value)[index] if index else np.asarray(value)
-        param = module[name]
-        if tuple(arr.shape) != tuple(param.shape):
-            raise ValueError(f"{where}{name}: shape {arr.shape} does not "
-                             f"match the port's {tuple(param.shape)}")
-        with torch.no_grad():
-            param.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+        _copy(module[name], np.asarray(value)[index] if index else value,
+              f"{where}{name}")
     missing = [n for n in list(module._parameters) + list(module._modules)
                if n not in tree]
     if missing:
@@ -55,8 +64,22 @@ def from_jax_params(cfg: ModelConfig, tree: Dict[str, Any], *,
                     device: Optional[Any] = None) -> LM:
     """An ``LM`` of ``cfg`` holding the JAX package's parameters ``tree``."""
     model = LM(cfg, dtype=dtype, device=device)
+    known = {"embed", "final_norm", "layers"}
     for top in ("embed", "final_norm"):
         _fill(getattr(model, top), tree[top], (), f"{top}.")
+    if not cfg.use_rope:
+        known.add("pos_embed")
+        _copy(model.pos_embed, tree["pos_embed"], "pos_embed")
+    if cfg.enc_dec:
+        known.add("encoder")
+        enc = tree["encoder"]
+        for i, blk in enumerate(model.encoder.layers):
+            _fill(blk, enc["layers"], (i,), f"encoder.layers[{i}].")
+        _fill(model.encoder.final_norm, enc["final_norm"], (),
+              "encoder.final_norm.")
+        if set(enc) != {"layers", "final_norm"}:
+            raise KeyError(f"encoder: parameters the port does not have: "
+                           f"{sorted(set(enc) - {'layers', 'final_norm'})}")
     layers = tree["layers"]
     for i, grp in enumerate(model.layers):
         if cfg.family == "hybrid":
@@ -70,7 +93,7 @@ def from_jax_params(cfg: ModelConfig, tree: Dict[str, Any], *,
                       f"layers.{side}[{i}].")
         else:
             _fill(grp, layers, (i,), f"layers[{i}].")
-    extra = set(tree) - {"embed", "final_norm", "layers"}
+    extra = set(tree) - known
     if extra:
         raise KeyError(f"parameters the port's {cfg.family} model does not "
                        f"have: {sorted(extra)}")

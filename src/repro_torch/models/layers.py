@@ -54,6 +54,18 @@ def init_param(d: ParamDef, *, dtype: torch.dtype, device,
     return (w * std).to(dtype)
 
 
+def new_parameter(d: ParamDef, *, dtype: torch.dtype, device=None,
+                  generator: Optional[torch.Generator] = None
+                  ) -> nn.Parameter:
+    """One parameter of ``d``, drawn by :func:`init_param` with a generator
+    and left uninitialised without one; it does not require grad (the
+    trainer turns that on)."""
+    t = (init_param(d, dtype=dtype, device=device, generator=generator)
+         if generator is not None
+         else torch.empty(d.shape, dtype=dtype, device=device))
+    return nn.Parameter(t, requires_grad=False)
+
+
 class Params(nn.Module):
     """Parameters mirroring a ``ParamDef`` tree, read as ``p["name"]`` or
     ``p.name``.  Without a generator they are left uninitialised (to be
@@ -64,12 +76,8 @@ class Params(nn.Module):
         super().__init__()
         for name, d in defs.items():
             if isinstance(d, ParamDef):
-                t = (init_param(d, dtype=dtype, device=device,
-                                generator=generator)
-                     if generator is not None
-                     else torch.empty(d.shape, dtype=dtype, device=device))
-                self.register_parameter(
-                    name, nn.Parameter(t, requires_grad=False))
+                self.register_parameter(name, new_parameter(
+                    d, dtype=dtype, device=device, generator=generator))
             else:
                 self.add_module(name, Params(d, dtype=dtype, device=device,
                                              generator=generator))

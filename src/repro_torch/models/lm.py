@@ -1,11 +1,18 @@
-"""Model assembly of the decoder LMs: the ``ssm`` family (mamba2: a stack
-of Mamba2 blocks), the ``hybrid`` family (zamba2: Mamba2 blocks with an
-attention block every ``hybrid_attn_every`` layers), gemma2's pairs of a
-local (sliding-window) and a global attention block, and the plain stack
-of attention blocks, whose FFN is an MLP (the ``dense`` and ``vlm``
-families) or a mixture of experts (the ``moe`` family).  A VLM's frontend
-is a stub, as in the JAX package: precomputed embeddings
+"""Model assembly of every family of the JAX package: the ``ssm`` family
+(mamba2: a stack of Mamba2 blocks), the ``hybrid`` family (zamba2: Mamba2
+blocks with an attention block every ``hybrid_attn_every`` layers),
+gemma2's pairs of a local (sliding-window) and a global attention block,
+the plain stack of attention blocks, whose FFN is an MLP (the ``dense``
+and ``vlm`` families) or a mixture of experts (the ``moe`` family), and
+the encoder-decoder (the ``audio`` family, whisper).  A VLM's frontend is
+a stub, as in the JAX package: precomputed embeddings
 (``frontend_embeds``) replace the first ``frontend_positions`` positions.
+So is the audio frontend: the encoder takes precomputed frame embeddings
+(``frames``, (B, enc_frames, d_model)), adds fixed sinusoids and runs
+attention blocks without a mask; each decoder block attends to the
+encoder's output after its own causal attention.  A model without rope
+(whisper's decoder) adds learned positions (``pos_embed``) to its token
+embeddings.
 
 The JAX package scans over stacked per-layer parameters; here the stack
 is a Python loop over an ``nn.ModuleList``: ``LM.layers`` holds
@@ -13,8 +20,9 @@ is a Python loop over an ``nn.ModuleList``: ``LM.layers`` holds
 :class:`HybridGroup` per period (``period - 1`` :class:`MambaBlock`\\ s and
 one :class:`AttnBlock`) for the hybrid family, ``n_layers / 2``
 :class:`LocalGlobalPair`\\ s for local/global pairs, and ``n_layers``
-:class:`AttnBlock`\\ s for the plain stack.  Entry points, as in the JAX
-package:
+:class:`AttnBlock`\\ s for the plain stack and the decoder of the
+encoder-decoder, whose :class:`Encoder` is ``LM.encoder``.  Entry points,
+as in the JAX package:
 
   * :meth:`LM.forward`  — full-sequence logits,
   * :func:`forward_backbone` / :func:`forward_train` — the training
@@ -25,13 +33,15 @@ package:
 
 The decode cache keeps the JAX package's key names, layout and dtypes
 (``h`` float32, the rest bfloat16); :func:`decode_step` updates it in
-place (the JAX engine donates it) and returns it.  The encoder-decoder
-(``audio``) family and learned positions raise ``NotImplementedError``:
-they come in a later slice of the port.
+place (the JAX engine donates it) and returns it.  An encoder-decoder's
+cache also holds each decoder layer's cross-attention keys and values
+over the frames (``xk``, ``xv``), written by the prefill and read, never
+changed, by the decode steps.
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -43,31 +53,24 @@ from torch.utils.checkpoint import (checkpoint,
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (attn_defs, decode_attention,
                                           out_proj, prefill_attention, qkv,
-                                          update_cache)
+                                          query, update_cache)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (Defs, Params, embed, embed_defs, mlp,
-                                       mlp_defs, rmsnorm, rmsnorm_def,
+from repro_torch.models.layers import (Defs, ParamDef, Params, embed,
+                                       embed_defs, mlp, mlp_defs,
+                                       new_parameter, rmsnorm, rmsnorm_def,
                                        unembed)
 from repro_torch.models.moe import moe_defs, moe_ffn
 
 Cache = Dict[str, torch.Tensor]
 
-#: the families the port runs
-PORTED = ("dense", "moe", "ssm", "hybrid", "vlm")
-#: where each family not ported yet is planned (ROADMAP.md, queue 1)
-_LATER = {"audio": "the enc-dec slice"}
+#: the families of the JAX package, every one of which the port runs
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED or cfg.enc_dec:
-        where = _LATER.get(cfg.family, "a later slice")
-        raise NotImplementedError(
-            f"{cfg.arch}: the {cfg.family} family is not ported yet; "
-            f"it comes with {where}")
-    if not cfg.use_rope:
-        raise NotImplementedError(
-            f"{cfg.arch}: learned positions are not ported yet; they come "
-            f"with {_LATER['audio']}")
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.arch}: unknown family {cfg.family!r}; the "
+                         f"port has {FAMILIES}")
 
 
 def _hybrid_groups(cfg: ModelConfig) -> Tuple[int, int]:
@@ -78,14 +81,23 @@ def _hybrid_groups(cfg: ModelConfig) -> Tuple[int, int]:
     return cfg.n_layers // period, period - 1
 
 
-def attn_block_defs(cfg: ModelConfig) -> Defs:
+def attn_block_defs(cfg: ModelConfig, *, cross: bool = False) -> Defs:
     d: Defs = {"ln1": rmsnorm_def(cfg.d_model), "attn": attn_defs(cfg),
                "ln2": rmsnorm_def(cfg.d_model)}
     if cfg.moe is not None:
         d["moe"] = moe_defs(cfg)
     else:
         d["ffn"] = mlp_defs(cfg)
+    if cross:
+        d["ln_x"] = rmsnorm_def(cfg.d_model)
+        d["xattn"] = attn_defs(cfg)
     return d
+
+
+def pos_embed_def(cfg: ModelConfig) -> ParamDef:
+    """The learned position table of a model without rope."""
+    return ParamDef((max(cfg.max_pos, 1), cfg.d_model), (None, "embed"),
+                    0.02)
 
 
 def mamba_block_defs(cfg: ModelConfig) -> Defs:
@@ -98,22 +110,34 @@ def mamba_block_defs(cfg: ModelConfig) -> Defs:
 
 class AttnBlock(Params):
     """Pre-norm attention + FFN block (``ln1``, ``attn``, ``ln2``, and
-    ``ffn`` or, with a MoE config, ``moe``)."""
+    ``ffn`` or, with a MoE config, ``moe``).  A decoder block of the
+    encoder-decoder (``cross=True``) also holds its cross-attention
+    (``ln_x``, ``xattn``), run between its attention and its FFN."""
 
-    def __init__(self, cfg: ModelConfig, **kw):
-        super().__init__(attn_block_defs(cfg), **kw)
+    def __init__(self, cfg: ModelConfig, *, cross: bool = False, **kw):
+        super().__init__(attn_block_defs(cfg, cross=cross), **kw)
         self.cfg = cfg
 
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
-                causal: bool = True, window: Optional[int] = None
-                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+                causal: bool = True, window: Optional[int] = None,
+                enc: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+        """(y, kv): the attention's k and v, and given the encoder's output
+        ``enc``, the cross-attention's k and v over it after them."""
         y, kv = _attn_part(self, x, self.cfg, positions=positions,
                            causal=causal, window=window)
+        if enc is not None:
+            y, xkv = _cross_part(self, y, self.cfg, enc)
+            kv = kv + xkv
         return _ffn_part(self, y, self.cfg), kv
 
     def decode(self, x: torch.Tensor, *, k_cache: torch.Tensor,
-               v_cache: torch.Tensor, pos: int, window: Optional[int]
-               ) -> torch.Tensor:
+               v_cache: torch.Tensor, pos: int, window: Optional[int],
+               xk: Optional[torch.Tensor] = None,
+               xv: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One decode step; with the cache's cross-attention keys and values
+        ``xk``/``xv`` (B, frames, KV, hd), the cross-attention over
+        them."""
         cfg = self.cfg
         h = rmsnorm(x, self["ln1"]["scale"], cfg.norm_eps)
         positions = torch.full((1, 1), pos, device=x.device)
@@ -123,6 +147,8 @@ class AttnBlock(Params):
         o = decode_attention(q, k_cache, v_cache, pos=pos, window=window,
                              logit_cap=cfg.attn_softcap, scale=cfg.attn_scale)
         y = x + out_proj(o, self["attn"])
+        if xk is not None:
+            y = _cross_decode(self, y, cfg, xk, xv)
         return _ffn_part(self, y, cfg)
 
 
@@ -133,6 +159,28 @@ def _attn_part(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     q, k, v = qkv(h, p["attn"], cfg, positions=positions, rope=cfg.use_rope)
     o = prefill_attention(q, k, v, cfg, causal=causal, window=window)
     return x + out_proj(o, p["attn"]), (k, v)
+
+
+def _cross_part(p: Params, y: torch.Tensor, cfg: ModelConfig,
+                enc: torch.Tensor):
+    """A decoder block's residual cross-attention: queries from its own
+    stream, keys and values from the encoder's output ``enc``, no mask.
+    Returns (y, (k, v)) with those keys and values."""
+    h = rmsnorm(y, p["ln_x"]["scale"], cfg.norm_eps)
+    q, k, v = qkv(h, p["xattn"], cfg, kv_x=enc, rope=False)
+    o = prefill_attention(q, k, v, cfg, causal=False)
+    return y + out_proj(o, p["xattn"]), (k, v)
+
+
+def _cross_decode(p: Params, y: torch.Tensor, cfg: ModelConfig,
+                  xk: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
+    """The cross-attention of one decode step, over the keys and values the
+    prefill cached (in bf16, as the JAX package reads them), every frame
+    valid."""
+    h = rmsnorm(y, p["ln_x"]["scale"], cfg.norm_eps)
+    o = decode_attention(query(h, p["xattn"]), xk, xv, pos=xk.shape[1] - 1,
+                         logit_cap=cfg.attn_softcap, scale=cfg.attn_scale)
+    return y + out_proj(o, p["xattn"])
 
 
 def _ffn_aux(p: Params, x: torch.Tensor, cfg: ModelConfig
@@ -154,11 +202,15 @@ def _ffn_part(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def attn_block_train(blk: "AttnBlock", x: torch.Tensor, *,
-                     positions: torch.Tensor, window: Optional[int] = None
+                     positions: torch.Tensor, window: Optional[int] = None,
+                     enc: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One causal attention block of the training forward: (y, aux)."""
+    """One causal attention block of the training forward, with its
+    cross-attention over ``enc`` where given: (y, aux)."""
     y, _ = _attn_part(blk, x, blk.cfg, positions=positions, causal=True,
                       window=window)
+    if enc is not None:
+        y, _ = _cross_part(blk, y, blk.cfg, enc)
     return _ffn_aux(blk, y, blk.cfg)
 
 
@@ -211,19 +263,39 @@ class HybridGroup(nn.Module):
         self.attn = AttnBlock(cfg, **kw)
 
 
+class Encoder(nn.Module):
+    """The encoder of the encoder-decoder family: ``layers``, its
+    ``n_enc_layers`` attention blocks (run without a mask), and
+    ``final_norm``."""
+
+    def __init__(self, cfg: ModelConfig, **kw):
+        super().__init__()
+        self.layers = nn.ModuleList(AttnBlock(cfg, **kw)
+                                    for _ in range(cfg.n_enc_layers))
+        self.final_norm = Params(rmsnorm_def(cfg.d_model), **kw)
+
+
 class LM(nn.Module):
-    """A decoder LM of any ported family.  ``generator`` draws the
-    parameters by the JAX package's scale rules; without one they are left
-    uninitialised."""
+    """A model of any family: ``embed``, ``pos_embed`` (without rope: the
+    learned positions), ``encoder`` (the encoder-decoder's), ``layers``
+    and ``final_norm``, under the JAX package's names.  ``generator``
+    draws the parameters by the JAX package's scale rules; without one
+    they are left uninitialised."""
 
     def __init__(self, cfg: ModelConfig, *, dtype: torch.dtype = torch.bfloat16,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_ported(cfg)
+        _check_family(cfg)
         self.cfg = cfg
         kw = dict(dtype=dtype, device=device, generator=generator)
         self.embed = Params(embed_defs(cfg), **kw)
-        if cfg.family == "ssm":
+        if not cfg.use_rope:
+            self.pos_embed = new_parameter(pos_embed_def(cfg), **kw)
+        if cfg.enc_dec:
+            self.encoder = Encoder(cfg, **kw)
+            layers = [AttnBlock(cfg, cross=True, **kw)
+                      for _ in range(cfg.n_layers)]
+        elif cfg.family == "ssm":
             layers = [MambaBlock(cfg, **kw) for _ in range(cfg.n_layers)]
         elif cfg.family == "hybrid":
             g, m = _hybrid_groups(cfg)
@@ -245,13 +317,80 @@ def _embed_input(model: LM, tokens: torch.Tensor,
                  extras: Dict[str, torch.Tensor]) -> torch.Tensor:
     """The token embeddings; for a frontend, its precomputed embeddings
     (``extras["frontend_embeds"]``, (B, P, d)) replace the first P
-    positions."""
+    positions; without rope, the learned positions 0 .. S-1 are added in
+    the embeddings' dtype."""
     cfg = model.cfg
     x = embed(tokens, model.embed, cfg)
     if cfg.frontend_positions and "frontend_embeds" in extras:
         fe = extras["frontend_embeds"].to(x.dtype)
         x = torch.cat([fe, x[:, fe.shape[1]:]], dim=1)
+    if not cfg.use_rope:
+        x = x + _learned_positions(model, 0, tokens.shape[1]).to(x.dtype)
     return x
+
+
+def _learned_positions(model: LM, pos0: int, S: int) -> torch.Tensor:
+    """Rows pos0 .. pos0+S-1 of the learned position table, the start
+    clamped into the table as ``jax.lax.dynamic_slice_in_dim`` clamps it
+    (a decode step past the table's end reads its last row)."""
+    table = model.pos_embed
+    if S > table.shape[0]:
+        raise ValueError(f"{model.cfg.arch}: {S} positions, the table has "
+                         f"{table.shape[0]}")
+    start = min(max(pos0, 0), table.shape[0] - S)
+    return table[start:start + S]
+
+
+def _decode_position(model: LM, pos: int) -> torch.Tensor:
+    """A decode step's learned position (1, 1, d), rounded to bf16 whatever
+    the model's dtype, as the JAX package rounds it (its prefill adds the
+    positions in the model's dtype)."""
+    return _learned_positions(model, pos, 1)[None].to(torch.bfloat16)
+
+
+def _sinusoids(length: int, channels: int, dtype: torch.dtype,
+               device=None) -> torch.Tensor:
+    """The encoder's fixed positions (length, channels): the sines, then
+    the cosines, of t x 10000^(-i / max(channels/2 - 1, 1)), computed in
+    float32 and cast to ``dtype``."""
+    t = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    half = channels // 2
+    inv = torch.exp(-math.log(10_000.0)
+                    * torch.arange(half, dtype=torch.float32, device=device)
+                    / max(half - 1, 1))
+    ang = t * inv[None]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)
+
+
+def _frames(model: LM, extras: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """An encoder-decoder's encoder input, ``extras["frames"]``."""
+    if "frames" not in extras:
+        cfg = model.cfg
+        raise ValueError(f"{cfg.arch}: an encoder-decoder model needs "
+                         f"frames, its encoder's input (B, {cfg.enc_frames},"
+                         f" {cfg.d_model})")
+    return extras["frames"]
+
+
+def _run_encoder(model: LM, frames: torch.Tensor,
+                 remat_policy: Optional[str] = None) -> torch.Tensor:
+    """The encoder over the frame embeddings (B, F, d): the sinusoids added
+    in the frames' dtype, the sum taken to the model's dtype, the blocks
+    without a mask, then the encoder's final norm.  Under a remat policy
+    each block is its own checkpointed unit: the JAX package groups the
+    decoder's layers only."""
+    cfg = model.cfg
+    n = frames.shape[1]
+    x = frames + _sinusoids(n, cfg.d_model, frames.dtype, frames.device)[None]
+    x = x.to(model.embed["tokens"].dtype)
+    positions = torch.arange(n, device=frames.device)[None]
+
+    def body(blk: AttnBlock) -> Callable:
+        return lambda h: blk(h, positions=positions, causal=False)[0]
+
+    for blk in model.encoder.layers:
+        x = _remat(body(blk), remat_policy)(x)
+    return rmsnorm(x, model.encoder.final_norm["scale"], cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -321,16 +460,20 @@ def forward_backbone(model: LM, tokens: torch.Tensor,
     """tokens (B,S) -> final hidden states (B,S,d), aux-loss scalar (the
     MoE router losses summed over the layers).  A hybrid group of Mamba2
     blocks and its attention block is one layer body, as is a local/global
-    pair, as in the reference's scan."""
+    pair, as in the reference's scan.  An encoder-decoder runs its encoder
+    on ``extras["frames"]`` first; each decoder block's cross-attention
+    reads the encoder's output."""
     cfg = model.cfg
     S = tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)[None]
     window = cfg.sliding_window
+    enc = (_run_encoder(model, _frames(model, extras), remat_policy)
+           if cfg.enc_dec else None)
 
     def attn_body(blk):
         def body(h, aux):
             y, a = attn_block_train(blk, h, positions=positions,
-                                    window=window)
+                                    window=window, enc=enc)
             return y, aux + a
         return body
 
@@ -385,7 +528,7 @@ def forward_train(model: LM, tokens: torch.Tensor,
 def cache_defs(cfg: ModelConfig, batch: int, capacity: int
                ) -> Dict[str, Tuple[int, ...]]:
     """Shapes of the decode cache, by the JAX package's key names."""
-    _check_ported(cfg)
+    _check_family(cfg)
     KV, hd = cfg.n_kv_heads, cfg.head_dim
     if cfg.family == "ssm":
         return _ssm_cache_defs(cfg, cfg.n_layers, batch, lead=())
@@ -404,6 +547,9 @@ def cache_defs(cfg: ModelConfig, batch: int, capacity: int
         g, d = cfg.n_layers, {}
     d["k"] = (g, batch, cap, KV, hd)
     d["v"] = (g, batch, cap, KV, hd)
+    if cfg.enc_dec:
+        d["xk"] = (g, batch, cfg.enc_frames, KV, hd)
+        d["xv"] = (g, batch, cfg.enc_frames, KV, hd)
     return d
 
 
@@ -447,12 +593,15 @@ def prefill(model: LM, tokens: torch.Tensor,
             capacity: Optional[int] = None, **extras
             ) -> Tuple[torch.Tensor, Cache]:
     """tokens (B,S) -> last-token logits (B,V), cache of capacity
-    ``capacity`` (default S)."""
+    ``capacity`` (default S).  An encoder-decoder's cross-attention keys
+    and values go to the cache in bf16; its own cross-attention read them
+    in the model's dtype, as in the JAX package."""
     cfg = model.cfg
     S = tokens.shape[1]
     cap = capacity or S
     positions = torch.arange(S, device=tokens.device)[None]
     x = _embed_input(model, tokens, extras)
+    enc = _run_encoder(model, _frames(model, extras)) if cfg.enc_dec else None
     W = min(cfg.sliding_window, cap) if cfg.sliding_window else cap
     per: Dict[str, List[torch.Tensor]] = {k: [] for k in
                                           cache_defs(cfg, 1, cap)}
@@ -460,12 +609,16 @@ def prefill(model: LM, tokens: torch.Tensor,
     def attn(blk: AttnBlock, x: torch.Tensor, window: Optional[int],
              k_key: str = "k", v_key: str = "v") -> torch.Tensor:
         """One attention block; its k/v packed into a rolling cache of W
-        rows under a window, else padded to the capacity."""
-        x, (k, v) = blk(x, positions=positions, window=window)
+        rows under a window, else padded to the capacity; an
+        encoder-decoder's cross-attention k/v as they are."""
+        x, kv = blk(x, positions=positions, window=window, enc=enc)
         fit = ((lambda t: _fit_window(t, S, W)) if window
                else (lambda t: _pad_cap(t, cap)))
-        per[k_key].append(fit(k).to(torch.bfloat16))
-        per[v_key].append(fit(v).to(torch.bfloat16))
+        per[k_key].append(fit(kv[0]).to(torch.bfloat16))
+        per[v_key].append(fit(kv[1]).to(torch.bfloat16))
+        if enc is not None:
+            per["xk"].append(kv[2].to(torch.bfloat16))
+            per["xv"].append(kv[3].to(torch.bfloat16))
         return x
 
     def mamba(blocks, out: Dict[str, List[torch.Tensor]], x: torch.Tensor
@@ -509,9 +662,12 @@ def decode_step(model: LM, cache: Cache, token: torch.Tensor, pos: int
     """token (B,), pos -> logits (B,V); ``cache`` is updated in place and
     returned.  A rolling cache (its rows equal to the sliding window) is
     decoded under the window; a cache shorter than the window holds every
-    position and is decoded without one, as in the JAX package."""
+    position and is decoded without one, as in the JAX package.  A model
+    without rope adds its learned position (``_decode_position``)."""
     cfg = model.cfg
     x = embed(token[:, None], model.embed, cfg)
+    if not cfg.use_rope:
+        x = x + _decode_position(model, pos).to(x.dtype)
 
     def window_of(k_cache: torch.Tensor) -> Optional[int]:
         W = k_cache.shape[2]
@@ -551,7 +707,9 @@ def decode_step(model: LM, cache: Cache, token: torch.Tensor, pos: int
         window = window_of(cache["k"])
         for i, blk in enumerate(model.layers):
             x = blk.decode(x, k_cache=cache["k"][i], v_cache=cache["v"][i],
-                           pos=pos, window=window)
+                           pos=pos, window=window,
+                           xk=cache["xk"][i] if cfg.enc_dec else None,
+                           xv=cache["xv"][i] if cfg.enc_dec else None)
     x = rmsnorm(x, model.final_norm["scale"], cfg.norm_eps)
     logits = unembed(x, model.embed, cfg)
     return logits[:, 0], cache

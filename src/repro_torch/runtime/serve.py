@@ -7,7 +7,10 @@ unless ``device="cpu"`` is passed, and raises without a card otherwise.
 Like the JAX engine it keeps one decode position for all slots (the
 longest prompt admitted so far); see ROADMAP.md, faults of the reference.
 An optional ``on_step`` callback sees each prefill and decode step with its
-host-clock seconds and its logits, for measurement and checks.
+host-clock seconds and its logits, for measurement and checks.  As the JAX
+engine has no way to pass audio frames, this one refuses an
+encoder-decoder model: serve it through ``prefill(..., frames=...)`` and
+``decode_step``.
 """
 from __future__ import annotations
 
@@ -88,6 +91,11 @@ class ServeEngine:
                  capacity: int, temperature: float = 0.0, seed: int = 0,
                  device: Optional[str] = None,
                  on_step: Optional[StepHook] = None):
+        if cfg.enc_dec:
+            raise ValueError(
+                f"{cfg.arch}: the engine has no way to pass an "
+                "encoder-decoder's audio frames; serve it through "
+                "prefill(..., frames=...) and decode_step")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = model.to(self.device)

@@ -879,6 +879,74 @@ def test_flash_backward_in_the_model_layout_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq", [1, 4, 448, 1500])
+def test_flash_whisper_noncausal_1500_keys_on_card(Sq, dtype, cuda_device):
+    """whisper's attention without a mask: 20 heads of 64 over 1500 keys
+    (the encoder's frames; a ragged last key tile), queries of one decode
+    row, a 4-token prompt, the decoder's 448 tokens (the cross-attention)
+    and the encoder's own 1500 rows.  The forward within 3e-4 (float32) or
+    one bf16 step plus that of the plain version, the gradients within the
+    backward's bound, one launch each."""
+    g = torch.Generator().manual_seed(Sq)
+    q, do = (torch.randn(1, 20, Sq, 64, generator=g).to(cuda_device, dtype)
+             for _ in range(2))
+    k, v = (torch.randn(1, 20, 1500, 64, generator=g).to(cuda_device, dtype)
+            for _ in range(2))
+    kw = dict(causal=False)
+    before = {n: ops.COUNTERS[n].value
+              for n in ("flash_attention", "flash_attention_bwd")}
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ref.attention_ref(q, k, v, **kw)
+    rtol, atol = (3e-4, 3e-4) if dtype == torch.float32 else (2 ** -7, 3e-4)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    _check_flash_grads(q, k, v, do, kw)
+    torch.cuda.synchronize()
+    assert {n: ops.COUNTERS[n].value - c for n, c in before.items()} == \
+        {"flash_attention": 2, "flash_attention_bwd": 1}
+
+
+@pytest.mark.cuda
+def test_whisper_smoke_model_on_card_as_on_cpu(cuda_device):
+    """whisper's smoke config in float32: a 24-token prompt over 8 frames,
+    the prefill's logits and every cache key (k, v, and the
+    cross-attention's xk, xv) on the card (kernels) against the CPU (plain
+    versions), then three decode steps fed the same tokens, each device
+    reading its own cache; one flash launch per encoder layer and two per
+    decoder layer a prefill, none a decode step."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import LM, decode_step, prefill
+    cfg = get_smoke("whisper-large-v3")
+    card = LM(cfg, dtype=torch.float32, device=cuda_device,
+              generator=torch.Generator(device=cuda_device).manual_seed(0))
+    host = LM(cfg, dtype=torch.float32)
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 24), generator=g)
+    frames = torch.randn(2, cfg.enc_frames, cfg.d_model, generator=g)
+    for c in ops.COUNTERS.values():
+        c.reset()
+    lc, cc = prefill(card, toks.to(cuda_device), capacity=32,
+                     frames=frames.to(cuda_device))
+    lh, ch = prefill(host, toks, capacity=32, frames=frames)
+    torch.testing.assert_close(lc.cpu(), lh, rtol=1e-3, atol=1e-3)
+    assert set(ch) == {"k", "v", "xk", "xv"}
+    for k in ch:
+        # bf16 cache rows: one bf16 step apart where they round apart
+        torch.testing.assert_close(cc[k].float().cpu(), ch[k].float(),
+                                   rtol=2 ** -7, atol=1e-3)
+    for i in range(3):
+        tok = toks[:, i]
+        lc, cc = decode_step(card, cc, tok.to(cuda_device), 24 + i)
+        lh, ch = decode_step(host, ch, tok, 24 + i)
+        torch.testing.assert_close(lc.cpu(), lh, rtol=1e-3, atol=1e-3)
+    torch.cuda.synchronize()
+    assert ops.COUNTERS["flash_attention"].value == \
+        cfg.n_enc_layers + 2 * cfg.n_layers
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(40, 1024, 1536, 512),
                                    (40, 1024, 512, 1536), (4, 72, 1536, 512)],
                          ids=["granite_w_in", "granite_w_out", "ragged_c"])

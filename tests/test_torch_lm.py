@@ -14,6 +14,8 @@ Tolerances, each with its reason:
   logit gap exceeds ``DECODE`` at every step, so no comparison rests on a
   near tie.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -87,19 +89,19 @@ def test_config_is_the_jax_packages(models):
 
 
 def test_registry_names_the_ported_archs():
-    """An arch the port lacks raises KeyError naming those it has; the
-    family not ported yet (the encoder-decoder) raises NotImplementedError
-    naming its slice."""
-    with pytest.raises(KeyError, match="zamba2-2.7b.*granite-moe-3b-a800m"):
-        configs.get_config("whisper-large-v3")
+    """An arch the port lacks raises KeyError naming the ten it has, the
+    JAX package's; a family the port does not know raises ValueError
+    naming those it runs."""
+    with pytest.raises(KeyError, match="zamba2-2.7b.*whisper-large-v3"):
+        configs.get_config("llama-7b")
+    assert len(configs.arch_names()) == 10
     from repro_torch.models.config import ModelConfig
     j = jget_smoke("whisper-large-v3")
-    audio = ModelConfig(**{f: getattr(j, f) for f in
-                           ModelConfig.__dataclass_fields__})
-    assert audio.family == "audio" and audio.enc_dec
-    with pytest.raises(NotImplementedError,
-                       match="audio family .*enc-dec slice"):
-        LM(audio)
+    odd = ModelConfig(**{f: getattr(j, f) for f in
+                         ModelConfig.__dataclass_fields__})
+    odd = dataclasses.replace(odd, family="video")
+    with pytest.raises(ValueError, match="unknown family 'video'.*audio"):
+        LM(odd)
 
 
 def test_ssd_prefill_and_decode_match_jax(models):
