@@ -1346,3 +1346,20 @@ def test_quickstart_on_card(cuda_device, capsys):
     quickstart.main(["--device", "cuda"])
     assert capsys.readouterr().out.strip().splitlines()[-1] == \
         "quickstart OK"
+
+
+@pytest.mark.cuda
+def test_hybrid_host_saxpy_on_card(cuda_device):
+    """``hybrid``'s host testbed for saxpy at 10^6: Algorithm 1 searches
+    on the card's stream slots and the host's fission slots and returns a
+    profile, the tuned run's and the GPU-only baseline's outputs hold to
+    the plain version (checked inside ``host_cell``), and every
+    accelerator segment launched the saxpy kernel."""
+    from repro_torch.bench import hybrid
+    ops.COUNTERS["saxpy"].reset()
+    cell = hybrid.host_cell("saxpy", 10 ** 6, "cuda")
+    assert cell["evals"] == len(cell["trace"]) > 0
+    assert math.isfinite(cell["hybrid_time"]) and 0 <= cell["gpu_share"] <= 1
+    assert cell["fission"] in cell["threads"]
+    assert set(cell["max_abs_err"]) == {"hybrid", "gpu_only"}
+    assert ops.COUNTERS["saxpy"].value >= cell["gpu_segments"] > 0
