@@ -85,7 +85,20 @@ and read just after:
   its head (the first encoder and decoder layers, the full-width
   embeddings) card against CPU, through the cross-attention cache and 3
   decode steps; its head's gradients; four training steps of 8 x 448
-  tokens over 8 x 1500 frames.
+  tokens over 8 x 1500 frames;
+- the launch layer (``repro_torch.launch.dryrun``): one dry-run cell of
+  each shape traced on the meta device on this host (gemma2-2b train_4k,
+  granite-moe-3b-a800m prefill_32k, mamba2-1.3b decode_32k, zamba2-2.7b
+  long_500k; ``dryrun`` lines: fit, peak GiB, bottleneck, roofline
+  fraction, trace seconds), no plain version called; the dry-run's cells at
+  the shapes of three steps measured above (mamba2's and gemma2's
+  training steps, zamba2's 1536-token prefill) held to them: predicted
+  kernel calls equal to the launches counted, predicted peak memory
+  within PEAK_MEMORY_TOL of ``max_memory_allocated``, and each step's
+  model-FLOPs utilisation beside the roofline's step time (``check``
+  lines); the card's total memory equal to ``HBM_PER_CARD``;
+  ``repro_torch.examples.serve_llm`` on the card to the end of its
+  asserts.
 
 Standard output ends with three lines: the card's name and power limit as
 ``nvidia-smi`` prints them, one JSON object describing each kernel
@@ -125,8 +138,8 @@ from repro_torch.bench import paper_suite  # noqa: E402
 from repro_torch.bench import profile_construction as paper_pc  # noqa: E402
 from repro_torch.bench import pipeline as gate_pipeline  # noqa: E402
 from repro_torch.bench import telemetry_smoke as gate_telemetry  # noqa: E402
-from repro_torch.examples import quickstart, train_lm  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.examples import quickstart, serve_llm, train_lm  # noqa: E402
+from repro_torch.configs import ShapeSpec, get_config  # noqa: E402
 from repro_torch.core import (AcceleratorPlatform, DeviceInfo,  # noqa: E402
                               ExecutionSlot, HostPlatform, JobGraph,
                               KnowledgeBase, LoadBalancer, PlatformConfig,
@@ -143,16 +156,16 @@ from repro_torch.models import (LM, decode_step, init_cache,  # noqa: E402
 from repro_torch.models import lm as lm_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.layers import embed, rmsnorm  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.cells import CellConfig  # noqa: E402
+from repro_torch.launch.roofline import (  # noqa: E402
+    HBM_PER_CARD, PEAK_FLOPS, bound_ms, flash_bound, flash_bwd_bound,
+    gmm_bound, gmm_bwd_bound, mfu, ssd_bound, ssd_bwd_bound,
+    ssd_bwd_split_bound, ssd_split_bound)
 from repro_torch.launch.train import build_optimizer  # noqa: E402
 from repro_torch.runtime import (RuntimeConfig, ServeEngine,  # noqa: E402
                                  init_state, make_loss_fn, make_train_step)
 from repro_torch.runtime.train import trainable  # noqa: E402
-
-#: published peaks of one H100 SXM at its full 700 W (NVIDIA data sheet)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_PER_S = 67e12
-PEAK_BF16_PER_S = 989e12          # dense, tensor cores
-PEAK_TF32_PER_S = 495e12          # dense, tensor cores
 
 #: the paper's sizes (benchmarks/paper_suite.py BENCHMARKS); segmentation
 #: is cut from its largest class (3840 planes, ~15 GiB in and out on the
@@ -377,6 +390,9 @@ HYBRID_GRAD_GROUPS = ("embed", "ssm_proj", "ssm_scalars", "conv", "attn",
 HYBRID_GRAD_F32_REL = 5e-3
 #: the profiled window: one prefill of the largest prompt, decode steps
 PROFILE_DECODE_STEPS = 8
+#: the full-width prefill the launch phase holds the dry-run against
+CHECKED_PREFILL_ARCH = "zamba2-2.7b"
+CHECKED_PREFILL_TOKENS = 1536
 #: where the families' phases run (the card; a rehearsal on the host sets
 #: "cpu")
 CARD = "cuda"
@@ -462,6 +478,22 @@ HEAD_DECODE = 3
 WHISPER_GRAD_GROUPS = ("embed", "pos_embed", "enc_attn", "enc_ffn", "attn",
                        "xattn", "ffn", "norms")
 WHISPER_GRAD_F32_REL = 1e-2
+
+#: the launch phase: one dry-run cell of each shape, four archs among them
+#: (a MoE and two with Mamba2 blocks), traced on the meta device
+LAUNCH_CELLS = (("gemma2-2b", "train_4k"),
+                ("granite-moe-3b-a800m", "prefill_32k"),
+                ("mamba2-1.3b", "decode_32k"), ("zamba2-2.7b", "long_500k"))
+#: the steps measured above that the dry-run's predictions are held to:
+#: training at TRAIN_BATCH x TRAIN_SEQ, remat none, and the checked prefill
+CHECKED_TRAIN_ARCHS = ("mamba2-1.3b", "gemma2-2b")
+#: |predicted peak / max_memory_allocated - 1| allowed: the allocator's
+#: rounding, cuBLAS's workspaces and what earlier phases leave allocated
+#: are on the card and not in the meta trace.  On an H100 80GB HBM3 at
+#: 700 W the ratios read 0.9973 (mamba2), 0.9977 (gemma2) and 0.9863
+#: (zamba2's prefill), the card holding 0.065-0.142 GiB more than the
+#: step's arguments before each
+PEAK_MEMORY_TOL = 0.03
 
 
 def reset_counts() -> None:
@@ -589,14 +621,6 @@ def bf16_excess(got: torch.Tensor, want: torch.Tensor, atol: float) -> float:
     step and ``atol``."""
     got, want = got.float(), want.float()
     return ((got - want).abs() / (BF16_STEP * want.abs() + atol)).max().item()
-
-
-def bound_ms(nbytes: float, ops_count: float, peak: float = PEAK_FP32_PER_S):
-    """The least time for ``nbytes`` moved and ``ops_count`` operations at
-    ``peak`` operations/s (FP32 unless the inputs' type has another)."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops_count / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -1164,59 +1188,6 @@ def paper_phase():
 # phase 4: LM serving at full width, zamba2-2.7b then granite-moe-3b-a800m
 # ---------------------------------------------------------------------------
 
-def peak_for(dtype: torch.dtype) -> float:
-    return PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_FP32_PER_S
-
-
-def flash_bound(B, H, KV, Sq, Sk, hd, dtype, **kw):
-    """Bytes: q, k, v read and o written once.  Operations: the two
-    products (2 per multiply-add) over the (query, key) pairs the mask
-    keeps in this call."""
-    qp = torch.arange(Sq)[:, None]
-    kp = torch.arange(Sk)[None, :]
-    keep = (kp < kw.get("kv_len", Sk)).expand(Sq, Sk)
-    if kw.get("causal", True):
-        keep = keep & (kp <= qp)
-    if kw.get("window") is not None:
-        keep = keep & (kp > qp - kw["window"])
-    pairs = int(keep.sum())
-    size = torch.finfo(dtype).bits // 8
-    nbytes = size * (2 * B * H * Sq * hd + 2 * B * KV * Sk * hd)
-    return bound_ms(nbytes, 4.0 * B * H * pairs * hd, peak_for(dtype))
-
-
-def ssd_bytes(Bsz, S, nh, hd, ds, dtype, h0: bool = False):
-    """x, B, C (dtype), dt (f32) read, y written, A and the state."""
-    size = torch.finfo(dtype).bits // 8
-    return (Bsz * S * (2 * nh * hd * size + 2 * ds * size + 4 * nh)
-            + 4 * nh + 4 * Bsz * nh * ds * hd * (2 if h0 else 1))
-
-
-def ssd_bound(Bsz, S, chunk, nh, hd, ds, dtype, h0: bool = False):
-    """Bytes: ``ssd_bytes``.  Operations of the chunked algorithm (C.B^T
-    once per chunk, not per head): per chunk the (Q, Q) lower triangle of
-    C.B^T, and per head its decay (exp, subtract, multiply), y_diag over
-    the triangle, the carried-state term and the state update."""
-    nc, tri = S // chunk, chunk * (chunk + 1) // 2
-    ops_count = Bsz * nc * (2 * tri * ds + nh * (3 * tri + 2 * tri * hd
-                                                 + 4 * chunk * ds * hd))
-    return bound_ms(ssd_bytes(Bsz, S, nh, hd, ds, dtype, h0), ops_count,
-                    peak_for(dtype))
-
-
-def ssd_split_bound(Bsz, S, chunk, nh, hd, ds, dtype, h0: bool = False):
-    """The bound at the rate of the instructions the kernel issues: its
-    products (C.B^T over the triangle once per chunk; per head the
-    masked-decay tile times dt x, the carried-state term and the state
-    update), each issued three times (split TF32: lo.hi + hi.lo + hi.hi),
-    at the TF32 tensor-core peak; bytes as ``ssd_bound``."""
-    nc, tri = S // chunk, chunk * (chunk + 1) // 2
-    products = Bsz * nc * (2 * tri * ds + nh * (2 * tri * hd
-                                                + 4 * chunk * ds * hd))
-    return bound_ms(ssd_bytes(Bsz, S, nh, hd, ds, dtype, h0),
-                    3.0 * products, PEAK_TF32_PER_S)
-
-
 def lm_kernel_phase(cfg):
     """Flash attention and the SSD scan against their plain versions on
     the card, at the model's prefill shapes."""
@@ -1321,14 +1292,6 @@ def lm_kernel_phase(cfg):
         kernels_per_call=ssd_mod.KERNELS_PER_CALL)
     torch.cuda.synchronize()
     return results
-
-
-def gmm_bound(E, C, d, f, dtype):
-    """Bytes: x, w read and y written once.  Operations: 2 per multiply-add
-    of the E products."""
-    size = torch.finfo(dtype).bits // 8
-    nbytes = size * (E * C * d + E * d * f + E * C * f)
-    return bound_ms(nbytes, 2.0 * E * C * d * f, peak_for(dtype))
 
 
 def moe_kernel_phase(cfg):
@@ -1783,6 +1746,39 @@ def lm_profile(cfg, model):
     return out
 
 
+def checked_prefill(cfg, model, n: int = CHECKED_PREFILL_TOKENS):
+    """One batch-1 prefill of ``n`` tokens at capacity ``n`` (the dry-run's
+    prefill step at that shape), the model alone on the card before it:
+    its launches and peak memory over one call after a warm-up, and the
+    median seconds of three more."""
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (1, n))).cuda()
+    prefill(model, tokens, capacity=n)                  # warm-up
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    out = prefill(model, tokens, capacity=n)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: c.value for k, c in ops.COUNTERS.items()}
+    del out
+    seconds = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        prefill(model, tokens, capacity=n)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    want = want_launches(cfg, [n], 0)
+    expect(all(launches[k] == v for k, v in want.items()),
+           f"checked prefill launches {launches} == {want}")
+    return dict(tokens=n, launches=launches, peak_memory_bytes=peak,
+                allocated_before_bytes=base, seconds=sorted(seconds)[1],
+                seconds_each=seconds)
+
+
 def lm_phase(arch):
     """One model: its kernels at its shapes, its main path, a profiled
     window and the head check; the model is freed before returning."""
@@ -1812,6 +1808,8 @@ def lm_phase(arch):
               f"({r['bound'][1]})", flush=True)
     serve = lm_main_path(cfg, model)
     serve["profile"] = lm_profile(cfg, model)
+    if arch == CHECKED_PREFILL_ARCH:
+        serve["checked_prefill"] = checked_prefill(cfg, model)
     head = lm_head_check(cfg, model)
     del model
     gc.collect()
@@ -1822,20 +1820,6 @@ def lm_phase(arch):
 # ---------------------------------------------------------------------------
 # LM training: the kernels' gradients, four full-width steps, a head check
 # ---------------------------------------------------------------------------
-
-def flash_bwd_bound(B, H, KV, S, hd, dtype, causal=True, Sk=None):
-    """Bytes: q, o, dO and the float32 lse read and dq written (four
-    query-sized tensors), k and v read and dk, dv written (four key-sized
-    ones), each once.  Operations: five products (S, dP, dV, dK, dQ) of 2
-    per multiply-add over the (query, key) pairs the causal mask keeps
-    (``Sk`` keys, S by default; without the mask every pair)."""
-    Sk = S if Sk is None else Sk
-    pairs = S * (S + 1) // 2 if causal else S * Sk
-    size = torch.finfo(dtype).bits // 8
-    nbytes = (size * (4 * B * H * S * hd + 4 * B * KV * Sk * hd)
-              + 4 * B * H * S)
-    return bound_ms(nbytes, 5 * 2.0 * B * H * pairs * hd, peak_for(dtype))
-
 
 def grads_of(fn, inputs, dout, **kw):
     """fn(*inputs) and its gradients for the output gradient ``dout``."""
@@ -1972,16 +1956,13 @@ def train_kernel_phase(cfg, dev="cuda"):
         expect(worst_g <= 1.0, f"grouped GEMM backward {name} "
                f"({E}, {C}, {d_}, {f_}): worst element at {worst_g:.3f} of "
                "its bound")
-        size = 2
         gmm[name] = dict(
             shape=[E, C, d_, f_], max_abs_err=err_g,
             bf16_worst_share_of_bound=worst_g,
             ms=grad_ms(ops.grouped_matmul, (x, w), dy, 20),
             plain_ms=grad_ms(ref.grouped_matmul_ref, (x, w), dy, 5),
             library_ms=grad_ms(torch.bmm, (x, w), dy, 20),
-            bound=bound_ms(size * (2 * E * C * d_ + 2 * E * d_ * f_
-                                   + E * C * f_),
-                           4.0 * E * C * d_ * f_, PEAK_BF16_PER_S))
+            bound=gmm_bwd_bound(E, C, d_, f_, bf16))
     expect(gmm_mod.bf16_launches["wmma"].value == before,
            "every grouped GEMM backward call took the TMA + wgmma kernel")
     results["grouped_matmul_bwd"] = gmm
@@ -2063,6 +2044,7 @@ def train_main_path(cfg, model, remat: str = TRAIN_REMAT):
     tokens = TRAIN_BATCH * seq
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     steps = []
     reset_counts()
     with PlainCalls() as plain:
@@ -2118,7 +2100,7 @@ def train_main_path(cfg, model, remat: str = TRAIN_REMAT):
                 grouped_matmul_backward_launches=gmm_bwd,
                 grouped_matmul_bf16_launches=gmm_paths,
                 flash_bwd_paths=bwd_paths, peak_memory_bytes=peak,
-                plain_calls=plain.calls,
+                allocated_before_bytes=base, plain_calls=plain.calls,
                 batch=TRAIN_BATCH, seq=seq, remat=remat,
                 lr=TRAIN_LR, schedule=cfg.lr_schedule)
 
@@ -2315,51 +2297,6 @@ def train_phase():
 # zamba2 training: the SSD backward kernel, a gradient head check, four
 # full-width steps
 # ---------------------------------------------------------------------------
-
-def ssd_bwd_bound(Bsz, S, chunk, nh, hd, ds, h0: bool = False,
-                  dh: bool = False):
-    """Bytes: x, dy, dx (each Bsz x S x nh x hd), the chunk-start states
-    and, where present, h0's and dh_final's gradients moved once; dt, ddt,
-    cum, B, C, dB, dC, A, dA.  Operations of the least algorithm (C.B^T and
-    the dCB products once per chunk, dCB summed over the heads): per (batch,
-    chunk, head) four state products of Q ds hd multiply-adds (D_c,
-    r (B . g), e (h . dy), r (g . u)) and two over the (Q, Q) lower
-    triangle of hd each (du, dG), about 3 operations an entry of the
-    triangle for L, dCB and M; per (batch, chunk) three triangle products
-    of ds (C.B^T, dCB.B, dCB^T.C); 2 operations per multiply-add."""
-    nc, tri = S // chunk, chunk * (chunk + 1) // 2
-    macs = (ssd_bwd_products(Bsz, S, chunk, nh, hd, ds)
-            + Bsz * nc * nh * 1.5 * tri)
-    return bound_ms(ssd_bwd_bytes(Bsz, S, chunk, nh, hd, ds, h0, dh),
-                    2.0 * macs)
-
-
-def ssd_bwd_split_bound(Bsz, S, chunk, nh, hd, ds, h0: bool = False,
-                        dh: bool = False):
-    """The bound at the rate of the instructions the kernel issues: the
-    least algorithm's products (``ssd_bwd_bound`` without the elementwise
-    work on the triangle), each issued three times (split TF32: lo.hi +
-    hi.lo + hi.hi), at the TF32 tensor-core peak; bytes as
-    ``ssd_bwd_bound``."""
-    return bound_ms(ssd_bwd_bytes(Bsz, S, chunk, nh, hd, ds, h0, dh),
-                    3.0 * 2.0 * ssd_bwd_products(Bsz, S, chunk, nh, hd, ds),
-                    PEAK_TF32_PER_S)
-
-
-def ssd_bwd_products(Bsz, S, chunk, nh, hd, ds):
-    """Multiply-adds of the least algorithm's products (``ssd_bwd_bound``)."""
-    nc, tri = S // chunk, chunk * (chunk + 1) // 2
-    return Bsz * nc * (nh * (4 * chunk * ds * hd + 2 * tri * hd)
-                       + 3 * tri * ds)
-
-
-def ssd_bwd_bytes(Bsz, S, chunk, nh, hd, ds, h0, dh):
-    """The bytes ``ssd_bwd_bound`` counts."""
-    nc = S // chunk
-    return 4 * (3 * Bsz * S * nh * hd + Bsz * nc * nh * ds * hd
-                + Bsz * nh * ds * hd * (int(h0) + int(dh))
-                + 3 * Bsz * S * nh + 4 * Bsz * S * ds + 2 * nh)
-
 
 def ssd_grads(fn, inputs, h0, dy, dh, chunk):
     """fn's (y, h_final) and its gradients (dx, ddt, dB, dC, dA and, with an
@@ -3144,6 +3081,109 @@ def whisper_phase():
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# the launch layer: the single-H100 dry-run, held to measured steps
+# ---------------------------------------------------------------------------
+
+def checked_cell(cfg, measured, kind: str):
+    """The dry-run's record of the step ``measured`` timed on the card:
+    the cell built at its shape (remat none, one microbatch, one loss
+    chunk, as the card's steps run)."""
+    if kind == "train":
+        shape = ShapeSpec(f"train_{TRAIN_BATCH}x{TRAIN_SEQ}", "train",
+                          TRAIN_SEQ, TRAIN_BATCH)
+        cell = CellConfig(microbatches=1, remat=FAMILY_TRAIN_REMAT,
+                          loss_chunks=1)
+    else:
+        shape = ShapeSpec(f"prefill_{measured['tokens']}", "prefill",
+                          measured["tokens"], 1)
+        cell = CellConfig(microbatches=1, remat=None, loss_chunks=1)
+    return dryrun.trace_cell(cfg, shape, cell)
+
+
+def launch_phase(measured):
+    """The dry-run on this host: one cell of each shape (LAUNCH_CELLS),
+    each traced on meta with no plain version called; then each measured
+    step of ``measured`` ({name: (arch, kind, its record)}) against the
+    dry-run's cell at its shape: (a) predicted kernel calls equal to the
+    launches counted, exactly; (b) predicted peak memory within
+    PEAK_MEMORY_TOL of ``max_memory_allocated``; (c) the model-FLOPs
+    utilisation of the measured step beside the roofline's step time.
+    Then ``repro_torch.examples.serve_llm`` on the card."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    expect(total == HBM_PER_CARD,
+           f"the card's total memory {total} == HBM_PER_CARD {HBM_PER_CARD}")
+    out = {"total_memory_bytes": total, "cells": {}, "checked": {}}
+    with PlainCalls() as plain:
+        for arch, shape in LAUNCH_CELLS:
+            rec = dryrun.run_cell(arch, shape)
+            r, m = rec["roofline"], rec["memory"]
+            print(f"dryrun {arch} {shape}: fits {m['fits_hbm']}, peak "
+                  f"{m['peak_per_card_bytes'] / 2 ** 30:.2f} GiB, bottleneck "
+                  f"{r['bottleneck']}, roofline fraction "
+                  f"{r['roofline_fraction']:.4f}, trace {rec['trace_s']:.1f} "
+                  f"s, kernel calls {rec['op_analysis']['kernel_calls']}",
+                  flush=True)
+            out["cells"][f"{arch} {shape}"] = rec
+        for name, (arch, kind, got) in measured.items():
+            cfg = get_config(arch)
+            rec = checked_cell(cfg, got, kind)
+            calls = rec["op_analysis"]["kernel_calls"]
+            per_step = (got["launches_per_step"] if kind == "train"
+                        else got["launches"])
+            launched = {k: int(n) for k, n in per_step.items() if n}
+            expect(calls == launched, f"{name}: predicted kernel calls "
+                   f"{calls} == launches {launched}")
+            pred = rec["memory"]["peak_per_card_bytes"]
+            ratio = pred / got["peak_memory_bytes"]
+            expect(abs(ratio - 1.0) <= PEAK_MEMORY_TOL,
+                   f"{name}: predicted peak / measured {ratio:.4f} within "
+                   f"{PEAK_MEMORY_TOL}")
+            seconds = (float(np.median([s["seconds"]
+                                        for s in got["steps"][1:]]))
+                       if kind == "train" else got["seconds"])
+            rf = rec["roofline"]
+            util = mfu(rf["model_flops"], seconds)
+            print(f"check {name}: kernel calls {calls} == launches; peak "
+                  f"predicted {pred / 2 ** 30:.3f} GiB, measured "
+                  f"{got['peak_memory_bytes'] / 2 ** 30:.3f} GiB (ratio "
+                  f"{ratio:.4f}; given {rec['memory']['argument_bytes'] / 2 ** 30:.3f}"
+                  f" GiB, allocated before "
+                  f"{got['allocated_before_bytes'] / 2 ** 30:.3f} GiB); "
+                  f"MFU {util:.4f} at {seconds:.4f} s measured "
+                  f"(model FLOPs {rf['model_flops']:.4g}, peak "
+                  f"{PEAK_FLOPS:.3g}/s spec sheet), roofline step "
+                  f"{rf['step_time_s']:.4f} s ({rf['bottleneck']}, "
+                  f"{rf['roofline_fraction']:.4f})", flush=True)
+            out["checked"][name] = dict(
+                predicted_calls=calls, launches=launched,
+                predicted_peak_bytes=pred,
+                measured_peak_bytes=got["peak_memory_bytes"],
+                peak_ratio=ratio,
+                predicted_argument_bytes=rec["memory"]["argument_bytes"],
+                allocated_before_bytes=got["allocated_before_bytes"],
+                measured_s=seconds, mfu=util, roofline=rf,
+                op_analysis=rec["op_analysis"], trace_s=rec["trace_s"])
+    expect(not any(plain.calls.values()),
+           f"no plain version in the dry-run: {plain.calls}")
+    torch.cuda.synchronize()
+    reset_counts()
+    with PlainCalls() as plain:
+        engine = serve_llm.main([])
+    torch.cuda.synchronize()
+    launches = {k: c.value for k, c in ops.COUNTERS.items()}
+    expect(launches["flash_attention"] > 0 and launches["ssd_scan"] > 0,
+           f"serve_llm ran flash and the SSD scan on the card: {launches}")
+    expect(not any(plain.calls.values()),
+           f"no plain version in serve_llm: {plain.calls}")
+    out["serve_llm"] = dict(launches=launches, requests=len(engine.finished),
+                            tokens=sum(len(r.out) for r in engine.finished))
+    print(f"serve_llm: {out['serve_llm']['requests']} requests, "
+          f"{out['serve_llm']['tokens']} tokens; launches {launches}",
+          flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3230,6 +3270,13 @@ def main() -> int:
     by_path["train " + WHISPER_ARCH] = w_train["launches"]
     example = train_lm_phase()
     by_path["train_lm"] = example["launches"]
+    checked = {f"train {arch}": (arch, "train", families[arch]["train"])
+               for arch in CHECKED_TRAIN_ARCHS}
+    checked[f"prefill {CHECKED_PREFILL_ARCH}"] = (
+        CHECKED_PREFILL_ARCH, "prefill",
+        lm_serve[CHECKED_PREFILL_ARCH]["checked_prefill"])
+    launch = launch_phase(checked)
+    by_path["serve_llm"] = launch["serve_llm"]["launches"]
     summary = {}
     for arch, fam in families.items():
         sv = fam["serve"]
@@ -3293,7 +3340,7 @@ def main() -> int:
               "train_head_check": train_head, "train_hybrid": hyb_train,
               "train_hybrid_head_check": hyb_head, "families": families,
               "family_summary": summary, "train_lm": example,
-              "kernels": kernels}
+              "launch": launch, "kernels": kernels}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

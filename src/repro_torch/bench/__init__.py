@@ -21,6 +21,7 @@ The paper's experiments, one module per table or figure, all run by
 over :mod:`.paper_suite` (the SCTs, the 2013 testbeds, the host's
 inputs and checks).  ``--testbed sim`` runs the JAX package's protocol on
 the calibrated simulator; ``--testbed host`` (the default) the same on
-this machine's cores and ``cuda:0`` streams.  The reference's
-``roofline`` reads TPU dry-run artifacts and is not ported yet.
+this machine's cores and ``cuda:0`` streams.  :mod:`.roofline` renders
+the single-H100 dry-run's table (:mod:`repro_torch.launch.dryrun`'s
+artifacts), as the reference's ``roofline`` renders its TPU one.
 """

@@ -13,9 +13,10 @@ protocol on the calibrated 2013 testbeds, and its CSV lines equal
 ``--full`` runs the complete parameterisation classes; the default
 exercises every experiment at reduced size.  Prints a ``name,...`` CSV
 block at the end and writes every cell's numbers, with the host's
-topology and the card's name, to ``--out``.  The reference's
-``roofline`` module reads TPU dry-run artifacts; it waits for the port of
-that tooling and is not run here.
+topology and the card's name, to ``--out``.  Last, as in the reference,
+``roofline`` prints the table of the single-H100 dry-run's artifacts
+(``python -m repro_torch.launch.dryrun`` writes them); without artifacts
+it says so and adds no lines.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import traceback
 
 #: the modules, in the reference's order
 MODULES = ("fission", "profile_construction", "hybrid", "maxdev",
-           "kb_derivation", "load_fluctuation")
+           "kb_derivation", "load_fluctuation", "roofline")
 
 
 def main(argv=None) -> int:

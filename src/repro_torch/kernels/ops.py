@@ -3,9 +3,13 @@
 A CUDA tensor goes to the hand-written kernel, whose wrapper checks its
 inputs and raises on anything it does not take.  Any other tensor (the
 host fission slots' CPU tensors, the ``meta`` tensors of a shape probe)
-goes to the plain PyTorch version in :mod:`repro_torch.kernels.ref`.
-The choice is the tensor's device and nothing else: no error ever sends
-a CUDA tensor to the plain version.
+goes to the plain PyTorch version in :mod:`repro_torch.kernels.ref`, but
+for the ``meta`` tensors that reach the three LM kernels (flash attention,
+the SSD scan, the grouped GEMM): those take the card's route, autograd
+Functions included, with :mod:`repro_torch.kernels.meta`'s stand-ins in
+place of the launches, so that a dry-run step counts each kernel by its
+work formula.  The choice is the tensor's device and nothing else: no
+error ever sends a CUDA tensor to the plain version.
 
 Gradients.  On the CPU autograd runs through the plain versions.  On the
 card, flash attention, the SSD scan and the grouped GEMM are
@@ -27,6 +31,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels import filter_pipeline as _filter
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import meta as _meta
 from repro_torch.kernels import moe_gemm as _gmm
 from repro_torch.kernels import nbody as _nbody
 from repro_torch.kernels import saxpy as _saxpy
@@ -90,20 +95,29 @@ def nbody_step(pos: torch.Tensor, vel: torch.Tensor, mass: torch.Tensor,
     return pos + vel * dt, vel
 
 
+def _kernels(t: torch.Tensor):
+    """The wrappers a CUDA tensor's call launches, or for a meta tensor
+    their stand-ins; None for any other device (the plain versions)."""
+    if t.is_meta:
+        return _meta
+    return _CARD if t.is_cuda else None
+
+
 class _FlashAttention(torch.autograd.Function):
     """The flash kernel with its backward kernel: the forward keeps each
     row's log-sum-exp for the backward to recompute P from.  Both
     directions go through the head-dim padding
-    (:func:`~repro_torch.kernels.flash_attention.padded_call`)."""
+    (:func:`~repro_torch.kernels.flash_attention.padded_call`).  ``kern``
+    holds the wrappers (:func:`_kernels`)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bshd: bool, kw: dict):
+    def forward(ctx, q, k, v, bshd: bool, kw: dict, kern):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         o, lse = _flash.padded_call(
             q, k, v, launch=functools.partial(
-                _flash.flash_attention_with_lse, bshd=bshd), **kw)
+                kern.flash_attention_with_lse, bshd=bshd), **kw)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.bshd, ctx.kw = bshd, kw
+        ctx.bshd, ctx.kw, ctx.kern = bshd, kw, kern
         return o
 
     @staticmethod
@@ -111,25 +125,26 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = _flash.padded_call(
             q, k, v, o, do.contiguous(), lse, launch=functools.partial(
-                _flash.flash_attention_backward, bshd=ctx.bshd), **ctx.kw)
-        return dq, dk, dv, None, None
+                ctx.kern.flash_attention_backward, bshd=ctx.bshd), **ctx.kw)
+        return dq, dk, dv, None, None, None
 
 
-def _flash_cuda(q, k, v, bshd: bool, kw: dict) -> torch.Tensor:
+def _flash_kernel(q, k, v, bshd: bool, kw: dict, kern) -> torch.Tensor:
     if not _needs_grad(q, k, v):
-        fwd = _flash.flash_attention_bshd if bshd else _flash.flash_attention
+        fwd = kern.flash_attention_bshd if bshd else kern.flash_attention
         return _flash.padded_call(q, k, v, launch=fwd, **kw)
     if kw.get("kv_len") is not None:
         raise ValueError("the flash attention backward does not take kv_len")
-    return _FlashAttention.apply(q, k, v, bshd, kw)
+    return _FlashAttention.apply(q, k, v, bshd, kw, kern)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     **kw) -> torch.Tensor:
     """(B,H,Sq,hd) x (B,KV,Sk,hd) attention (GQA/causal/window/softcap/
     ``kv_len``), output in q's dtype."""
-    if q.is_cuda:
-        return _flash_cuda(q, k, v, False, kw)
+    kern = _kernels(q)
+    if kern is not None:
+        return _flash_kernel(q, k, v, False, kw, kern)
     return ref.attention_ref(q, k, v, **kw)
 
 
@@ -138,8 +153,9 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Model-layout adapter: (B,S,H,hd)/(B,S,KV,hd) in and out.  The kernel
     reads the model's layout through its strides; the plain version works
     on transposed views."""
-    if q.is_cuda:
-        return _flash_cuda(q, k, v, True, kw)
+    kern = _kernels(q)
+    if kern is not None:
+        return _flash_kernel(q, k, v, True, kw, kern)
     o = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), **kw)
     return o.transpose(1, 2)
@@ -149,26 +165,28 @@ class _SSDScan(torch.autograd.Function):
     """The SSD scan with its backward kernel: the forward keeps the chunks'
     starting states and the within-chunk cumsum of dt * A from its
     scratch.  A final-state gradient that autograd does not have (the
-    training path never uses h_final) stays None: no zeros are made."""
+    training path never uses h_final) stays None: no zeros are made.
+    ``kern`` holds the wrappers (:func:`_kernels`)."""
 
     @staticmethod
-    def forward(ctx, x, dt, B, C, A, h0, chunk: int):
-        y, h, states, cum = _ssd.ssd_scan_with_states(x, dt, B, C, A,
+    def forward(ctx, x, dt, B, C, A, h0, chunk: int, kern):
+        y, h, states, cum = kern.ssd_scan_with_states(x, dt, B, C, A,
                                                       chunk=chunk, h0=h0)
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, dt, B, C, A, h0, states, cum)
-        ctx.chunk = chunk
+        ctx.chunk, ctx.kern = chunk, kern
         return y, h
 
     @staticmethod
     def backward(ctx, dy, dh):
         x, dt, B, C, A, h0, states, cum = ctx.saved_tensors
         dy = torch.zeros_like(x) if dy is None else dy.contiguous()
-        grads = _ssd.ssd_scan_backward(
+        grads = ctx.kern.ssd_scan_backward(
             x, dt, B, C, A, h0, states, cum, dy,
             None if dh is None else dh.contiguous(), chunk=ctx.chunk)
         return (*(g if need else None
-                  for g, need in zip(grads, ctx.needs_input_grad)), None)
+                  for g, need in zip(grads, ctx.needs_input_grad)), None,
+                None)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
@@ -176,47 +194,65 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
              h0: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked Mamba2 SSD -> (y in x's dtype, final state float32)."""
-    if x.is_cuda:
+    kern = _kernels(x)
+    if kern is not None:
         if not _needs_grad(x, dt, B, C, A, h0):
-            return _ssd.ssd_scan(x, dt, B, C, A, chunk=chunk, h0=h0)
+            return kern.ssd_scan(x, dt, B, C, A, chunk=chunk, h0=h0)
         if x.dtype != torch.float32:
             raise ValueError(f"the SSD scan's backward takes float32 x, B "
                              f"and C, got {x.dtype}")
-        return _SSDScan.apply(x, dt, B, C, A, h0, chunk)
+        return _SSDScan.apply(x, dt, B, C, A, h0, chunk, kern)
     return ref.ssd_scan_ref(x, dt, B, C, A, chunk=chunk, h0=h0)
 
 
 class _GroupedMatmul(torch.autograd.Function):
     """y[e] = x[e] w[e]; dx[e] = dy[e] w[e]^T and dw[e] = x[e]^T dy[e],
-    each through the same kernel on contiguous transposed operands."""
+    each through the same kernel on contiguous transposed operands.
+    ``kern`` holds the wrappers (:func:`_kernels`)."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, kern):
         ctx.save_for_backward(x, w)
-        return _gmm.grouped_matmul(x, w)
+        ctx.kern = kern
+        return kern.grouped_matmul(x, w)
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
+        gmm = ctx.kern.grouped_matmul
         dy = dy.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = _gmm.grouped_matmul(dy, w.transpose(1, 2).contiguous(),
-                                     backward=True)
+            dx = gmm(dy, w.transpose(1, 2).contiguous(), backward=True)
         if ctx.needs_input_grad[1]:
-            dw = _gmm.grouped_matmul(x.transpose(1, 2).contiguous(), dy,
-                                     backward=True)
-        return dx, dw
+            dw = gmm(x.transpose(1, 2).contiguous(), dy, backward=True)
+        return dx, dw, None
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(E,C,d) x (E,d,f) -> (E,C,f), one product per expert, summed in
     float32, in x's dtype."""
-    if x.is_cuda:
+    kern = _kernels(x)
+    if kern is not None:
         if _needs_grad(x, w):
-            return _GroupedMatmul.apply(x, w)
-        return _gmm.grouped_matmul(x, w)
+            return _GroupedMatmul.apply(x, w, kern)
+        return kern.grouped_matmul(x, w)
     return ref.grouped_matmul_ref(x, w)
+
+
+class _Card:
+    """The card's wrappers of the three LM kernels, under the names of
+    :mod:`repro_torch.kernels.meta`'s stand-ins, looked up in their modules
+    at each call (a check may put a patched wrapper there)."""
+
+    def __getattr__(self, name: str):
+        for module in (_flash, _ssd, _gmm):
+            if hasattr(module, name):
+                return getattr(module, name)
+        raise AttributeError(name)
+
+
+_CARD = _Card()
 
 
 #: launch counters of the kernels, by kernel name

@@ -1363,3 +1363,62 @@ def test_hybrid_host_saxpy_on_card(cuda_device):
     assert cell["fission"] in cell["threads"]
     assert set(cell["max_abs_err"]) == {"hybrid", "gpu_only"}
     assert ops.COUNTERS["saxpy"].value >= cell["gpu_segments"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the dry-run's meta route against the card's
+# ---------------------------------------------------------------------------
+
+def _meta_and_card(fn, *tensors):
+    """``fn`` on the card's tensors and on meta copies, forward and (where
+    the inputs need grad) backward: the outputs' and the gradients' shapes
+    and dtypes from both."""
+    def run(dev):
+        ins = [t.detach().to(dev).requires_grad_(t.requires_grad)
+               for t in tensors]
+        out = fn(*ins)
+        outs = out if isinstance(out, tuple) else (out,)
+        sig = [(tuple(o.shape), o.dtype) for o in outs]
+        if any(t.requires_grad for t in ins):
+            outs[0].float().sum().backward()
+            sig += [(tuple(t.grad.shape), t.grad.dtype) for t in ins
+                    if t.requires_grad]
+        return sig
+    return run("meta"), run(tensors[0].device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad", [False, True])
+def test_meta_route_shapes_equal_card_route(grad, cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=cuda_device).to(
+            dtype).requires_grad_(grad)
+
+    q, k = randn(2, 128, 8, 64, dtype=bf16), randn(2, 128, 2, 64, dtype=bf16)
+    v = randn(2, 128, 2, 64, dtype=bf16)
+    meta, card = _meta_and_card(lambda a, b, c: ops.flash_attention_bshd(
+        a, b, c, causal=True, window=48), q, k, v)
+    assert meta == card
+    x = randn(2, 256, 4 * 64)
+    dt = (torch.rand((2, 256, 4), generator=g, device=cuda_device) * 0.1)
+    Bm, Cm = randn(2, 256, 64), randn(2, 256, 64)
+    A = -torch.rand(4, generator=g, device=cuda_device)
+    meta, card = _meta_and_card(lambda a, b, c, d, e: ops.ssd_scan(
+        a, b, c, d, e, chunk=128), x, dt, Bm, Cm, A)
+    assert meta == card
+    xe, w = randn(4, 64, 128, dtype=bf16), randn(4, 128, 96, dtype=bf16)
+    meta, card = _meta_and_card(ops.grouped_matmul, xe, w)
+    assert meta == card
+
+
+@pytest.mark.cuda
+def test_one_dry_run_cell_fits_the_card(cuda_device):
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import HBM_PER_CARD
+    assert torch.cuda.get_device_properties(0).total_memory == HBM_PER_CARD
+    rec = dryrun.run_cell("mamba2-1.3b", "long_500k")
+    assert rec["memory"]["fits_hbm"]
+    assert 0 < rec["memory"]["peak_per_card_bytes"] < HBM_PER_CARD
