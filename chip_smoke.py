@@ -98,7 +98,28 @@ and read just after:
   model-FLOPs utilisation beside the roofline's step time (``check``
   lines); the card's total memory equal to ``HBM_PER_CARD``;
   ``repro_torch.examples.serve_llm`` on the card to the end of its
-  asserts.
+  asserts;
+- the multi-card layer (``repro_torch.launch.dryrun.build_cell`` on a
+  ``DeviceMesh``): a sequence shard's attention
+  (``ops.flash_attention_offset_bshd``, two flash calls merged, the
+  backward kernel on each) at a shard of minicpm-2b's train_4k cell,
+  without and with a window, against the plain version with the query
+  offset (``kernel flash_offset`` lines, launches counted, timed beside
+  SDPA with the same mask); granite-moe-3b-a800m at full width and depth,
+  once unsharded and once through the sharded path on a (1, 1) mesh of a
+  world-1 NCCL group (parameters, batch and cache DTensors placed by the
+  logical rules, the MoE dispatched per data shard): a 1536-token prefill
+  at capacity 2048 and one 8 x 512 training step each, the sharded held
+  to the unsharded (the same greedy token, logits and loss within
+  MESH_LOGITS_REL / MESH_LOSS_RTOL, the updated parameters and first
+  moments leaf by leaf, equal kernel launches; the gradient norm's
+  largest leaves printed); the quad_2x2 dry-run (4 cards, rank 0 of a
+  fake process group on the meta device, one process a cell, run beside
+  the kernels' build and ended before anything is measured) of
+  nemotron-4-15b and internvl2-26b training 8 x 512 tokens and
+  mixtral-8x22b and command-r-plus-104b prefilling 1536 tokens at full
+  depth (``dryrun quad_2x2`` lines: per-card peak, fit, collective bytes
+  by kind, roofline step).
 
 Standard output ends with three lines: the card's name and power limit as
 ``nvidia-smi`` prints them, one JSON object describing each kernel
@@ -157,12 +178,13 @@ from repro_torch.models import lm as lm_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.layers import embed, rmsnorm  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
-from repro_torch.launch.cells import CellConfig  # noqa: E402
+from repro_torch.launch.cells import CellConfig, cell_runtime  # noqa: E402
 from repro_torch.launch.roofline import (  # noqa: E402
     HBM_PER_CARD, PEAK_FLOPS, bound_ms, flash_bound, flash_bwd_bound,
     gmm_bound, gmm_bwd_bound, mfu, ssd_bound, ssd_bwd_bound,
     ssd_bwd_split_bound, ssd_split_bound)
 from repro_torch.launch.train import build_optimizer  # noqa: E402
+from repro_torch.optim import AdamW, AdamWConfig  # noqa: E402
 from repro_torch.runtime import (RuntimeConfig, ServeEngine,  # noqa: E402
                                  init_state, make_loss_fn, make_train_step)
 from repro_torch.runtime.train import trainable  # noqa: E402
@@ -494,6 +516,59 @@ CHECKED_TRAIN_ARCHS = ("mamba2-1.3b", "gemma2-2b")
 #: (zamba2's prefill), the card holding 0.065-0.142 GiB more than the
 #: step's arguments before each
 PEAK_MEMORY_TOL = 0.03
+
+#: the multi-card layer's world-1 check (granite at full width and depth,
+#: sharded on a (1, 1) mesh against unsharded): a prefill of MESH_PREFILL
+#: tokens at capacity MESH_CAPACITY and one TRAIN_BATCH x TRAIN_SEQ step.
+#: On one rank the same bf16 kernels run on the same tensors, but the
+#: sharded step's float32 sums (the gradient norm over the parameters'
+#: blocks) may come in another order, so the logits are held to a relative
+#: L2 of MESH_LOGITS_REL (a fiftieth of the granite head check's
+#: card-against-CPU 0.5), the loss and the gradient norm to
+#: MESH_LOSS_RTOL (a norm that a few leaves dominate: see the leaves'
+#: shares the phase prints); leaf by leaf, the
+#: first moment (the clipped gradient, float32) to MESH_LOSS_RTOL of the
+#: leaf's largest and the updated bf16 parameters to one bf16 step of each
+#: element plus MESH_LOSS_RTOL of the learning rate (an AdamW step moves an
+#: element at most about lr, and its rounding may land one step apart)
+MESH_ARCH = "granite-moe-3b-a800m"
+MESH_PREFILL, MESH_CAPACITY = 1536, 2048
+MESH_LOGITS_REL = 1e-2
+MESH_LOSS_RTOL = 1e-3
+#: the sequence-parallel attention of one rank (``ops.
+#: flash_attention_offset_bshd``: its query shard at an offset over the
+#: keys up to it): minicpm-2b's train_4k cell on pod_32x8 splits 4096
+#: tokens over the model axis of 8 (512 queries a rank) and 256 rows over
+#: the data axis of 32 in 4 microbatches (2 rows); the last rank's shard
+#: (offset 3584), without a window and with one shorter than the shard
+#: (rows past it see no key before the shard: the case of the backward's
+#: rule for a row without keys).  bf16: each call's output and dq are
+#: rounded before they are merged, so the card test's bound: BWD_TOL and
+#: 3e-3 of the largest value plus three bf16 steps of each element
+FLASH_OFFSET_ARCH = "minicpm-2b"
+FLASH_OFFSET_B, FLASH_OFFSET_SQ, FLASH_OFFSET_AT = 2, 512, 3584
+FLASH_OFFSET_WINDOWS = (None, 384)
+#: the quad_2x2 dry-run's cells: (arch, kind, seq, batch, cache capacity)
+QUAD_CELLS = (("nemotron-4-15b", "train", 512, 8, None),
+              ("internvl2-26b", "train", 512, 8, None),
+              ("mixtral-8x22b", "prefill", 1536, 1, 2048),
+              ("command-r-plus-104b", "prefill", 1536, 1, 2048))
+#: one quad_2x2 cell traced in a process of its own
+QUAD_SCRIPT = """
+import json, sys
+from repro_torch.configs import ShapeSpec, get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.cells import cell_runtime
+arch, kind, seq, b, cap = json.loads(sys.argv[2])
+cfg = get_config(arch)
+shape = ShapeSpec(f"{kind}_{b}x{seq}", kind, seq, b)
+with dryrun.fake_world(4):
+    rec = dryrun.trace_cell(cfg, shape, cell_runtime(cfg, shape),
+                            dryrun.mesh_for("quad_2x2"), capacity=cap)
+with open(sys.argv[1], "w") as f:
+    json.dump(dict(rec, arch=arch, kind=kind, seq=seq, batch=b,
+                   capacity=cap), f)
+"""
 
 
 def reset_counts() -> None:
@@ -3184,6 +3259,364 @@ def launch_phase(measured):
     return out
 
 
+def full(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value, any other tensor itself."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def mesh_world1(cfg):
+    """``cfg`` on the card twice, each time a fresh model from seed 0:
+    unsharded, then through ``dryrun.build_cell`` on a (1, 1) mesh of the
+    world-1 NCCL group: a prefill and one training step each (launch
+    counters from 0 before each).  The unsharded step's updated parameters
+    and first moments are kept on the host; the sharded step's are held to
+    them leaf by leaf (``world1_leaves``)."""
+    shape_p = ShapeSpec(f"prefill_{MESH_PREFILL}", "prefill", MESH_PREFILL,
+                        1)
+    shape_t = ShapeSpec(f"train_{TRAIN_BATCH}x{TRAIN_SEQ}", "train",
+                        TRAIN_SEQ, TRAIN_BATCH)
+    cell_p = cell_runtime(cfg, shape_p)
+    cell_t = CellConfig(microbatches=1, remat=TRAIN_REMAT, loss_chunks=1,
+                        fsdp=True)
+    rt = RuntimeConfig(microbatches=1, remat=TRAIN_REMAT, loss_chunks=1)
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (1, MESH_PREFILL))).to(CARD)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                    global_batch=TRAIN_BATCH, seed=0)
+    batch = {k: v.to(CARD) for k, v in batch_at(dc, 0).items()}
+    runs, kept = {}, None
+    for sharded in (False, True):
+        model = build_model(cfg)
+        mesh = make_mesh_1x1() if sharded else None
+        with PlainCalls() as plain, torch.no_grad():
+            if sharded:
+                fn, args = dryrun.build_cell(cfg, shape_p, cell_p, mesh,
+                                             model=model,
+                                             data={"tokens": tokens},
+                                             capacity=MESH_CAPACITY)
+            else:
+                fn, args = (lambda m, t, kw: prefill(
+                    m, t, capacity=MESH_CAPACITY, **kw),
+                    (model, tokens, {}))
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            logits, cache = fn(*args)
+            torch.cuda.synchronize()
+            sec_p = time.perf_counter() - t0
+            launch_p = {k: c.value for k, c in ops.COUNTERS.items()}
+        logits = full(logits).float()
+        del cache
+        opt = AdamW(AdamWConfig())
+        with PlainCalls() as plain_t:
+            if sharded:
+                step, (state, b) = dryrun.build_cell(cfg, shape_t, cell_t,
+                                                     mesh, model=model,
+                                                     data=dict(batch))
+            else:
+                step, state, b = (make_train_step(cfg, opt, rt),
+                                  init_state(model, opt), batch)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            state, metrics = step(state, b)
+            m = {k: float(v) for k, v in metrics.items()}
+            torch.cuda.synchronize()
+            sec_t = time.perf_counter() - t0
+            launch_t = {k: c.value for k, c in ops.COUNTERS.items()}
+        expect(not any(plain.calls.values())
+               and not any(plain_t.calls.values()),
+               f"no plain version in the mesh phase: {plain.calls} "
+               f"{plain_t.calls}")
+        name = "sharded" if sharded else "unsharded"
+        runs[name] = dict(logits=logits.cpu(), prefill_s=sec_p,
+                          prefill_launches=launch_p, train=m,
+                          train_s=sec_t, train_launches=launch_t,
+                          params_dtensor=sharded and all(
+                              type(p).__name__ == "DTensor"
+                              for p in model.parameters()))
+        print(f"mesh {cfg.arch} {name}: prefill {MESH_PREFILL} tokens "
+              f"{sec_p:.3f} s launches {launch_p}; train step "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} loss {m['loss']:.5f} grad_norm "
+              f"{m['grad_norm']:.5f} {sec_t:.3f} s launches {launch_t}",
+              flush=True)
+        with torch.no_grad():
+            if kept is None:
+                runs["unsharded"]["leaves"] = grad_shares(
+                    state.opt.m, m["grad_norm"])
+                kept = {"param": {n: full(p).cpu() for n, p in
+                                  model.named_parameters()},
+                        "m": {n: full(t).cpu()
+                              for n, t in state.opt.m.items()}}
+            else:
+                runs["sharded"]["leaves"] = world1_leaves(
+                    kept, dict(model.named_parameters()), state.opt.m,
+                    float(opt.config.lr_at(0)))
+        del model, state, b, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs
+
+
+def grad_shares(moments, grad_norm: float, top: int = 4):
+    """Each leaf's gradient norm from its first moment after one step (the
+    clipped gradient times 1 - beta1: the same factor for every leaf, so
+    the leaves' norms stand in the gradient's proportions), largest first:
+    (name, norm, share of the squared norm) of the ``top`` largest."""
+    sq = {n: float(full(t).double().square().sum())
+          for n, t in moments.items()}
+    total = sum(sq.values())
+    rows = sorted(sq.items(), key=lambda kv: -kv[1])[:top]
+    return [(n, grad_norm * math.sqrt(v / total), v / total)
+            for n, v in rows]
+
+
+def world1_leaves(kept, params, moments, lr: float):
+    """The sharded step's updated parameters and first moments against the
+    unsharded step's (``kept``, on the host), leaf by leaf on the card:
+    the worst leaf's share of its bound (MESH_LOSS_RTOL; fails past 1) and
+    how many leaves are bit-identical."""
+    worst, same, n = (0.0, ""), 0, 0
+    for key, got_tree in (("param", params), ("m", moments)):
+        for name, want_h in kept[key].items():
+            want = want_h.to(CARD)
+            got = full(got_tree[name].detach())
+            expect(got.shape == want.shape and got.dtype == want.dtype,
+                   f"sharded {key} {name}: {tuple(got.shape)} {got.dtype}")
+            err = (got.float() - want.float()).abs()
+            if key == "param":
+                bound = (BF16_STEP * want.float().abs()
+                         + MESH_LOSS_RTOL * lr)
+            else:
+                bound = MESH_LOSS_RTOL * want.abs().max().clamp_min(
+                    torch.finfo(torch.float32).tiny)
+            share = float((err / bound).max())
+            worst = max(worst, (share, f"{key} {name}"))
+            same += bool(torch.equal(got, want))
+            n += 1
+    expect(worst[0] <= 1.0, f"sharded step leaf by leaf: worst {worst[1]} "
+           f"at {worst[0]:.3g} of its bound")
+    return dict(leaves=n, bit_identical=same, worst_share=worst[0],
+                worst_leaf=worst[1])
+
+
+def flash_offset_check():
+    """A sequence shard's attention (``ops.flash_attention_offset_bshd``)
+    at FLASH_OFFSET_ARCH's shapes, without and with a window: its output
+    and gradients against autograd through the plain version with the
+    query offset in float32, its forward and backward launches counted,
+    timed (forward, and forward with backward) beside the plain version
+    and SDPA with the same boolean mask."""
+    cfg = get_config(FLASH_OFFSET_ARCH)
+    B, Sq, off = FLASH_OFFSET_B, FLASH_OFFSET_SQ, FLASH_OFFSET_AT
+    H, KV, hd, Sk = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, off + Sq
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=CARD).manual_seed(0)
+    q, do = (torch.randn((B, Sq, H, hd), generator=g, device=CARD).to(bf16)
+             for _ in range(2))
+    k, v = (torch.randn((B, Sk, KV, hd), generator=g, device=CARD).to(bf16)
+            for _ in range(2))
+
+    def plain(q, k, v, q_offset, window):
+        o = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=True, window=window,
+                              q_offset=q_offset, logit_cap=cfg.attn_softcap,
+                              scale=cfg.attn_scale)
+        return o.transpose(1, 2)
+
+    out = {}
+    for window in FLASH_OFFSET_WINDOWS:
+        kw = dict(q_offset=off, window=window)
+        fn = lambda *t, **kw_: ops.flash_attention_offset_bshd(
+            *t, logit_cap=cfg.attn_softcap, scale=cfg.attn_scale, **kw_)
+        torch.cuda.synchronize()
+        reset_counts()
+        o, got = grads_of(fn, (q, k, v), do, **kw)
+        torch.cuda.synchronize()
+        launches = {n: ops.COUNTERS[n].value
+                    for n in ("flash_attention", "flash_attention_bwd")}
+        expect(launches == {"flash_attention": 2, "flash_attention_bwd": 2},
+               f"flash offset {window}: two forward and two backward "
+               f"launches: {launches}")
+        o_want, want = grads_of(plain, (q.float(), k.float(), v.float()),
+                                do.float(), **kw)
+        worst, err = 0.0, 0.0
+        for x, w in zip((o, *got), (o_want, *want)):
+            e = (x.detach().float() - w.detach()).abs()
+            m = w.abs().max()
+            bound = (BWD_TOL + 3e-3) * m + 3 * BF16_STEP * w.abs()
+            worst = max(worst, float((e / bound).max()))
+            err = max(err, float(e.max()))
+        expect(worst <= 1.0, f"flash offset {list(q.shape)} at {off} window "
+               f"{window}: worst element at {worst:.3f} of its bound")
+        qp = torch.arange(Sq, device=CARD)[:, None] + off
+        kp = torch.arange(Sk, device=CARD)[None, :]
+        mask = kp <= qp
+        if window is not None:
+            mask &= kp > qp - window
+        sdpa = lambda *t: F.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in t), attn_mask=mask,
+            enable_gqa=True, scale=cfg.attn_scale).transpose(1, 2)
+        fwd = [cuda_ms(lambda: fn(q, k, v, **kw), 10) for _ in range(2)]
+        both = [grad_ms(fn, (q, k, v), do, 10, **kw) for _ in range(2)]
+        fb = flash_bound(B, H, KV, Sq, Sk, hd, bf16, window=window,
+                         q_offset=off)
+        bb = flash_bwd_bound(B, H, KV, Sq, hd, bf16, Sk=Sk, window=window,
+                             q_offset=off)
+        r = dict(shape=[B, Sq, H, KV, hd], q_offset=off, window=window,
+                 max_abs_err=err, worst_share_of_bound=worst,
+                 launches=launches, ms=sum(fwd) / 2,
+                 plain_ms=cuda_ms(lambda: plain(q, k, v, **kw), 3),
+                 library_ms=cuda_ms(lambda: sdpa(q, k, v), 10),
+                 bound=fb, fwd_bwd_ms=sum(both) / 2,
+                 fwd_bwd_plain_ms=grad_ms(plain, (q, k, v), do, 3, **kw),
+                 fwd_bwd_library_ms=grad_ms(sdpa, (q, k, v), do, 10),
+                 fwd_bwd_bound_ms=fb[0] + bb[0],
+                 tolerance=f"max |err| <= ({BWD_TOL} + 3e-3) x max |plain|"
+                           " + 3 bf16 steps of |plain|, elementwise")
+        out["none" if window is None else str(window)] = r
+        print(f"kernel flash_offset {FLASH_OFFSET_ARCH} {r['shape']} at "
+              f"{off} window {window} bfloat16: {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, SDPA with the mask "
+              f"{r['library_ms']:.4f} ms, bound {fb[0]:.4f} ms ({fb[1]}); "
+              f"forward and backward {r['fwd_bwd_ms']:.4f} ms, plain "
+              f"{r['fwd_bwd_plain_ms']:.4f} ms, SDPA "
+              f"{r['fwd_bwd_library_ms']:.4f} ms, bound "
+              f"{r['fwd_bwd_bound_ms']:.4f} ms; launches {launches}; max err"
+              f" {err:.3g}, worst share of the bound {worst:.3f}",
+              flush=True)
+    return out
+
+
+def make_mesh_1x1():
+    """The (data, model) = (1, 1) mesh of the world-1 NCCL group."""
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+
+
+#: the quad dry-run's processes while they run (stopped at exit)
+QUAD_PROCS: list = []
+
+
+def quad_paths():
+    """Where each of QUAD_CELLS' processes writes its record."""
+    return [ROOT / "build" / f"chip_smoke_quad_{i}.json"
+            for i in range(len(QUAD_CELLS))]
+
+
+def quad_start() -> None:
+    """The quad_2x2 dry-run of QUAD_CELLS: each cell traced in a process
+    of its own (meta tensors, a fake process group of 4: no card), all
+    started together beside the kernels' build, before anything is
+    measured; ``quad_join`` waits for them before the first measurement."""
+    paths = quad_paths()
+    paths[0].parent.mkdir(exist_ok=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(ROOT / "src"), env.get("PYTHONPATH")) if p)
+    env["OMP_NUM_THREADS"] = "1"
+    for path, cell in zip(paths, QUAD_CELLS):
+        if path.exists():
+            path.unlink()
+        QUAD_PROCS.append(subprocess.Popen(
+            [sys.executable, "-c", QUAD_SCRIPT, str(path), json.dumps(cell)],
+            cwd=str(ROOT), env=env))
+
+
+def quad_join():
+    """The quad dry-run's records, in QUAD_CELLS' order, once every
+    process has ended."""
+    rcs = [proc.wait(timeout=600) for proc in QUAD_PROCS]
+    expect(not any(rcs), f"the quad dry-run processes exited {rcs}")
+    return [json.loads(path.read_text()) for path in quad_paths()]
+
+
+def stop_quad() -> None:
+    for proc in QUAD_PROCS:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def mesh_phase(quad_recs):
+    """The multi-card layer on this card: a sequence shard's attention
+    (``flash_offset_check``), MESH_ARCH's world-1 check (``mesh_world1``),
+    the sharded run held to the unsharded one, then the quad_2x2 dry-run's
+    records (``quad_join``)."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    offset = flash_offset_check()
+    group_file = ROOT / "build" / "chip_smoke_pg"
+    if group_file.exists():
+        group_file.unlink()
+    try:
+        dist.init_process_group("nccl", init_method=f"file://{group_file}",
+                                rank=0, world_size=1)
+        try:
+            runs = mesh_world1(get_config(MESH_ARCH))
+        finally:
+            dist.destroy_process_group()
+    finally:
+        if group_file.exists():
+            group_file.unlink()
+    u, sh = runs["unsharded"], runs["sharded"]
+    expect(sh["params_dtensor"], "the sharded run's parameters are DTensors")
+    tok_u, tok_s = int(u["logits"].argmax()), int(sh["logits"].argmax())
+    expect(tok_u == tok_s, f"greedy token {tok_s} == {tok_u}")
+    rel = rel_l2(sh["logits"], u["logits"])
+    expect(rel <= MESH_LOGITS_REL, f"sharded logits rel L2 {rel:.3g} <= "
+           f"{MESH_LOGITS_REL}")
+    for k in ("loss", "grad_norm"):
+        x, y = sh["train"][k], u["train"][k]
+        expect(abs(x - y) <= MESH_LOSS_RTOL * abs(y),
+               f"sharded {k} {x:.6g} within {MESH_LOSS_RTOL} of {y:.6g}")
+    a, b = sh["train"]["loss"], u["train"]["loss"]
+    expect(sh["prefill_launches"] == u["prefill_launches"]
+           and sh["prefill_launches"]["flash_attention"] == 32
+           and sh["prefill_launches"]["grouped_matmul"] == 96,
+           f"prefill launches {sh['prefill_launches']} == "
+           f"{u['prefill_launches']} (flash 32, grouped GEMM 96)")
+    expect(sh["train_launches"] == u["train_launches"],
+           f"train launches {sh['train_launches']} == "
+           f"{u['train_launches']}")
+    lv = sh["leaves"]
+    print(f"mesh {MESH_ARCH} (1, 1) NCCL: greedy token {tok_s} both, logits "
+          f"rel L2 {rel:.3g}, loss {a:.6f} / {b:.6f}, grad_norm "
+          f"{sh['train']['grad_norm']:.6g} / {u['train']['grad_norm']:.6g};"
+          f" updated parameters and first moments leaf by leaf: "
+          f"{lv['bit_identical']} of {lv['leaves']} bit-identical, worst "
+          f"{lv['worst_leaf']} at {lv['worst_share']:.3g} of its bound; "
+          f"launches equal", flush=True)
+    print(f"mesh {MESH_ARCH} gradient norm by leaf (unsharded, largest "
+          f"first: norm, share of the squared norm): "
+          f"{[(n, f'{x:.4g}', f'{s_:.4f}') for n, x, s_ in u['leaves']]}",
+          flush=True)
+    for rec in quad_recs:
+        m, r, a = rec["memory"], rec["roofline"], rec["op_analysis"]
+        expect(m["peak_per_card_bytes"] >= m["argument_bytes"] > 0
+               and a["total_collective_bytes"] > 0,
+               f"quad {rec['arch']}: a peak and collective bytes")
+        print(f"dryrun quad_2x2 {rec['arch']} {rec['kind']}: "
+              f"{rec['batch']} x {rec['seq']} tokens"
+              f"{'' if rec['capacity'] is None else ', capacity ' + str(rec['capacity'])}"
+              f", peak {m['peak_per_card_bytes'] / 2 ** 30:.2f} GiB a card "
+              f"(given {m['argument_bytes'] / 2 ** 30:.2f}), fits "
+              f"{m['fits_hbm']}, collective "
+              f"{a['total_collective_bytes'] / 2 ** 30:.2f} GiB a card "
+              f"{ {k: round(v / 2 ** 30, 3) for k, v in a['collective_bytes'].items()} }"
+              f", roofline step {r['step_time_s']:.4f} s "
+              f"({r['bottleneck']}, fraction {r['roofline_fraction']:.4f}),"
+              f" microbatches {rec['cell']['microbatches']}, trace "
+              f"{rec['trace_s']:.1f} s", flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"mesh phase: {seconds:.1f} s (the quad dry-run's processes ran "
+          "beside the kernels' build)", flush=True)
+    return dict(world1={k: {kk: vv for kk, vv in v.items() if kk != "logits"}
+                        for k, v in runs.items()},
+                logits_rel_l2=rel, greedy_token=tok_s, flash_offset=offset,
+                quad=quad_recs, seconds=seconds)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3196,8 +3629,12 @@ def main() -> int:
     card = gpu_line()
     print(card, flush=True)
     t0 = time.perf_counter()
+    quad_start()
     _build.library()
     build_s = time.perf_counter() - t0
+    quad = quad_join()
+    print(f"the quad dry-run's {len(quad)} processes, beside the build: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     regs = _build.ptxas_report(_build.build_log)
     print(f"built the kernels in {build_s:.1f}s; ptxas (registers, spill "
           f"stores, spill loads): "
@@ -3277,6 +3714,11 @@ def main() -> int:
         lm_serve[CHECKED_PREFILL_ARCH]["checked_prefill"])
     launch = launch_phase(checked)
     by_path["serve_llm"] = launch["serve_llm"]["launches"]
+    mesh = mesh_phase(quad)
+    by_path[f"mesh {MESH_ARCH} prefill"] = mesh["world1"]["sharded"][
+        "prefill_launches"]
+    by_path[f"mesh {MESH_ARCH} train"] = mesh["world1"]["sharded"][
+        "train_launches"]
     summary = {}
     for arch, fam in families.items():
         sv = fam["serve"]
@@ -3340,7 +3782,7 @@ def main() -> int:
               "train_head_check": train_head, "train_hybrid": hyb_train,
               "train_hybrid_head_check": hyb_head, "families": families,
               "family_summary": summary, "train_lm": example,
-              "launch": launch, "kernels": kernels}
+              "launch": launch, "mesh": mesh, "kernels": kernels}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -3354,4 +3796,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_quad()
+    sys.exit(code)

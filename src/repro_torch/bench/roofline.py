@@ -1,11 +1,12 @@
-"""Roofline table from the single-H100 dry-run's artifacts.
+"""Roofline tables from the dry-run's artifacts.
 
 The port's counterpart of the JAX package's ``benchmarks/roofline.py``.
 Reads ``build/dryrun_torch/<mesh>/*.json``
-(:mod:`repro_torch.launch.dryrun`) and renders, per (arch x shape) cell:
-the roofline terms (the collective one is 0 on one card), the dominant
-bottleneck, MODEL_FLOPS / counted FLOPs (remat and redundancy waste), the
-roofline fraction and the peak memory a card.
+(:mod:`repro_torch.launch.dryrun`) and renders, per mesh present (one
+H100, then quad_2x2, pod_32x8 and multipod_2x32x8) and per (arch x shape)
+cell: the roofline terms (the collective one is 0 on one card), the
+dominant bottleneck, MODEL_FLOPS / counted FLOPs (remat and redundancy
+waste), the roofline fraction and the peak memory a card.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ from typing import Any, Dict, List, Optional
 
 DRYRUN_DIR = "build/dryrun_torch"
 MESH = "single_h100"
+#: the dry-run's meshes, in the order the tables print them
+MESHES = (MESH, "quad_2x2", "pod_32x8", "multipod_2x32x8")
 
 
 def load_cells(mesh: str = MESH, tag: Optional[str] = None,
@@ -63,8 +66,9 @@ def collect(full: bool = False, testbed: str = "host", device: str = "cuda",
     """The table's CSV lines (``repro_torch.bench.run``'s interface; the
     artifacts are what they are, whatever the testbed or size)."""
     lines: List[str] = []
-    if os.path.isdir(os.path.join(root, MESH)):
-        lines.extend(render(MESH, root))
+    for mesh in MESHES:
+        if os.path.isdir(os.path.join(root, mesh)):
+            lines.extend(render(mesh, root))
     if not lines:
         print("no dry-run artifacts found — run "
               "`python -m repro_torch.launch.dryrun` first")

@@ -24,8 +24,9 @@ execution's *unit quantum* ``q_j = lcm_K( lcm(wgs_j(K), epu) / epu )``.
 
 The plan drives explicit per-partition execution (host fission slots,
 CUDA-stream overlap slots, the simulator), where partitions may be
-**uneven** (heterogeneous devices).  The JAX package's even-sharding
-``shardings()`` export has no single-GPU meaning and is not ported.
+**uneven** (heterogeneous devices).  ``shardings()`` exports the even
+partition of a mesh axis instead: one spec per SCT edge, as the JAX
+package's does, with DTensor placements on a ``DeviceMesh``.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.skeletons import SCT
 from repro_torch.core.spec import ArgSpec, KernelSpec, Transfer
+from repro_torch.models.sharding import NamedSharding, P, axis_sizes
 
 
 class DecompositionError(ValueError):
@@ -131,6 +133,36 @@ class DecompositionPlan:
             relaxed = True
         return ConcretePartitioning(plan=self, slots=list(slots),
                                     units=alloc, relaxed=relaxed)
+
+    # ---- even sharding over a mesh axis ----------------------------------
+    def shardings(self, mesh, *, data_axis: str = "data",
+                  extra: Optional[Dict[str, P]] = None
+                  ) -> Dict[str, NamedSharding]:
+        """Even sharding per SCT edge: one :class:`NamedSharding` per
+        vector (its ``placements`` are the DTensor ones on a
+        ``DeviceMesh``).
+
+        COPY vectors are replicated; partitionable vectors are sharded
+        along their partition dim over ``data_axis``.  Raises if the even
+        per-device partition would violate the quantum constraints.
+        """
+        n = axis_sizes(mesh)[data_axis]
+        out: Dict[str, NamedSharding] = {}
+        if self.domain_units % n != 0:
+            raise DecompositionError(
+                f"domain has {self.domain_units} units, not divisible by "
+                f"mesh axis '{data_axis}'={n}")
+        for name, v in self.vectors.items():
+            if v.copy:
+                spec = P()
+            else:
+                axes: List[Optional[str]] = [None] * (v.partition_dim + 1)
+                axes[v.partition_dim] = data_axis
+                spec = P(*axes)
+            if extra and name in extra:
+                spec = extra[name]
+            out[name] = NamedSharding(mesh, spec)
+        return out
 
 
 @dataclasses.dataclass

@@ -161,6 +161,91 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.transpose(1, 2)
 
 
+class _FlashTwoPart(torch.autograd.Function):
+    """Attention of one query block over two key blocks, each one flash
+    call with its log-sum-exp, merged by the rows' log-sum-exps; the
+    backward runs the flash backward kernel on each block with the merged
+    output and log-sum-exp, as ring attention does.  Block A is unmasked
+    but for its window ``kw_a`` and is seen by the first ``n_a`` query rows
+    only (the rest see none of its keys: they are left out of its calls,
+    where the kernels would average V over a row without keys); block B is
+    causal (``kw_b``)."""
+
+    @staticmethod
+    def forward(ctx, q, ka, va, kb, vb, n_a: int, kw_a: dict, kw_b: dict,
+                kern):
+        q = q.contiguous()
+        ka, va, kb, vb = (t.contiguous() for t in (ka, va, kb, vb))
+        fwd = functools.partial(kern.flash_attention_with_lse, bshd=True)
+        oa, la = _flash.padded_call(q[:, :n_a].contiguous(), ka, va,
+                                    launch=fwd, **kw_a)
+        ob, lb = _flash.padded_call(q, kb, vb, launch=fwd, **kw_b)
+        lse = lb.clone()
+        lse[..., :n_a] = torch.logaddexp(la, lb[..., :n_a])    # (B,H,Sq)
+        wa = torch.exp(la - lse[..., :n_a]).transpose(1, 2)[..., None]
+        wb = torch.exp(lb - lse).transpose(1, 2)[..., None]
+        acc = torch.promote_types(q.dtype, torch.float32)
+        o = ob.to(acc) * wb
+        o[:, :n_a] += oa.to(acc) * wa
+        o = o.to(q.dtype)
+        ctx.save_for_backward(q, ka, va, kb, vb, o, lse)
+        ctx.n_a, ctx.kw_a, ctx.kw_b, ctx.kern = n_a, kw_a, kw_b, kern
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, ka, va, kb, vb, o, lse = ctx.saved_tensors
+        n = ctx.n_a
+        bwd = functools.partial(ctx.kern.flash_attention_backward, bshd=True)
+        do = do.contiguous()
+        dqa, dka, dva = _flash.padded_call(
+            q[:, :n].contiguous(), ka, va, o[:, :n].contiguous(),
+            do[:, :n].contiguous(), lse[..., :n].contiguous(), launch=bwd,
+            **ctx.kw_a)
+        dq, dkb, dvb = _flash.padded_call(q, kb, vb, o, do, lse, launch=bwd,
+                                          **ctx.kw_b)
+        dq = dq.clone()
+        dq[:, :n] += dqa
+        return dq, dka, dva, dkb, dvb, None, None, None, None
+
+
+def flash_attention_offset_bshd(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, *, q_offset: int,
+                                window: Optional[int] = None,
+                                logit_cap: float = 0.0,
+                                scale: Optional[float] = None
+                                ) -> torch.Tensor:
+    """Causal attention of the queries at positions ``q_offset`` ..
+    ``q_offset + Sq - 1`` over the keys at 0 .. Sk-1 (model layout,
+    (B,Sq,H,hd) x (B,Sk,KV,hd), Sk >= q_offset + Sq): a sequence shard's
+    attention.  The kernel's causal mask is aligned at the first query, so
+    the keys split in two: those before the block (block A: every one
+    before the query, inside the window where there is one, a window of
+    its own in A's coordinates) and the block's own (block B: causal as
+    the kernel has it), merged by :class:`_FlashTwoPart`.  At offset 0
+    this is one flash call."""
+    Sq = q.shape[1]
+    o_ = int(q_offset)
+    kw = dict(logit_cap=logit_cap, scale=scale)
+    kern = _kernels(q)
+    if kern is None:
+        o = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=True, window=window,
+                              q_offset=o_, **kw)
+        return o.transpose(1, 2)
+    kb, vb = k[:, o_:o_ + Sq], v[:, o_:o_ + Sq]
+    kw_b = dict(kw, causal=True, window=window)
+    a = max(0, o_ - window + 1) if window is not None else 0
+    if o_ == 0 or a >= o_:
+        return flash_attention_bshd(q, kb, vb, **kw_b)
+    kw_a = dict(kw, causal=False,
+                window=None if window is None else a + window - o_)
+    # under a window, query i sees a key of block A only while i < window - 1
+    n_a = Sq if window is None else min(Sq, window - 1)
+    ka, va = k[:, a:o_], v[:, a:o_]
+    return _FlashTwoPart.apply(q, ka, va, kb, vb, n_a, kw_a, kw_b, kern)
+
+
 class _SSDScan(torch.autograd.Function):
     """The SSD scan with its backward kernel: the forward keeps the chunks'
     starting states and the within-chunk cumsum of dt * A from its

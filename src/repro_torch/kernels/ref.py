@@ -97,9 +97,11 @@ NEG_INF = -2.0 ** 30
 def attention_probs(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
                     window: Optional[int] = None, logit_cap: float = 0.0,
                     scale: Optional[float] = None,
-                    kv_len: Optional[int] = None) -> torch.Tensor:
+                    kv_len: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
     """q: (B,H,Sq,hd); k: (B,KV,Sk,hd) -> the float32 softmax (B,H,Sq,Sk)
-    over the masked (NEG_INF) scores."""
+    over the masked (NEG_INF) scores.  Query i sits at position
+    ``q_offset + i`` for the causal mask and the window."""
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     sc = scale if scale is not None else 1.0 / math.sqrt(hd)
@@ -107,7 +109,7 @@ def attention_probs(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf.float()) * sc
     if logit_cap and logit_cap > 0:
         s = logit_cap * torch.tanh(s / logit_cap)
-    qp = torch.arange(Sq, device=q.device)[:, None]
+    qp = torch.arange(Sq, device=q.device)[:, None] + q_offset
     kp = torch.arange(Sk, device=q.device)[None, :]
     mask = kp < (Sk if kv_len is None else kv_len)
     if causal:
@@ -120,11 +122,13 @@ def attention_probs(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: Optional[int] = None,
                   logit_cap: float = 0.0, scale: Optional[float] = None,
-                  kv_len: Optional[int] = None) -> torch.Tensor:
+                  kv_len: Optional[int] = None,
+                  q_offset: int = 0) -> torch.Tensor:
     """q: (B,H,Sq,hd); k/v: (B,KV,Sk,hd) -> (B,H,Sq,hd) in q's dtype.
-    Dense float32 softmax over all Sk keys.  Its gradient under autograd
-    is the plain version of the flash backward kernel."""
-    p = attention_probs(q, k, causal=causal, window=window,
+    Dense float32 softmax over all Sk keys (queries at ``q_offset`` on).
+    Its gradient under autograd is the plain version of the flash backward
+    kernel."""
+    p = attention_probs(q, k, causal=causal, window=window, q_offset=q_offset,
                         logit_cap=logit_cap, scale=scale, kv_len=kv_len)
     vf = v.repeat_interleave(q.shape[1] // v.shape[1], dim=1)
     o = torch.einsum("bhqk,bhkd->bhqd", p, vf.float())

@@ -8,10 +8,17 @@ configurations — here a table keyed by (architecture, shape) with
 derivation rules for unseen cells (size-class nearest neighbour, the
 paper's Sec. 3.2.3 in miniature).
 
-One card applies ``microbatches``, ``remat``, ``remat_group``,
-``remat_inner``, ``loss_chunks`` and ``cache_dtype``.  ``fsdp``,
-``seq_shard``, ``act_seq_shard`` and ``donate`` place the reference's
-tensors on a GSPMD mesh; they stay for parity, and one card ignores them.
+Every mesh applies ``microbatches``, ``remat``, ``remat_group``,
+``remat_inner``, ``loss_chunks`` and ``cache_dtype``.  On a mesh of more
+than one card (``repro_torch.launch.dryrun.build_cell`` on quad_2x2,
+pod_32x8 or multipod_2x32x8) ``fsdp`` shards the weights' ``embed`` dim
+over the data axes (gathered layer by layer), ``seq_shard`` the caches'
+sequence over the model axis, and ``act_seq_shard`` the residual stream's
+sequence over it (attention then takes each rank's queries, as the
+reference's ``attention_sp`` does); the microbatches are clamped
+by the data axes' size.  One card ignores those three.  ``donate`` stays
+for parity: the port's steps update their state in place, so every mesh
+ignores it.
 """
 from __future__ import annotations
 
@@ -31,11 +38,11 @@ class CellConfig:
     remat_group: int = 1
     remat_inner: Optional[str] = None
     loss_chunks: int = 1
-    fsdp: bool = True            # GSPMD: shard weight 'embed' dim over data
-    seq_shard: bool = False      # GSPMD: shard (cache_)seq over the model
-    act_seq_shard: bool = False  # GSPMD: residual stream seq dim over model
+    fsdp: bool = True            # mesh: shard weight 'embed' dim over data
+    seq_shard: bool = False      # mesh: shard (cache_)seq over the model
+    act_seq_shard: bool = False  # mesh: residual stream seq dim over model
     cache_dtype: str = "bf16"    # KV-cache storage ("bf16" | "f8")
-    donate: bool = True          # GSPMD: donate the state's buffers
+    donate: bool = True          # the reference's buffer donation
 
     def replace(self, **kw) -> "CellConfig":
         return dataclasses.replace(self, **kw)
@@ -51,7 +58,7 @@ def size_class(cfg: ModelConfig) -> str:
 
 
 #: tuned per-(arch, shape) configurations, the reference's table entry for
-#: entry (act_seq_shard: its sequence-parallel attention, ignored here)
+#: entry (act_seq_shard: sequence parallelism on a mesh)
 TUNED: Dict[Tuple[str, str], Dict] = {
     ("mixtral-8x22b", "train_4k"): {"microbatches": 8},
     ("nemotron-4-15b", "train_4k"): {"microbatches": 4},

@@ -28,8 +28,22 @@ the backward's included:
                    meta stand-ins (:mod:`repro_torch.kernels.meta`) and
                    added to the totals.
 
-No collective runs on one card, so the reference's collective terms are
-absent; so are its CPU legalisation bytes, which have no counterpart.
+  * collective bytes — the operand bytes of every collective by kind
+                   (all-gather, all-reduce, reduce-scatter, all-to-all,
+                   broadcast), with their calls: the functional
+                   ``_c10d_functional`` ops that the steps on a mesh and
+                   DTensor's redistributions issue, and the in-place
+                   ``c10d`` ops of ``torch.distributed``'s calls.  A step on
+                   a mesh is traced as one rank sees it (rank 0 of a fake
+                   process group of the mesh's size), so every count is a
+                   card's.
+
+On a mesh the step's parameters, cache and inputs are DTensors.  The mode
+leaves an operation on DTensors to DTensor (it returns ``NotImplemented``),
+which runs it as local operations and collectives that come back through
+the mode; so a card's peak and bytes are its local tensors', and no
+DTensor and its local tensor are counted twice.  The reference's CPU
+legalisation bytes have no counterpart.
 """
 from __future__ import annotations
 
@@ -44,6 +58,7 @@ from torch.utils.flop_counter import flop_registry
 from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.kernels import meta as _meta
+from repro_torch.models import spmd
 
 aten = torch.ops.aten
 
@@ -62,6 +77,28 @@ ELEMENTWISE = frozenset(
         "softplus_backward", "_softmax_backward_data",
         "_log_softmax_backward_data"))
 
+#: collective ops by kind: the functional ops and the in-place c10d ops
+COLLECTIVES = {
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce", "allreduce_": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "allgather_": "all-gather", "_allgather_base_": "all-gather",
+    "allgather_into_tensor_coalesced_": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "reduce_scatter_": "reduce-scatter",
+    "_reduce_scatter_base_": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "alltoall_": "all-to-all",
+    "alltoall_base_": "all-to-all",
+    "broadcast": "broadcast", "broadcast_": "broadcast",
+}
+_COLLECTIVE_NS = ("_c10d_functional", "c10d")
+_OUT_FIRST = frozenset(("allgather_", "_allgather_base_", "reduce_scatter_",
+                        "_reduce_scatter_base_", "alltoall_",
+                        "alltoall_base_",
+                        "allgather_into_tensor_coalesced_"))
+
 #: operations that allocate without writing
 _UNWRITTEN = frozenset((aten.empty, aten.empty_strided, aten.empty_like,
                         aten.new_empty, aten.new_empty_strided))
@@ -73,6 +110,16 @@ def _tensors(tree) -> List[torch.Tensor]:
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+_DTENSOR = []
+
+
+def _is_dtensor_type(t) -> bool:
+    if not _DTENSOR:
+        from torch.distributed.tensor import DTensor
+        _DTENSOR.append(DTensor)
+    return isinstance(t, type) and issubclass(t, _DTENSOR[0])
 
 
 @dataclasses.dataclass
@@ -87,14 +134,26 @@ class Analysis:
     kernel_calls: Dict[str, int] = dataclasses.field(default_factory=dict)
     kernel_flops: Dict[str, float] = dataclasses.field(default_factory=dict)
     kernel_bytes: Dict[str, float] = dataclasses.field(default_factory=dict)
+    #: collective operand bytes and calls by kind
+    collective_bytes: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
+    collective_count: Dict[str, int] = dataclasses.field(
+        default_factory=dict)
     #: the most bytes alive at once, and those of what the step was given
     peak_bytes: int = 0
     argument_bytes: int = 0
     ops: int = 0
     warnings: List[str] = dataclasses.field(default_factory=list)
 
+    @property
+    def total_collective_bytes(self) -> float:
+        return sum(self.collective_bytes.values())
+
     def to_json(self) -> Dict:
         return {"flops": self.flops, "hbm_bytes": self.hbm_bytes,
+                "collective_bytes": dict(self.collective_bytes),
+                "collective_count": dict(self.collective_count),
+                "total_collective_bytes": self.total_collective_bytes,
                 "matmul_flops": self.matmul_flops,
                 "elementwise_flops": self.elementwise_flops,
                 "kernel_calls": dict(self.kernel_calls),
@@ -143,7 +202,7 @@ class OpAnalysis(TorchDispatchMode):
                   if isinstance(leaf, torch.nn.Module) else _tensors(leaf))
             for t in ts:
                 before = self._live
-                self._hold(t)
+                self._hold(spmd.block(t))
                 self.analysis.argument_bytes += self._live - before
 
     # -- kernels ----------------------------------------------------------
@@ -167,12 +226,24 @@ class OpAnalysis(TorchDispatchMode):
     # -- operations -------------------------------------------------------
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(_is_dtensor_type(t) for t in types):
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         a = self.analysis
         a.ops += 1
         outs = _tensors(out)
         packet = func.overloadpacket
+        kind = (COLLECTIVES.get(packet.__name__)
+                if func.namespace in _COLLECTIVE_NS else None)
+        if kind is not None:
+            # the c10d ops with an output argument take their input second
+            src = (args[1] if func.namespace == "c10d"
+                   and packet.__name__ in _OUT_FIRST else (args, kwargs))
+            nbytes = sum(_nbytes(t) for t in _tensors(src))
+            a.collective_bytes[kind] = a.collective_bytes.get(kind, 0.0) \
+                + nbytes
+            a.collective_count[kind] = a.collective_count.get(kind, 0) + 1
         if packet in flop_registry:
             f = flop_registry[packet](*args, **kwargs, out_val=out)
             a.matmul_flops += f

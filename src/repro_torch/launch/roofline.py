@@ -148,24 +148,27 @@ def _pairs_below(Sq: int, n: int, d: int) -> int:
 
 def flash_pairs(Sq: int, Sk: int, *, causal: bool = True,
                 window: Optional[int] = None,
-                kv_len: Optional[int] = None) -> int:
+                kv_len: Optional[int] = None, q_offset: int = 0) -> int:
     """The (query, key) pairs flash's mask keeps: key k < ``kv_len`` (all
     Sk without it), k <= q under ``causal``, k > q - ``window`` under a
-    window, in closed form."""
+    window, in closed form; query q at position ``q_offset`` + q (a
+    sequence shard's queries, ``ops.flash_attention_offset_bshd``)."""
     n = Sk if kv_len is None else max(0, min(Sk, int(kv_len)))
-    kept = _pairs_below(Sq, n, 0) if causal else Sq * n
+    kept = _pairs_below(Sq, n, q_offset) if causal else Sq * n
     if window is not None:
-        kept -= _pairs_below(Sq, n, -int(window))
+        kept -= _pairs_below(Sq, n, q_offset - int(window))
     return kept
 
 
 def flash_work(B, H, KV, Sq, Sk, hd, dtype, *, causal: bool = True,
                window: Optional[int] = None,
-               kv_len: Optional[int] = None, **_) -> Work:
+               kv_len: Optional[int] = None, q_offset: int = 0,
+               **_) -> Work:
     """Bytes: q, k, v read and o written once.  Operations: the two
     products (2 per multiply-add) over the (query, key) pairs the mask
     keeps in this call."""
-    pairs = flash_pairs(Sq, Sk, causal=causal, window=window, kv_len=kv_len)
+    pairs = flash_pairs(Sq, Sk, causal=causal, window=window, kv_len=kv_len,
+                        q_offset=q_offset)
     nbytes = _size(dtype) * (2 * B * H * Sq * hd + 2 * B * KV * Sk * hd)
     return 4.0 * B * H * pairs * hd, float(nbytes)
 
@@ -177,23 +180,24 @@ def flash_bound(B, H, KV, Sq, Sk, hd, dtype, **kw):
 
 def flash_bwd_work(B, H, KV, S, hd, dtype, causal: bool = True,
                    Sk: Optional[int] = None,
-                   window: Optional[int] = None) -> Work:
+                   window: Optional[int] = None, q_offset: int = 0) -> Work:
     """Bytes: q, o, dO and the float32 lse read and dq written (four
     query-sized tensors), k and v read and dk, dv written (four key-sized
     ones), each once.  Operations: five products (S, dP, dV, dK, dQ) of 2
     per multiply-add over the (query, key) pairs the mask keeps (``Sk``
-    keys, S by default)."""
+    keys, S by default; the queries from ``q_offset``)."""
     Sk = S if Sk is None else Sk
-    pairs = flash_pairs(S, Sk, causal=causal, window=window)
+    pairs = flash_pairs(S, Sk, causal=causal, window=window,
+                        q_offset=q_offset)
     nbytes = (_size(dtype) * (4 * B * H * S * hd + 4 * B * KV * Sk * hd)
               + 4 * B * H * S)
     return 5 * 2.0 * B * H * pairs * hd, float(nbytes)
 
 
 def flash_bwd_bound(B, H, KV, S, hd, dtype, causal=True, Sk=None,
-                    window=None):
+                    window=None, q_offset=0):
     flops, nbytes = flash_bwd_work(B, H, KV, S, hd, dtype, causal, Sk,
-                                   window)
+                                   window, q_offset)
     return bound_ms(nbytes, flops, peak_for(dtype))
 
 

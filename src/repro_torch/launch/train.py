@@ -4,8 +4,9 @@ The port's counterpart of the JAX package's ``launch/train.py``, with its
 flags and its loop: deterministic stateless data, atomic asynchronous
 checkpoints every ``--ckpt-every`` steps with keep-K, restore from the
 latest on ``--resume``, the per-arch LR recipe (wsd or cosine), and the
-optional int8 + error-feedback gradient sync (``--compress``, over a
-``torch.distributed`` group of one process).  An encoder-decoder's batches
+optional int8 + error-feedback gradient sync (``--compress``, over the
+``torch.distributed`` group: every process ``torchrun`` starts, one card
+each, or a group of one process without it).  An encoder-decoder's batches
 carry ``frames`` and a VLM's ``frontend_embeds``, drawn once from a seeded
 generator, as the reference's do.  Runs on CUDA unless ``--device cpu`` is
 given.
@@ -13,6 +14,8 @@ given.
 Usage:
     python -m repro_torch.launch.train --arch granite-moe-3b-a800m \\
         --smoke --device cpu --steps 4
+    torchrun --nproc-per-node N -m repro_torch.launch.train \\
+        --arch granite-moe-3b-a800m --compress      # N cards, int8 sync
 """
 from __future__ import annotations
 
@@ -47,15 +50,20 @@ def build_optimizer(cfg, lr: float, steps: int) -> AdamW:
     return AdamW(AdamWConfig(lr=sched))
 
 
-def _init_group(device: torch.device) -> str:
-    """A one-process group (gloo on the CPU, NCCL on the card) through a
-    file under the temporary directory; returns the file's path."""
+def _init_group(device: torch.device) -> Optional[str]:
+    """The data-parallel group (gloo on the CPU, NCCL on the card): every
+    process of a ``torchrun`` launch (``RANK``/``WORLD_SIZE`` and its
+    rendezvous from the environment), or else one process through a file
+    under the temporary directory, whose path is returned."""
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend)
+        return None
     fd, path = tempfile.mkstemp(prefix="repro_torch_dist_")
     os.close(fd)
     os.unlink(path)
-    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
-                            init_method=f"file://{path}", world_size=1,
-                            rank=0)
+    dist.init_process_group(backend, init_method=f"file://{path}",
+                            world_size=1, rank=0)
     return path
 
 
@@ -83,6 +91,9 @@ def main(argv=None) -> int:
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     device = resolve_device(args.device)
+    if device.type == "cuda" and "LOCAL_RANK" in os.environ:
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(device)
     print(f"[train] arch={cfg.arch} params={cfg.param_count()/1e6:.1f}M "
           f"schedule={cfg.lr_schedule} device={device}")
 
@@ -94,7 +105,8 @@ def main(argv=None) -> int:
     state = init_state(model, opt, compress=args.compress)
 
     group_file: Optional[str] = None
-    if args.compress:
+    grouped = args.compress
+    if grouped:
         group_file = _init_group(device)
         step_fn = make_dp_train_step_int8(cfg, opt, rt)
     else:
@@ -130,6 +142,9 @@ def main(argv=None) -> int:
                 start = meta.step
                 print(f"[train] resumed from step {start}")
 
+    # one writer: rank 0 of a multi-process group saves (every rank holds
+    # the same parameters and moments; rank 0's error feedback is kept)
+    saver = mgr if not grouped or dist.get_rank() == 0 else None
     try:
         t0 = time.time()
         tokens_per_step = args.batch * args.seq_len
@@ -144,18 +159,18 @@ def main(argv=None) -> int:
                       f"aux={m['aux_loss']:.4f} "
                       f"gnorm={m['grad_norm']:.3f} "
                       f"lr={m['lr']:.2e} tok/s={tps:,.0f}")
-            if mgr and (step + 1) % args.ckpt_every == 0:
-                mgr.save(step + 1, state_to_tree(state),
-                         payload={"data_step": step + 1})
-        if mgr:
-            mgr.save(args.steps, state_to_tree(state),
-                     payload={"data_step": args.steps}, blocking=True)
+            if saver and (step + 1) % args.ckpt_every == 0:
+                saver.save(step + 1, state_to_tree(state),
+                           payload={"data_step": step + 1})
+        if saver:
+            saver.save(args.steps, state_to_tree(state),
+                       payload={"data_step": args.steps}, blocking=True)
         print(f"[train] done in {time.time() - t0:.1f}s")
     finally:
-        if group_file is not None:
+        if grouped:
             dist.destroy_process_group()
-            if os.path.exists(group_file):
-                os.unlink(group_file)
+        if group_file is not None and os.path.exists(group_file):
+            os.unlink(group_file)
     return 0
 
 

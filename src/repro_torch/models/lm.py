@@ -36,13 +36,21 @@ The decode cache keeps the JAX package's key names, layout and dtypes
 place (the JAX engine donates it) and returns it.  An encoder-decoder's
 cache also holds each decoder layer's cross-attention keys and values
 over the frames (``xk``, ``xv``), written by the prefill and read, never
-changed, by the decode steps.
+changed, by the decode steps.  The prefill writes each layer's rows into
+the cache allocated once at capacity (the reference's scan writes its
+stacked output), so no layer's k/v or SSM state is held twice.
+
+On a mesh (:mod:`repro_torch.models.spmd`) the parameters are DTensors
+placed by the logical rules and the entry points take DTensor inputs:
+each block computes on this rank's shards, the residual stream is pinned
+to ``act_spec`` at every layer, and the cache is a dict of DTensors whose
+blocks each layer reads and writes.
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,16 +58,22 @@ from torch import nn
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.models import spmd
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.attention import (attn_defs, decode_attention,
+from repro_torch.models.attention import (attention_sharded, attn_defs,
+                                          decode_attention, decode_sharded,
                                           out_proj, prefill_attention, qkv,
                                           query, update_cache)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (Defs, ParamDef, Params, embed,
-                                       embed_defs, mlp, mlp_defs,
-                                       new_parameter, rmsnorm, rmsnorm_def,
-                                       unembed)
+                                       embed_defs, mask_padded_vocab, mlp,
+                                       mlp_defs, new_parameter, rmsnorm,
+                                       rmsnorm_def, softcap, unembed,
+                                       unembed_weight, vocab_sharded)
 from repro_torch.models.moe import moe_defs, moe_ffn
+from repro_torch.models.sharding import (Rules, contiguous_stride,
+                                         local_shape, placements_for,
+                                         spec_for)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -140,6 +154,10 @@ class AttnBlock(Params):
         them."""
         cfg = self.cfg
         h = rmsnorm(x, self["ln1"]["scale"], cfg.norm_eps)
+        L = spmd.current()
+        if L is not None:
+            return self._decode_sharded(L, x, h, k_cache, v_cache, pos,
+                                        window, xk, xv)
         positions = torch.full((1, 1), pos, device=x.device)
         q, k, v = qkv(h, self["attn"], cfg, positions=positions,
                       rope=cfg.use_rope)
@@ -151,11 +169,37 @@ class AttnBlock(Params):
             y = _cross_decode(self, y, cfg, xk, xv)
         return _ffn_part(self, y, cfg)
 
+    def _decode_sharded(self, L, x, h, k_cache, v_cache, pos, window, xk,
+                        xv) -> torch.Tensor:
+        """:meth:`decode` on a mesh: each cache is a :class:`CacheBlock`,
+        this rank's block of the layer's (:func:`decode_sharded`)."""
+        cfg = self.cfg
+        kc, kind, rows = k_cache
+        y = x + decode_sharded(L, h, self["attn"], cfg, k_cache=kc,
+                               v_cache=v_cache[0], cache_kind=kind,
+                               n_rows=rows, pos=pos, window=window,
+                               rope=cfg.use_rope)
+        if xk is not None:
+            hx = rmsnorm(y, self["ln_x"]["scale"], cfg.norm_eps)
+            xkc, xkind, xrows = xk
+            y = y + decode_sharded(L, hx, self["xattn"], cfg, k_cache=xkc,
+                                   v_cache=xv[0], cache_kind=xkind,
+                                   n_rows=xrows,
+                                   pos=xrows - 1, window=None, write=False,
+                                   rope=False)
+        return _ffn_part(self, y, cfg)
+
 
 def _attn_part(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                positions: torch.Tensor, causal: bool,
                window: Optional[int] = None):
     h = rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
+    L = spmd.current()
+    if L is not None:
+        y, kv = attention_sharded(L, h, p["attn"], cfg, positions=positions,
+                                  causal=causal, window=window,
+                                  rope=cfg.use_rope)
+        return x + y, kv
     q, k, v = qkv(h, p["attn"], cfg, positions=positions, rope=cfg.use_rope)
     o = prefill_attention(q, k, v, cfg, causal=causal, window=window)
     return x + out_proj(o, p["attn"]), (k, v)
@@ -167,6 +211,11 @@ def _cross_part(p: Params, y: torch.Tensor, cfg: ModelConfig,
     stream, keys and values from the encoder's output ``enc``, no mask.
     Returns (y, (k, v)) with those keys and values."""
     h = rmsnorm(y, p["ln_x"]["scale"], cfg.norm_eps)
+    L = spmd.current()
+    if L is not None:
+        o, kv = attention_sharded(L, h, p["xattn"], cfg, positions=None,
+                                  causal=False, kv_x=enc, rope=False)
+        return y + o, kv
     q, k, v = qkv(h, p["xattn"], cfg, kv_x=enc, rope=False)
     o = prefill_attention(q, k, v, cfg, causal=False)
     return y + out_proj(o, p["xattn"]), (k, v)
@@ -289,8 +338,11 @@ class LM(nn.Module):
         self.cfg = cfg
         kw = dict(dtype=dtype, device=device, generator=generator)
         self.embed = Params(embed_defs(cfg), **kw)
+        #: logical axis names of the parameters held here directly
+        self.logical: Dict[str, Tuple[Optional[str], ...]] = {}
         if not cfg.use_rope:
             self.pos_embed = new_parameter(pos_embed_def(cfg), **kw)
+            self.logical["pos_embed"] = pos_embed_def(cfg).logical
         if cfg.enc_dec:
             self.encoder = Encoder(cfg, **kw)
             layers = [AttnBlock(cfg, cross=True, **kw)
@@ -329,11 +381,23 @@ def _embed_input(model: LM, tokens: torch.Tensor,
     return x
 
 
+def _embed_stream(model: LM, tokens: torch.Tensor,
+                  extras: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """:func:`_embed_input`, on a mesh this rank's block of it (the whole
+    sequence is embedded on every rank of the model axis, then pinned)."""
+    L = spmd.current()
+    if L is None:
+        return _embed_input(model, tokens, extras)
+    with spmd.on_layout(L.with_seq(False)):
+        x = _embed_input(model, tokens, extras)
+    return _constrain(L.slice_seq(x), L)
+
+
 def _learned_positions(model: LM, pos0: int, S: int) -> torch.Tensor:
     """Rows pos0 .. pos0+S-1 of the learned position table, the start
     clamped into the table as ``jax.lax.dynamic_slice_in_dim`` clamps it
     (a decode step past the table's end reads its last row)."""
-    table = model.pos_embed
+    table = spmd.local(model.pos_embed)
     if S > table.shape[0]:
         raise ValueError(f"{model.cfg.arch}: {S} positions, the table has "
                          f"{table.shape[0]}")
@@ -379,6 +443,11 @@ def _run_encoder(model: LM, frames: torch.Tensor,
     without a mask, then the encoder's final norm.  Under a remat policy
     each block is its own checkpointed unit: the JAX package groups the
     decoder's layers only."""
+    L = spmd.current()
+    if L is not None and L.seq:
+        # on a mesh the encoder's stream stays whole over the model axis
+        with spmd.on_layout(L.with_seq(False)):
+            return _run_encoder(model, frames, remat_policy)
     cfg = model.cfg
     n = frames.shape[1]
     x = frames + _sinusoids(n, cfg.d_model, frames.dtype, frames.device)[None]
@@ -419,6 +488,14 @@ def _remat(fn: Callable, policy: Optional[str]) -> Callable:
     """``fn`` under the named checkpoint policy."""
     if policy not in REMAT_POLICIES:
         raise ValueError(f"remat policy {policy!r} not in {REMAT_POLICIES}")
+    L = spmd.current()
+    if L is not None:
+        inner = fn
+
+        def fn(*a):
+            # a recomputation in the backward runs in the step's layout
+            with spmd.on_layout(L):
+                return inner(*a)
     if policy in (None, "none"):
         return fn
     kw = {}
@@ -452,17 +529,64 @@ def _grouped(bodies: List[Callable], g: int, policy: Optional[str],
             for i in range(0, len(bodies), g)]
 
 
+def _constrain(x: torch.Tensor, L) -> torch.Tensor:
+    """Pin the residual stream on a mesh: this rank's block of it, batch
+    over the data axes (where the batch divides them) and, under sequence
+    parallelism, the sequence over the model axis — the reference's
+    ``with_sharding_constraint(x, act_spec)``.  Here every block computes
+    on that block by construction; the pin checks it."""
+    if L is not None and x.shape[1] != L.seq_len // (L.tp_size if L.seq
+                                                     else 1):
+        raise RuntimeError(f"residual stream {tuple(x.shape)} is not the "
+                           f"rank's block of {L.seq_len} positions")
+    return x
+
+
+def _wrap_body(body: Callable, L) -> Callable:
+    """Pin the stream at every layer (:func:`_constrain`)."""
+    if L is None:
+        return body
+    return lambda h, aux: body(_constrain(h, L), aux)
+
+
+def sharded_inputs(tokens, extras: Dict, act_spec=None):
+    """(layout, local tokens, local extras): a step on a mesh takes its
+    inputs as DTensors placed by the rules (``batch`` over the data axes
+    where it divides them); off a mesh (plain tensors) the layout is
+    None and the inputs are returned as they are."""
+    if not spmd.is_sharded(tokens):
+        return None, tokens, extras
+    L = spmd.layout_for(tokens, act_spec)
+    return (L, tokens.to_local(),
+            {k: v.to_local() if spmd.is_sharded(v) else v
+             for k, v in extras.items()})
+
+
 def forward_backbone(model: LM, tokens: torch.Tensor,
                      remat_policy: Optional[str] = None,
                      remat_group: int = 1,
                      remat_inner_policy: Optional[str] = None,
+                     act_spec=None,
                      **extras) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B,S) -> final hidden states (B,S,d), aux-loss scalar (the
     MoE router losses summed over the layers).  A hybrid group of Mamba2
     blocks and its attention block is one layer body, as is a local/global
     pair, as in the reference's scan.  An encoder-decoder runs its encoder
     on ``extras["frames"]`` first; each decoder block's cross-attention
-    reads the encoder's output."""
+    reads the encoder's output.
+
+    On a mesh ``tokens`` (and the extras) are DTensors, or the caller has
+    entered the step's layout already (``spmd.on_layout``) and passes
+    this rank's local blocks; ``act_spec`` (``P(dp)`` or ``P(dp,
+    "model")``) pins the residual stream at every layer and the hidden
+    states returned are this rank's block."""
+    L = spmd.current()
+    if L is None and spmd.is_sharded(tokens):
+        L, tokens, extras = sharded_inputs(tokens, extras, act_spec)
+        with spmd.on_layout(L):
+            return forward_backbone(model, tokens, remat_policy,
+                                    remat_group, remat_inner_policy,
+                                    **extras)
     cfg = model.cfg
     S = tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)[None]
@@ -503,9 +627,10 @@ def forward_backbone(model: LM, tokens: torch.Tensor,
     make = (mamba_body if cfg.family == "ssm"
             else hybrid_body if cfg.family == "hybrid"
             else pair_body if cfg.local_global_pattern else attn_body)
-    x = _embed_input(model, tokens, extras)
+    x = _embed_stream(model, tokens, extras)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for body in _grouped([make(layer) for layer in model.layers],
+    for body in _grouped([_wrap_body(make(layer), L)
+                          for layer in model.layers],
                          remat_group, remat_policy,
                          remat_inner_policy or remat_policy):
         x, aux = body(x, aux)
@@ -525,19 +650,24 @@ def forward_train(model: LM, tokens: torch.Tensor,
 # Decode cache
 # ---------------------------------------------------------------------------
 
-def cache_defs(cfg: ModelConfig, batch: int, capacity: int
-               ) -> Dict[str, Tuple[int, ...]]:
-    """Shapes of the decode cache, by the JAX package's key names."""
+def cache_param_defs(cfg: ModelConfig, batch: int, capacity: int
+                     ) -> Dict[str, ParamDef]:
+    """The decode cache as the JAX package's ``cache_defs`` gives it:
+    shapes and logical axis names, by its key names."""
     _check_family(cfg)
     KV, hd = cfg.n_kv_heads, cfg.head_dim
+    kv_log = (None, "cache_batch", "cache_seq", "kv_heads", "head_dim")
+
+    def kv_def(n_layers: int, cap: int) -> ParamDef:
+        return ParamDef((n_layers, batch, cap, KV, hd), kv_log, 0.0)
+
     if cfg.family == "ssm":
         return _ssm_cache_defs(cfg, cfg.n_layers, batch, lead=())
     if cfg.local_global_pattern:
         pairs, w = cfg.n_layers // 2, min(cfg.sliding_window, capacity)
-        return {"k_local": (pairs, batch, w, KV, hd),
-                "v_local": (pairs, batch, w, KV, hd),
-                "k_global": (pairs, batch, capacity, KV, hd),
-                "v_global": (pairs, batch, capacity, KV, hd)}
+        return {"k_local": kv_def(pairs, w), "v_local": kv_def(pairs, w),
+                "k_global": kv_def(pairs, capacity),
+                "v_global": kv_def(pairs, capacity)}
     cap = min(capacity, cfg.sliding_window) if cfg.sliding_window \
         else capacity
     if cfg.family == "hybrid":
@@ -545,23 +675,37 @@ def cache_defs(cfg: ModelConfig, batch: int, capacity: int
         d = _ssm_cache_defs(cfg, m, batch, lead=(g,))
     else:
         g, d = cfg.n_layers, {}
-    d["k"] = (g, batch, cap, KV, hd)
-    d["v"] = (g, batch, cap, KV, hd)
+    d["k"] = kv_def(g, cap)
+    d["v"] = kv_def(g, cap)
     if cfg.enc_dec:
-        d["xk"] = (g, batch, cfg.enc_frames, KV, hd)
-        d["xv"] = (g, batch, cfg.enc_frames, KV, hd)
+        d["xk"] = kv_def(g, cfg.enc_frames)
+        d["xv"] = kv_def(g, cfg.enc_frames)
     return d
 
 
+def cache_defs(cfg: ModelConfig, batch: int, capacity: int
+               ) -> Dict[str, Tuple[int, ...]]:
+    """Shapes of the decode cache, by the JAX package's key names."""
+    return {k: d.shape for k, d in
+            cache_param_defs(cfg, batch, capacity).items()}
+
+
 def _ssm_cache_defs(cfg: ModelConfig, n_layers: int, batch: int,
-                    lead: Tuple[int, ...]) -> Dict[str, Tuple[int, ...]]:
+                    lead: Tuple[int, ...]) -> Dict[str, ParamDef]:
     s = cfg.ssm
     nh, ds, hd = s.n_heads(cfg.d_model), s.d_state, s.head_dim
     di, K1 = s.d_inner(cfg.d_model), s.conv_dim - 1
-    return {"h": lead + (n_layers, batch, nh, ds, hd),
-            "conv_x": lead + (n_layers, batch, K1, di),
-            "conv_B": lead + (n_layers, batch, K1, ds),
-            "conv_C": lead + (n_layers, batch, K1, ds)}
+    nl = (None,) * len(lead)
+    return {
+        "h": ParamDef(lead + (n_layers, batch, nh, ds, hd),
+                      nl + (None, "cache_batch", "heads", None, None), 0.0),
+        "conv_x": ParamDef(lead + (n_layers, batch, K1, di),
+                           nl + (None, "cache_batch", None, "mlp"), 0.0),
+        "conv_B": ParamDef(lead + (n_layers, batch, K1, ds),
+                           nl + (None, "cache_batch", None, None), 0.0),
+        "conv_C": ParamDef(lead + (n_layers, batch, K1, ds),
+                           nl + (None, "cache_batch", None, None), 0.0),
+    }
 
 
 def cache_dtype(key: str, dtype=torch.bfloat16) -> torch.dtype:
@@ -569,9 +713,66 @@ def cache_dtype(key: str, dtype=torch.bfloat16) -> torch.dtype:
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
-               dtype=torch.bfloat16, device=None) -> Cache:
-    return {k: torch.zeros(shape, dtype=cache_dtype(k, dtype), device=device)
-            for k, shape in cache_defs(cfg, batch, capacity).items()}
+               dtype=torch.bfloat16, device=None, *, mesh=None,
+               rules: Optional[Rules] = None) -> Cache:
+    """The zero cache.  With a mesh: DTensors placed by ``rules`` (the
+    default ones without it), each rank holding its block (zeros, or
+    storage-free on ``meta``)."""
+    defs = cache_param_defs(cfg, batch, capacity)
+    if mesh is None:
+        return {k: torch.zeros(d.shape, dtype=cache_dtype(k, dtype),
+                               device=device) for k, d in defs.items()}
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models.sharding import default_rules
+    rules = rules or default_rules(mesh)
+    out: Cache = {}
+    for k, d in defs.items():
+        spec = spec_for(d.shape, d.logical, mesh, rules)
+        shp = local_shape(d.shape, spec, mesh)
+        dt = cache_dtype(k, dtype)
+        loc = (torch.empty(shp, dtype=dt, device="meta")
+               if str(device) == "meta"
+               else torch.zeros(shp, dtype=dt, device=device))
+        out[k] = DTensor.from_local(loc, mesh, placements_for(spec, mesh),
+                                    run_check=False, shape=d.shape,
+                                    stride=contiguous_stride(d.shape))
+    return out
+
+
+class CacheBlock(NamedTuple):
+    """One rank's block of a layer's k or v cache on a mesh: the tensor,
+    how it is split (``"rows"`` over the model axis, this rank's kv
+    ``"heads"``, or ``"all"``) and the layer's rows in all."""
+
+    t: torch.Tensor
+    kind: str
+    rows: int
+
+
+def _block_kind(L, cache_entry) -> str:
+    """How a stacked (layers.., B, rows, KV, hd) cache DTensor is split
+    over the model axis."""
+    d = L.tp_dim(cache_entry)
+    nd = cache_entry.ndim
+    return "rows" if d == nd - 3 else "heads" if d == nd - 2 else "all"
+
+
+def _to_block(L, t: torch.Tensor, shape) -> torch.Tensor:
+    """A tensor that is whole, or split over the model axis along another
+    dim, as this rank's block of ``shape`` (slice, all-gather or
+    all-to-all over the model axis; no gradient)."""
+    shape = tuple(shape)
+    if tuple(t.shape) == shape:
+        return t
+    small = [d for d in range(t.ndim) if t.shape[d] < shape[d]]
+    big = [d for d in range(t.ndim) if t.shape[d] > shape[d]]
+    if small and big:
+        return spmd.all_to_all(t, L.mesh, L.tp, big[0], small[0])
+    for d in small:
+        t = spmd.all_gather(t, L.mesh, L.tp, d)
+    for d in big:
+        t = t.chunk(L.tp_size, dim=d)[L.tp_rank]
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -590,67 +791,117 @@ def _pad_cap(k: torch.Tensor, c: int) -> torch.Tensor:
 
 
 def prefill(model: LM, tokens: torch.Tensor,
-            capacity: Optional[int] = None, **extras
+            capacity: Optional[int] = None, act_spec=None,
+            cache: Optional[Cache] = None, **extras
             ) -> Tuple[torch.Tensor, Cache]:
     """tokens (B,S) -> last-token logits (B,V), cache of capacity
-    ``capacity`` (default S).  An encoder-decoder's cross-attention keys
-    and values go to the cache in bf16; its own cross-attention read them
-    in the model's dtype, as in the JAX package."""
+    ``capacity`` (default S).  The cache is allocated once, at capacity
+    (or given: ``cache``, zeros of :func:`init_cache`'s shapes), and each
+    layer writes its rows into it: k/v packed into a rolling cache of W
+    rows under a window, else padded to the capacity; the SSM state and
+    conv tails as they are; an encoder-decoder's cross-attention keys and
+    values in bf16 (its own cross-attention read them in the model's
+    dtype, as in the JAX package).
+
+    On a mesh ``tokens`` (and the extras) are DTensors placed by the
+    rules; the cache's DTensors are given (:func:`init_cache` with the
+    mesh and the cell's rules) or made with the default rules, and each
+    layer's k/v go to their blocks through :func:`_to_block`.  The logits
+    are then a DTensor split over the batch like the tokens."""
+    if spmd.is_sharded(tokens):
+        L, tokens, extras = sharded_inputs(tokens, extras, act_spec)
+        B, S = tokens.shape
+        Bg = B * (spmd.dp_size(L) if L.batch else 1)
+        if cache is None:
+            cache = init_cache(model.cfg, Bg, capacity or S,
+                               device=tokens.device, mesh=L.mesh)
+        with spmd.on_layout(L):
+            logits = _prefill(model, tokens, capacity, extras,
+                              {k: v.to_local() for k, v in cache.items()},
+                              L)
+        return spmd.batch_dtensor(logits, L), cache
+    B = tokens.shape[0]
+    if cache is None:
+        cache = init_cache(model.cfg, B, capacity or tokens.shape[1],
+                           device=tokens.device)
+    return _prefill(model, tokens, capacity, extras, cache, None), cache
+
+
+def _prefill(model: LM, tokens: torch.Tensor, capacity: Optional[int],
+             extras: Dict, cache: Cache, L) -> torch.Tensor:
+    """Fill ``cache`` (this rank's blocks on a mesh) and return the last
+    position's logits."""
     cfg = model.cfg
     S = tokens.shape[1]
     cap = capacity or S
     positions = torch.arange(S, device=tokens.device)[None]
-    x = _embed_input(model, tokens, extras)
+    x = _embed_stream(model, tokens, extras)
     enc = _run_encoder(model, _frames(model, extras)) if cfg.enc_dec else None
     W = min(cfg.sliding_window, cap) if cfg.sliding_window else cap
-    per: Dict[str, List[torch.Tensor]] = {k: [] for k in
-                                          cache_defs(cfg, 1, cap)}
 
-    def attn(blk: AttnBlock, x: torch.Tensor, window: Optional[int],
+    def put(key: str, idx, value: torch.Tensor) -> None:
+        dst = cache[key][idx]
+        dst.copy_(value if L is None else _to_block(L, value, dst.shape))
+
+    def attn(blk: AttnBlock, x: torch.Tensor, window: Optional[int], idx,
              k_key: str = "k", v_key: str = "v") -> torch.Tensor:
-        """One attention block; its k/v packed into a rolling cache of W
-        rows under a window, else padded to the capacity; an
-        encoder-decoder's cross-attention k/v as they are."""
+        """One attention block and its cache rows."""
         x, kv = blk(x, positions=positions, window=window, enc=enc)
         fit = ((lambda t: _fit_window(t, S, W)) if window
                else (lambda t: _pad_cap(t, cap)))
-        per[k_key].append(fit(kv[0]).to(torch.bfloat16))
-        per[v_key].append(fit(kv[1]).to(torch.bfloat16))
+        put(k_key, idx, fit(kv[0]).to(torch.bfloat16))
+        put(v_key, idx, fit(kv[1]).to(torch.bfloat16))
         if enc is not None:
-            per["xk"].append(kv[2].to(torch.bfloat16))
-            per["xv"].append(kv[3].to(torch.bfloat16))
+            put("xk", idx, kv[2].to(torch.bfloat16))
+            put("xv", idx, kv[3].to(torch.bfloat16))
         return x
 
-    def mamba(blocks, out: Dict[str, List[torch.Tensor]], x: torch.Tensor
-              ) -> torch.Tensor:
-        for blk in blocks:
-            x, hf, conv = blk(x)
-            out["h"].append(hf.float())
-            for k in ("x", "B", "C"):
-                out["conv_" + k].append(conv[k])
+    def mamba(blk: MambaBlock, x: torch.Tensor, idx) -> torch.Tensor:
+        x, hf, conv = blk(x)
+        put("h", idx, hf.float())
+        for k in ("x", "B", "C"):
+            put("conv_" + k, idx, conv[k])
         return x
 
     if cfg.family == "ssm":
-        x = mamba(model.layers, per, x)
+        for i, blk in enumerate(model.layers):
+            x = mamba(blk, x, i)
     elif cfg.family == "hybrid":
-        for grp in model.layers:
-            mc: Dict[str, List[torch.Tensor]] = {
-                k: [] for k in ("h", "conv_x", "conv_B", "conv_C")}
-            x = mamba(grp.mamba, mc, x)
-            for k, vals in mc.items():
-                per[k].append(torch.stack(vals))
-            x = attn(grp.attn, x, cfg.sliding_window)
+        for i, grp in enumerate(model.layers):
+            for j, blk in enumerate(grp.mamba):
+                x = mamba(blk, x, (i, j))
+            x = attn(grp.attn, x, cfg.sliding_window, i)
     elif cfg.local_global_pattern:
-        for pair in model.layers:
-            x = attn(pair.local, x, cfg.sliding_window, "k_local", "v_local")
-            x = attn(pair.global_, x, None, "k_global", "v_global")
+        for i, pair in enumerate(model.layers):
+            x = attn(pair.local, x, cfg.sliding_window, i, "k_local",
+                     "v_local")
+            x = attn(pair.global_, x, None, i, "k_global", "v_global")
     else:
-        for blk in model.layers:
-            x = attn(blk, x, cfg.sliding_window)
-    cache = {k: torch.stack(vals) for k, vals in per.items()}
+        for i, blk in enumerate(model.layers):
+            x = attn(blk, x, cfg.sliding_window, i)
+    if L is not None:
+        return _last_logits_sharded(L, model, x)
     x = rmsnorm(x[:, -1:], model.final_norm["scale"], cfg.norm_eps)
     logits = unembed(x, model.embed, cfg)
-    return logits[:, 0], cache
+    return logits[:, 0]
+
+
+def _last_logits_sharded(L, model: LM, x: torch.Tensor) -> torch.Tensor:
+    """The last position's logits (B/dp, V), whole on every rank of the
+    model axis: the last position from the rank holding it, the
+    vocabulary's shards gathered."""
+    cfg = model.cfg
+    last = x[:, -1:]
+    if L.seq:
+        last = spmd.all_gather(last, L.mesh, L.tp, 1)[:, -1:]
+    Lr = L.with_seq(False)
+    with spmd.on_layout(Lr):
+        h = rmsnorm(last, model.final_norm["scale"], cfg.norm_eps)
+        w = unembed_weight(Lr, model.embed, cfg)
+        logits = softcap(h @ w.to(h.dtype), cfg.final_softcap)
+        if vocab_sharded(model.embed, cfg, Lr):
+            logits = spmd.all_gather(logits, L.mesh, L.tp, 2)
+    return mask_padded_vocab(logits, cfg)[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -663,16 +914,40 @@ def decode_step(model: LM, cache: Cache, token: torch.Tensor, pos: int
     returned.  A rolling cache (its rows equal to the sliding window) is
     decoded under the window; a cache shorter than the window holds every
     position and is decoded without one, as in the JAX package.  A model
-    without rope adds its learned position (``_decode_position``)."""
+    without rope adds its learned position (``_decode_position``).
+
+    On a mesh the token is a DTensor and the cache DTensors placed by the
+    rules; each layer reads and writes this rank's block of its cache
+    (:class:`CacheBlock`), and the logits are a DTensor split over the
+    batch like the token."""
+    if spmd.is_sharded(token):
+        L = spmd.layout_for(token[:, None])
+        local = {k: v.to_local() for k, v in cache.items()}
+        views = {k: (local[k], _block_kind(L, v), v.shape[-3])
+                 for k, v in cache.items() if k[0] in "kvx"}
+        with spmd.on_layout(L), torch.no_grad():
+            logits = _decode(model, local, views, token.to_local(), pos, L)
+        return spmd.batch_dtensor(logits, L), cache
+    return _decode(model, cache, None, token, pos, None), cache
+
+
+def _decode(model: LM, cache: Cache, views, token: torch.Tensor, pos: int,
+            L) -> torch.Tensor:
     cfg = model.cfg
     x = embed(token[:, None], model.embed, cfg)
     if not cfg.use_rope:
         x = x + _decode_position(model, pos).to(x.dtype)
 
-    def window_of(k_cache: torch.Tensor) -> Optional[int]:
-        W = k_cache.shape[2]
+    def window_of(key: str) -> Optional[int]:
+        W = cache[key].shape[2] if views is None else views[key][2]
         return (cfg.sliding_window
                 if cfg.sliding_window and W == cfg.sliding_window else None)
+
+    def kv(key: str, i):
+        if views is None:
+            return cache[key][i]
+        t, kind, rows = views[key]
+        return CacheBlock(t[i], kind, rows)
 
     def mamba(blk: MambaBlock, x: torch.Tensor, idx) -> torch.Tensor:
         x, hs, conv = blk.decode(
@@ -687,29 +962,30 @@ def decode_step(model: LM, cache: Cache, token: torch.Tensor, pos: int
         for i, blk in enumerate(model.layers):
             x = mamba(blk, x, i)
     elif cfg.family == "hybrid":
-        window = window_of(cache["k"])
+        window = window_of("k")
         for i, grp in enumerate(model.layers):
             for j, blk in enumerate(grp.mamba):
                 x = mamba(blk, x, (i, j))
-            x = grp.attn.decode(x, k_cache=cache["k"][i],
-                                v_cache=cache["v"][i], pos=pos,
-                                window=window)
+            x = grp.attn.decode(x, k_cache=kv("k", i), v_cache=kv("v", i),
+                                pos=pos, window=window)
     elif cfg.local_global_pattern:
-        window = window_of(cache["k_local"])
+        window = window_of("k_local")
         for i, pair in enumerate(model.layers):
-            x = pair.local.decode(x, k_cache=cache["k_local"][i],
-                                  v_cache=cache["v_local"][i], pos=pos,
+            x = pair.local.decode(x, k_cache=kv("k_local", i),
+                                  v_cache=kv("v_local", i), pos=pos,
                                   window=window)
-            x = pair.global_.decode(x, k_cache=cache["k_global"][i],
-                                    v_cache=cache["v_global"][i], pos=pos,
+            x = pair.global_.decode(x, k_cache=kv("k_global", i),
+                                    v_cache=kv("v_global", i), pos=pos,
                                     window=None)
     else:
-        window = window_of(cache["k"])
+        window = window_of("k")
         for i, blk in enumerate(model.layers):
-            x = blk.decode(x, k_cache=cache["k"][i], v_cache=cache["v"][i],
+            x = blk.decode(x, k_cache=kv("k", i), v_cache=kv("v", i),
                            pos=pos, window=window,
-                           xk=cache["xk"][i] if cfg.enc_dec else None,
-                           xv=cache["xv"][i] if cfg.enc_dec else None)
+                           xk=kv("xk", i) if cfg.enc_dec else None,
+                           xv=kv("xv", i) if cfg.enc_dec else None)
+    if L is not None:
+        return _last_logits_sharded(L, model, x)
     x = rmsnorm(x, model.final_norm["scale"], cfg.norm_eps)
     logits = unembed(x, model.embed, cfg)
-    return logits[:, 0], cache
+    return logits[:, 0]

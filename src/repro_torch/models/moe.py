@@ -11,8 +11,17 @@ the hand-written CUDA kernel on a CUDA tensor, its plain version
 JAX package's einsums, which compute the same function as its Pallas
 ``moe_gemm`` kernel.  The dispatch makes no host synchronisation: no
 boolean masks, ``nonzero`` or ``.item()``, so the layer queues on the
-stream like any other.  The mesh-only distributed path (``moe_mesh``,
-``_moe_ffn_sharded``) is left out.
+stream like any other.
+
+On a mesh (a :mod:`repro_torch.models.spmd` layout) the layer runs as the
+reference's ``shard_map`` body under ``moe_mesh``, which the reference's
+dry-run turns on for every MoE cell (:func:`_moe_ffn_sharded`): the tokens stay on their
+data shard (routing, per-shard capacity and the sort are local), the
+expert weights' FSDP ``d`` dim is all-gathered layer by layer (its
+gradient reduce-scattered), their ``f`` dim stays split over the model
+axis (the grouped GEMM runs on (E, C_local, d) x (E, d, f/model)), the
+output is all-reduced over the model axis and the aux loss averaged over
+the data shards.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models import spmd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Defs, ParamDef, Params, activate, \
     softcap
@@ -95,12 +105,30 @@ def moe_ffn(x: torch.Tensor, p: Params, cfg: ModelConfig
     sort and sums each token's k weighted expert outputs (deterministic,
     in x's dtype, rounded once; the JAX package adds them into the token's
     row one by one in expert order)."""
+    L = spmd.current()
+    if L is not None:
+        return _moe_ffn_sharded(L, x, p, cfg)
+    return _moe_ffn_local(x, p, cfg, p["w_in"],
+                          p["w_gate"] if "w_gate" in p else None,
+                          p["w_out"])
+
+
+def _moe_ffn_local(x: torch.Tensor, p: Params, cfg: ModelConfig, w_in,
+                   w_gate, w_out, router=None, expert_in=None, comb=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dispatch over the tokens of ``x`` with the expert weights given
+    (a shard's, on a mesh: ``router`` the router's weights, ``expert_in``
+    and ``comb`` what the experts' input and the combine weights pass
+    through first)."""
     m = cfg.moe
     B, S, d = x.shape
     N, K, E = B * S, m.top_k, m.n_experts
     C = capacity(cfg, N)
     x2 = x.reshape(N, d)
-    w, idx, aux = route(x2, p, cfg)                     # (N,K)
+    w, idx, aux = route(x2, p if router is None else {"router": router},
+                        cfg)                            # (N,K)
+    if expert_in is not None:
+        x2, w = expert_in(x2), comb(w)
 
     flat_expert = idx.reshape(-1)                       # (N*K,)
     order = torch.argsort(flat_expert, stable=True)     # expert-contiguous
@@ -120,13 +148,12 @@ def moe_ffn(x: torch.Tensor, p: Params, cfg: ModelConfig
                     rounding_mode="floor")
     xe = torch.where(filled[..., None], x2[tok], x2.new_zeros(()))
 
-    h = ops.grouped_matmul(xe, p["w_in"])
-    if "w_gate" in p:
-        h = activate(h, cfg.activation) * ops.grouped_matmul(xe,
-                                                             p["w_gate"])
+    h = ops.grouped_matmul(xe, w_in)
+    if w_gate is not None:
+        h = activate(h, cfg.activation) * ops.grouped_matmul(xe, w_gate)
     else:
         h = activate(h, cfg.activation)
-    ye = ops.grouped_matmul(h, p["w_out"])              # (E,C,d)
+    ye = ops.grouped_matmul(h, w_out)                   # (E,C,d)
 
     # combine, weighted: the slots back in (token, j) order
     inv = torch.empty_like(order).scatter_(0, order, slots)
@@ -157,3 +184,45 @@ def moe_ffn_dense(x: torch.Tensor, p: Params, cfg: ModelConfig
     ye = torch.einsum("enf,efd->end", h, p["w_out"])
     y = torch.einsum("end,ne->nd", ye, comb)
     return y.reshape(B, S, d), aux
+
+
+# ---------------------------------------------------------------------------
+# Distributed MoE: per-shard dispatch + expert tensor parallelism
+# ---------------------------------------------------------------------------
+
+def _moe_ffn_sharded(L, x: torch.Tensor, p: Params, cfg: ModelConfig
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``shard_map`` MoE, body for body:
+
+      * tokens stay on their data shard (the whole sequence of the rank's
+        rows under sequence parallelism) — routing, capacity and the
+        dispatch sort are local;
+      * the expert weights arrive (E, d/dp, f/tp): the d (FSDP) dim is
+        all-gathered (backward: reduce-scatter), the f dim stays split
+        over the model axis where it divides it (the reference's
+        ``wspec`` replicates it otherwise, and then nothing is summed);
+      * the f-contraction's partial outputs are summed over the model
+        axis;
+      * the aux loss is averaged over the data shards.
+
+    The router is replicated and computed on every rank of the model axis
+    from the same tokens; the experts' input and the combine weights pass
+    through a copy whose gradient sums the model axis' parts."""
+    E, f = cfg.moe.n_experts, cfg.moe.d_ff
+    tp_f = L.tp is not None and f % L.tp_size == 0 and L.tp_size > 1
+    col, row = ({L.tp: 2}, {L.tp: 1}) if tp_f else (None, None)
+    xx = L.gather_seq_same(x)
+    Lr = L.with_seq(False)
+    w_in = Lr.param(p["w_in"], col)
+    w_gate = Lr.param(p["w_gate"], col) if "w_gate" in p else None
+    w_out = Lr.param(p["w_out"], row)
+    router = Lr.param(p["router"])
+    if tp_f:
+        y, aux = _moe_ffn_local(xx, p, cfg, w_in, w_gate, w_out,
+                                router=router, expert_in=Lr.copy_to_tp,
+                                comb=Lr.copy_to_tp)
+        y = Lr.reduce_tp(y)
+    else:
+        y, aux = _moe_ffn_local(xx, p, cfg, w_in, w_gate, w_out,
+                                router=router)
+    return L.slice_seq(y), Lr.reduce_dp(aux, mean=True)

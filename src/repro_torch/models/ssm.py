@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models import spmd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Defs, ParamDef, Params, rmsnorm
 
@@ -71,6 +72,37 @@ def _project(x: torch.Tensor, p: Params, cfg: ModelConfig):
     return z, xr, Br, Cr, dt
 
 
+def _ssm_local(L, p: Params):
+    """(this rank's weights, whether the layer runs on local heads)."""
+    tp = L.tp_dim(p["w_x"]) == 1 and L.tp_dim(p["w_dt"]) == 1
+    if not tp and (L.tp_dim(p["w_x"]) is not None
+                   or L.tp_dim(p["w_dt"]) is not None):
+        raise ValueError("d_inner and the SSD heads must both split over "
+                         "the model axis, or neither")
+    Lr = L.with_seq(False)
+    if not tp:
+        return {k: Lr.param(v) for k, v in p.named_parameters()}, False
+    col, vec = {L.tp: 1}, {L.tp: 0}
+    w = {k: Lr.param(p[k], col) for k in ("w_z", "w_x", "w_dt", "conv_x")}
+    w.update({k: Lr.param(p[k], vec) for k in ("dt_bias", "A_log", "D",
+                                               "norm")})
+    w.update({k: Lr.param(p[k], tp_partial=True)
+              for k in ("w_B", "w_C", "conv_B", "conv_C")})
+    w["w_out"] = Lr.param(p["w_out"], {L.tp: 0})
+    return w, True
+
+
+def _gated_norm(y: torch.Tensor, scale: torch.Tensor, eps: float, L=None,
+                d_inner: int = 0) -> torch.Tensor:
+    """The norm over d_inner; with a layout, over this rank's shard of it
+    with the sum of squares added over the model axis."""
+    if L is None:
+        return rmsnorm(y, scale, eps)
+    yf = y.float()
+    var = L.all_reduce_tp((yf * yf).sum(-1, keepdim=True)) / d_inner
+    return (yf * torch.rsqrt(var + eps) * scale.float()).to(y.dtype)
+
+
 def ssd_prefill(x: torch.Tensor, p: Params, cfg: ModelConfig, *,
                 h0: Optional[torch.Tensor] = None,
                 conv_state: Optional[Dict[str, torch.Tensor]] = None
@@ -80,18 +112,36 @@ def ssd_prefill(x: torch.Tensor, p: Params, cfg: ModelConfig, *,
 
     Ragged lengths are handled by splitting off the sub-chunk tail and
     chaining the carried state (conv buffers hold *raw* projections, so
-    the continuation is exact).
+    the continuation is exact).  On a mesh: this rank's heads (or all of
+    them) over the whole sequence of its rows; the state and conv tails
+    returned are this rank's.
     """
+    L = spmd.current()
+    if L is None:
+        return _ssd_prefill(x, p, cfg, h0=h0, conv_state=conv_state)
+    w, tp = _ssm_local(L, p)
+    xx = L.enter_tp(x) if tp else L.gather_seq_same(x)
+    y, h, conv = _ssd_prefill(xx, w, cfg, h0=h0, conv_state=conv_state,
+                              norm_layout=L.with_seq(False) if tp else None)
+    return (L.exit_tp(y) if tp else L.slice_seq(y)), h, conv
+
+
+def _ssd_prefill(x: torch.Tensor, p, cfg: ModelConfig, *,
+                 h0: Optional[torch.Tensor] = None,
+                 conv_state: Optional[Dict[str, torch.Tensor]] = None,
+                 norm_layout=None):
     s = cfg.ssm
     B, S, _ = x.shape
-    di, nh, Q = s.d_inner(cfg.d_model), s.n_heads(cfg.d_model), \
+    di, nh, Q = p["w_x"].shape[1], p["w_dt"].shape[1], \
         min(s.chunk, x.shape[1])
     if S % Q:
         main = (S // Q) * Q
-        y1, h1, conv1 = ssd_prefill(x[:, :main], p, cfg, h0=h0,
-                                    conv_state=conv_state)
-        y2, h2, conv2 = ssd_prefill(x[:, main:], p, cfg, h0=h1,
-                                    conv_state=conv1)
+        y1, h1, conv1 = _ssd_prefill(x[:, :main], p, cfg, h0=h0,
+                                     conv_state=conv_state,
+                                     norm_layout=norm_layout)
+        y2, h2, conv2 = _ssd_prefill(x[:, main:], p, cfg, h0=h1,
+                                     conv_state=conv1,
+                                     norm_layout=norm_layout)
         return torch.cat([y1, y2], dim=1), h2, conv2
     z, xr, Br, Cr, dt = _project(x, p, cfg)
     bx = None if conv_state is None else conv_state["x"]
@@ -126,7 +176,8 @@ def ssd_prefill(x: torch.Tensor, p: Params, cfg: ModelConfig, *,
         * p["D"].float()[None, None, :, None]
     y = y.reshape(B, S, di).to(x.dtype)
     y = y * F.silu(z)
-    y = rmsnorm(y, p["norm"], cfg.norm_eps)
+    y = _gated_norm(y, p["norm"], cfg.norm_eps, norm_layout,
+                    s.d_inner(cfg.d_model))
     return y @ p["w_out"], h_final, new_conv
 
 
@@ -134,10 +185,23 @@ def ssd_decode(x: torch.Tensor, p: Params, cfg: ModelConfig, *,
                h: torch.Tensor, conv_state: Dict[str, torch.Tensor]
                ) -> Tuple[torch.Tensor, torch.Tensor,
                           Dict[str, torch.Tensor]]:
-    """One-token recurrent step. x: (B,1,d_model); h: (B,nh,ds,hd)."""
+    """One-token recurrent step. x: (B,1,d_model); h: (B,nh,ds,hd) (this
+    rank's heads on a mesh)."""
+    L = spmd.current()
+    if L is None:
+        return _ssd_decode(x, p, cfg, h=h, conv_state=conv_state)
+    w, tp = _ssm_local(L, p)
+    y, hs, conv = _ssd_decode(L.copy_to_tp(x) if tp else x, w, cfg, h=h,
+                              conv_state=conv_state,
+                              norm_layout=L if tp else None)
+    return (L.reduce_tp(y) if tp else y), hs, conv
+
+
+def _ssd_decode(x: torch.Tensor, p, cfg: ModelConfig, *, h: torch.Tensor,
+                conv_state: Dict[str, torch.Tensor], norm_layout=None):
     s = cfg.ssm
     B = x.shape[0]
-    di, nh, ds = s.d_inner(cfg.d_model), s.n_heads(cfg.d_model), s.d_state
+    di, nh, ds = p["w_x"].shape[1], p["w_dt"].shape[1], s.d_state
     z, xr, Br, Cr, dt = _project(x, p, cfg)
 
     def conv1(val, w, buf):
@@ -165,7 +229,8 @@ def ssd_decode(x: torch.Tensor, p: Params, cfg: ModelConfig, *,
     y = y + xh * p["D"].float()[None, :, None]
     y = y.reshape(B, 1, di).to(x.dtype)
     y = y * F.silu(z)
-    y = rmsnorm(y, p["norm"], cfg.norm_eps)
+    y = _gated_norm(y, p["norm"], cfg.norm_eps, norm_layout,
+                    s.d_inner(cfg.d_model))
     return y @ p["w_out"], h_new.to(h.dtype), new_conv
 
 

@@ -7,7 +7,11 @@ gradients and the moments are dicts keyed by the port's parameter names
 and ``v`` are float32, and each update is computed in float32 and cast back
 to the parameter's dtype.  Where the JAX package returns new arrays, the
 update here writes the parameters and the moments in place (the JAX train
-step donates its state).
+step donates its state).  On a mesh the parameters are DTensors: the
+moments take their placements (ZeRO-1 where the parameters are FSDP
+sharded, as the reference's inherit their shardings), the update runs on
+this rank's blocks and the gradient norm sums the blocks' squares over the
+mesh axes each parameter is split over.
 """
 from __future__ import annotations
 
@@ -15,6 +19,8 @@ import dataclasses
 from typing import Callable, Dict, NamedTuple, Tuple, Union
 
 import torch
+
+from repro_torch.models import spmd
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
 Tree = Dict[str, torch.Tensor]
@@ -81,10 +87,8 @@ class AdamW:
     def init(self, params: Tree) -> OptState:
         return OptState(
             step=torch.zeros((), dtype=torch.int32),
-            m={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for k, p in params.items()},
-            v={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for k, p in params.items()})
+            m={k: _zeros_f32(p) for k, p in params.items()},
+            v={k: _zeros_f32(p) for k, p in params.items()})
 
     def decayed(self, name: str) -> bool:
         key = param_path(name).lower()
@@ -97,7 +101,9 @@ class AdamW:
         moments are updated in place."""
         c = self.config
         step = state.step + 1
-        gnorm = global_norm(grads)
+        gnorm = (_sharded_norm(grads, params)
+                 if any(spmd.is_sharded(p) for p in params.values())
+                 else global_norm(grads))
         if c.grad_clip and c.grad_clip > 0:
             scale = torch.clamp(c.grad_clip / torch.clamp(gnorm, min=1e-12),
                                 max=1.0)
@@ -112,8 +118,9 @@ class AdamW:
         b2c = float(1.0 - torch.pow(torch.tensor(c.b2, dtype=torch.float32),
                                     sf))
         for name, p in params.items():
-            g = grads[name].float() * scale.to(p.device)
-            m, v = state.m[name], state.v[name]
+            p, g = spmd.block(p), spmd.block(grads[name])
+            g = g.float() * scale.to(p.device)
+            m, v = spmd.block(state.m[name]), spmd.block(state.v[name])
             m.mul_(c.b1).add_(g, alpha=1 - c.b1)
             v.mul_(c.b2).add_(g * g, alpha=1 - c.b2)
             delta = (m / b1c) / (torch.sqrt(v / b2c) + c.eps)
@@ -122,3 +129,36 @@ class AdamW:
                 delta.add_(pf, alpha=c.weight_decay)
             p.copy_(pf - lr * delta)
         return params, OptState(step=step, m=state.m, v=state.v), gnorm
+
+
+def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
+    """float32 zeros of ``p``'s shape, and of its placements if it is a
+    DTensor."""
+    if not spmd.is_sharded(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(
+        torch.zeros_like(p.to_local(), dtype=torch.float32), p.device_mesh,
+        p.placements, run_check=False, shape=p.shape, stride=p.stride())
+
+
+def _sharded_norm(grads: Tree, params: Tree) -> torch.Tensor:
+    """The float32 L2 norm of gradients given as this rank's blocks of
+    DTensor parameters: each block's sum of squares, summed over the mesh
+    axes its parameter is split over (once per set of axes)."""
+    from torch.distributed.tensor import Shard
+    by_axes: Dict[tuple, torch.Tensor] = {}
+    mesh = None
+    for name, p in params.items():
+        g = spmd.block(grads[name]).float()
+        axes = ()
+        if spmd.is_sharded(p):
+            mesh = p.device_mesh
+            axes = tuple(a for a, pl in zip(mesh.mesh_dim_names,
+                                            p.placements)
+                         if isinstance(pl, Shard))
+        sq = torch.sum(torch.square(g))
+        by_axes[axes] = by_axes[axes] + sq if axes in by_axes else sq
+    total = sum(spmd.all_reduce(v, mesh, axes) if axes else v
+                for axes, v in by_axes.items())
+    return torch.sqrt(total)

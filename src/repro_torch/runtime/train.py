@@ -11,6 +11,15 @@ The port's counterpart of the JAX package's ``runtime/train.py``.
     checkpointed unit;
   * ``loss_chunks``  — sequence-chunked unembedding and loss.
 
+On a mesh the same step runs on every rank (:mod:`repro_torch.models.spmd`):
+the model's parameters are DTensors placed by the rules, the batch a dict
+of DTensors (``batch`` over the data axes), and the step computes on this
+rank's blocks, the residual stream pinned to ``act_spec`` at every layer.
+The microbatches are slices of the rank's rows.  The gradients are this
+rank's shards of the parameters' (reduce-scattered over FSDP dims,
+all-reduced where replicated) and AdamW's moments share the parameters'
+placements.
+
 ``make_dp_train_step_int8`` is the explicit data-parallel variant over
 ``torch.distributed``: each rank takes its slice of the batch, the ranks
 agree on per-tensor scales (all-reduce MAX), sum their int8 gradients in
@@ -25,13 +34,14 @@ serving keeps them off).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.models import spmd
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import LM, forward_backbone
+from repro_torch.models.lm import LM, forward_backbone, sharded_inputs
 from repro_torch.optim.adamw import AdamW, OptState
 from repro_torch.optim.compress import (CompressionState, compress_gradients,
                                         decompress_sum, init_compression,
@@ -50,9 +60,9 @@ class TrainState(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
-    """The runtime knobs.  The reference's ``data_axes`` and ``act_spec``
-    (GSPMD sharding of the batch and the residual stream) have no
-    counterpart here."""
+    """The runtime knobs.  ``data_axes`` and ``act_spec`` act on a mesh:
+    the axes the batch is split over, and the residual stream's spec
+    (``P(dp)``, or ``P(dp, "model")`` for sequence parallelism)."""
 
     microbatches: int = 1
     remat: Optional[str] = "dots_no_batch"
@@ -61,6 +71,8 @@ class RuntimeConfig:
                                        # (None = same as ``remat``)
     loss_chunks: int = 1
     aux_weight: float = 0.01           # MoE load-balance loss weight
+    data_axes: Tuple[str, ...] = ("data",)   # axes the batch is split over
+    act_spec: Any = None               # the residual stream's spec
 
 
 def trainable(model: LM) -> Dict[str, torch.Tensor]:
@@ -98,10 +110,21 @@ def make_loss_fn(cfg: ModelConfig, rt: RuntimeConfig):
 
 def _grads(loss_fn, model: LM, params: Dict[str, torch.Tensor],
            tokens: torch.Tensor, labels: torch.Tensor, extras: Batch):
+    """Gradients by name (on a mesh: this rank's blocks of them)."""
     total, (loss, aux) = loss_fn(model, tokens, labels, extras)
     names = list(params)
     gs = torch.autograd.grad(total, [params[k] for k in names])
-    return dict(zip(names, gs)), loss.detach(), aux.detach()
+    return ({k: spmd.block(_placed(g, params[k])) for k, g in zip(names, gs)},
+            loss.detach(), aux.detach())
+
+
+def _placed(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient in its parameter's placements: a replicated
+    parameter's comes back as per-rank parts where the ranks' batches (or
+    sequences) differ, and is summed over them here."""
+    if spmd.is_sharded(g) and list(g.placements) != list(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def _accumulate_grads(loss_fn, model: LM, batch: Batch, rt: RuntimeConfig):
@@ -118,7 +141,7 @@ def _accumulate_grads(loss_fn, model: LM, batch: Batch, rt: RuntimeConfig):
     if M <= 1 or B % M:
         return _grads(loss_fn, model, params, tokens, labels, extras)
     n = B // M
-    g_acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    g_acc = {k: torch.zeros_like(spmd.block(p), dtype=torch.float32)
              for k, p in params.items()}
     l_acc = a_acc = 0.0
     for i in range(M):
@@ -147,8 +170,19 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW,
     def train_step(state: TrainState, batch: Batch
                    ) -> Tuple[TrainState, Metrics]:
         model = state.params
-        batch = _to_device(batch, model.embed["tokens"].device)
-        grads, loss, aux = _accumulate_grads(loss_fn, model, batch, rt)
+        if spmd.is_sharded(batch["tokens"]):
+            extras = {k: v for k, v in batch.items() if k != "tokens"}
+            L, tokens, extras = sharded_inputs(batch["tokens"], extras,
+                                               rt.act_spec)
+            if L.batch and set(L.dp) - set(rt.data_axes):
+                raise ValueError(f"the batch is split over {L.dp}, the "
+                                 f"runtime's data axes are {rt.data_axes}")
+            with spmd.on_layout(L):
+                grads, loss, aux = _accumulate_grads(
+                    loss_fn, model, {"tokens": tokens, **extras}, rt)
+        else:
+            batch = _to_device(batch, model.embed["tokens"].device)
+            grads, loss, aux = _accumulate_grads(loss_fn, model, batch, rt)
         _, opt, gnorm = optimizer.update(
             grads, state.opt, dict(model.named_parameters()))
         del grads

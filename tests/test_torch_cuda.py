@@ -1422,3 +1422,49 @@ def test_one_dry_run_cell_fits_the_card(cuda_device):
     rec = dryrun.run_cell("mamba2-1.3b", "long_500k")
     assert rec["memory"]["fits_hbm"]
     assert 0 < rec["memory"]["peak_per_card_bytes"] < HBM_PER_CARD
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("off,window", [(0, None), (160, None), (160, 200),
+                                        (160, 64)],
+                         ids=["offset0", "offset", "window_past_block",
+                              "window_inside"])
+def test_flash_offset_matches_plain_on_card(off, window, dtype, cuda_device):
+    """A sequence shard's causal attention (``flash_attention_offset_bshd``:
+    96 queries at positions off .. off+95 over the keys 0 .. off+95, GQA
+    8/2, head dim 64, model layout): the kernel's two calls merged by
+    their log-sum-exps, and the backward kernel on each block with the
+    merged output, against the plain version with the query offset.
+    float32: BWD_TOL of the largest value.  bf16: each block's output and
+    dq are rounded to bf16 before they are merged or summed, so one more
+    bf16 step (2^-7) than a single call's bound."""
+    g = torch.Generator().manual_seed(off + (window or 0))
+    Sq, Sk = 96, off + 96
+    q, do = (torch.randn(2, Sq, 8, 64, generator=g).to(cuda_device, dtype)
+             for _ in range(2))
+    k, v = (torch.randn(2, Sk, 2, 64, generator=g).to(cuda_device, dtype)
+            for _ in range(2))
+    kw = dict(q_offset=off, window=window)
+
+    def plain(q, k, v, q_offset, window):
+        o = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=True, window=window,
+                              q_offset=q_offset)
+        return o.transpose(1, 2)
+
+    before = ops.COUNTERS["flash_attention"].value
+    got = _flash_grads(q, k, v, do, ops.flash_attention_offset_bshd, **kw)
+    want = _flash_grads(q.float(), k.float(), v.float(), do.float(), plain,
+                        **kw)
+    torch.cuda.synchronize()
+    a = 0 if window is None else max(0, off - window + 1)
+    calls = 1 if off == 0 or a >= off else 2
+    assert ops.COUNTERS["flash_attention"].value == before + calls
+    for name, x, w in zip(("o", "dq", "dk", "dv"), got, want):
+        assert x.dtype == dtype and x.shape == w.shape
+        err = (x.float() - w).abs()
+        bound = BWD_TOL * w.abs().max()
+        if dtype == torch.bfloat16:
+            bound = bound + 3 * 2 ** -7 * w.abs() + 3e-3 * w.abs().max()
+        assert (err <= bound).all(), (name, err.max().item())

@@ -171,9 +171,11 @@ class TestRoofline:
         assert rl.KIND_FACTOR == KIND_FACTOR
 
 
-def _mask_pairs(Sq, Sk, causal=True, window=None, kv_len=None):
-    """The count the kernel bound took before: a dense boolean mask."""
-    qp = torch.arange(Sq)[:, None]
+def _mask_pairs(Sq, Sk, causal=True, window=None, kv_len=None,
+                q_offset=0):
+    """The count the kernel bound took before: a dense boolean mask (the
+    queries at positions ``q_offset`` on)."""
+    qp = torch.arange(Sq)[:, None] + q_offset
     kp = torch.arange(Sk)[None, :]
     keep = (kp < (Sk if kv_len is None else kv_len)).expand(Sq, Sk)
     if causal:
@@ -194,6 +196,16 @@ def test_flash_pairs_closed_form_equals_mask_count():
                         assert got == _mask_pairs(Sq, Sk, causal, window,
                                                   kv_len), \
                             (Sq, Sk, causal, window, kv_len)
+    # a sequence shard's queries at an offset (causal, over the keys up to
+    # the shard's last query and beyond)
+    for Sq in (1, 5, 16):
+        for off in (1, 7, 40):
+            for Sk in (off + Sq, off + Sq + 3):
+                for window in (None, 1, 3, 8, 64):
+                    got = rl.flash_pairs(Sq, Sk, window=window, q_offset=off)
+                    assert got == _mask_pairs(Sq, Sk, True, window,
+                                              q_offset=off), \
+                        (Sq, Sk, off, window)
 
 
 def test_kernel_bounds_of_the_perf_table_unchanged():
