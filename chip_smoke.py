@@ -39,7 +39,14 @@ and read just after:
   prompt tokens and 32 new tokens each.  zamba2-2.7b (54 layers, d_model
   2560) runs the flash attention and SSD scan kernels; granite-moe-3b-a800m
   (32 layers, d_model 1536, 40 experts top-8) runs flash attention and the
-  MoE grouped GEMM.  Then the head of each model (zamba2's first hybrid
+  MoE grouped GEMM.  Every decode step of every served model is one replay
+  of the step's CUDA graph (``DecodeGraph``, captured when the engine is
+  made); for zamba2, granite, gemma2 (past its window) and whisper an
+  ``lm decode graph`` line gives graphed against eager decode tokens/s in
+  turns on one cache and one set of tokens, the idle share of 8 steps of
+  each, and a replay's device operations against an eager step's, with
+  the greedy tokens equal and the logits bit-identical.  Then the head of
+  each model (zamba2's first hybrid
   group of 5 Mamba2 + 1 attention layers, granite's first 2 layers, each
   with the full-width embedding) on the card against the same parameters
   on the CPU (plain versions);
@@ -79,9 +86,10 @@ and read just after:
   against 1500 keys, the decoder's causal 448 tokens) against the plain
   version in float32 and bf16, timed beside SDPA; 4 requests with their
   own 1500 frames and 4-token prompts, prefilled together at capacity 448
-  and decoded 60 greedy steps through ``prefill`` and ``decode_step`` (the
-  engine, like the JAX package's, takes no frames), then one request with
-  a 224-token prompt and 32 steps; a profiled prefill and 8 decode steps;
+  and decoded 60 greedy steps through ``prefill`` and the decode step's
+  graph (the engine, like the JAX package's, takes no frames), then one
+  request with a 224-token prompt and 32 steps; a profiled prefill and 8
+  decode steps;
   its head (the first encoder and decoder layers, the full-width
   embeddings) card against CPU, through the cross-attention cache and 3
   decode steps; its head's gradients; four training steps of 8 x 448
@@ -185,8 +193,9 @@ from repro_torch.launch.roofline import (  # noqa: E402
     ssd_bwd_split_bound, ssd_split_bound)
 from repro_torch.launch.train import build_optimizer  # noqa: E402
 from repro_torch.optim import AdamW, AdamWConfig  # noqa: E402
-from repro_torch.runtime import (RuntimeConfig, ServeEngine,  # noqa: E402
-                                 init_state, make_loss_fn, make_train_step)
+from repro_torch.runtime import (DecodeGraph, RuntimeConfig,  # noqa: E402
+                                 ServeEngine, init_state, make_loss_fn,
+                                 make_train_step)
 from repro_torch.runtime.train import trainable  # noqa: E402
 
 #: the paper's sizes (benchmarks/paper_suite.py BENCHMARKS); segmentation
@@ -412,6 +421,14 @@ HYBRID_GRAD_GROUPS = ("embed", "ssm_proj", "ssm_scalars", "conv", "attn",
 HYBRID_GRAD_F32_REL = 5e-3
 #: the profiled window: one prefill of the largest prompt, decode steps
 PROFILE_DECODE_STEPS = 8
+#: the decode step's CUDA graph against the eager step, for these archs
+#: (every arch serves through the graph): DECODE_GRAPH_STEPS greedy steps
+#: from one prefilled cache and its first tokens, eager and graphed in
+#: turns (eager, graph, graph, eager); gemma2 past its window, whisper
+#: over its frames
+DECODE_GRAPH_ARCHS = ("zamba2-2.7b", "granite-moe-3b-a800m", "gemma2-2b",
+                      "whisper-large-v3")
+DECODE_GRAPH_STEPS = 16
 #: the full-width prefill the launch phase holds the dry-run against
 CHECKED_PREFILL_ARCH = "zamba2-2.7b"
 CHECKED_PREFILL_TOKENS = 1536
@@ -1509,6 +1526,8 @@ def lm_main_path(cfg, model, n_requests: int = LM_REQUESTS,
 
     engine = ServeEngine(cfg, model, slots=slots, capacity=capacity,
                          temperature=0.0, on_step=on_step)
+    expect(engine.graph.cuda_graph is not None,
+           "the engine replays its decode step's CUDA graph")
     for p in prompts:
         engine.submit(p, max_new=max_new)
     torch.cuda.synchronize()
@@ -1801,24 +1820,158 @@ def profile_steps(what: str, fn):
     return out
 
 
+def graphed_steps(graph: DecodeGraph, pos0: int, steps: int, tok=None):
+    """``steps`` decode steps through ``graph`` as the engine runs them:
+    a replay, the greedy tokens copied into the graph's token buffer, the
+    host's read of them.  Returns the tokens read, by step."""
+    out = []
+    for i in range(steps):
+        nxt = torch.argmax(graph(pos0 + i, tok), -1)
+        tok = None
+        graph.token.copy_(nxt)
+        out.append(nxt.tolist())
+    return out
+
+
 def lm_profile(cfg, model):
     """Device busy time against the host clock, from ``torch.profiler``:
-    one prefill of the largest prompt, then PROFILE_DECODE_STEPS decode
-    steps at LM_SLOTS slots; the kernels that took the most device time."""
+    one prefill of the largest prompt, then PROFILE_DECODE_STEPS graphed
+    decode steps at LM_SLOTS slots (``graphed_steps``); the kernels that
+    took the most device time."""
     tokens = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab, (1, LM_PROMPTS[1]))).cuda()
-    cache = init_cache(cfg, LM_SLOTS, LM_CAPACITY, device="cuda")
-    token = torch.zeros(LM_SLOTS, dtype=torch.long, device="cuda")
+    graph = DecodeGraph(model, init_cache(cfg, LM_SLOTS, LM_CAPACITY,
+                                          device="cuda"), LM_SLOTS)
     prefill(model, tokens, capacity=LM_CAPACITY)        # warm-up
 
     def decode():
-        for i in range(PROFILE_DECODE_STEPS):
-            decode_step(model, cache, token, LM_PROMPTS[1] + i)
+        graphed_steps(graph, LM_PROMPTS[1], PROFILE_DECODE_STEPS)
 
     out = {"prefill": profile_steps("prefill", lambda: prefill(
         model, tokens, capacity=LM_CAPACITY))}
     out["decode"] = profile_steps("decode", decode)
     return out
+
+
+def decode_graph_phase(cfg, model):
+    """The decode step as one CUDA graph against the eager step, on one
+    cache and one set of tokens: a batch of prompts (LM_SLOTS of
+    LM_PROMPTS[1] tokens at LM_CAPACITY; gemma2 WINDOW_PROMPT tokens at
+    WINDOW_CAPACITY, past its window; whisper WHISPER_BATCH of
+    WHISPER_PROMPT over their frames at WHISPER_CAPACITY) prefilled into a
+    cache a ``DecodeGraph`` captured, then DECODE_GRAPH_STEPS greedy steps
+    from a copy of it, eager (``decode_step`` at an int position, the
+    tokens read as the engine reads them) and graphed (``graphed_steps``)
+    in turns.  Checked: the same greedy tokens in every run, the logits
+    bit-identical (an untimed pass), and a replay's device operations those
+    of an eager step at the graph's tensor position, by name and count
+    (``torch.profiler``).  Profiled: PROFILE_DECODE_STEPS steps of each."""
+    rng = np.random.default_rng(8)
+    extras = {}
+    if cfg.enc_dec:
+        B, S, cap = WHISPER_BATCH, WHISPER_PROMPT, WHISPER_CAPACITY
+        extras["frames"] = torch.randn(
+            (B, cfg.enc_frames, cfg.d_model), device=CARD,
+            generator=torch.Generator(device=CARD).manual_seed(8)
+        ).to(torch.bfloat16)
+    elif cfg.local_global_pattern:
+        B, S, cap = LM_SLOTS, WINDOW_PROMPT, WINDOW_CAPACITY
+    else:
+        B, S, cap = LM_SLOTS, LM_PROMPTS[1], LM_CAPACITY
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))).to(CARD)
+    cache = init_cache(cfg, B, cap, device=CARD)
+    t0 = time.perf_counter()
+    graph = DecodeGraph(model, cache, B)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    logits, _ = prefill(model, tokens, capacity=cap, cache=cache, **extras)
+    first = torch.argmax(logits, -1)
+    base = {k: v.clone() for k, v in cache.items()}
+    eager_cache = {k: torch.empty_like(v) for k, v in base.items()}
+
+    def reset(graphed: bool):
+        for k, v in base.items():
+            (cache if graphed else eager_cache)[k].copy_(v)
+        torch.cuda.synchronize()
+
+    def eager_steps(steps: int, keep=None):
+        tok, out = first, []
+        for i in range(steps):
+            lg, _ = decode_step(model, eager_cache, tok, S + i)
+            if keep is not None:
+                keep.append(lg.clone())
+            tok = torch.argmax(lg, -1)
+            out.append(tok.tolist())
+        return out
+
+    # an untimed pass of each, every step's logits kept
+    want, got = [], []
+    reset(False)
+    tokens_eager = eager_steps(DECODE_GRAPH_STEPS, want)
+    reset(True)
+    tok, tokens_graph = first, []
+    for i in range(DECODE_GRAPH_STEPS):
+        got.append(graph(S + i, tok).clone())
+        tok = torch.argmax(got[-1], -1)
+        tokens_graph.append(tok.tolist())
+    bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+    worst = max((g.float() - w.float()).abs().max().item()
+                for g, w in zip(got, want))
+    del want, got
+    tok_s = {"eager": [], "graph": []}
+    same = [tokens_eager == tokens_graph]
+    for graphed in (False, True, True, False):
+        reset(graphed)
+        t0 = time.perf_counter()
+        out = (graphed_steps(graph, S, DECODE_GRAPH_STEPS, first) if graphed
+               else eager_steps(DECODE_GRAPH_STEPS))
+        sec = time.perf_counter() - t0
+        tok_s["graph" if graphed else "eager"].append(
+            B * DECODE_GRAPH_STEPS / sec)
+        same.append(out == tokens_eager)
+    expect(all(same), f"{cfg.arch}: the graphed and eager decode give the "
+           f"same greedy tokens in every run: {same}")
+    expect(bitwise, f"{cfg.arch}: graphed logits bit-identical to the eager "
+           f"step's (max |diff| {worst})")
+    profiles = {}
+    for name, fn in (("graph", lambda: graphed_steps(
+            graph, S, PROFILE_DECODE_STEPS, first)),
+            ("eager", lambda: eager_steps(PROFILE_DECODE_STEPS))):
+        reset(name == "graph")
+        profiles[name] = profile_steps(f"decode {name} {cfg.arch}", fn)
+    # a bare replay's device operations against one eager step's at the
+    # graph's tensor position (the code the capture recorded), a call's
+    # counts taken over 4 calls: a session can miss the first few kernels
+    # of its window (``profiled_kernels``)
+    reset(True)
+    graph.pos.fill_(S)
+    graph.token.copy_(first)
+    replay = {k: n for k, (_, n) in profiled_kernels(graph.cuda_graph.replay,
+                                                     4).items()}
+    step = {k: n for k, (_, n) in profiled_kernels(
+        lambda: decode_step(model, eager_cache, graph.token, graph.pos),
+        4).items()}
+    if replay and step:
+        expect(replay == step, f"{cfg.arch}: a replay runs the device "
+               f"operations of an eager step: replay {replay}, step {step}")
+    n_replay = sum(replay.values()) if replay else None
+    idle = {k: p["idle_share"] for k, p in profiles.items()}
+    print(f"lm decode graph {cfg.arch}: {B} x {DECODE_GRAPH_STEPS} steps from "
+          f"position {S}, tokens/s graphed "
+          f"{[round(x, 1) for x in tok_s['graph']]}, eager "
+          f"{[round(x, 1) for x in tok_s['eager']]} (in turns: eager, "
+          f"graph, graph, eager); idle share of {PROFILE_DECODE_STEPS} "
+          f"steps graphed {idle['graph']}, eager {idle['eager']}; "
+          f"{n_replay} device operations a replay (an eager step "
+          f"{sum(step.values()) if step else None}, the same by name: "
+          f"{replay == step if replay and step else 'not seen'}); greedy "
+          f"tokens equal, logits bit-identical; capture {capture_s:.2f} s",
+          flush=True)
+    return dict(batch=B, position=S, capacity=cap, steps=DECODE_GRAPH_STEPS,
+                tokens_per_s=tok_s, idle_share=idle, profiles=profiles,
+                replay_ops=replay, eager_step_ops=step,
+                ops_a_replay=n_replay, capture_s=capture_s,
+                logits_bit_identical=bitwise, first_tokens=tokens_eager[:4])
 
 
 def checked_prefill(cfg, model, n: int = CHECKED_PREFILL_TOKENS):
@@ -1883,6 +2036,8 @@ def lm_phase(arch):
               f"({r['bound'][1]})", flush=True)
     serve = lm_main_path(cfg, model)
     serve["profile"] = lm_profile(cfg, model)
+    if arch in DECODE_GRAPH_ARCHS:
+        serve["decode_graph"] = decode_graph_phase(cfg, model)
     if arch == CHECKED_PREFILL_ARCH:
         serve["checked_prefill"] = checked_prefill(cfg, model)
     head = lm_head_check(cfg, model)
@@ -2744,6 +2899,8 @@ def family_phase(arch):
     kernels = family_kernel_phase(cfg)
     serve = lm_main_path(cfg, model, FAMILY_REQUESTS, FAMILY_MAX_NEW)
     serve["profile"] = lm_profile(cfg, model)
+    if arch in DECODE_GRAPH_ARCHS:
+        serve["decode_graph"] = decode_graph_phase(cfg, model)
     if cfg.arch == WINDOW_ARCH:
         serve["window"] = window_phase(cfg, model)
     if cfg.arch == VLM_ARCH:
@@ -3031,52 +3188,49 @@ def whisper_kernel_phase(cfg):
 
 def whisper_serve(cfg, model):
     """Whisper served as the JAX package's own tests drive it, through
-    ``prefill`` and ``decode_step`` (its engine takes no frames): a batch of
-    WHISPER_BATCH requests, each with its own frames (generator seed 7) and
-    a WHISPER_PROMPT-token prompt, prefilled at capacity WHISPER_CAPACITY
-    and decoded WHISPER_DECODE greedy steps, each step's tokens read by the
-    host as the engine reads them; then one WHISPER_LONG_PROMPT-token
-    request decoded WHISPER_LONG_DECODE steps, each shape warmed up first.
-    Each run's launch counts from 0 just before to just after: one flash
-    call per encoder layer and two per decoder layer (attention,
-    cross-attention) a prefill, none a decode step."""
+    ``prefill`` and the decode step (its engine takes no frames), the step
+    replayed by a ``DecodeGraph`` captured over the cache the prefill
+    fills: a batch of WHISPER_BATCH requests, each with its own frames
+    (generator seed 7) and a WHISPER_PROMPT-token prompt, prefilled at
+    capacity WHISPER_CAPACITY and decoded WHISPER_DECODE greedy steps, each
+    step's tokens read by the host as the engine reads them
+    (``graphed_steps``); then one WHISPER_LONG_PROMPT-token request decoded
+    WHISPER_LONG_DECODE steps, each shape's prefill warmed up and its graph
+    captured first.  Each run's launch counts from 0 just before to just
+    after: one flash call per encoder layer and two per decoder layer
+    (attention, cross-attention) a prefill, none a decode step."""
     gen = torch.Generator(device=CARD).manual_seed(7)
     rng = np.random.default_rng(0)
     per_prefill = cfg.n_enc_layers + 2 * cfg.n_layers
     shapes = (("batch", WHISPER_BATCH, WHISPER_PROMPT, WHISPER_DECODE),
               ("long", 1, WHISPER_LONG_PROMPT, WHISPER_LONG_DECODE))
     for _, B, S, _ in shapes:      # warm-up at each shape, before the counts
-        _, cache = prefill(model, torch.zeros((B, S), dtype=torch.long,
-                                              device=CARD),
-                           capacity=WHISPER_CAPACITY, frames=torch.zeros(
-                               (B, cfg.enc_frames, cfg.d_model),
-                               dtype=torch.bfloat16, device=CARD))
-        decode_step(model, cache, torch.zeros(B, dtype=torch.long,
-                                              device=CARD), S)
-    del cache
+        prefill(model, torch.zeros((B, S), dtype=torch.long, device=CARD),
+                capacity=WHISPER_CAPACITY, frames=torch.zeros(
+                    (B, cfg.enc_frames, cfg.d_model), dtype=torch.bfloat16,
+                    device=CARD))
     runs = {}
     for name, B, S, steps in shapes:
         frames = torch.randn((B, cfg.enc_frames, cfg.d_model), generator=gen,
                              device=CARD).to(torch.bfloat16)
         tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))).to(CARD)
+        cache = init_cache(cfg, B, WHISPER_CAPACITY, device=CARD)
+        graph = DecodeGraph(model, cache, B)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
-        logits, cache = prefill(model, tokens, capacity=WHISPER_CAPACITY,
-                                frames=frames)
+        logits, _ = prefill(model, tokens, capacity=WHISPER_CAPACITY,
+                            frames=frames, cache=cache)
         tok = torch.argmax(logits, -1)
         out = [tok.tolist()]
         prefill_s = time.perf_counter() - t0
         at_prefill = ops.COUNTERS["flash_attention"].value
         finite = [bool(torch.isfinite(logits).all())]
         t0 = time.perf_counter()
-        for i in range(steps):
-            logits, cache = decode_step(model, cache, tok, S + i)
-            tok = torch.argmax(logits, -1)
-            out.append(tok.tolist())
+        out += graphed_steps(graph, S, steps, tok)
         decode_s = time.perf_counter() - t0
-        finite.append(bool(torch.isfinite(logits).all()))
+        finite.append(bool(torch.isfinite(graph.logits).all()))
         peak = torch.cuda.max_memory_allocated()
         launches = {k: c.value for k, c in ops.COUNTERS.items()}
         expect(all(finite), f"whisper {name}: finite logits")
@@ -3111,24 +3265,25 @@ def whisper_serve(cfg, model):
 
 def whisper_profile(cfg, model):
     """``torch.profiler`` over one prefill of WHISPER_BATCH requests with
-    their frames (generator seed 9) and PROFILE_DECODE_STEPS decode steps
-    after it."""
+    their frames (generator seed 9) and PROFILE_DECODE_STEPS graphed decode
+    steps after it (``graphed_steps``)."""
     frames = torch.randn((WHISPER_BATCH, cfg.enc_frames, cfg.d_model),
                          generator=torch.Generator(device=CARD).manual_seed(9),
                          device=CARD).to(torch.bfloat16)
     tokens = torch.from_numpy(np.random.default_rng(9).integers(
         0, cfg.vocab, (WHISPER_BATCH, WHISPER_PROMPT))).to(CARD)
-    token = tokens[:, 0]
     prefill(model, tokens, capacity=WHISPER_CAPACITY, frames=frames)  # warm
-    kept = {}
+    graph = DecodeGraph(model, init_cache(cfg, WHISPER_BATCH,
+                                          WHISPER_CAPACITY, device=CARD),
+                        WHISPER_BATCH)
 
     def run_prefill():
-        kept["cache"] = prefill(model, tokens, capacity=WHISPER_CAPACITY,
-                                frames=frames)[1]
+        prefill(model, tokens, capacity=WHISPER_CAPACITY, frames=frames,
+                cache=graph.cache)
 
     def decode():
-        for i in range(PROFILE_DECODE_STEPS):
-            decode_step(model, kept["cache"], token, WHISPER_PROMPT + i)
+        graphed_steps(graph, WHISPER_PROMPT, PROFILE_DECODE_STEPS,
+                      tokens[:, 0])
 
     out = {"prefill": profile_steps("prefill", run_prefill)}
     out["decode"] = profile_steps("decode", decode)
@@ -3144,6 +3299,7 @@ def whisper_phase():
     model = build_model(cfg)
     serve = whisper_serve(cfg, model)
     serve["profile"] = whisper_profile(cfg, model)
+    serve["decode_graph"] = decode_graph_phase(cfg, model)
     head = lm_head_check(cfg, model)
     grads = grad_head_check(cfg, model, WHISPER_GRAD_GROUPS,
                             WHISPER_GRAD_F32_REL)   # the parameters as built

@@ -178,20 +178,51 @@ def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
 
 
 class LaunchCounter:
-    """Launches of one kernel: a plain integer, safe across slot threads."""
+    """Launches of one kernel: a plain integer, safe across slot threads.
+
+    A wrapper adds one where it launches its kernel.  Under CUDA graph
+    capture that launch is recorded, not run, and the graph's replays run
+    it without the wrapper: the graph's owner takes the capture's counts
+    back (:func:`counted_since`, :func:`add_counts` with ``sign=-1``) and
+    adds them again at each replay, so a count is always of launches that
+    ran (:class:`repro_torch.runtime.graphs.DecodeGraph`)."""
 
     def __init__(self, name: str):
         self.name = name
         self.value = 0
         self._lock = threading.Lock()
+        _COUNTERS.append(self)
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
         with self._lock:
-            self.value += 1
+            self.value += n
 
     def reset(self) -> None:
         with self._lock:
             self.value = 0
+
+
+#: every launch counter of the package, in the order they were made
+_COUNTERS: List[LaunchCounter] = []
+
+
+def launch_counts() -> Dict[LaunchCounter, int]:
+    """Every counter's value now."""
+    return {c: c.value for c in _COUNTERS}
+
+
+def counted_since(before: Dict[LaunchCounter, int]
+                  ) -> Dict[LaunchCounter, int]:
+    """What each counter gained since :func:`launch_counts` gave
+    ``before`` (counters that gained nothing left out)."""
+    return {c: c.value - before.get(c, 0) for c in _COUNTERS
+            if c.value != before.get(c, 0)}
+
+
+def add_counts(counts: Dict[LaunchCounter, int], sign: int = 1) -> None:
+    """Add (``sign`` 1) or take back (-1) a set of launches."""
+    for c, n in counts.items():
+        c.add(sign * n)
 
 
 def check_launch(err: int, kernel: str) -> None:

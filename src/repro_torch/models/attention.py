@@ -23,7 +23,7 @@ softmaxes.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -208,8 +208,23 @@ def attention_sharded(L, h: torch.Tensor, p: Params, cfg: ModelConfig, *,
 # Cached decode attention (one new token against a KV cache)
 # ---------------------------------------------------------------------------
 
-def _decode_scores(q: torch.Tensor, k_cache: torch.Tensor, *, pos: int,
-                   window: Optional[int], logit_cap: float,
+#: a decode step's position: a Python int, or a 0-d integer tensor on the
+#: cache's device (read by the device alone, as a CUDA graph needs)
+Position = Union[int, torch.Tensor]
+
+
+def int_position(pos: Position) -> int:
+    """``pos`` where only a Python int will do (the sharded decode step,
+    which no graph captures): a tensor is refused, never read back."""
+    if isinstance(pos, torch.Tensor):
+        raise TypeError("the sharded decode step takes its position as a "
+                        "Python int; a tensor position is for the "
+                        "unsharded step (its CUDA graph)")
+    return pos
+
+
+def _decode_scores(q: torch.Tensor, k_cache: torch.Tensor, *,
+                   pos: Position, window: Optional[int], logit_cap: float,
                    scale: Optional[float], row0: int = 0,
                    n_rows: Optional[int] = None) -> torch.Tensor:
     """The masked float32 scores (B,KV,G,rows) of one decode query over the
@@ -248,7 +263,7 @@ def _weighted_values(p: torch.Tensor, v_cache: torch.Tensor) -> torch.Tensor:
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, *, pos: int,
+                     v_cache: torch.Tensor, *, pos: Position,
                      window: Optional[int] = None, logit_cap: float = 0.0,
                      scale: Optional[float] = None) -> torch.Tensor:
     """q: (B,1,H,hd); caches: (B,Scap,KV,hd); ``pos``: current position.
@@ -300,6 +315,7 @@ def decode_sharded(L, h: torch.Tensor, p: Params, cfg: ModelConfig, *,
     k/v are written first (``write``: self-attention), at ``pos`` (modulo
     the rows of a rolling cache).  Returns the attention's output before
     the residual add, replicated over the model axis."""
+    pos = int_position(pos)
     tp = L.tp_dim(p["wq"]) == 1
     H, KV = p["wq"].shape[1], p["wk"].shape[1]
     positions = torch.full((1, 1), pos, device=h.device)
@@ -351,14 +367,20 @@ def decode_sharded(L, h: torch.Tensor, p: Params, cfg: ModelConfig, *,
 
 
 def update_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
-                 k: torch.Tensor, v: torch.Tensor, pos: int,
+                 k: torch.Tensor, v: torch.Tensor, pos: Position,
                  window: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Write one (B,1,KV,hd) k/v at ``pos`` (modulo window for rolling),
     in place.  A position past the end is clamped to the last row, as
-    ``jax.lax.dynamic_update_slice`` clamps it in the JAX package."""
+    ``jax.lax.dynamic_update_slice`` clamps it in the JAX package; a tensor
+    position is reduced and clamped on the device."""
     Scap = k_cache.shape[1]
     idx = pos % Scap if (window is not None and Scap == window) else pos
+    if isinstance(idx, torch.Tensor):
+        idx = idx.clamp(0, Scap - 1).long().view(1)
+        k_cache.index_copy_(1, idx, k.to(k_cache.dtype))
+        v_cache.index_copy_(1, idx, v.to(v_cache.dtype))
+        return k_cache, v_cache
     idx = min(max(idx, 0), Scap - 1)
     k_cache[:, idx] = k[:, 0].to(k_cache.dtype)
     v_cache[:, idx] = v[:, 0].to(v_cache.dtype)

@@ -60,8 +60,9 @@ from torch.utils.checkpoint import (checkpoint,
 
 from repro_torch.models import spmd
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.attention import (attention_sharded, attn_defs,
-                                          decode_attention, decode_sharded,
+from repro_torch.models.attention import (Position, attention_sharded,
+                                          attn_defs, decode_attention,
+                                          decode_sharded, int_position,
                                           out_proj, prefill_attention, qkv,
                                           query, update_cache)
 from repro_torch.models.config import ModelConfig
@@ -146,7 +147,7 @@ class AttnBlock(Params):
         return _ffn_part(self, y, self.cfg), kv
 
     def decode(self, x: torch.Tensor, *, k_cache: torch.Tensor,
-               v_cache: torch.Tensor, pos: int, window: Optional[int],
+               v_cache: torch.Tensor, pos: Position, window: Optional[int],
                xk: Optional[torch.Tensor] = None,
                xv: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One decode step; with the cache's cross-attention keys and values
@@ -158,7 +159,8 @@ class AttnBlock(Params):
         if L is not None:
             return self._decode_sharded(L, x, h, k_cache, v_cache, pos,
                                         window, xk, xv)
-        positions = torch.full((1, 1), pos, device=x.device)
+        positions = (pos.view(1, 1) if isinstance(pos, torch.Tensor)
+                     else torch.full((1, 1), pos, device=x.device))
         q, k, v = qkv(h, self["attn"], cfg, positions=positions,
                       rope=cfg.use_rope)
         update_cache(k_cache, v_cache, k, v, pos, window=window)
@@ -393,19 +395,24 @@ def _embed_stream(model: LM, tokens: torch.Tensor,
     return _constrain(L.slice_seq(x), L)
 
 
-def _learned_positions(model: LM, pos0: int, S: int) -> torch.Tensor:
+def _learned_positions(model: LM, pos0: Position, S: int) -> torch.Tensor:
     """Rows pos0 .. pos0+S-1 of the learned position table, the start
     clamped into the table as ``jax.lax.dynamic_slice_in_dim`` clamps it
-    (a decode step past the table's end reads its last row)."""
+    (a decode step past the table's end reads its last row); a tensor
+    start is clamped on the device and its rows gathered there."""
     table = spmd.local(model.pos_embed)
     if S > table.shape[0]:
         raise ValueError(f"{model.cfg.arch}: {S} positions, the table has "
                          f"{table.shape[0]}")
+    if isinstance(pos0, torch.Tensor):
+        start = pos0.clamp(0, table.shape[0] - S).long()
+        return table.index_select(
+            0, start + torch.arange(S, device=table.device))
     start = min(max(pos0, 0), table.shape[0] - S)
     return table[start:start + S]
 
 
-def _decode_position(model: LM, pos: int) -> torch.Tensor:
+def _decode_position(model: LM, pos: Position) -> torch.Tensor:
     """A decode step's learned position (1, 1, d), rounded to bf16 whatever
     the model's dtype, as the JAX package rounds it (its prefill adds the
     positions in the model's dtype)."""
@@ -908,7 +915,7 @@ def _last_logits_sharded(L, model: LM, x: torch.Tensor) -> torch.Tensor:
 # Decode: one token step
 # ---------------------------------------------------------------------------
 
-def decode_step(model: LM, cache: Cache, token: torch.Tensor, pos: int
+def decode_step(model: LM, cache: Cache, token: torch.Tensor, pos: Position
                 ) -> Tuple[torch.Tensor, Cache]:
     """token (B,), pos -> logits (B,V); ``cache`` is updated in place and
     returned.  A rolling cache (its rows equal to the sliding window) is
@@ -916,11 +923,19 @@ def decode_step(model: LM, cache: Cache, token: torch.Tensor, pos: int
     position and is decoded without one, as in the JAX package.  A model
     without rope adds its learned position (``_decode_position``).
 
+    ``pos`` is a Python int or a 0-d integer tensor on the cache's device,
+    as the JAX step takes a traced scalar: the two give the same logits and
+    cache bit for bit, and the tensor is read by the device alone (the
+    rope angle, the mask, the cache row and the learned position's row,
+    each clamped there as the int path clamps on the host), so the step
+    can be captured in a CUDA graph (:mod:`repro_torch.runtime.graphs`).
+
     On a mesh the token is a DTensor and the cache DTensors placed by the
     rules; each layer reads and writes this rank's block of its cache
     (:class:`CacheBlock`), and the logits are a DTensor split over the
-    batch like the token."""
+    batch like the token.  That step takes an int position only."""
     if spmd.is_sharded(token):
+        pos = int_position(pos)
         L = spmd.layout_for(token[:, None])
         local = {k: v.to_local() for k, v in cache.items()}
         views = {k: (local[k], _block_kind(L, v), v.shape[-3])
@@ -931,8 +946,8 @@ def decode_step(model: LM, cache: Cache, token: torch.Tensor, pos: int
     return _decode(model, cache, None, token, pos, None), cache
 
 
-def _decode(model: LM, cache: Cache, views, token: torch.Tensor, pos: int,
-            L) -> torch.Tensor:
+def _decode(model: LM, cache: Cache, views, token: torch.Tensor,
+            pos: Position, L) -> torch.Tensor:
     cfg = model.cfg
     x = embed(token[:, None], model.embed, cfg)
     if not cfg.use_rope:

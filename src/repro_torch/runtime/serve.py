@@ -4,13 +4,17 @@
 batched decode over a slot-based request pool (join/leave between steps,
 greedy or temperature sampling), as in the JAX package.  It runs on CUDA
 unless ``device="cpu"`` is passed, and raises without a card otherwise.
-Like the JAX engine it keeps one decode position for all slots (the
-longest prompt admitted so far); see ROADMAP.md, faults of the reference.
-An optional ``on_step`` callback sees each prefill and decode step with its
-host-clock seconds and its logits, for measurement and checks.  As the JAX
-engine has no way to pass audio frames, this one refuses an
-encoder-decoder model: serve it through ``prefill(..., frames=...)`` and
-``decode_step``.
+On CUDA each decode step is one replay of a CUDA graph captured when the
+engine is made (:class:`~repro_torch.runtime.graphs.DecodeGraph`), as the
+JAX engine runs one jitted program a step; on the CPU the same step runs
+eagerly.  Sampling stays outside the graph, as the JAX engine samples
+outside its jit.  Like the JAX engine it keeps one decode position for all
+slots (the longest prompt admitted so far); see ROADMAP.md, faults of the
+reference.  An optional ``on_step`` callback sees each prefill and decode
+step with its host-clock seconds and its logits, for measurement and
+checks.  As the JAX engine has no way to pass audio frames, this one
+refuses an encoder-decoder model: serve it through ``prefill(...,
+frames=...)`` and ``decode_step`` (or a ``DecodeGraph``).
 """
 from __future__ import annotations
 
@@ -24,8 +28,10 @@ import torch.nn.functional as F
 from repro_torch.core.executor import resolve_device
 from repro_torch.core.faults import ExecutionError
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.attention import Position
 from repro_torch.models.lm import (LM, Cache, cache_defs, decode_step,
                                    init_cache, prefill)
+from repro_torch.runtime.graphs import DecodeGraph
 
 
 def make_prefill_step(cfg: ModelConfig, capacity: Optional[int] = None):
@@ -38,9 +44,10 @@ def make_prefill_step(cfg: ModelConfig, capacity: Optional[int] = None):
 
 
 def make_decode_step(cfg: ModelConfig):
-    """(model, cache, token (B,), pos) -> (logits (B,V), cache)."""
+    """(model, cache, token (B,), pos) -> (logits (B,V), cache); ``pos`` an
+    int or a 0-d tensor (:func:`repro_torch.models.lm.decode_step`)."""
 
-    def step(model: LM, cache: Cache, token: torch.Tensor, pos: int):
+    def step(model: LM, cache: Cache, token: torch.Tensor, pos: Position):
         return decode_step(model, cache, token, pos)
 
     return step
@@ -85,6 +92,12 @@ class ServeEngine:
     ``on_step``, when given, is called after every prefill and decode step
     with the seconds from the step's start to the host's read of the tokens
     it sampled (a read that waits for the device), and the step's logits.
+    On CUDA a decode step's logits are the graph's static output: the next
+    decode step overwrites them, so a hook that keeps them copies them.
+
+    The decode graph (``graph``) is captured over the model's parameters
+    and the engine's cache: rebinding a parameter invalidates it (the next
+    step raises), and a new capacity or slot count needs a new engine.
     """
 
     def __init__(self, cfg: ModelConfig, model: LM, *, slots: int,
@@ -106,13 +119,15 @@ class ServeEngine:
         self.on_step = on_step
 
         self._prefill1 = make_prefill_step(cfg, capacity)
-        self._decode = make_decode_step(cfg)
 
         self.cache: Cache = init_cache(cfg, slots, capacity,
                                        device=self.device)
         self._batch_dims = batch_dims(cfg, capacity)
-        self.cur_token = torch.zeros(slots, dtype=torch.long,
-                                     device=self.device)
+        self.graph = DecodeGraph(self.model, self.cache, slots)
+        #: the graph's static token buffer, written in place
+        self.cur_token = self.graph.token
+        #: the decode position on the host; each step copies it into the
+        #: graph's position buffer
         self.pos = 0
         self.active: List[Optional[Request]] = [None] * slots
         self.queue: List[Request] = []
@@ -136,8 +151,7 @@ class ServeEngine:
             return 0
         t0 = time.perf_counter()
         try:
-            logits, self.cache = self._decode(self.model, self.cache,
-                                              self.cur_token, self.pos)
+            logits = self.graph(self.pos)
         except Exception as e:
             # surface the failure with the affected request identities
             # (same terminal taxonomy as the executor, repro_torch.core.faults)
@@ -146,7 +160,7 @@ class ServeEngine:
                 f"decode step failed for requests {rids}: "
                 f"{type(e).__name__}: {e}") from e
         nxt = sample(logits, self.generator, self.temperature)
-        self.cur_token = nxt
+        self.cur_token.copy_(nxt)
         self.pos += 1
         toks = nxt.tolist()
         if self.on_step is not None:

@@ -623,7 +623,9 @@ def test_family_smoke_model_serves_on_card_as_on_cpu(arch, cuda_device):
         Q = cfg.ssm.chunk
         assert ops.COUNTERS["ssd_scan"].value == cfg.n_layers * sum(
             2 if n > Q and n % Q else 1 for n in lengths)
-    moe_calls = 3 * cfg.n_layers * len(steps) if cfg.moe is not None else 0
+    # every prefill and decode step, and the decode graph's warm-up step
+    moe_calls = (3 * cfg.n_layers * (len(steps) + 1) if cfg.moe is not None
+                 else 0)
     assert ops.COUNTERS["grouped_matmul"].value == moe_calls
 
 
@@ -738,8 +740,9 @@ def test_granite_smoke_model_serves_on_card_as_on_cpu(cuda_device):
     assert min(gaps) > 1e-3
     assert outs["cuda"] == outs["cpu"]
     assert ops.COUNTERS["flash_attention"].value == cfg.n_layers * 3
-    assert ops.COUNTERS["grouped_matmul"].value == 3 * cfg.n_layers * len(
-        steps)
+    # every prefill and decode step, and the decode graph's warm-up step
+    assert ops.COUNTERS["grouped_matmul"].value == 3 * cfg.n_layers * (
+        len(steps) + 1)
     assert ops.COUNTERS["ssd_scan"].value == 0
 
 
@@ -1468,3 +1471,142 @@ def test_flash_offset_matches_plain_on_card(off, window, dtype, cuda_device):
         if dtype == torch.bfloat16:
             bound = bound + 3 * 2 ** -7 * w.abs() + 3e-3 * w.abs().max()
         assert (err <= bound).all(), (name, err.max().item())
+
+
+# ---------------------------------------------------------------------------
+# the decode step as one CUDA graph (repro_torch.runtime.graphs)
+# ---------------------------------------------------------------------------
+
+GRAPH_STEPS = 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,prompt", [("zamba2-2.7b", 20),
+                                         ("granite-moe-3b-a800m", 20),
+                                         ("gemma2-2b", 24)])
+def test_graphed_engine_matches_eager_step_on_card(arch, prompt,
+                                                   cuda_device):
+    """bf16 smoke models as served: the engine's decode graph and an eager
+    ``decode_step`` over a copy of the same cache, from the same tokens,
+    give bit-identical logits and the same greedy tokens over 16 steps
+    (gemma2's prompts run past its 16-row window, so its local cache
+    rolls); each replay counts the grouped GEMMs the eager step launches."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import LM, decode_step
+    from repro_torch.runtime import ServeEngine, greedy
+    cfg = get_smoke(arch)
+    model = LM(cfg, device=cuda_device,
+               generator=torch.Generator(device=cuda_device).manual_seed(0))
+    seen = []
+    eng = ServeEngine(cfg, model, slots=2, capacity=64,
+                      on_step=lambda kind, n, s, logits: seen.append(
+                          logits.clone()) if kind == "decode" else None)
+    assert eng.graph.cuda_graph is not None
+    g = torch.Generator().manual_seed(1)
+    for n in (prompt, prompt - 5):
+        eng.submit(torch.randint(0, cfg.vocab, (n,), generator=g).tolist(),
+                   max_new=GRAPH_STEPS + 1)
+    eng._admit()
+    cache = {k: v.clone() for k, v in eng.cache.items()}
+    tok, pos = eng.cur_token.clone(), eng.pos
+    for c in ops.COUNTERS.values():
+        c.reset()
+    for i in range(GRAPH_STEPS):
+        assert eng.step() == (2 if i < GRAPH_STEPS - 1 else 0)
+        want, _ = decode_step(model, cache, tok, pos + i)
+        assert torch.equal(seen[-1], want), i
+        tok = greedy(want)
+        assert torch.equal(eng.cur_token, tok), i
+    for k in cache:
+        assert torch.equal(eng.cache[k], cache[k]), k
+    torch.cuda.synchronize()
+    moe_calls = (3 * cfg.n_layers * 2 * GRAPH_STEPS
+                 if cfg.moe is not None else 0)
+    assert ops.COUNTERS["grouped_matmul"].value == moe_calls
+
+
+@pytest.mark.cuda
+def test_whisper_decode_graph_matches_eager_step_on_card(cuda_device):
+    """whisper's smoke model: a ``DecodeGraph`` over a prefilled cache with
+    frames against eager steps over a copy, past the 128-row table of
+    learned positions (a position there reads the table's last row)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import LM, decode_step, prefill
+    from repro_torch.runtime import DecodeGraph
+    cfg = get_smoke("whisper-large-v3")
+    model = LM(cfg, device=cuda_device,
+               generator=torch.Generator(device=cuda_device).manual_seed(0))
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    frames = torch.randn((2, cfg.enc_frames, cfg.d_model), generator=g,
+                         device=cuda_device).to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab, (2, 20), generator=g,
+                         device=cuda_device)
+    logits, cache = prefill(model, toks, capacity=32, frames=frames)
+    eager = {k: v.clone() for k, v in cache.items()}
+    graph = DecodeGraph(model, cache, 2)
+    tok = greedy_of(logits)
+    for pos in [*range(20, 20 + GRAPH_STEPS // 2), 127, 128, 200]:
+        got = graph(pos, tok)
+        want, _ = decode_step(model, eager, tok, pos)
+        assert torch.equal(got, want), pos
+        tok = greedy_of(want)
+    for k in cache:
+        assert torch.equal(cache[k], eager[k]), k
+
+
+def greedy_of(logits):
+    return torch.argmax(logits, dim=-1)
+
+
+@pytest.mark.cuda
+def test_decode_graph_refuses_rebound_parameters_on_card(cuda_device):
+    """A replay after a parameter was rebound raises (the graph baked in the
+    old address, the grouped GEMM's TMA maps too), in the graph and through
+    the engine; nothing falls back to an eager step."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.faults import ExecutionError
+    from repro_torch.models import LM, init_cache
+    from repro_torch.runtime import DecodeGraph, ServeEngine
+    cfg = get_smoke("granite-moe-3b-a800m")
+    model = LM(cfg, device=cuda_device,
+               generator=torch.Generator(device=cuda_device).manual_seed(0))
+    graph = DecodeGraph(model, init_cache(cfg, 2, 32, device=cuda_device), 2)
+    eng = ServeEngine(cfg, model, slots=2, capacity=32)
+    eng.submit([1, 2, 3], max_new=4)
+    assert eng.step() == 1
+    before = graph(3).clone()
+    moe = model.layers[0].moe
+    moe.w_in = torch.nn.Parameter(moe.w_in.detach().clone(),
+                                  requires_grad=False)
+    with pytest.raises(RuntimeError, match="moved since its capture"):
+        graph(4)
+    with pytest.raises(ExecutionError, match="moved since its capture"):
+        eng.step()
+    assert torch.isfinite(before).all()
+
+
+@pytest.mark.cuda
+def test_decode_graphs_give_their_memory_back_on_card(cuda_device):
+    """A decode graph dropped leaves nothing allocated: after a first graph
+    (which may make the lazy handles a process keeps), three more made and
+    dropped return ``memory_allocated`` to where it was."""
+    import gc
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import LM, init_cache
+    from repro_torch.runtime import DecodeGraph, ServeEngine
+    cfg = get_smoke("granite-moe-3b-a800m")
+    model = LM(cfg, device=cuda_device,
+               generator=torch.Generator(device=cuda_device).manual_seed(0))
+    DecodeGraph(model, init_cache(cfg, 2, 32, device=cuda_device), 2)(3)
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    for _ in range(3):
+        DecodeGraph(model, init_cache(cfg, 2, 32, device=cuda_device), 2)(3)
+        eng = ServeEngine(cfg, model, slots=2, capacity=32)
+        eng.submit([1, 2, 3], max_new=3)
+        eng.run_to_completion()
+        del eng
+        gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
