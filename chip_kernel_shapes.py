@@ -23,7 +23,11 @@ each list.
   reported); each with its three kernels' device time from
   ``torch.profiler``.
 - gmm (bf16): tile rows and columns, TMA stages, blocks an SM (the
-  ``Prefill`` alias).
+  ``Prefill`` alias); and of the backward kernels (the ``Dx`` and ``Dw``
+  aliases, built alike), dx and dw each timed at granite's training
+  shapes, w_in (40, 1024, 1536, 512) and w_out (40, 1024, 512, 1536),
+  beside ``torch.bmm`` on transposed views, with each product's share of
+  its bound.
 - ssd, at zamba2's call, x (1, 1536, 80 x 64) float32, chunk 256: as built
   (with each of its four kernels' device time from ``torch.profiler``),
   built for 2 blocks an SM, and with one part knocked out each: the lo
@@ -126,6 +130,15 @@ FLASH_BWD = (8, 24, 8, 512, 64)
 GMM_CFG = "using Prefill = Cfg<128, 128, 3, 2>;"
 GMM_VARIANTS = [(128, 128, 3, 2), (128, 128, 4, 1), (128, 256, 4, 1),
                 (128, 256, 3, 1), (128, 64, 4, 2)]
+#: (tile rows, tile columns, stages, blocks an SM) of the backward kernels,
+#: dx's and dw's aliases built alike
+GMM_BWD_CFG = ("using Dx = Cfg<128, 256, 3, 1>;",
+               "using Dw = Cfg<128, 256, 3, 1>;")
+GMM_BWD_VARIANTS = [(128, 256, 3, 1), (128, 128, 4, 1), (128, 128, 5, 1),
+                    (256, 128, 3, 1), (128, 128, 2, 2), (128, 64, 3, 2),
+                    (64, 128, 3, 2)]
+#: (E, C, d, f) of the backward: granite's training products
+GMM_BWD = {"w_in": (40, 1024, 1536, 512), "w_out": (40, 1024, 512, 1536)}
 #: parts of the SSD scan knocked out (the output is then wrong, and only
 #: the one-pass TF32 build's error is reported): the lo.hi and hi.lo
 #: products of every split product; the C.B^T launch; the decay tile's exp;
@@ -585,6 +598,60 @@ def nbody_rows(libs, g):
     return out
 
 
+def gmm_bwd_rows(libs, g, stream):
+    """dx and dw of each GMM_BWD_VARIANTS build at GMM_BWD's shapes, each
+    held to its plain version under GMM_TOL and timed (CUDA events, twice;
+    device time from ``torch.profiler``) beside ``torch.bmm``."""
+    out = {}
+    for shape_name, (E, C, d, f) in GMM_BWD.items():
+        x = torch.randn((E, C, d), generator=g, device="cuda").bfloat16()
+        w = (torch.randn((E, d, f), generator=g, device="cuda")
+             * d ** -0.5).bfloat16()
+        dy = torch.randn((E, C, f), generator=g, device="cuda").bfloat16()
+        prods = {
+            "dx": (dy, w, torch.empty_like(x), ref.grouped_matmul_dx_ref(
+                dy, w), lambda: torch.bmm(dy, w.transpose(1, 2)),
+                cs.gmm_bound(E, C, f, d, torch.bfloat16)[0]),
+            "dw": (x, dy, torch.empty_like(w), ref.grouped_matmul_dw_ref(
+                x, dy), lambda: torch.bmm(x.transpose(1, 2), dy),
+                cs.gmm_bound(E, d, C, f, torch.bfloat16)[0])}
+        row = {p: {"bmm_ms": cs.cuda_ms(v[4], REPS), "bound_ms": v[5]}
+               for p, v in prods.items()}
+        for bm, bn, st, mb in GMM_BWD_VARIANTS:
+            name = f"gmm_bwd_{bm}_{bn}_{st}_{mb}"
+            lib = _build.load(libs[name], ("grouped_matmul_dx",
+                                           "grouped_matmul_dw"))
+            for prod, (a, b, o, want, _, bound) in prods.items():
+                entry = getattr(lib, f"grouped_matmul_{prod}")
+
+                def call(entry=entry, a=a, b=b, o=o):
+                    return entry(a.data_ptr(), b.data_ptr(), o.data_ptr(),
+                                 E, C, d, f, 0, stream)
+                if call():
+                    raise RuntimeError(f"{name} {prod} did not launch")
+                scale = want.float().abs().max().item()
+                ex = cs.bf16_excess(o, want, cs.GMM_TOL * scale)
+                if ex > 1.0:
+                    raise RuntimeError(f"{name} {shape_name} {prod}: "
+                                       f"{ex:.3f} of bound")
+                ms = [cs.cuda_ms(call, REPS) for _ in range(2)]
+                dev = cs.device_ms(call)[0]
+                row[prod][name] = dict(ms=ms, device_ms=dev,
+                                       share_of_bound=bound / min(ms),
+                                       worst_share_of_tolerance=ex)
+                print(f"gmm_bwd {shape_name} {prod} tile {bm}x{bn} stages "
+                      f"{st} blocks/SM {mb}: {ms} ms (device "
+                      f"{dev:.4f}), "
+                      f"{bound / min(ms):.3f} of the bound (bmm "
+                      f"{row[prod]['bmm_ms']:.4f})", flush=True)
+            row[name] = dict(ptxas=ptxas(libs[name], "gmm_bwd_kernel"),
+                             spills=spills(libs[name], "gmm_bwd_kernel"))
+            print(f"gmm_bwd {name} ptxas (registers, spill bytes) "
+                  f"{row[name]['ptxas']}", flush=True)
+        out[shape_name] = row
+    return out
+
+
 def spills(lib: Path, kernel: str):
     """The instantiations of ``kernel`` that spill: {name: (registers,
     spill store bytes)}."""
@@ -622,6 +689,11 @@ def main() -> int:
                   f"using Prefill = Cfg<{bm}, {bn}, {st}, {mb}>;",
                   f"gmm_{bm}_{bn}_{st}_{mb}")
                  for bm, bn, st, mb in GMM_VARIANTS]
+        jobs += [("moe_gemm.cu", GMM_BWD_CFG,
+                  (f"using Dx = Cfg<{bm}, {bn}, {st}, {mb}>;",
+                   f"using Dw = Cfg<{bm}, {bn}, {st}, {mb}>;"),
+                  f"gmm_bwd_{bm}_{bn}_{st}_{mb}")
+                 for bm, bn, st, mb in GMM_BWD_VARIANTS]
     if "ssd" in kinds:
         jobs += [("ssd_scan.cu", SSD_CFG, f"  return NC <= 64 ? {m} : 2;",
                   "ssd" if m == SSD_MIN_BLOCKS[0] else f"ssd_blocks{m}")
@@ -733,6 +805,8 @@ def main() -> int:
                   f"ptxas (registers, spill bytes) {row[name]['ptxas']}",
                   flush=True)
         out["gmm"][shape_name] = row
+    if "gmm" in kinds:
+        out["gmm_bwd"] = gmm_bwd_rows(libs, g, stream)
 
     (cs.ROOT / "build").mkdir(exist_ok=True)
     (cs.ROOT / "build" / "kernel_shapes.json").write_text(json.dumps(out,

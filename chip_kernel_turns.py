@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Two builds of the port's kernels, timed in turns on one CUDA card.
 
-    python3 chip_kernel_turns.py OLD_ROOT [flash] [flash_bwd] [gmm] [saxpy]
-                                 [ssd] [ssd_bwd] [nbody]
+    python3 chip_kernel_turns.py OLD_ROOT [flash] [flash_bwd] [gmm] [gmm_bwd]
+                                 [saxpy] [ssd] [ssd_bwd] [nbody]
 
-(no case named: all seven).  ``OLD_ROOT`` is the root of another checkout
+(no case named: all eight).  ``OLD_ROOT`` is the root of another checkout
 of the repository (for example the parent commit, unpacked with ``git
 archive`` into a directory that ``.gitignore`` lists).  Its
 ``src/repro_torch/csrc`` is built with the same ``nvcc`` flags into
@@ -39,6 +39,22 @@ holds autograd's host dispatch.  Each build's output is held to the
 plain version under ``chip_smoke.py``'s tolerances.  The host time of one
 C call is timed too.
 
+``gmm_bwd``: the grouped GEMM's gradients dx = dy w^T and dw = x^T dy in
+bf16 at granite's training shapes (w_in (40, 1024, 1536, 512), w_out (40,
+1024, 512, 1536)) and a ragged (4, 72, 1536, 512): the old build's path
+(a contiguous transposed copy of w or x, then its forward kernel), the new
+build's ``grouped_matmul_dx`` / ``grouped_matmul_dw`` (where it has them),
+and ``torch.bmm`` on transposed views, each product alone and both
+together beside the whole ``torch.bmm`` backward, in turns by CUDA events
+and by device time (``torch.profiler``: GEMM and copy kernels apart), with
+each product's share of its bound.  Then granite's training step at full
+width (``chip_smoke.py``'s recipe) with ``ops._GroupedMatmul.backward``
+as it was before the backward kernels (the copies; the forward kernel is
+unchanged) and as it is: four steps from the same weights each (losses,
+and the difference of the updated parameters relative to the update),
+then steps in turns on one state (seconds, peak memory, device ms in the
+grouped GEMM's kernels and in copy kernels).
+
 Prints the card's name and power limit, one line a case, then one JSON
 object, which is also written to ``build/kernel_turns.json``.  Exits
 non-zero without a card.
@@ -46,17 +62,19 @@ non-zero without a card.
 from __future__ import annotations
 
 import ctypes
+import gc
 import importlib.util
 import json
 import math
 import sys
+import time
 from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
 import chip_smoke as cs
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import nbody as nbody_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
@@ -73,6 +91,12 @@ FLASH_BWD = {"granite_train": (8, 24, 8, 512, 64),
 #: (E, C, d, f), bf16
 GMM = {"prefill_in": (40, 384, 1536, 512), "prefill_out": (40, 384, 512, 1536),
        "decode": (40, 8, 1536, 512)}
+#: (E, C, d, f) of the grouped GEMM's backward, bf16: granite's w_in and
+#: w_out at its training capacity, and a ragged capacity
+GMM_BWD = {"w_in": (40, 1024, 1536, 512), "w_out": (40, 1024, 512, 1536),
+           "ragged": (4, 72, 1536, 512)}
+#: the backward kernels' entry points (a checkout before them has none)
+GMM_BWD_ENTRIES = ("grouped_matmul_dx", "grouped_matmul_dw")
 #: saxpy: one of chip_smoke.py's two accelerator slots' share (0.8 / 2) of
 #: the paper's 5e7 elements
 SAXPY_N = 2 * 10 ** 7
@@ -82,7 +106,8 @@ SSD = (1, 1536, 80, 64, 64, 256)
 #: (Bsz, S, nh, hd, ds, chunk): zamba2-2.7b's SSD call in training
 SSD_BWD = (8, 512, 80, 64, 64, 256)
 #: the cases, and how many times each runs the turn sequence
-KINDS = ("flash", "flash_bwd", "gmm", "saxpy", "ssd", "ssd_bwd", "nbody")
+KINDS = ("flash", "flash_bwd", "gmm", "gmm_bwd", "saxpy", "ssd", "ssd_bwd",
+         "nbody")
 ROUNDS = {"saxpy": 5, "nbody": 3}
 
 
@@ -180,6 +205,258 @@ def gmm_case(libs, E, C, d, f):
     nbytes = 2 * (E * C * d + E * d * f + E * C * f)
     bound = cs.gmm_bound(E, C, d, f, torch.bfloat16)[0]
     return calls, errs, (lambda: torch.bmm(x, w)), bound, nbytes
+
+
+def copies_backward(ctx, dy):
+    """``_GroupedMatmul.backward`` before the backward kernels: dx and dw
+    through the forward kernel on contiguous transposed copies of w and
+    x (the forward kernel's source is unchanged since)."""
+    x, w = ctx.saved_tensors
+    gmm = ctx.kern.grouped_matmul
+    dy = dy.contiguous()
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+        dx = gmm(dy, w.transpose(1, 2).contiguous(), backward=True)
+    if ctx.needs_input_grad[1]:
+        dw = gmm(x.transpose(1, 2).contiguous(), dy, backward=True)
+    return dx, dw, None
+
+
+def split_device_ms(fn):
+    """Device ms a call of ``fn`` from ``torch.profiler``: its copy
+    kernels, the rest (the products), and the kernels a call."""
+    kernels = cs.profiled_kernels(fn)
+    copies = sum(ms for k, (ms, _) in kernels.items()
+                 if "copy" in k.lower())
+    total = sum(ms for ms, _ in kernels.values())
+    return dict(gemm=total - copies, copies=copies,
+                kernels=sum(n for _, n in kernels.values()))
+
+
+def gmm_bwd_case(libs, E, C, d, f):
+    """dx = dy w^T and dw = x^T dy in bf16, each alone: the old build's
+    transposed copy and forward kernel, the new build's backward kernels
+    (where it has them), and ``torch.bmm`` on transposed views, each held
+    to the plain version under ``GMM_TOL``.  Returns {product: (calls,
+    errs, library call, bound)} and the whole ``torch.bmm`` backward."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((E, C, d), generator=g, device="cuda").bfloat16()
+    w = (torch.randn((E, d, f), generator=g, device="cuda")
+         * d ** -0.5).bfloat16()
+    dy = torch.randn((E, C, f), generator=g, device="cuda").bfloat16()
+    stream = torch.cuda.current_stream().cuda_stream
+    old, new = libs["old"], libs["new"]
+    dx_o, dx_n = (torch.empty_like(x) for _ in range(2))
+    dw_o, dw_n = (torch.empty_like(w) for _ in range(2))
+
+    def old_dx():
+        wt = w.transpose(1, 2).contiguous()
+        checked(old.grouped_matmul_fwd(dy.data_ptr(), wt.data_ptr(),
+                                       dx_o.data_ptr(), 1, E, C, f, d, 0,
+                                       stream), "grouped_matmul dx (old)")
+
+    def old_dw():
+        xt = x.transpose(1, 2).contiguous()
+        checked(old.grouped_matmul_fwd(xt.data_ptr(), dy.data_ptr(),
+                                       dw_o.data_ptr(), 1, E, d, C, f, 0,
+                                       stream), "grouped_matmul dw (old)")
+
+    def new_dx():
+        checked(new.grouped_matmul_dx(dy.data_ptr(), w.data_ptr(),
+                                      dx_n.data_ptr(), E, C, d, f, 0,
+                                      stream), "grouped_matmul_dx (new)")
+
+    def new_dw():
+        checked(new.grouped_matmul_dw(x.data_ptr(), dy.data_ptr(),
+                                      dw_n.data_ptr(), E, C, d, f, 0,
+                                      stream), "grouped_matmul_dw (new)")
+    has_new = hasattr(new, "grouped_matmul_dx")
+    cases = {}
+    for name, want, o, n, outs, lib_call, bound in (
+            ("dx", ref.grouped_matmul_dx_ref(dy, w), old_dx, new_dx,
+             (dx_o, dx_n), lambda: torch.bmm(dy, w.transpose(1, 2)),
+             cs.gmm_bound(E, C, f, d, torch.bfloat16)[0]),
+            ("dw", ref.grouped_matmul_dw_ref(x, dy), old_dw, new_dw,
+             (dw_o, dw_n), lambda: torch.bmm(x.transpose(1, 2), dy),
+             cs.gmm_bound(E, d, C, f, torch.bfloat16)[0])):
+        calls = {"old": o, "new": n if has_new else None}
+        scale = want.float().abs().max().item()
+        errs = {}
+        for side, out in zip(("old", "new"), outs):
+            if calls[side] is None:
+                continue
+            calls[side]()
+            torch.cuda.synchronize()
+            errs[side] = cs.bf16_excess(out, want, cs.GMM_TOL * scale)
+        cases[name] = (calls, errs, lib_call, bound)
+    both = {"old": lambda: (old_dx(), old_dw()),
+            "new": (lambda: (new_dx(), new_dw())) if has_new else None}
+    bmm_bwd = cs.backward_of(torch.bmm, (x, w), dy)
+    return cases, both, bmm_bwd, cs.gmm_bwd_bound(E, C, d, f,
+                                                  torch.bfloat16)[0]
+
+
+def gmm_bwd_rows(libs):
+    """Each GMM_BWD shape: dx and dw alone and together, old, new and
+    ``torch.bmm`` in turns by CUDA events, and by device time (GEMM and
+    copy kernels apart), with each product's share of its bound."""
+    out = {}
+    for shape_name, shape in GMM_BWD.items():
+        cases, both, bmm_bwd, bound = gmm_bwd_case(libs, *shape)
+        row = {"shape": list(shape)}
+        for prod, (calls, errs, lib_call, pbound) in cases.items():
+            for side, e in errs.items():
+                if e > 1.0:
+                    raise RuntimeError(f"gmm_bwd {shape_name} {prod} "
+                                       f"({side}): worst element at "
+                                       f"{e:.3f} of its bound")
+            t = [cs.cuda_ms(c, REPS) if c else None
+                 for c in (calls["old"], calls["new"], lib_call,
+                           calls["new"], calls["old"])]
+            dev = {side: split_device_ms(c) for side, c in
+                   (*calls.items(), ("bmm", lib_call)) if c is not None}
+            new_ms = [v for v in (t[1], t[3]) if v is not None]
+            r = dict(old_ms=[t[0], t[4]], new_ms=new_ms, bmm_ms=t[2],
+                     bound_ms=pbound, device_ms=dev,
+                     worst_share_of_bound=errs,
+                     new_share_of_bound=(pbound / min(new_ms) if new_ms
+                                         else None),
+                     new_device_share_of_bound=(
+                         pbound / dev["new"]["gemm"] if "new" in dev
+                         and dev["new"]["gemm"] else None))
+            row[prod] = r
+            print(f"gmm_bwd {shape_name} {list(shape)} {prod}: old "
+                  f"{t[0]:.4f}/{t[4]:.4f} ms (device {dev['old']}), new "
+                  + ("/".join(f"{v:.4f}" for v in new_ms) + " ms (device "
+                     f"{dev['new']})" if new_ms else "none")
+                  + f", bmm {t[2]:.4f} ms (device {dev['bmm']}), bound "
+                  f"{pbound:.4f} ms, new at {r['new_share_of_bound']} of it "
+                  f"(device {r['new_device_share_of_bound']})", flush=True)
+        t = [cs.cuda_ms(c, REPS) if c else None
+             for c in (both["old"], both["new"], bmm_bwd, both["new"],
+                       both["old"])]
+        dev = {side: split_device_ms(c) for side, c in
+               (*both.items(), ("bmm_backward", bmm_bwd)) if c is not None}
+        new_ms = [v for v in (t[1], t[3]) if v is not None]
+        row["dx_dw"] = dict(old_ms=[t[0], t[4]], new_ms=new_ms,
+                            bmm_backward_ms=t[2], bound_ms=bound,
+                            device_ms=dev)
+        print(f"gmm_bwd {shape_name} dx + dw: old {t[0]:.4f}/{t[4]:.4f} ms "
+              f"(device {dev['old']}), new "
+              + ("/".join(f"{v:.4f}" for v in new_ms)
+                 + f" ms (device {dev['new']})" if new_ms else "none")
+              + f", torch.bmm backward {t[2]:.4f} ms (device "
+              f"{dev['bmm_backward']}), bound {bound:.4f} ms", flush=True)
+        out[shape_name] = row
+    return out
+
+
+def step_params(model):
+    """The model's parameters, copied to the host."""
+    return {k: p.detach().to("cpu", copy=True)
+            for k, p in model.named_parameters()}
+
+
+def granite_steps(backward, steps: int):
+    """``steps`` training steps of granite at full width from seed 0
+    (``chip_smoke.py``'s recipe and batches) with ``backward`` as the
+    grouped GEMM's backward: the losses, the parameters before and
+    after (on the host), and the model, optimizer state and step."""
+    cfg = cs.get_config(cs.TRAIN_ARCH)
+    ops._GroupedMatmul.backward = staticmethod(backward)
+    model = cs.build_model(cfg)
+    before = step_params(model)
+    opt = cs.build_optimizer(cfg, cs.TRAIN_LR, cs.TRAIN_STEPS)
+    state = cs.init_state(model, opt)
+    step_fn = cs.make_train_step(cfg, opt, cs.RuntimeConfig(
+        microbatches=1, remat=cs.TRAIN_REMAT, loss_chunks=1,
+        aux_weight=0.01))
+    dc = cs.DataConfig(vocab=cfg.vocab, seq_len=cs.TRAIN_SEQ,
+                       global_batch=cs.TRAIN_BATCH, seed=0)
+    losses = []
+    for i in range(steps):
+        state, metrics = step_fn(state, cs.batch_at(dc, i))
+        losses.append(float(metrics["loss"]))
+    return losses, before, step_params(model), (model, state, step_fn, dc)
+
+
+def gmm_bwd_step():
+    """granite's training step with the transposed copies (old) and with
+    the backward kernels (new): TRAIN_STEPS steps from the same weights
+    each, the losses and the updated parameters compared (the difference
+    of the two updates by parameter group, relative to the old update's
+    L2 norm); then steps in turns (old, new, new, old, three each after a
+    warm-up of each) on the new run's state: host seconds, peak memory,
+    and one profiled step each, device ms in the grouped GEMM's kernels
+    and in copy kernels."""
+    kernel_backward = ops._GroupedMatmul.backward
+    sides = {"old": copies_backward, "new": kernel_backward}
+    losses, params = {}, {}
+    for side in ("old", "new"):
+        losses[side], init, params[side], live = granite_steps(
+            sides[side], cs.TRAIN_STEPS)
+        if side == "old":
+            del live
+            gc.collect()
+            torch.cuda.empty_cache()
+    model, state, step_fn, dc = live
+    groups = {}
+    for k, p in init.items():
+        new, old = params["new"][k].float(), params["old"][k].float()
+        num, den = groups.get(cs.grad_group(k), (0.0, 0.0))
+        groups[cs.grad_group(k)] = (num + float(((new - old) ** 2).sum()),
+                                    den + float(((old - p.float()) ** 2)
+                                                .sum()))
+    update_rel = {grp: math.sqrt(n / d) if d else 0.0
+                  for grp, (n, d) in groups.items()}
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(losses["new"], losses["old"]))
+    print(f"gmm_bwd step: losses old {losses['old']}, new {losses['new']} "
+          f"(largest relative difference {loss_rel:.3g}); the updates' "
+          f"difference relative to the old update, by group: {update_rel}",
+          flush=True)
+    del init, params
+    gc.collect()
+    batch = cs.batch_at(dc, 0)
+
+    def one_step(side):
+        nonlocal state
+        ops._GroupedMatmul.backward = staticmethod(sides[side])
+        state, _ = step_fn(state, batch)
+
+    timed, peak = {"old": [], "new": []}, {}
+    for side in ("old", "new", "old", "new", "new", "old"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            one_step(side)
+        torch.cuda.synchronize()
+        if len(peak) == 2:                # the first two: warm-up
+            timed[side].append((time.perf_counter() - t0) / 3)
+        peak[side] = torch.cuda.max_memory_allocated()
+    device = {}
+    for side in ("old", "new"):
+        kernels = cs.profiled_kernels(lambda: one_step(side), 1)
+
+        def of(test):
+            return (sum(ms for k, (ms, _) in kernels.items() if test(k)),
+                    sum(n for k, (_, n) in kernels.items() if test(k)))
+        device[side] = dict(
+            gemm_ms_launches=of(lambda k: "gmm" in k),
+            copy_ms_launches=of(lambda k: "copy" in k.lower()),
+            busy_ms=sum(ms for ms, _ in kernels.values()))
+    ops._GroupedMatmul.backward = staticmethod(kernel_backward)
+    print(f"gmm_bwd step in turns (old, new, new, old; s a step, 3 steps "
+          f"each): old {timed['old']}, new {timed['new']}; peak GiB "
+          f"{ {k: v / 2 ** 30 for k, v in peak.items()} }; device a step "
+          f"(ms, launches) {device}", flush=True)
+    del model, state, live
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, loss_rel_diff=loss_rel,
+                update_rel_diff=update_rel, step_s=timed,
+                peak_memory_bytes=peak, device=device)
 
 
 def saxpy_case(libs, n):
@@ -407,13 +684,19 @@ def main() -> int:
     print(card, flush=True)
     names = ("flash_attention_fwd", "flash_attention_bwd",
              "grouped_matmul_fwd", "saxpy_f32")
+    new_lib = _build.build()
+    bwd = tuple(n for n in GMM_BWD_ENTRIES
+                if hasattr(ctypes.CDLL(str(new_lib)), n))
     libs = {"old": _build.load(_build.build(
                 old_root / "src" / "repro_torch" / "csrc",
                 old_root / "build" / "kernels"), names),
-            "new": _build.load(_build.build(), names)}
+            "new": _build.load(new_lib, names + bwd)}
     out = {"card": card, "torch": torch.__version__, "reps": REPS,
            "order": "old, new, library, new, old (ROUNDS[kind] times)",
            **{k: {} for k in kinds}}
+    if "gmm_bwd" in kinds:
+        out["gmm_bwd"] = gmm_bwd_rows(libs)
+        out["gmm_bwd"]["granite_step"] = gmm_bwd_step()
     cases = []
     if "flash" in kinds:
         cases += [("flash", n, flash_case(libs, *shape), shape)

@@ -53,10 +53,14 @@ and read just after:
 - LM training, after serving's models are freed: flash attention's forward
   and backward and the grouped GEMM's dx and dw at the training shapes
   against autograd through their plain versions (timed beside the SDPA
-  backward and ``torch.bmm``), then four steps of granite-moe-3b-a800m at
+  backward and ``torch.bmm``), dx's and dw's own kernels
+  (``grouped_matmul_dx``, ``grouped_matmul_dw``: the operands read in
+  place) each alone against its plain version at granite's two shapes and
+  a ragged capacity, then four steps of granite-moe-3b-a800m at
   full width (bf16 parameters, float32 AdamW moments, random weights from
   seed 0) through ``make_train_step`` on ``batch_at``'s 8 x 512 tokens,
-  with no plain version called, and the gradients of the model's first 2
+  with no plain version called, every bf16 gradient of the grouped GEMM
+  through the dx and dw kernels, and the gradients of the model's first 2
   layers (bf16, kernels) against the CPU's (float32, plain versions);
 - zamba2-2.7b training, after granite's state is freed: the SSD scan's
   backward kernel at the training shape (x 8 x 512 x 80 heads of 64,
@@ -246,6 +250,12 @@ KERNELS = {
                      "src/repro/kernels/ssd_scan.py:84"),
     "grouped_matmul": ("src/repro_torch/csrc/moe_gemm.cu",
                        "src/repro/kernels/moe_gemm.py:39"),
+    # the gradients of the TPU grouped GEMM's function, dx = dy w^T and
+    # dw = x^T dy (the JAX package differentiates its einsum)
+    "grouped_matmul_dx": ("src/repro_torch/csrc/moe_gemm.cu",
+                          "src/repro/kernels/moe_gemm.py:39"),
+    "grouped_matmul_dw": ("src/repro_torch/csrc/moe_gemm.cu",
+                          "src/repro/kernels/moe_gemm.py:39"),
 }
 
 #: the paper phase: hybrid's host testbed at the middle size class, as the
@@ -291,10 +301,10 @@ GMM_SHAPES = {"prefill_in": (40, 384, 1536, 512),
 GMM_TIMED = ("prefill_in", "prefill_out", "decode")
 #: the redesigned kernels, whose ptxas report must show no spills (every
 #: kernel of the SSD backward: "ssd_bwd_")
-NO_SPILL = ("flash_mma_kernel", "gmm_wgmma_kernel", "ssd_cb",
-            "ssd_chunk_state", "ssd_state_pass", "ssd_output", "saxpy_vec4",
-            "nbody_pack", "nbody_tiles", "nbody_reduce", "flash_bwd_dot",
-            "flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_dkdv_mma",
+NO_SPILL = ("flash_mma_kernel", "gmm_wgmma_kernel", "gmm_bwd_kernel",
+            "ssd_cb", "ssd_chunk_state", "ssd_state_pass", "ssd_output",
+            "saxpy_vec4", "nbody_pack", "nbody_tiles", "nbody_reduce",
+            "flash_bwd_dot", "flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_dkdv_mma",
             "flash_bwd_dq_mma", "ssd_bwd_")
 #: the head of each model (zamba2: one hybrid group; granite: 2 layers),
 #: card (kernels, cuBLAS) against CPU (plain versions, CPU matmuls), same
@@ -429,6 +439,12 @@ PROFILE_DECODE_STEPS = 8
 DECODE_GRAPH_ARCHS = ("zamba2-2.7b", "granite-moe-3b-a800m", "gemma2-2b",
                       "whisper-large-v3")
 DECODE_GRAPH_STEPS = 16
+#: profiler windows (of 4 calls each) a replay's and an eager step's
+#: device operations are each counted over, a kernel's launches a call
+#: being the median over the windows: a window can miss or take in
+#: launches at its edges (seen: a third of a replay missed, 2 launches of a
+#: kernel taken in), and the median holds while one window of three does
+DECODE_GRAPH_WINDOWS = 3
 #: the full-width prefill the launch phase holds the dry-run against
 CHECKED_PREFILL_ARCH = "zamba2-2.7b"
 CHECKED_PREFILL_TOKENS = 1536
@@ -675,21 +691,36 @@ def profiled_kernels(fn, reps: int = 10):
     """{kernel name: (device ms a call, launches a call)} of the CUDA
     kernels ``fn`` launches, from ``torch.profiler`` over ``reps`` calls
     after a warm-up window of as many.  A profiler started late in a long
-    process can still miss the first few kernels of its window, so each
-    kernel counts its mean time a launch times its launches a call (the
-    launches seen over ``reps``, rounded up).  A session that saw no device
-    time is taken again, over twice the calls; after ``PROFILE_ATTEMPTS``
-    such sessions the result is empty."""
+    process can still miss the first few kernels of its window, and a
+    window can take in a few of the warm-up's last kernels, so each kernel
+    counts its mean time a launch times its launches a call (the launches
+    seen over ``reps``, rounded to the nearest: a kernel missed or taken in
+    fewer than ``reps`` / 2 times moves no count, and a kernel seen fewer
+    times than that is no kernel of a call).  A session that saw no
+    device time is taken again, over twice the calls; after
+    ``PROFILE_ATTEMPTS`` such sessions the result is empty."""
     for attempt in range(PROFILE_ATTEMPTS):
         n_reps = reps * 2 ** attempt
         seen = profiled_window(fn, n_reps)
         if sum(us for us, _ in seen.values()) > 0:
-            return {name: (us / n / 1e3 * math.ceil(n / n_reps),
-                           math.ceil(n / n_reps))
-                    for name, (us, n) in seen.items()}
+            return {name: (us / n / 1e3 * round(n / n_reps),
+                           round(n / n_reps))
+                    for name, (us, n) in seen.items() if round(n / n_reps)}
         print(f"torch.profiler saw no device time over {n_reps} calls "
               f"(session {attempt + 1} of {PROFILE_ATTEMPTS})", flush=True)
     return {}
+
+
+def median_launches(fn, calls: int = 4):
+    """{kernel name: launches a call} of ``fn``, each kernel's the median
+    over DECODE_GRAPH_WINDOWS ``profiled_kernels`` windows of ``calls``
+    calls (a window that saw nothing counts every kernel 0); kernels whose
+    median is 0 left out."""
+    windows = [{k: n for k, (_, n) in profiled_kernels(fn, calls).items()}
+               for _ in range(DECODE_GRAPH_WINDOWS)]
+    median = {k: sorted(w.get(k, 0) for w in windows)[len(windows) // 2]
+              for k in set().union(*windows)}
+    return {k: n for k, n in median.items() if n}
 
 
 def device_ms(fn, reps: int = 10):
@@ -1153,7 +1184,8 @@ def flash_padding_phase():
     and float32, at head dims padded up to an instantiated one, GQA 4/2,
     causal and windowed, against the plain version at dim 80's bounds;
     then dim 84 timed beside 80 and 128 (the forward also by its device
-    time alone, pads and slice included)."""
+    time alone, pads and slice included), each beside SDPA's forward and
+    backward at the same shapes."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     worst = {}
@@ -1189,6 +1221,8 @@ def flash_padding_phase():
 
     B, H, KV, S = FLASH_PAD_TIMED
     timed = {}
+    sdpa = lambda *t: F.scaled_dot_product_attention(*t, is_causal=True,
+                                                     enable_gqa=True)
     for hd in (80, 84, 128):
         q, do = (torch.randn(B, H, S, hd, generator=g, device=dev)
                  .to(torch.bfloat16) for _ in range(2))
@@ -1200,14 +1234,18 @@ def flash_padding_phase():
             ms=cuda_ms(lambda: ops.flash_attention(q, k, v), 20),
             device_ms=fwd_device_ms, kernels_a_call=launched_a_call,
             bwd_ms=grad_ms(ops.flash_attention, (q, k, v), do, 10),
+            # the yardstick at the same shapes: SDPA, forward and backward
+            sdpa_ms=cuda_ms(lambda: sdpa(q, k, v), 20),
+            sdpa_bwd_ms=grad_ms(sdpa, (q, k, v), do, 10),
             bound=flash_bound(B, H, KV, S, S, hd, torch.bfloat16),
             bwd_bound=flash_bwd_bound(B, H, KV, S, hd, torch.bfloat16))
     print(f"kernel flash_attention hd84 (bf16, causal, {B}x{H}/{KV}x{S}, "
           f"padded to 128): " + ", ".join(
               f"hd {hd} {t['ms']:.4f} ms (device {t['device_ms']:.4f} in "
-              f"{t['kernels_a_call']} kernels; bound {t['bound'][0]:.4f}), "
-              f"backward {t['bwd_ms']:.4f} ms (bound "
-              f"{t['bwd_bound'][0]:.4f})" for hd, t in timed.items())
+              f"{t['kernels_a_call']} kernels; bound {t['bound'][0]:.4f}; "
+              f"SDPA {t['sdpa_ms']:.4f}), backward {t['bwd_ms']:.4f} ms "
+              f"(bound {t['bwd_bound'][0]:.4f}; SDPA backward "
+              f"{t['sdpa_bwd_ms']:.4f})" for hd, t in timed.items())
           + f"; worst share of the bounds over hd {FLASH_PAD_DIMS}: "
           f"{max(worst.values()):.3f}", flush=True)
     return dict(worst=worst, launches=list(launched),
@@ -1941,16 +1979,13 @@ def decode_graph_phase(cfg, model):
         profiles[name] = profile_steps(f"decode {name} {cfg.arch}", fn)
     # a bare replay's device operations against one eager step's at the
     # graph's tensor position (the code the capture recorded), a call's
-    # counts taken over 4 calls: a session can miss the first few kernels
-    # of its window (``profiled_kernels``)
+    # counts the median over DECODE_GRAPH_WINDOWS windows of 4 calls each
     reset(True)
     graph.pos.fill_(S)
     graph.token.copy_(first)
-    replay = {k: n for k, (_, n) in profiled_kernels(graph.cuda_graph.replay,
-                                                     4).items()}
-    step = {k: n for k, (_, n) in profiled_kernels(
-        lambda: decode_step(model, eager_cache, graph.token, graph.pos),
-        4).items()}
+    replay = median_launches(graph.cuda_graph.replay)
+    step = median_launches(
+        lambda: decode_step(model, eager_cache, graph.token, graph.pos))
     if replay and step:
         expect(replay == step, f"{cfg.arch}: a replay runs the device "
                f"operations of an eager step: replay {replay}, step {step}")
@@ -2166,7 +2201,9 @@ def train_kernel_phase(cfg, dev="cuda"):
                          20) for _ in range(2)]
     results["flash_attention_bwd"]["forward_with_lse_ms"] = fwd_turns
 
-    # the grouped GEMM's backward at the training capacity
+    # the grouped GEMM's backward at the training capacity: autograd through
+    # ops.grouped_matmul (dx and dw on their kernels), then each kernel
+    # alone at granite's shapes and at a ragged capacity
     m = cfg.moe
     C = moe_mod.capacity(cfg, B * S)
     E, d, f = m.n_experts, cfg.d_model, m.d_ff
@@ -2193,11 +2230,56 @@ def train_kernel_phase(cfg, dev="cuda"):
             plain_ms=grad_ms(ref.grouped_matmul_ref, (x, w), dy, 5),
             library_ms=grad_ms(torch.bmm, (x, w), dy, 20),
             bound=gmm_bwd_bound(E, C, d_, f_, bf16))
+        gmm[name].update(gmm_bwd_kernels(x, w, dy))
+    ragged = 72               # w_out's operands, the first 72 rows
+    x, dy = x[:, :ragged].contiguous(), dy[:, :ragged].contiguous()
+    gmm["ragged_c"] = dict(shape=[E, ragged, *w.shape[1:]],
+                           **gmm_bwd_kernels(x, w, dy, timed=False))
     expect(gmm_mod.bf16_launches["wmma"].value == before,
-           "every grouped GEMM backward call took the TMA + wgmma kernel")
+           "every grouped GEMM backward call took the TMA + wgmma kernels")
     results["grouped_matmul_bwd"] = gmm
+    for prod in ("dx", "dw"):
+        r = gmm["w_in"][prod]
+        results[f"grouped_matmul_{prod}"] = dict(
+            r, shape=gmm["w_in"]["shape"],
+            w_out=gmm["w_out"][prod], ragged_c=gmm["ragged_c"][prod])
     torch.cuda.synchronize()
     return results
+
+
+def gmm_bwd_kernels(x, w, dy, timed: bool = True):
+    """``grouped_matmul_dx`` and ``grouped_matmul_dw`` each alone against
+    their plain versions (one bf16 step plus GMM_TOL x max |plain|); timed
+    beside the plain version and ``torch.bmm`` on transposed views, each
+    with its own product's bound."""
+    E, C, d = x.shape
+    f = w.shape[2]
+    bf16 = torch.bfloat16
+    out = {}
+    for prod, kernel, plain, lib, bound in (
+            ("dx", lambda: gmm_mod.grouped_matmul_dx(dy, w),
+             lambda: ref.grouped_matmul_dx_ref(dy, w),
+             lambda: torch.bmm(dy, w.transpose(1, 2)),
+             gmm_bound(E, C, f, d, bf16)),
+            ("dw", lambda: gmm_mod.grouped_matmul_dw(x, dy),
+             lambda: ref.grouped_matmul_dw_ref(x, dy),
+             lambda: torch.bmm(x.transpose(1, 2), dy),
+             gmm_bound(E, d, C, f, bf16))):
+        got, want = kernel(), plain()
+        scale = want.float().abs().max().item()
+        worst = bf16_excess(got, want, GMM_TOL * scale)
+        expect(got.shape == want.shape and worst <= 1.0,
+               f"{prod} kernel ({E}, {C}, {d}, {f}): worst element at "
+               f"{worst:.3f} of its bound")
+        out[prod] = dict(max_abs_err=(got.float() - want.float()).abs()
+                         .max().item(), bf16_worst_share_of_bound=worst,
+                         bound=bound)
+        if timed:
+            out[prod].update(ms=cuda_ms(kernel, 20),
+                             plain_ms=cuda_ms(plain, 5),
+                             library_ms=cuda_ms(lib, 20),
+                             device_ms=device_ms(kernel)[0])
+    return out
 
 
 def want_train_launches(cfg, remat: str = TRAIN_REMAT):
@@ -2292,6 +2374,7 @@ def train_main_path(cfg, model, remat: str = TRAIN_REMAT):
     launches = {k: c.value for k, c in ops.COUNTERS.items()}
     gmm_paths = {k: c.value for k, c in gmm_mod.bf16_launches.items()}
     gmm_bwd = gmm_mod.bwd_launches.value
+    gmm_bwd_kernels = {k: c.value for k, c in gmm_mod.bwd_kernels.items()}
     peak = torch.cuda.max_memory_allocated()
     # whisper's gradient norm overflows float32 at the reference's init
     # (x30-50 a layer pair, in both packages: ROADMAP.md section 3), so
@@ -2310,9 +2393,13 @@ def train_main_path(cfg, model, remat: str = TRAIN_REMAT):
                f"{k}: {launches[k]} launches == {n} a step x {TRAIN_STEPS}")
     expect(gmm_bwd == (6 * cfg.n_layers if cfg.moe else 0) * TRAIN_STEPS,
            f"grouped GEMM backward launches {gmm_bwd}")
-    expect(gmm_paths == {"tma": launches["grouped_matmul"], "wmma": 0},
-           f"every grouped GEMM launch took the TMA + wgmma kernel: "
+    expect(gmm_paths == {"tma": launches["grouped_matmul"] - gmm_bwd,
+                         "wmma": 0},
+           f"every grouped GEMM forward took the TMA + wgmma kernel: "
            f"{gmm_paths}")
+    expect(gmm_bwd_kernels == {"dx": gmm_bwd // 2, "dw": gmm_bwd // 2},
+           f"every bf16 grouped GEMM backward took the dx and dw kernels "
+           f"(no transposed copy): {gmm_bwd_kernels} of {gmm_bwd}")
     bwd_paths = {k: c.value for k, c in flash_mod.bwd_paths.items()}
     expect(bwd_paths == {"mma": launches["flash_attention_bwd"], "fma": 0},
            f"every flash backward took the tensor-core kernels: {bwd_paths}")
@@ -2329,6 +2416,7 @@ def train_main_path(cfg, model, remat: str = TRAIN_REMAT):
                 want_launches_per_step=want,
                 grouped_matmul_backward_launches=gmm_bwd,
                 grouped_matmul_bf16_launches=gmm_paths,
+                grouped_matmul_backward_kernels=gmm_bwd_kernels,
                 flash_bwd_paths=bwd_paths, peak_memory_bytes=peak,
                 allocated_before_bytes=base, plain_calls=plain.calls,
                 batch=TRAIN_BATCH, seq=seq, remat=remat,
@@ -2354,7 +2442,11 @@ def train_profile(step_fn, state, batch):
     top = sorted(kernels, key=lambda ktn: -ktn[1])[:8]
     mine = {name: sum(t for k, t, _ in kernels if name in k) / 1e6
             for name in ("flash_mma_kernel", "flash_bwd_", "gmm_wgmma",
-                         "ssd_bwd_")}
+                         "gmm_bwd", "ssd_bwd_")}
+    # copy kernels (the grouped GEMM's backward made two a call before its
+    # own kernels): device seconds and launches
+    copies = [(t, n) for k, t, n in kernels if "copy" in k.lower()]
+    copy_s = sum(t for t, _ in copies) / 1e6
     mine["ssd_fwd"] = sum(t for k, t, _ in kernels
                           if "ssd_" in k and "ssd_bwd_" not in k) / 1e6
     # the backward kernels that ran: name -> (device seconds, launches)
@@ -2363,12 +2455,14 @@ def train_profile(step_fn, state, batch):
     out = dict(wall_s=wall, device_busy_s=busy,
                kernel_launches=sum(n for _, _, n in kernels),
                idle_share=1.0 - busy / wall if busy else None,
-               hand_written_s=mine, bwd_kernels=bwd,
+               hand_written_s=mine, bwd_kernels=bwd, copy_s=copy_s,
+               copy_launches=sum(n for _, n in copies),
                ssd_bwd_share=mine["ssd_bwd_"] / busy if busy else None,
                top_kernels_s=[(k[:80], t / 1e6, n) for k, t, n in top])
     print(f"train profile, one step: wall {wall:.4f} s, device busy "
           f"{busy:.4f} s, {out['kernel_launches']} kernel launches; "
-          f"hand-written kernels {mine}; backward kernels that ran "
+          f"copy kernels {copy_s:.4f} s in {out['copy_launches']} "
+          f"launches; hand-written kernels {mine}; backward kernels that ran "
           f"{bwd}; top {out['top_kernels_s'][:5]}", flush=True)
     return out
 
@@ -2510,10 +2604,22 @@ def train_phase():
           f"head {r['cancelling_worst_share_of_bound']:.3f}); forward with "
           f"lse {r['forward_with_lse_ms']} ms", flush=True)
     for name, r in kernels["grouped_matmul_bwd"].items():
-        print(f"kernel grouped_matmul backward {name} {r['shape']} bfloat16 "
-              f"(dx + dw): {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"torch.bmm backward {r['library_ms']:.4f} ms, bound "
-              f"{r['bound'][0]:.4f} ms ({r['bound'][1]})", flush=True)
+        if "ms" in r:
+            print(f"kernel grouped_matmul backward {name} {r['shape']} "
+                  f"bfloat16 (dx + dw): {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, torch.bmm backward "
+                  f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+                  f"({r['bound'][1]})", flush=True)
+        for prod in ("dx", "dw"):
+            p = r[prod]
+            print(f"kernel grouped_matmul_{prod} {name} {r['shape']} "
+                  f"bfloat16: worst share of its bound "
+                  f"{p['bf16_worst_share_of_bound']:.3f}"
+                  + (f", {p['ms']:.4f} ms (device {p['device_ms']:.4f}), "
+                     f"plain {p['plain_ms']:.4f} ms, torch.bmm "
+                     f"{p['library_ms']:.4f} ms, bound {p['bound'][0]:.4f} "
+                     f"ms ({p['bound'][1]})" if "ms" in p else ""),
+                  flush=True)
     model = build_model(cfg)
     head = train_head_check(cfg, model)      # the parameters as built
     main = train_main_path(cfg, model)
@@ -3899,7 +4005,8 @@ def main() -> int:
     kernels = []
     for name in ["saxpy", "filter_pipeline", "segmentation", "nbody",
                  "flash_attention", "flash_attention_bwd", "ssd_scan",
-                 "ssd_scan_bwd", "grouped_matmul"]:
+                 "ssd_scan_bwd", "grouped_matmul", "grouped_matmul_dx",
+                 "grouped_matmul_dw"]:
         r = results[name]
         source, replaces = KERNELS[name]
         kernels.append({
@@ -3908,9 +4015,14 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
-    # the grouped GEMM's launches for gradients (dx and dw), all training's
-    kernels[-1]["backward_launches"] = train[
+    # the grouped GEMM's launches for gradients (dx and dw), all
+    # training's; the backward kernels' device time alone (torch.profiler)
+    # beside their CUDA-event times
+    by_name = {k["name"]: k for k in kernels}
+    by_name["grouped_matmul"]["backward_launches"] = train[
         "grouped_matmul_backward_launches"]
+    for name in ("grouped_matmul_dx", "grouped_matmul_dw"):
+        by_name[name]["device_ms"] = results[name]["device_ms"]
     # the flash backward's and SDPA's backward's device time alone
     # (torch.profiler), beside their CUDA-event times above
     device = results["flash_attention_bwd"]["device_ms"]

@@ -1,17 +1,17 @@
 // grouped GEMM for the MoE expert FFNs: y[e] = x[e] @ w[e] for every expert
 // e, x (E, C, d), w (E, d, f), y (E, C, f); float32 or bfloat16 in, float32
-// accumulation, output in the input's dtype.
+// accumulation, output in the input's dtype; and its two gradients.
 //
 // Replaces src/repro/kernels/moe_gemm.py:grouped_matmul (Pallas body
 // _gemm_kernel), and with it the three einsum products of the JAX package's
-// _moe_ffn_local.  Bound on the card: at granite-moe-3b's prefill shapes
+// _moe_ffn_local and, in training, their gradients.  Bound on the card: at granite-moe-3b's prefill shapes
 // (E 40, C 384, d 1536, f 512, bf16) one call is 2.4e10 operations on 126 MB,
 // about 190 operations a byte, below the H100's ~295 for bf16 on the tensor
 // cores, so the bytes bound it (0.038 ms); at decode (C 8) the expert
 // weights alone are 63 MB and bound it harder.
 //
 // The TPU kernel padded C, d and f to its block sizes with copies and sliced
-// the result; here no padded copy is made.  Three kernels:
+// the result; here no padded copy is made.  Four kernels:
 //
 // - bfloat16, the model's path (gmm_wgmma_kernel): Hopper's shape.  One
 //   block per (expert, BM x BN tile of y).  One producer thread keeps TMA
@@ -32,6 +32,21 @@
 //   point) and passed as __grid_constant__ parameters.  TMA needs 16-byte
 //   row strides and bases: d % 8 == 0, f % 8 == 0 and 16-byte aligned x, w
 //   and y; the entry point refuses anything else.
+// - bfloat16 gradients (grouped_matmul_dx, grouped_matmul_dw;
+//   gmm_bwd_kernel): dx[e] = dy[e] w[e]^T and dw[e] = x[e]^T dy[e] with the
+//   same TMA ring and wgmma, dy, w and x read where they lie: wgmma takes
+//   each 16-bit operand K-major or MN-major from shared memory, so the
+//   tensor maps and descriptors give it w's rows (K-major B of dx) and x's
+//   rows (MN-major A of dw) as they are, with no transposed copy.  Bound:
+//   at granite's training shapes (E 40, C 1024, d and f 512 and 1536) each
+//   product alone is 6.4e10 operations on 231 MB, 0.065 ms at the bf16
+//   peak and 0.069 ms at 3.35 TB/s.  Unlike the forward: 128 x 256 tiles
+//   of 3 stages, persistent blocks (one an SM, walking their tiles, so a
+//   tile's loads overlap the last one's store), one group of products in
+//   flight (wait_group 1) rather than none, and the output tile stored
+//   through shared memory by the TMA, not by scattered 4-byte stores (at
+//   granite's w_in dx, which writes 126 MB, that store took the kernel
+//   from 0.20 to 0.116 ms on an H100; chip_kernel_shapes.py gmm).
 // - bfloat16 rows the TMA cannot take (grouped_matmul_wmma_fwd, chosen by
 //   the wrapper by alignment, counted apart): tensor cores through WMMA
 //   16 x 16 x 16 fragments, one block per (expert, 64 x 64 tile), every load
@@ -45,6 +60,9 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <climits>
 
 namespace {
 
@@ -305,6 +323,37 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one box of shared memory out to a 3-D tensor map (rows and columns past
+// the map's bounds are not written), in the thread's bulk group
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until the thread's committed stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// until the thread's committed stores are done
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// this thread's shared-memory writes, seen by the TMA (the async proxy)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// the 128 threads of one warpgroup meet (barrier 1 + its index; 0 is
+// __syncthreads')
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
 // and stride byte offsets, all in 16-byte units
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
@@ -321,6 +370,14 @@ __device__ __forceinline__ void wgmma_commit_and_wait() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// until at most N committed groups of products are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 // keeps the compiler from moving accumulator reads or writes across the
 // asynchronous products
 template <int N>
@@ -330,7 +387,9 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 }
 
 // acc (64 x 64, float32, this thread's 32) += A . B, both from shared
-// memory through their descriptors; B is MN-major (the transpose bit)
+// memory through their descriptors; TA, TB: A, B MN-major (the transpose
+// bits, immediates)
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
                                           uint64_t db) {
   asm volatile(
@@ -340,7 +399,7 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -349,11 +408,11 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
-// acc (64 x 128, float32, this thread's 64) += A . B, both from shared
-// memory through their descriptors; B is MN-major (the transpose bit)
+// acc (64 x 128, float32, this thread's 64) += A . B, as wgmma_n64
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
                                           uint64_t db) {
   asm volatile(
@@ -367,7 +426,7 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -384,9 +443,10 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
                                           uint64_t db) {
   asm volatile(
@@ -408,7 +468,7 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -441,16 +501,18 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
-template <int BN>
+// TA, TB: A, B MN-major (the transpose bits); the forward's x is K-major
+// and its w MN-major
+template <int BN, int TA = 0, int TB = 1>
 __device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t da,
                                       uint64_t db) {
   static_assert(BN == 64 || BN == 128 || BN == 256, "wgmma width");
-  if constexpr (BN == 64) wgmma_n64(d, da, db);
-  else if constexpr (BN == 128) wgmma_n128(d, da, db);
-  else wgmma_n256(d, da, db);
+  if constexpr (BN == 64) wgmma_n64<TA, TB>(d, da, db);
+  else if constexpr (BN == 128) wgmma_n128<TA, TB>(d, da, db);
+  else wgmma_n256<TA, TB>(d, da, db);
 }
 
 template <class G>
@@ -607,6 +669,222 @@ int launch(const void* x, const void* w, void* y, int E, int C, int d, int f,
   return (int)cudaGetLastError();
 }
 
+// ---- the backward: dx = dy w^T and dw = x^T dy, operands in place -------
+//
+// One expert's product out (M x N) = A (M x K) . B (K x N), every operand
+// read where it lies.  A K-major operand is stored with K innermost (a row
+// of M or N holds the depths): its tile is one TMA box of TK depths by BM
+// (or BN) rows, 128-byte swizzled, and its descriptor walks 32 bytes along
+// the row per 16 depths, 8-row groups 1024 bytes apart.  An MN-major
+// operand is stored with M or N innermost (a row holds one depth): its
+// tile is BM / 64 (or BN / 64) boxes of 64 columns by TK depths, each 64
+// rows of 128 bytes, and its descriptor steps 16 rows (2048 bytes) per 16
+// depths, 64-column boxes BOX_BYTES apart: the transpose bit.
+//   dx[e] = dy[e] . w[e]^T: M = C, N = d, K = f; A = dy (C, f) K-major,
+//     B[k][n] = w[e][n][k], w's rows of f: K-major too.
+//   dw[e] = x[e]^T . dy[e]: M = d, N = f, K = C; A[m][k] = x[e][k][m],
+//     x's rows of d: MN-major; B = dy (C, f): MN-major, as the forward's w.
+// The maps are 3-D over E, so depths past K (dw: rows past C) and rows
+// past M or N read as zeros and nothing of the next expert.
+//
+// What the forward does not: the blocks are persistent (one a resident
+// slot, walking its tiles), so the producer loads the next tile while the
+// consumers store the last; the consumers keep one group of products in
+// flight (step it's wgmmas are issued before step it - 1's are waited for,
+// and only then is it - 1's stage given back); the output tile goes out
+// through shared memory and a TMA store.
+template <class G, int TA, int TB>
+__global__ void __launch_bounds__(G::kThreads, G::kMinBlocks)
+    gmm_bwd_kernel(const __grid_constant__ CUtensorMap amap,
+                   const __grid_constant__ CUtensorMap bmap,
+                   const __grid_constant__ CUtensorMap omap, int K,
+                   int m_tiles, int n_tiles, int tiles) {
+  constexpr int STAGES = G::STAGES, BN = G::BN;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + STAGES * G::STAGE_BYTES;
+  // the output tile's staging, after the barriers: BN / 64 swizzled boxes
+  // of 64 x 64 per consumer warpgroup
+  const uint32_t staged = bars + 1024;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (STAGES + s); };
+
+  const int k_steps = (K + TK - 1) / TK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), G::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the block's tiles: blockIdx.x, then every gridDim.x-th, each (expert,
+  // BM x BN tile of out), the N tiles of a row of tiles in turn; `it`
+  // counts the block's k-steps over all of them (stage it % STAGES, phase
+  // it / STAGES)
+  const int wg = threadIdx.x / 128;
+  auto origin = [&](int t, int& e, int& m0, int& n0) {
+    e = t / (m_tiles * n_tiles);
+    const int r = t % (m_tiles * n_tiles);
+    m0 = (r / n_tiles) * G::BM;
+    n0 = (r % n_tiles) * BN;
+  };
+  if (wg == G::kConsumers) {  // the producer: one thread issues every load
+    if (threadIdx.x == G::kConsumers * 128) {
+      int it = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int e, m0, n0;
+        origin(t, e, m0, n0);
+        for (int ks = 0; ks < k_steps; ++ks, ++it) {
+          const int s = it % STAGES, k0 = ks * TK;
+          if (it >= STAGES) mbar_wait(empty(s), (it / STAGES + 1) & 1);
+          mbar_expect_tx(full(s), G::STAGE_BYTES);
+          const uint32_t a = base + s * G::STAGE_BYTES;
+          const uint32_t b = a + G::A_BYTES;
+          if constexpr (TA) {
+#pragma unroll
+            for (int c = 0; c < G::BM / 64; ++c)
+              tma_load(a + c * G::BOX_BYTES, &amap, full(s), m0 + 64 * c, k0,
+                       e);
+          } else {
+            tma_load(a, &amap, full(s), k0, m0, e);
+          }
+          if constexpr (TB) {
+#pragma unroll
+            for (int c = 0; c < BN / 64; ++c)
+              tma_load(b + c * G::BOX_BYTES, &bmap, full(s), n0 + 64 * c,
+                       k0, e);
+          } else {
+            tma_load(b, &bmap, full(s), k0, n0, e);
+          }
+        }
+      }
+    }
+  } else {
+    // a consumer warpgroup: rows 64 wg .. 64 wg + 63 of each tile, which
+    // start 64 wg rows of 128 bytes (K-major) or wg boxes (MN-major) into
+    // the stage: the same offset
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+    const bool leader = threadIdx.x % 128 == 0;
+    float acc[BN / 2];
+    int it = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int e, m0, n0;
+      origin(t, e, m0, n0);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+      for (int ks = 0; ks < k_steps; ++ks, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(full(s), (it / STAGES) & 1);
+        const uint32_t a = base + s * G::STAGE_BYTES + wg * G::BOX_BYTES;
+        const uint32_t b = base + s * G::STAGE_BYTES + G::A_BYTES;
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < TK / 16; ++kk)
+          wgmma<BN, TA, TB>(
+              acc,
+              TA ? desc(a + kk * 16 * 128, G::BOX_BYTES, 1024)
+                 : desc(a + kk * 32, 16, 1024),
+              TB ? desc(b + kk * 16 * 128, G::BOX_BYTES, 1024)
+                 : desc(b + kk * 32, 16, 1024));
+        wgmma_commit();
+        wgmma_wait<1>();   // step it - 1's products are done: free its stage
+        fence_acc(acc);
+        if (ks > 0 && leader) mbar_arrive(empty((it - 1) % STAGES));
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (leader) mbar_arrive(empty((it - 1) % STAGES));
+
+      // the epilogue: the accumulator (warp w of the group, lane: rows 16w
+      // + lane / 4 (+ 8), columns 8j + 2 (lane % 4) (+ 1)) into this
+      // warpgroup's staging in the TMA's 128-byte swizzle (16-byte chunk j %
+      // 8 of a 128-byte row at chunk (j % 8) ^ (row % 8): no bank conflict),
+      // then stored by the TMA, which clips rows and columns past M and N;
+      // the next tile's products start while the store drains
+      const uint32_t mine = staged + wg * (BN / 64) * G::BOX_BYTES;
+      if (leader) bulk_wait_read();     // the last tile's store has read it
+      warpgroup_sync(wg);
+      const int r8 = lane / 4;          // the row's place in its 8-row group
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = warp * 16 + 8 * h + r8;
+          const __nv_bfloat162 v = __floats2bfloat162_rn(
+              acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          const uint32_t dst = mine + (j / 8) * G::BOX_BYTES + row * 128 +
+                               (((j % 8) ^ r8) << 4) + 4 * (lane % 4);
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst),
+                       "r"(*reinterpret_cast<const uint32_t*>(&v))
+                       : "memory");
+        }
+      }
+      fence_async_shared();
+      warpgroup_sync(wg);
+      if (leader) {
+#pragma unroll
+        for (int c = 0; c < BN / 64; ++c)
+          tma_store(&omap, mine + c * G::BOX_BYTES, n0 + 64 * c,
+                    m0 + 64 * wg, e);
+        bulk_commit();
+      }
+    }
+    if (leader) bulk_wait();
+  }
+}
+
+// granite's training products (C 1024; d, f 512 and 1536): dx is M = C,
+// N = d, K = f; dw is M = d, N = f, K = C (chip_kernel_shapes.py gmm)
+using Dx = Cfg<128, 256, 3, 1>;
+using Dw = Cfg<128, 256, 3, 1>;
+
+// out (E, M, N) = A . B per expert.  A is a bf16 (E, a_rows, a_inner)
+// array, K-major (a_inner = K, a_rows = M) or MN-major (TA: a_inner = M,
+// a_rows = K); B likewise with N.
+template <class G, int TA, int TB>
+int launch_bwd(const void* a, int a_inner, int a_rows, const void* b,
+               int b_inner, int b_rows, void* out, int E, int M, int N,
+               int K, cudaStream_t stream) {
+  if (K == 0)   // no depth: the product is zero
+    return (int)cudaMemsetAsync(out, 0, (size_t)E * M * N * sizeof(bf16),
+                                stream);
+  CUtensorMap amap, bmap;
+  CUtensorMap omap;   // out: 64 x 64 boxes, one per warpgroup and 64 columns
+  // a K-major box: TK depths of BM (BN) rows; an MN-major one: 64 columns
+  // of TK depths
+  if (!encode(&amap, a, a_inner, a_rows, E, TA ? TK : G::BM) ||
+      !encode(&bmap, b, b_inner, b_rows, E, TB ? TK : G::BN) ||
+      !encode(&omap, out, N, M, E, 64))
+    return (int)cudaErrorInvalidValue;
+  // the forward's ring and barriers (rounded up to 1024 bytes), then the
+  // output tile's staging
+  constexpr size_t smem = 2048 + (size_t)G::STAGES * G::STAGE_BYTES +
+                          (size_t)G::BM * G::BN * sizeof(bf16);
+  static_assert(smem <= 232448, "shared memory of one block");
+  auto kern = gmm_bwd_kernel<G, TA, TB>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int m_tiles = (M + G::BM - 1) / G::BM;
+  const int n_tiles = (N + G::BN - 1) / G::BN;
+  const long long tiles = (long long)E * m_tiles * n_tiles;
+  if (tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+  // persistent: as many blocks as are resident at once
+  int device, sms;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess)
+    return (int)err;
+  const int blocks =
+      (int)std::min<long long>(tiles, (long long)sms * G::kMinBlocks);
+  kern<<<blocks, G::kThreads, smem, stream>>>(amap, bmap, omap, K, m_tiles,
+                                              n_tiles, (int)tiles);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace hop
 
 }  // namespace
@@ -652,4 +930,41 @@ extern "C" int grouped_matmul_wmma_fwd(const void* x, const void* w, void* y,
       static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(y),
       C, d, f);
   return (int)cudaGetLastError();
+}
+
+// the two backward entry points take what the TMA can read: E <= 65535,
+// d % 8 == 0, f % 8 == 0, every base on 16 bytes; else
+// cudaErrorInvalidValue
+static int backward_args(const void* p, const void* q, const void* r, int E,
+                         int C, int d, int f) {
+  if (E < 0 || C < 0 || d < 0 || f < 0 || E > 65535 || d % 8 || f % 8 ||
+      ((uintptr_t)p | (uintptr_t)q | (uintptr_t)r) % 16)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+// dx (E, C, d) = dy (E, C, f) . w (E, d, f)^T per expert, bfloat16, all
+// contiguous, w read in place
+extern "C" int grouped_matmul_dx(const void* dy, const void* w, void* dx,
+                                 int E, int C, int d, int f, int device,
+                                 cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (int bad = backward_args(dy, w, dx, E, C, d, f)) return bad;
+  if (E == 0 || C == 0 || d == 0) return 0;
+  return hop::launch_bwd<hop::Dx, 0, 0>(dy, f, C, w, f, d, dx, E, C, d, f,
+                                        stream);
+}
+
+// dw (E, d, f) = x (E, C, d)^T . dy (E, C, f) per expert, bfloat16, all
+// contiguous, x read in place
+extern "C" int grouped_matmul_dw(const void* x, const void* dy, void* dw,
+                                 int E, int C, int d, int f, int device,
+                                 cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (int bad = backward_args(x, dy, dw, E, C, d, f)) return bad;
+  if (E == 0 || d == 0 || f == 0) return 0;
+  return hop::launch_bwd<hop::Dw, 1, 1>(x, d, C, dy, f, C, dw, E, d, f, C,
+                                        stream);
 }

@@ -66,6 +66,10 @@ SIGNATURES: Dict[str, List] = {
     "grouped_matmul_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, w, y, E, C, d, f, device, stream (bfloat16)
     "grouped_matmul_wmma_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # dy, w, dx, E, C, d, f, device, stream (bfloat16)
+    "grouped_matmul_dx": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, dy, dw, E, C, d, f, device, stream (bfloat16)
+    "grouped_matmul_dw": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 #: dtype code a C entry point takes for its tensors' element type
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -7,7 +7,9 @@ Each function here stands for the CUDA wrapper of the same name in
 it takes the same arguments, allocates the same outputs and scratch (on
 ``meta``: shapes, no memory), launches nothing, and reports the call with
 its work from :mod:`repro_torch.launch.roofline` (the FLOPs and bytes of
-the card's kernel at these shapes) to every sink in :data:`SINKS`.
+the card's kernel at these shapes) to every sink in :data:`SINKS` (the
+grouped GEMM's backward kernels under the forward's name, as their
+launches count in its ``launches``).
 :mod:`~repro_torch.kernels.ops` sends meta tensors here through the same
 autograd Functions as the card's, so a dry-run step counts each kernel
 call, forward and backward, by its formula, and never runs a plain version
@@ -134,3 +136,21 @@ def grouped_matmul(x, w, *, backward: bool = False) -> torch.Tensor:
     if y.numel():
         _report("grouped_matmul", rl.gmm_work(E, C, d, f, x.dtype))
     return y
+
+
+def grouped_matmul_dx(dy, w) -> torch.Tensor:
+    E, C, f = dy.shape
+    d = w.shape[1]
+    dx = torch.empty((E, C, d), dtype=dy.dtype, device=dy.device)
+    if dx.numel():      # dx[e] = dy[e] w[e]^T: (C, f) x (f, d)
+        _report("grouped_matmul", rl.gmm_work(E, C, f, d, dy.dtype))
+    return dx
+
+
+def grouped_matmul_dw(x, dy) -> torch.Tensor:
+    E, C, d = x.shape
+    f = dy.shape[2]
+    dw = torch.empty((E, d, f), dtype=x.dtype, device=x.device)
+    if dw.numel():      # dw[e] = x[e]^T dy[e]: (d, C) x (C, f)
+        _report("grouped_matmul", rl.gmm_work(E, d, C, f, x.dtype))
+    return dw

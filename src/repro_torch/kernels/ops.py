@@ -14,9 +14,10 @@ error ever sends a CUDA tensor to the plain version.
 Gradients.  On the CPU autograd runs through the plain versions.  On the
 card, flash attention, the SSD scan and the grouped GEMM are
 ``torch.autograd.Function``s whose backward is a hand-written kernel too
-(flash and the SSD scan: their own backward kernels; the grouped GEMM: two
-more grouped GEMMs).  The SSD scan's backward takes float32 x, B and C (what
-the models feed it): a bfloat16 input that needs a gradient raises
+(flash and the SSD scan: their own backward kernels; the grouped GEMM: in
+bf16 its dx and dw kernels, otherwise two more forward calls on
+transposed copies).  The SSD scan's backward takes float32 x, B and C
+(what the models feed it): a bfloat16 input that needs a gradient raises
 ``ValueError``.  The other kernels have no backward: given a CUDA input
 that requires grad (with grad enabled) they raise, rather than return a
 result that autograd cannot see through.
@@ -291,9 +292,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
 
 
 class _GroupedMatmul(torch.autograd.Function):
-    """y[e] = x[e] w[e]; dx[e] = dy[e] w[e]^T and dw[e] = x[e]^T dy[e],
-    each through the same kernel on contiguous transposed operands.
-    ``kern`` holds the wrappers (:func:`_kernels`)."""
+    """y[e] = x[e] w[e]; dx[e] = dy[e] w[e]^T and dw[e] = x[e]^T dy[e].
+    In bf16 on rows the TMA takes, each gradient is a backward kernel that
+    reads x, w and dy in place; otherwise (float32, other bf16 rows) each
+    is the forward kernel on contiguous transposed copies.  The route
+    follows dtype and alignment alone.  ``kern`` holds the wrappers
+    (:func:`_kernels`)."""
 
     @staticmethod
     def forward(ctx, x, w, kern):
@@ -304,13 +308,21 @@ class _GroupedMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        gmm = ctx.kern.grouped_matmul
+        kern = ctx.kern
         dy = dy.contiguous()
         dx = dw = None
+        if _gmm.backward_in_place(x, w, dy):
+            if ctx.needs_input_grad[0]:
+                dx = kern.grouped_matmul_dx(dy, w)
+            if ctx.needs_input_grad[1]:
+                dw = kern.grouped_matmul_dw(x, dy)
+            return dx, dw, None
         if ctx.needs_input_grad[0]:
-            dx = gmm(dy, w.transpose(1, 2).contiguous(), backward=True)
+            dx = kern.grouped_matmul(dy, w.transpose(1, 2).contiguous(),
+                                     backward=True)
         if ctx.needs_input_grad[1]:
-            dw = gmm(x.transpose(1, 2).contiguous(), dy, backward=True)
+            dw = kern.grouped_matmul(x.transpose(1, 2).contiguous(), dy,
+                                     backward=True)
         return dx, dw, None
 
 
@@ -345,4 +357,5 @@ COUNTERS = {c.name: c for c in (_saxpy.launches, _filter.launches,
                                 _seg.launches, _nbody.launches,
                                 _flash.launches, _ssd.launches,
                                 _gmm.launches, _flash.bwd_launches,
-                                _ssd.bwd_launches)}
+                                _ssd.bwd_launches,
+                                *_gmm.bwd_kernels.values())}

@@ -180,3 +180,17 @@ def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (E,C,d) x w (E,d,f) -> (E,C,f): one product per expert, summed in
     float32, in x's dtype."""
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
+def grouped_matmul_dx_ref(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The gradient of ``grouped_matmul_ref`` for x: dy (E,C,f) and w
+    (E,d,f) -> dx[e] = dy[e] w[e]^T (E,C,d), summed in float32, in dy's
+    dtype."""
+    return torch.einsum("ecf,edf->ecd", dy.float(), w.float()).to(dy.dtype)
+
+
+def grouped_matmul_dw_ref(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """The gradient of ``grouped_matmul_ref`` for w: x (E,C,d) and dy
+    (E,C,f) -> dw[e] = x[e]^T dy[e] (E,d,f), summed in float32, in x's
+    dtype."""
+    return torch.einsum("ecd,ecf->edf", x.float(), dy.float()).to(x.dtype)

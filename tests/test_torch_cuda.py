@@ -954,9 +954,9 @@ def test_whisper_smoke_model_on_card_as_on_cpu(cuda_device):
                                    (40, 1024, 512, 1536), (4, 72, 1536, 512)],
                          ids=["granite_w_in", "granite_w_out", "ragged_c"])
 def test_grouped_matmul_backward_matches_plain_on_card(shape, cuda_device):
-    """bf16 dx = dy w^T and dw = x^T dy, each through the TMA + wgmma
-    kernel, within one bf16 step plus 2e-4 x max |plain| of autograd
-    through the plain version."""
+    """bf16 dx = dy w^T and dw = x^T dy, each through its backward kernel
+    (no transposed copy), within one bf16 step plus 2e-4 x max |plain| of
+    autograd through the plain version."""
     from repro_torch.kernels import moe_gemm
     E, C, d, f = shape
     g = torch.Generator().manual_seed(C + d)
@@ -964,20 +964,104 @@ def test_grouped_matmul_backward_matches_plain_on_card(shape, cuda_device):
     w = (torch.randn(E, d, f, generator=g) * d ** -0.5).to(cuda_device,
                                                            torch.bfloat16)
     dy = torch.randn(E, C, f, generator=g).to(cuda_device, torch.bfloat16)
-    before = (moe_gemm.bwd_launches.value,
-              moe_gemm.bf16_launches["tma"].value)
+    counters = (moe_gemm.bwd_launches, moe_gemm.bf16_launches["tma"],
+                moe_gemm.bf16_launches["wmma"], *moe_gemm.bwd_kernels.values())
+    before = [c.value for c in counters]
     xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
     y = ops.grouped_matmul(xs, ws)
     got = torch.autograd.grad(y, (xs, ws), dy)
     xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
     want = torch.autograd.grad(ref.grouped_matmul_ref(xr, wr), (xr, wr), dy)
     torch.cuda.synchronize()
-    assert moe_gemm.bwd_launches.value == before[0] + 2
-    assert moe_gemm.bf16_launches["tma"].value == before[1] + 3
+    # the forward on the TMA kernel, then one dx and one dw kernel
+    assert [c.value - b for c, b in zip(counters, before)] == [2, 1, 0, 1, 1]
     for a, b in zip(got, want):
         scale = b.float().abs().max().item()
         assert ((a.float() - b.float()).abs()
                 <= 2 ** -7 * b.float().abs() + 2e-4 * scale).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(40, 1024, 1536, 512),
+                                   (40, 1024, 512, 1536), (40, 1, 1536, 512),
+                                   (4, 65, 1536, 512), (4, 72, 512, 1536),
+                                   (3, 72, 520, 72), (3, 65, 72, 520)],
+                         ids=["granite_w_in", "granite_w_out", "C1", "C65",
+                              "C72", "d520_f72", "d72_f520"])
+def test_grouped_matmul_dx_dw_kernels_match_plain_on_card(shape,
+                                                          cuda_device):
+    """Each backward kernel alone against its plain version: dx and dw
+    within one bf16 step plus 2e-4 x max |plain| (as the backward above),
+    at granite's shapes, capacities that leave ragged tiles or a single
+    row, and widths that are multiples of 8 but not of 64."""
+    from repro_torch.kernels import moe_gemm
+    E, C, d, f = shape
+    g = torch.Generator().manual_seed(C * 7 + d)
+    x = torch.randn(E, C, d, generator=g).to(cuda_device, torch.bfloat16)
+    w = (torch.randn(E, d, f, generator=g) * d ** -0.5).to(cuda_device,
+                                                           torch.bfloat16)
+    dy = torch.randn(E, C, f, generator=g).to(cuda_device, torch.bfloat16)
+    before = {k: c.value for k, c in moe_gemm.bwd_kernels.items()}
+    got = {"dx": moe_gemm.grouped_matmul_dx(dy, w),
+           "dw": moe_gemm.grouped_matmul_dw(x, dy)}
+    want = {"dx": ref.grouped_matmul_dx_ref(dy, w),
+            "dw": ref.grouped_matmul_dw_ref(x, dy)}
+    torch.cuda.synchronize()
+    for k in got:
+        assert moe_gemm.bwd_kernels[k].value == before[k] + 1
+        assert got[k].dtype == torch.bfloat16
+        assert got[k].shape == want[k].shape
+        err = (got[k].float() - want[k].float()).abs()
+        scale = want[k].float().abs().max().item()
+        assert (err <= 2 ** -7 * want[k].float().abs() + 2e-4 * scale).all(), k
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_dx_dw_kernels_refuse_what_the_tma_cannot_read(
+        cuda_device):
+    """A width that is not a multiple of 8, or a base off 16 bytes: the
+    wrappers raise, and the entry points return an error without a
+    launch."""
+    from repro_torch.kernels import _build, moe_gemm
+    bf = dict(device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        moe_gemm.grouped_matmul_dx(torch.ones(2, 8, 12, **bf),
+                                   torch.ones(2, 16, 12, **bf))
+    base = torch.ones(2 * 8 * 16 + 1, **bf)
+    with pytest.raises(ValueError, match="16-byte"):
+        moe_gemm.grouped_matmul_dw(base[1:].view(2, 8, 16),
+                                   torch.ones(2, 8, 16, **bf))
+    lib, stream = _build.library(), torch.cuda.current_stream().cuda_stream
+    out = torch.empty(2, 16, 16, **bf)
+    assert lib.grouped_matmul_dw(base[1:].data_ptr(), out.data_ptr(),
+                                 out.data_ptr(), 2, 8, 16, 16,
+                                 cuda_device.index or 0, stream) != 0
+    assert lib.grouped_matmul_dx(out.data_ptr(), out.data_ptr(),
+                                 out.data_ptr(), 2, 8, 12, 16,
+                                 cuda_device.index or 0, stream) != 0
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_backward_copies_nothing_on_card(cuda_device):
+    """The bf16 backward at granite's w_in allocates dx and dw and nothing
+    of x's or w's size besides: the peak over the backward stays below
+    dx + dw + one w (the parent's transposed copies added an x and a w)."""
+    E, C, d, f = 40, 1024, 1536, 512
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(E, C, d, generator=g).to(cuda_device, torch.bfloat16)
+    w = (torch.randn(E, d, f, generator=g) * d ** -0.5).to(cuda_device,
+                                                           torch.bfloat16)
+    dy = torch.randn(E, C, f, generator=g).to(cuda_device, torch.bfloat16)
+    xs, ws = x.requires_grad_(True), w.requires_grad_(True)
+    y = ops.grouped_matmul(xs, ws)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    dx, dw = torch.autograd.grad(y, (xs, ws), dy)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - start
+    nbytes = 2 * (E * C * d + E * d * f)        # dx and dw
+    assert nbytes <= extra < nbytes + 2 * E * d * f, (extra, nbytes)
 
 
 @pytest.mark.cuda

@@ -148,7 +148,8 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     assert set(ops.COUNTERS) == {"saxpy", "filter_pipeline", "segmentation",
                                  "nbody", "flash_attention", "ssd_scan",
                                  "grouped_matmul", "flash_attention_bwd",
-                                 "ssd_scan_bwd"}
+                                 "ssd_scan_bwd", "grouped_matmul_dx",
+                                 "grouped_matmul_dw"}
 
 
 def test_meta_tensors_give_shapes():

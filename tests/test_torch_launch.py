@@ -338,6 +338,42 @@ def test_analyzer_kernel_calls_equal_cpu_calls(arch, kind, monkeypatch):
         rec["memory"]["argument_bytes"]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_grouped_matmul_backward_on_meta_counts_dx_and_dw(dtype):
+    """On meta, bf16 takes the backward kernels' stand-ins: one forward and
+    one dx and one dw call, each with its own product's work, and no copy;
+    float32 keeps the transposed copies (two clones) and the forward
+    kernel's stand-in for each gradient, with the same work."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.launch.op_analysis import OpAnalysis
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    E, C, d, f = 4, 72, 48, 40
+    x, w = (torch.empty(s, dtype=dtype, device="meta", requires_grad=True)
+            for s in ((E, C, d), (E, d, f)))
+    dy = torch.empty((E, C, f), dtype=dtype, device="meta")
+    with OpAnalysis() as oa, Ops() as seen:
+        y = ops.grouped_matmul(x, w)
+        dx, dw = torch.autograd.grad(y, (x, w), dy)
+    assert dx.shape == x.shape and dw.shape == w.shape
+    a = oa.analysis
+    work = [rl.gmm_work(E, C, d, f, dtype), rl.gmm_work(E, C, f, d, dtype),
+            rl.gmm_work(E, d, C, f, dtype)]
+    assert a.kernel_calls == {"grouped_matmul": 3}
+    assert a.kernel_flops["grouped_matmul"] == sum(fl for fl, _ in work)
+    assert a.kernel_bytes["grouped_matmul"] == sum(b for _, b in work)
+    copies = [n for n in seen.names if n in ("clone", "copy_")]
+    assert len(copies) == (0 if dtype == torch.bfloat16 else 2), seen.names
+
+
 # ---------------------------------------------------------------------------
 # matrix-product FLOPs against the JAX step's compiled HLO
 # ---------------------------------------------------------------------------

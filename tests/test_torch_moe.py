@@ -240,6 +240,84 @@ def test_grouped_matmul_wrapper_refuses_host_tensors():
         tgmm.grouped_matmul(torch.ones(2, 8, 16), torch.ones(2, 16, 4))
 
 
+@pytest.mark.parametrize("wrapper,a,b", [
+    ("grouped_matmul_dx", (2, 8, 16), (2, 24, 16)),
+    ("grouped_matmul_dw", (2, 8, 24), (2, 8, 16))], ids=["dx", "dw"])
+def test_grouped_matmul_backward_wrappers_refuse_host_tensors(wrapper, a, b):
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        getattr(tgmm, wrapper)(torch.ones(a, dtype=torch.bfloat16),
+                               torch.ones(b, dtype=torch.bfloat16))
+
+
+# ---------------------------------------------------------------------------
+# the grouped GEMM's gradients: the plain dx and dw against jax.vjp of the
+# JAX package's plain version.  float32: max |err| <= 1e-5 x max |JAX|
+# (the same float32 sums in another order); bf16: both sum in float32 and
+# round once, so each element within one bf16 step (2^-7 of its value) plus
+# 2e-4 x max |JAX|
+# ---------------------------------------------------------------------------
+
+GMM_BWD_SHAPES = [(3, 72, 24, 40), (3, 1, 24, 40), (1, 72, 24, 40)]
+GMM_BWD_IDS = ["C72", "C1", "E1"]
+
+
+def gmm_bwd_inputs(shape, seed=31):
+    E, C, d, f = shape
+    r = np.random.default_rng(seed)
+    return (r.standard_normal((E, C, d)).astype(np.float32),
+            (r.standard_normal((E, d, f)) * d ** -0.5).astype(np.float32),
+            r.standard_normal((E, C, f)).astype(np.float32))
+
+
+def jax_gmm_grads(x, w, dy, dtype):
+    jdt = getattr(jnp, dtype)
+    _, vjp = jax.vjp(jref.grouped_matmul_ref, jnp.asarray(x, jdt),
+                     jnp.asarray(w, jdt))
+    return [np32(g) for g in vjp(jnp.asarray(dy, jdt))]
+
+
+def close_grad(got, want, dtype):
+    got = got.float().numpy()
+    scale = np.abs(want).max()
+    if dtype == "float32":
+        assert np.abs(got - want).max() <= 1e-5 * scale
+    else:
+        assert (np.abs(got - want)
+                <= 2.0 ** -7 * np.abs(want) + 2e-4 * scale).all()
+
+
+@pytest.mark.parametrize("shape", GMM_BWD_SHAPES, ids=GMM_BWD_IDS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_matmul_backward_refs_match_jax_vjp(shape, dtype):
+    x, w, dy = gmm_bwd_inputs(shape)
+    want_dx, want_dw = jax_gmm_grads(x, w, dy, dtype)
+    tdt = getattr(torch, dtype)
+    tx, tw, tdy = (torch.from_numpy(a).to(tdt) for a in (x, w, dy))
+    dx = ref.grouped_matmul_dx_ref(tdy, tw)
+    dw = ref.grouped_matmul_dw_ref(tx, tdy)
+    assert dx.dtype == dw.dtype == tdt
+    assert tuple(dx.shape) == x.shape and tuple(dw.shape) == w.shape
+    close_grad(dx, want_dx, dtype)
+    close_grad(dw, want_dw, dtype)
+
+
+@pytest.mark.parametrize("shape", GMM_BWD_SHAPES, ids=GMM_BWD_IDS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_matmul_cpu_autograd_equals_backward_refs(shape, dtype):
+    """On the CPU ``ops.grouped_matmul`` differentiates its plain version,
+    launching nothing: its gradients are the plain dx and dw's."""
+    tdt = getattr(torch, dtype)
+    x, w, dy = (torch.from_numpy(a).to(tdt) for a in gmm_bwd_inputs(shape))
+    xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    before = {k: c.value for k, c in ops.COUNTERS.items()}
+    got = torch.autograd.grad(ops.grouped_matmul(xs, ws), (xs, ws), dy)
+    assert {k: c.value for k, c in ops.COUNTERS.items()} == before
+    for g, want in zip(got, (ref.grouped_matmul_dx_ref(dy, w),
+                             ref.grouped_matmul_dw_ref(x, dy))):
+        assert g.dtype == tdt
+        close_grad(g, want.float().numpy(), dtype)
+
+
 # ---------------------------------------------------------------------------
 # the model and the engine
 # ---------------------------------------------------------------------------
