@@ -60,8 +60,14 @@ and read just after:
   full width (bf16 parameters, float32 AdamW moments, random weights from
   seed 0) through ``make_train_step`` on ``batch_at``'s 8 x 512 tokens,
   with no plain version called, every bf16 gradient of the grouped GEMM
-  through the dx and dw kernels, and the gradients of the model's first 2
-  layers (bf16, kernels) against the CPU's (float32, plain versions);
+  through the dx and dw kernels, each step's optimizer three calls of
+  AdamW's kernels (``csrc/adamw.cu``), and the gradients of the model's
+  first 2 layers (bf16, kernels) against the CPU's (float32, plain
+  versions); the optimizer's step alone on the trained state, plain
+  against the kernels by device time (also for zamba2); the four steps
+  again with the plain update at the kernels' norm, the same bits; and
+  AdamW's kernels over granite's parameters (bf16, float32 moments warm
+  from a step) against the plain loop bit for bit, timed in turns;
 - zamba2-2.7b training, after granite's state is freed: the SSD scan's
   backward kernel at the training shape (x 8 x 512 x 80 heads of 64,
   d_state 64, chunk 256) and on a chained ragged tail with h0 and
@@ -192,7 +198,8 @@ from repro_torch.models.layers import embed, rmsnorm  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.cells import CellConfig, cell_runtime  # noqa: E402
 from repro_torch.launch.roofline import (  # noqa: E402
-    HBM_PER_CARD, PEAK_FLOPS, bound_ms, flash_bound, flash_bwd_bound,
+    HBM_PER_CARD, PEAK_FLOPS, adamw_bound, bound_ms, flash_bound,
+    flash_bwd_bound,
     gmm_bound, gmm_bwd_bound, mfu, ssd_bound, ssd_bwd_bound,
     ssd_bwd_split_bound, ssd_split_bound)
 from repro_torch.launch.train import build_optimizer  # noqa: E402
@@ -200,7 +207,8 @@ from repro_torch.optim import AdamW, AdamWConfig  # noqa: E402
 from repro_torch.runtime import (DecodeGraph, RuntimeConfig,  # noqa: E402
                                  ServeEngine, init_state, make_loss_fn,
                                  make_train_step)
-from repro_torch.runtime.train import trainable  # noqa: E402
+from repro_torch.runtime.train import (_accumulate_grads,  # noqa: E402
+                                       trainable)
 
 #: the paper's sizes (benchmarks/paper_suite.py BENCHMARKS); segmentation
 #: is cut from its largest class (3840 planes, ~15 GiB in and out on the
@@ -256,6 +264,10 @@ KERNELS = {
                           "src/repro/kernels/moe_gemm.py:39"),
     "grouped_matmul_dw": ("src/repro_torch/csrc/moe_gemm.cu",
                           "src/repro/kernels/moe_gemm.py:39"),
+    # no TPU kernel: the JAX step is jitted whole and XLA fuses its
+    # AdamW.update (global_norm at :22 included)
+    "adamw": ("src/repro_torch/csrc/adamw.cu",
+              "src/repro/optim/adamw.py:81"),
 }
 
 #: the paper phase: hybrid's host testbed at the middle size class, as the
@@ -429,6 +441,27 @@ SSD_BWD_TOL = 1e-4
 HYBRID_GRAD_GROUPS = ("embed", "ssm_proj", "ssm_scalars", "conv", "attn",
                       "norms")
 HYBRID_GRAD_F32_REL = 5e-3
+#: AdamW's kernels (csrc/adamw.cu) at ADAMW_ARCH's parameter shapes (bf16
+#: parameters and gradients, float32 moments warm from a step; as many
+#: tensors, in the model's order, as fit beside the plain run's copies):
+#: the update bit for bit against the plain loop at the same scale; the
+#: norm within ADAMW_NORM_RTOL of torch's sums (float32 sums in another
+#: order: ~1e-7 seen at 3.3e8 elements), its two runs the same bits
+ADAMW_ARCH = TRAIN_ARCH
+ADAMW_NORM_RTOL = 1e-5
+#: the kernels' names in a profile (summed as "adamw" in train profiles)
+ADAMW_KERNELS = ("adamw_chunks", "sumsq_chunks", "sumsq_tensors",
+                 "sum_vector")
+#: TRAIN_ARCH's steps with the kernels against a second run from the same
+#: weights in this process with the plain update (the eager loop) at the
+#: kernels' norm: every step's loss and gradient norm the same bits (the
+#: update is bit-identical at one scale); and each step's plain norm (the
+#: eager sums) within ADAMW_NORM_RTOL of the kernels'.  With the plain norm
+#: driving the clip too, the two runs part after step 2: the norms differ
+#: in their last bits, the scale with them, a few bf16 parameters round
+#: the other way, and at granite's initialisation a step's gradient norm
+#: moves 1.4-1.8x from step to step in one run (ROADMAP.md section 3 item
+#: 13): the later norms then hold to no useful tolerance
 #: the profiled window: one prefill of the largest prompt, decode steps
 PROFILE_DECODE_STEPS = 8
 #: the decode step's CUDA graph against the eager step, for these archs
@@ -502,8 +535,9 @@ FAMILY_GRAD_F32_REL = 5e-3
 #: TRAIN_LM_STEPS[1].  The loss is not held to a fall: with the reference's
 #: recipe and init it does not fall in 300 steps, in this port on the card
 #: (9.72 -> 9.83) or in the JAX package's example on the CPU (ROADMAP.md
-#: section 3)
-TRAIN_LM_STEPS = (40, 60)
+#: section 3).  The resume is what the phase checks: 20 + 10 steps keep
+#: the script inside its time on a slow host
+TRAIN_LM_STEPS = (20, 30)
 #: whisper-large-v3, served and trained at full width and depth: capacity
 #: WHISPER_CAPACITY (Whisper's decoder context, arXiv:2212.04356); one batch
 #: of WHISPER_BATCH requests, each with its own (enc_frames, d_model) frames
@@ -2287,9 +2321,10 @@ def want_train_launches(cfg, remat: str = TRAIN_REMAT):
     per attention layer (whisper: per encoder layer and per decoder layer's
     attention and cross-attention), one SSD scan forward and backward per Mamba2
     layer, and for the moe family three grouped GEMMs per layer forward,
-    each with a dx and a dw behind it.  Under a remat policy the kernels
-    are recomputed (they are no matrix products to the dispatcher:
-    models/lm.py REMAT_SAVED), so each forward runs twice."""
+    each with a dx and a dw behind it; AdamW's three calls (each
+    gradient's sum of squares, their sum, the update).  Under a remat
+    policy the kernels are recomputed (they are no matrix products to the
+    dispatcher: models/lm.py REMAT_SAVED), so each forward runs twice."""
     L = cfg.n_layers
     n_attn = sum(cfg.is_attention_layer(i) for i in range(L))
     n_ssm = L - n_attn
@@ -2298,13 +2333,15 @@ def want_train_launches(cfg, remat: str = TRAIN_REMAT):
     again = 1 if remat in (None, "none") else 2
     return {"flash_attention": again * n_attn, "flash_attention_bwd": n_attn,
             "grouped_matmul": (again * 3 + 6) * L if cfg.moe else 0,
-            "ssd_scan": again * n_ssm, "ssd_scan_bwd": n_ssm}
+            "ssd_scan": again * n_ssm, "ssd_scan_bwd": n_ssm, "adamw": 3}
 
 
 class PlainCalls:
-    """Counts the calls of the LM kernels' plain versions while it is
-    entered (the card's training path must make none)."""
-    NAMES = ("attention_ref", "grouped_matmul_ref", "ssd_scan_ref")
+    """Counts the calls of the LM kernels' and the optimizer's plain
+    versions while it is entered (the card's training path must make
+    none)."""
+    NAMES = ("attention_ref", "grouped_matmul_ref", "ssd_scan_ref",
+             "grad_sumsq_ref", "sum_in_order_ref", "adamw_update_ref")
 
     def __enter__(self):
         self.calls = {n: 0 for n in self.NAMES}
@@ -2339,10 +2376,12 @@ def train_seq(cfg) -> int:
     return WHISPER_CAPACITY if cfg.enc_dec else TRAIN_SEQ
 
 
-def train_main_path(cfg, model, remat: str = TRAIN_REMAT):
+def train_main_path(cfg, model, remat: str = TRAIN_REMAT,
+                    profile_update: bool = False):
     """TRAIN_STEPS steps of ``make_train_step`` on ``batch_at``'s batches
     (and an encoder-decoder's frames), the launch counters from 0 just
-    before to just after."""
+    before to just after; with ``profile_update``, then the eager update's
+    device time on the trained state (``update_profile``)."""
     opt = build_optimizer(cfg, TRAIN_LR, TRAIN_STEPS)
     rt = RuntimeConfig(microbatches=1, remat=remat, loss_chunks=1,
                        aux_weight=0.01)
@@ -2410,9 +2449,11 @@ def train_main_path(cfg, model, remat: str = TRAIN_REMAT):
           f"GiB; launches a step {per_step} (grouped GEMM "
           f"{gmm_bwd // TRAIN_STEPS} of them backward)", flush=True)
     profile = train_profile(step_fn, state, batches[-1])
+    update = (update_profile(cfg, model, state, opt, rt, batches[-1])
+              if profile_update else None)
     del state
     return dict(steps=steps, launches=launches, launches_per_step=per_step,
-                profile=profile,
+                profile=profile, update_profile=update,
                 want_launches_per_step=want,
                 grouped_matmul_backward_launches=gmm_bwd,
                 grouped_matmul_bf16_launches=gmm_paths,
@@ -2443,6 +2484,8 @@ def train_profile(step_fn, state, batch):
     mine = {name: sum(t for k, t, _ in kernels if name in k) / 1e6
             for name in ("flash_mma_kernel", "flash_bwd_", "gmm_wgmma",
                          "gmm_bwd", "ssd_bwd_")}
+    mine["adamw"] = sum(t for k, t, _ in kernels
+                        if any(n in k for n in ADAMW_KERNELS)) / 1e6
     # copy kernels (the grouped GEMM's backward made two a call before its
     # own kernels): device seconds and launches
     copies = [(t, n) for k, t, n in kernels if "copy" in k.lower()]
@@ -2464,6 +2507,253 @@ def train_profile(step_fn, state, batch):
           f"copy kernels {copy_s:.4f} s in {out['copy_launches']} "
           f"launches; hand-written kernels {mine}; backward kernels that ran "
           f"{bwd}; top {out['top_kernels_s'][:5]}", flush=True)
+    return out
+
+
+def adamw_lists(model, grads, moments, opt):
+    """The optimizer's lists, in the model's order: parameters, gradients,
+    first and second moments, decay flags."""
+    names = list(grads)
+    params = dict(model.named_parameters())
+    return ([params[k].detach() for k in names], [grads[k] for k in names],
+            [moments.m[k] for k in names], [moments.v[k] for k in names],
+            [opt.decayed(k) for k in names])
+
+
+def adamw_hyper(opt, step: int):
+    """The update's scalars at ``step`` (1-based), as ``AdamW.update``
+    computes them on the host."""
+    c = opt.config
+    sf = torch.tensor(float(step))
+    return dict(lr=float(c.lr_at(torch.tensor(step))), b1=c.b1, b2=c.b2,
+                b1c=float(1.0 - torch.pow(torch.tensor(c.b1), sf)),
+                b2c=float(1.0 - torch.pow(torch.tensor(c.b2), sf)),
+                eps=c.eps, wd=c.weight_decay)
+
+
+def optimizer_step(lists, hyper, sumsq, total, update, clip: float = 1.0):
+    """One norm, clip and update over ``lists`` (``adamw_lists``) with the
+    given three functions (the kernels' ``ops`` entries or the plain
+    versions); returns the norm."""
+    ps, gs, ms, vs, decayed = lists
+    with torch.no_grad():
+        gnorm = torch.sqrt(total(sumsq(gs)))
+        scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+        update(ps, gs, ms, vs, decayed, scale, **hyper)
+    return gnorm
+
+
+PLAIN_UPDATE = (ref.grad_sumsq_ref, ref.sum_in_order_ref,
+                ref.adamw_update_ref)
+
+
+def kernel_update():
+    """The kernels' three entries, looked up at the call (``ops``)."""
+    return ops.grad_sumsq, ops.sum_in_order, ops.adamw_update
+
+
+def update_profile(cfg, model, state, opt, rt, batch):
+    """The optimizer's step by itself on the trained model's state and the
+    gradients of one more batch: its device time (``torch.profiler``, the
+    sum of its kernels) and kernels a call, the plain norm and loop (what
+    every step ran before the kernels) beside the kernels'.  Each profiled
+    call moves the parameters again; nothing is checked after."""
+    batch = {k: v.to(CARD) for k, v in batch.items()}
+    grads, _, _ = _accumulate_grads(make_loss_fn(cfg, rt), model, batch, rt)
+    lists = adamw_lists(model, grads, state.opt, opt)
+    hyper = adamw_hyper(opt, int(state.opt.step) + 1)
+    out = {}
+    for name, fns in (("plain", PLAIN_UPDATE), ("kernels", kernel_update())):
+        ms, n = device_ms(lambda: optimizer_step(lists, hyper, *fns), 2)
+        out[name] = dict(device_ms=ms, kernels_a_call=n)
+    numels = [p.numel() for p in lists[0]]
+    out["bound_ms"] = adamw_bound(numels, [p.dtype for p in lists[0]],
+                                  [g.dtype for g in lists[1]])[0]
+    out["tensors"], out["elements"] = len(numels), sum(numels)
+    print(f"train update {cfg.arch}: one optimizer step by itself on the "
+          f"trained state ({out['tensors']} tensors, {out['elements']} "
+          f"elements), device time: plain norm and loop "
+          f"{out['plain']['device_ms']:.3f} ms in "
+          f"{out['plain']['kernels_a_call']} kernels, the kernels "
+          f"{out['kernels']['device_ms']:.3f} ms in "
+          f"{out['kernels']['kernels_a_call']}; bound "
+          f"{out['bound_ms']:.3f} ms (bytes)", flush=True)
+    del grads, lists
+    return out
+
+
+def plain_update_run(cfg, main):
+    """TRAIN_STEPS steps of ``cfg`` again from the same weights and batches
+    with the plain update (``ref.adamw_update_ref``) at the kernels' norm,
+    the plain norm taken beside it; the losses and norms held to
+    ``main``'s bit for bit, the plain norms to the kernels' within
+    ADAMW_NORM_RTOL."""
+    model = build_model(cfg)
+    opt = build_optimizer(cfg, TRAIN_LR, TRAIN_STEPS)
+    state = init_state(model, opt)
+    step_fn = make_train_step(cfg, opt, RuntimeConfig(
+        microbatches=1, remat=TRAIN_REMAT, loss_chunks=1, aux_weight=0.01))
+    dc = DataConfig(vocab=cfg.vocab, seq_len=train_seq(cfg),
+                    global_batch=TRAIN_BATCH, seed=0)
+    sumsq, _, update = kernel_update()
+    plain_norms = []
+
+    def both_sums(grads):
+        plain_norms.append(float(torch.sqrt(ref.sum_in_order_ref(
+            ref.grad_sumsq_ref(grads)))))
+        return sumsq(grads)
+
+    ops.grad_sumsq, ops.adamw_update = both_sums, ref.adamw_update_ref
+    try:
+        steps = []
+        for i in range(TRAIN_STEPS):
+            state, metrics = step_fn(state, {**batch_at(dc, i),
+                                             **train_extras(cfg, TRAIN_BATCH)})
+            steps.append({k: float(metrics[k]) for k in ("loss",
+                                                         "grad_norm")})
+    finally:
+        ops.grad_sumsq, ops.adamw_update = sumsq, update
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    kern = [{k: s[k] for k in ("loss", "grad_norm")} for s in main["steps"]]
+    expect(kern == steps, f"the kernels' steps and the plain update's at "
+           f"the kernels' norm the same bits: {kern} {steps}")
+    norm_rel = [abs(p - s["grad_norm"]) / s["grad_norm"]
+                for p, s in zip(plain_norms, steps)]
+    expect(max(norm_rel) <= ADAMW_NORM_RTOL,
+           f"each step's plain norm within {ADAMW_NORM_RTOL} of the "
+           f"kernels': {norm_rel}")
+    print(f"train {cfg.arch} with the plain update at the kernels' norm: "
+          f"losses {[s['loss'] for s in steps]} and gradient norms "
+          f"{[s['grad_norm'] for s in steps]}, the same bits as the "
+          f"kernels'; the plain norms relative to the kernels' {norm_rel}",
+          flush=True)
+    return dict(steps=steps, plain_norms=plain_norms, norm_rel=norm_rel)
+
+
+def adamw_inputs(cfg, budget: int, seed: int = 0):
+    """bf16 parameters and gradients, float32 moments warm from a step (m ~
+    1e-3, v ~ 1e-6), of ``cfg``'s parameter shapes from ``seed``: the first
+    tensors, in the model's order, whose kernel set and plain copies fit
+    ``budget`` bytes; and their names."""
+    named = list(LM(cfg, device="meta").named_parameters())
+    largest = max(p.numel() for _, p in named)
+    room = budget - 8 * 4 * largest         # the plain loop's temporaries
+    names, used = [], 0
+    for k, p in named:
+        # p, g, m, v and the plain run's p, m, v: 22 bytes an element
+        if used + 22 * p.numel() > room:
+            break
+        names.append(k)
+        used += 22 * p.numel()
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    shapes = dict(named)
+    ps, gs, ms, vs = [], [], [], []
+    for k in names:
+        shp = shapes[k].shape
+        ps.append(torch.randn(shp, device=CARD, generator=gen).bfloat16())
+        gs.append((torch.randn(shp, device=CARD, generator=gen) * 1e-2)
+                  .bfloat16())
+        ms.append(torch.randn(shp, device=CARD, generator=gen) * 1e-3)
+        vs.append((torch.randn(shp, device=CARD, generator=gen) * 1e-3)
+                  .square_())
+    return names, len(named), (ps, gs, ms, vs)
+
+
+def adamw_kernel_phase(cfg):
+    """AdamW's kernels at ``cfg``'s parameter shapes (``adamw_inputs``):
+    the norm's two runs the same bits and within ADAMW_NORM_RTOL of the
+    plain sums; the update from the same inputs at the same scale
+    bit-identical to the plain loop; a sum of squares past float32 (the
+    norm inf, the scale 0, finite and equal parameters); then the kernels
+    and the plain step timed in turns by CUDA events (kernels, plain,
+    plain, kernels), the kernels' device time, their bound, and
+    ``torch._fused_adamw_`` tried as the library call."""
+    free = torch.cuda.mem_get_info()[0]
+    names, n_all, (ps, gs, ms, vs) = adamw_inputs(cfg, free - 3 * 2 ** 30)
+    opt = AdamW(AdamWConfig())
+    decayed = [opt.decayed(k) for k in names]
+    hyper = adamw_hyper(build_optimizer(cfg, TRAIN_LR, TRAIN_STEPS), 2)
+    numels = [p.numel() for p in ps]
+    which = ("all" if len(names) == n_all else
+             f"the first {len(names)} of {n_all} (to {names[-1]})")
+    sq = [ops.grad_sumsq(gs) for _ in range(2)]
+    totals = [ops.sum_in_order(x) for x in sq]
+    want = torch.sqrt(ref.sum_in_order_ref(ref.grad_sumsq_ref(gs)))
+    norm = torch.sqrt(totals[0])
+    expect(torch.equal(sq[0], sq[1]) and torch.equal(*totals),
+           "the kernels' norm the same bits in two runs")
+    norm_rel = float((norm - want).abs() / want)
+    expect(norm_rel <= ADAMW_NORM_RTOL, f"the kernels' norm {float(norm)} "
+           f"within {ADAMW_NORM_RTOL} of the plain {float(want)}")
+    scale = torch.clamp(1.0 / torch.clamp(norm, min=1e-12), max=1.0)
+    copies = [[t.clone() for t in ts] for ts in (ps, ms, vs)]
+    ops.adamw_update(ps, gs, ms, vs, decayed, scale, **hyper)
+    ref.adamw_update_ref(*copies[:1], gs, *copies[1:], decayed, scale,
+                         **hyper)
+    torch.cuda.synchronize()
+    err, same = 0.0, True
+    for got, plain in zip((ps, ms, vs), copies):
+        for a, b in zip(got, plain):
+            same &= torch.equal(a, b)
+            if a.numel():
+                err = max(err, float((a.float() - b.float()).abs().max()))
+    expect(same, f"the kernels' p, m and v bit-identical to the plain loop "
+           f"(max |err| {err})")
+    del copies
+    # the overflow: whisper's case at full depth (ROADMAP.md section 3)
+    og = [torch.full((4096,), 1e19, device=CARD), torch.ones(10, device=CARD)]
+    op = [torch.randn(t.shape, device=CARD).bfloat16() for t in og]
+    om = [torch.zeros(t.shape, device=CARD) for t in og]
+    sides = []
+    for fns in (kernel_update(), PLAIN_UPDATE):
+        lists = ([t.clone() for t in op], og, [t.clone() for t in om],
+                 [t.clone() for t in om], [True, True])
+        sides.append((optimizer_step(lists, hyper, *fns), lists[0]))
+    expect(all(torch.isinf(n) for n, _ in sides)
+           and all(torch.isfinite(t.float()).all() for _, ts in sides
+                   for t in ts)
+           and all(torch.equal(a, b) for a, b in zip(sides[0][1],
+                                                     sides[1][1])),
+           "a sum of squares past float32: the norm inf in both, the scale "
+           "0, the parameters finite and equal")
+    lists = (ps, gs, ms, vs, decayed)
+    kernel = lambda: optimizer_step(lists, hyper, *kernel_update())
+    plain = lambda: optimizer_step(lists, hyper, *PLAIN_UPDATE)
+    turns = {"kernels": [], "plain": []}
+    for side in ("kernels", "plain", "plain", "kernels"):
+        turns[side].append(cuda_ms(kernel if side == "kernels" else plain,
+                                   10 if side == "kernels" else 3))
+    dev_ms, dev_kernels = device_ms(kernel, 3)
+    try:
+        torch._fused_adamw_(ps[:1], gs[:1], ms[:1], vs[:1], [],
+                            [torch.tensor(2.0, device=CARD)], lr=hyper["lr"],
+                            beta1=hyper["b1"], beta2=hyper["b2"],
+                            weight_decay=hyper["wd"], eps=hyper["eps"],
+                            amsgrad=False, maximize=False)
+        library = "accepted"
+    except RuntimeError as e:
+        library = f"refused: {str(e).splitlines()[0]}"
+    bound = adamw_bound(numels, [p.dtype for p in ps], [g.dtype for g in gs])
+    out = dict(shape=f"{cfg.arch} parameters, {which}: {len(numels)} "
+                     f"tensors, {sum(numels)} elements, bf16 p and g",
+               tensors=len(numels), elements=sum(numels), all=which == "all",
+               ms=min(turns["kernels"]), plain_ms=min(turns["plain"]),
+               turns=turns, device_ms=dev_ms, device_kernels=dev_kernels,
+               bound=bound, library_ms=None, library=library,
+               max_abs_err=err, norm_rel=norm_rel)
+    print(f"kernel adamw {out['shape']}: {out['ms']:.4f} ms (in turns "
+          f"{turns['kernels']}; device {dev_ms:.4f} ms in {dev_kernels} "
+          f"kernels), plain {out['plain_ms']:.4f} ms (in turns "
+          f"{turns['plain']}), bound {bound[0]:.4f} ms ({bound[1]}); p, m, "
+          f"v bit-identical, max err {err}; norm relative to the plain "
+          f"{norm_rel:.3g}, two runs the same bits; overflow: norm inf, "
+          f"scale 0; torch._fused_adamw_ on bf16 parameters with float32 "
+          f"moments: {library}", flush=True)
+    del ps, gs, ms, vs, lists
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2622,10 +2912,12 @@ def train_phase():
                   flush=True)
     model = build_model(cfg)
     head = train_head_check(cfg, model)      # the parameters as built
-    main = train_main_path(cfg, model)
+    main = train_main_path(cfg, model, profile_update=True)
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    main["plain_update_run"] = plain_update_run(cfg, main)
+    kernels["adamw"] = adamw_kernel_phase(get_config(ADAMW_ARCH))
     return kernels, main, head
 
 
@@ -2800,7 +3092,8 @@ def hybrid_train_phase():
     model = build_model(cfg)
     head = grad_head_check(cfg, model, HYBRID_GRAD_GROUPS,
                            HYBRID_GRAD_F32_REL)   # the parameters as built
-    main = train_main_path(cfg, model, HYBRID_TRAIN_REMAT)
+    main = train_main_path(cfg, model, HYBRID_TRAIN_REMAT,
+                           profile_update=True)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3189,7 +3482,8 @@ def train_lm_phase():
     cfg = train_lm.config_100m()
     n_steps = TRAIN_LM_STEPS[1]
     want = {"flash_attention": 4 * cfg.n_layers * n_steps,
-            "flash_attention_bwd": 2 * cfg.n_layers * n_steps}
+            "flash_attention_bwd": 2 * cfg.n_layers * n_steps,
+            "adamw": 3 * n_steps}
     expect(runs[0]["start"] == 0 and runs[1]["start"] == TRAIN_LM_STEPS[0]
            and f"resumed from step {TRAIN_LM_STEPS[0]}" in outs[1],
            f"the second run resumed at the saved step: {runs}")
@@ -3838,9 +4132,10 @@ def mesh_phase(quad_recs):
            and sh["prefill_launches"]["grouped_matmul"] == 96,
            f"prefill launches {sh['prefill_launches']} == "
            f"{u['prefill_launches']} (flash 32, grouped GEMM 96)")
-    expect(sh["train_launches"] == u["train_launches"],
+    expect(sh["train_launches"] == u["train_launches"]
+           and u["train_launches"]["adamw"] == 3,
            f"train launches {sh['train_launches']} == "
-           f"{u['train_launches']}")
+           f"{u['train_launches']} (AdamW's kernels 3)")
     lv = sh["leaves"]
     print(f"mesh {MESH_ARCH} (1, 1) NCCL: greedy token {tok_s} both, logits "
           f"rel L2 {rel:.3g}, loss {a:.6f} / {b:.6f}, grad_norm "
@@ -4006,7 +4301,7 @@ def main() -> int:
     for name in ["saxpy", "filter_pipeline", "segmentation", "nbody",
                  "flash_attention", "flash_attention_bwd", "ssd_scan",
                  "ssd_scan_bwd", "grouped_matmul", "grouped_matmul_dx",
-                 "grouped_matmul_dw"]:
+                 "grouped_matmul_dw", "adamw"]:
         r = results[name]
         source, replaces = KERNELS[name]
         kernels.append({

@@ -70,6 +70,13 @@ SIGNATURES: Dict[str, List] = {
     "grouped_matmul_dx": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, dy, dw, E, C, d, f, device, stream (bfloat16)
     "grouped_matmul_dw": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # device table, tensors, chunk, chunks, partials, out, device, stream
+    "adamw_sumsq": [_P, _I, _L, _L, _P, _P, _I, _P],
+    # x, n, out, device, stream
+    "adamw_sum": [_P, _I, _P, _I, _P],
+    # device table, tensors, chunk, chunks, scale, lr, b1, 1 - b1, b2,
+    # 1 - b2, b1c, b2c, eps, wd, device, stream
+    "adamw_update": [_P, _I, _L, _L, _P, *[_F] * 9, _I, _P],
 }
 #: dtype code a C entry point takes for its tensors' element type
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

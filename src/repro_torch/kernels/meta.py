@@ -1,9 +1,11 @@
-"""The three LM kernels on ``meta`` tensors: what a dry-run step reaches in
-their place.
+"""The three LM kernels and the optimizer's on ``meta`` tensors: what a
+dry-run step reaches in their place.
 
 Each function here stands for the CUDA wrapper of the same name in
 :mod:`~repro_torch.kernels.flash_attention`,
-:mod:`~repro_torch.kernels.ssd_scan` or :mod:`~repro_torch.kernels.moe_gemm`:
+:mod:`~repro_torch.kernels.ssd_scan`, :mod:`~repro_torch.kernels.moe_gemm`
+or :mod:`~repro_torch.kernels.adamw` (all three of its wrappers under
+``adamw``, as they count in its ``launches``):
 it takes the same arguments, allocates the same outputs and scratch (on
 ``meta``: shapes, no memory), launches nothing, and reports the call with
 its work from :mod:`repro_torch.launch.roofline` (the FLOPs and bytes of
@@ -22,6 +24,7 @@ from typing import Callable, List, Optional
 
 import torch
 
+from repro_torch.kernels import adamw as _adamw
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.launch import roofline as rl
 
@@ -154,3 +157,24 @@ def grouped_matmul_dw(x, dy) -> torch.Tensor:
     if dw.numel():      # dw[e] = x[e]^T dy[e]: (d, C) x (C, f)
         _report("grouped_matmul", rl.gmm_work(E, d, C, f, x.dtype))
     return dw
+
+
+def grad_sumsq(grads) -> torch.Tensor:
+    numels = [g.numel() for g in grads]
+    dev = grads[0].device
+    torch.empty((_adamw.chunks_of(numels)[-1],), dtype=torch.float32,
+                device=dev)                                    # partials
+    out = torch.empty((len(grads),), dtype=torch.float32, device=dev)
+    _report("adamw", rl.adamw_sumsq_work(numels, [g.dtype for g in grads]))
+    return out
+
+
+def sum_in_order(x) -> torch.Tensor:
+    _report("adamw", rl.adamw_sum_work(x.numel()))
+    return torch.empty((), dtype=torch.float32, device=x.device)
+
+
+def adamw_update(params, grads, ms, vs, decayed, scale, **hyper) -> None:
+    _report("adamw", rl.adamw_update_work(
+        [p.numel() for p in params], [p.dtype for p in params],
+        [g.dtype for g in grads]))

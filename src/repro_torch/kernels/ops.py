@@ -5,10 +5,11 @@ inputs and raises on anything it does not take.  Any other tensor (the
 host fission slots' CPU tensors, the ``meta`` tensors of a shape probe)
 goes to the plain PyTorch version in :mod:`repro_torch.kernels.ref`, but
 for the ``meta`` tensors that reach the three LM kernels (flash attention,
-the SSD scan, the grouped GEMM): those take the card's route, autograd
-Functions included, with :mod:`repro_torch.kernels.meta`'s stand-ins in
-place of the launches, so that a dry-run step counts each kernel by its
-work formula.  The choice is the tensor's device and nothing else: no
+the SSD scan, the grouped GEMM) and the optimizer's (AdamW's gradient
+norm and update): those take the card's route, autograd Functions
+included, with :mod:`repro_torch.kernels.meta`'s stand-ins in place of
+the launches, so that a dry-run step counts each kernel by its work
+formula.  The choice is the tensor's device and nothing else: no
 error ever sends a CUDA tensor to the plain version.
 
 Gradients.  On the CPU autograd runs through the plain versions.  On the
@@ -30,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels import adamw as _adamw
 from repro_torch.kernels import filter_pipeline as _filter
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import meta as _meta
@@ -337,13 +339,41 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return ref.grouped_matmul_ref(x, w)
 
 
+def grad_sumsq(grads) -> torch.Tensor:
+    """(n,) float32: each of the gradients' sum of squares (one device)."""
+    kern = _kernels(grads[0])
+    if kern is not None:
+        return kern.grad_sumsq(grads)
+    return ref.grad_sumsq_ref(grads)
+
+
+def sum_in_order(x: torch.Tensor) -> torch.Tensor:
+    """0-d: the sum of the float32 vector ``x``, in a fixed order."""
+    kern = _kernels(x)
+    if kern is not None:
+        return kern.sum_in_order(x)
+    return ref.sum_in_order_ref(x)
+
+
+def adamw_update(params, grads, ms, vs, decayed, scale: torch.Tensor,
+                 **hyper) -> None:
+    """AdamW's step of every parameter in place (``ref.adamw_update_ref``;
+    ``hyper``: lr, b1, b2, b1c, b2c, eps, wd)."""
+    kern = _kernels(params[0])
+    if kern is not None:
+        return kern.adamw_update(params, grads, ms, vs, decayed, scale,
+                                 **hyper)
+    return ref.adamw_update_ref(params, grads, ms, vs, decayed, scale,
+                                **hyper)
+
+
 class _Card:
-    """The card's wrappers of the three LM kernels, under the names of
-    :mod:`repro_torch.kernels.meta`'s stand-ins, looked up in their modules
-    at each call (a check may put a patched wrapper there)."""
+    """The card's wrappers of the LM kernels and the optimizer's, under the
+    names of :mod:`repro_torch.kernels.meta`'s stand-ins, looked up in their
+    modules at each call (a check may put a patched wrapper there)."""
 
     def __getattr__(self, name: str):
-        for module in (_flash, _ssd, _gmm):
+        for module in (_flash, _ssd, _gmm, _adamw):
             if hasattr(module, name):
                 return getattr(module, name)
         raise AttributeError(name)
@@ -358,4 +388,5 @@ COUNTERS = {c.name: c for c in (_saxpy.launches, _filter.launches,
                                 _flash.launches, _ssd.launches,
                                 _gmm.launches, _flash.bwd_launches,
                                 _ssd.bwd_launches,
-                                *_gmm.bwd_kernels.values())}
+                                *_gmm.bwd_kernels.values(),
+                                _adamw.launches)}

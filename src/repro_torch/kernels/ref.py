@@ -194,3 +194,35 @@ def grouped_matmul_dw_ref(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     (E,C,f) -> dw[e] = x[e]^T dy[e] (E,d,f), summed in float32, in x's
     dtype."""
     return torch.einsum("ecd,ecf->edf", x.float(), dy.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# AdamW: gradient norm and update (the eager loop the kernels replace)
+# ---------------------------------------------------------------------------
+
+def grad_sumsq_ref(grads) -> torch.Tensor:
+    """(n,) float32: each gradient's sum of squares, taken in float32."""
+    return torch.stack([torch.sum(torch.square(g.float())) for g in grads])
+
+
+def sum_in_order_ref(x: torch.Tensor) -> torch.Tensor:
+    """0-d: x[0] + x[1] + ... in x's dtype, one addition at a time in
+    order (as Python's ``sum`` over the per-tensor sums adds them)."""
+    return sum(x.unbind(0), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def adamw_update_ref(params, grads, ms, vs, decayed, scale: torch.Tensor,
+                     *, lr: float, b1: float, b2: float, b1c: float,
+                     b2c: float, eps: float, wd: float) -> None:
+    """AdamW's step of each parameter in place, in float32, rounded back
+    to its dtype: its gradient times ``scale``, the moments ``ms``/``vs``
+    updated in place, weight decay where ``decayed``."""
+    for p, g, m, v, dec in zip(params, grads, ms, vs, decayed):
+        g = g.float() * scale.to(p.device)
+        m.mul_(b1).add_(g, alpha=1 - b1)
+        v.mul_(b2).add_(g * g, alpha=1 - b2)
+        delta = (m / b1c) / (torch.sqrt(v / b2c) + eps)
+        pf = p.float()
+        if dec:
+            delta.add_(pf, alpha=wd)
+        p.copy_(pf - lr * delta)

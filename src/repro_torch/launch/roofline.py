@@ -14,7 +14,7 @@ cores, 495 TF32, 67 FP32 on the CUDA cores, 3.35 TB/s of HBM3, and NVLink
 card's ``total_memory`` as PyTorch reports it on the H100 80GB HBM3.
 
 The second half holds one work formula per hand-written LM kernel,
-forward and backward: the FLOPs it must do and the bytes it must move
+forward and backward, and for the optimizer's kernels: the FLOPs it must do and the bytes it must move
 (each input read once, each output written once) for the call's shapes.
 The dry-run (:mod:`repro_torch.launch.op_analysis`) adds them to a step's
 counts wherever a model reaches the kernel, and the card's checks
@@ -311,3 +311,48 @@ def gmm_bwd_work(E, C, d, f, dtype) -> Work:
 def gmm_bwd_bound(E, C, d, f, dtype):
     flops, nbytes = gmm_bwd_work(E, C, d, f, dtype)
     return bound_ms(nbytes, flops, peak_for(dtype))
+
+
+#: float32 operations of the update an element: g * scale; m's two
+#: products and its sum; v's three products and its sum; two reciprocal
+#: products, the square root, + eps, the division; the decay's product and
+#: sum; lr's product and the subtraction
+ADAMW_UPDATE_OPS = 17
+
+
+def adamw_sumsq_work(numels, g_dtypes) -> Work:
+    """Each gradient's sum of squares: every gradient read once, a float32
+    sum a tensor written; 2 operations an element."""
+    n = sum(numels)
+    return (2.0 * n, float(sum(k * _size(d) for k, d in zip(numels, g_dtypes))
+                           + 4 * len(numels)))
+
+
+def adamw_sum_work(n: int) -> Work:
+    """The per-tensor sums added up: n float32 read, one written."""
+    return float(n), 4.0 * (n + 1)
+
+
+def adamw_update_work(numels, p_dtypes, g_dtypes) -> Work:
+    """The update: p, g and the float32 m, v read once and p, m, v written
+    once (22 bytes an element for bf16 p and g), and the scale read."""
+    nbytes = sum(k * (2 * _size(pd) + _size(gd) + 16)
+                 for k, pd, gd in zip(numels, p_dtypes, g_dtypes))
+    return ADAMW_UPDATE_OPS * float(sum(numels)), float(nbytes + 4)
+
+
+def adamw_work(numels, p_dtypes, g_dtypes=None) -> Work:
+    """The optimizer's step over tensors of ``numels`` elements (parameters
+    of ``p_dtypes``, gradients of ``g_dtypes``, the parameters' by default):
+    the sum of squares, the sum of the per-tensor sums and the update, ~24
+    bytes an element for bf16 parameters and gradients."""
+    g_dtypes = p_dtypes if g_dtypes is None else g_dtypes
+    parts = (adamw_sumsq_work(numels, g_dtypes),
+             adamw_sum_work(len(numels)),
+             adamw_update_work(numels, p_dtypes, g_dtypes))
+    return sum(f for f, _ in parts), sum(b for _, b in parts)
+
+
+def adamw_bound(numels, p_dtypes, g_dtypes=None):
+    flops, nbytes = adamw_work(numels, p_dtypes, g_dtypes)
+    return bound_ms(nbytes, flops)

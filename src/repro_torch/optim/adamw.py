@@ -12,6 +12,12 @@ moments take their placements (ZeRO-1 where the parameters are FSDP
 sharded, as the reference's inherit their shardings), the update runs on
 this rank's blocks and the gradient norm sums the blocks' squares over the
 mesh axes each parameter is split over.
+
+The JAX step is jitted whole and XLA fuses the norm and the update; here
+both go through :mod:`repro_torch.kernels.ops` over every tensor at once:
+on the card three hand-written kernel calls a step (each gradient's sum of
+squares, their sum in a fixed order, the update), on the CPU the plain
+loop (``kernels/ref.py``).
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ from typing import Callable, Dict, NamedTuple, Tuple, Union
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.models import spmd
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
@@ -43,12 +50,12 @@ def param_path(name: str) -> str:
 
 
 def global_norm(tree: Tree) -> torch.Tensor:
-    """The float32 L2 norm over every leaf."""
+    """The float32 L2 norm over every leaf: each leaf's sum of squares,
+    added in the leaves' order."""
     leaves = list(tree.values())
     if not leaves:
         return torch.zeros((), dtype=torch.float32)
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in leaves))
+    return torch.sqrt(ops.sum_in_order(ops.grad_sumsq(leaves)))
 
 
 class OptState(NamedTuple):
@@ -108,7 +115,7 @@ class AdamW:
             scale = torch.clamp(c.grad_clip / torch.clamp(gnorm, min=1e-12),
                                 max=1.0)
         else:
-            scale = torch.ones((), dtype=torch.float32)
+            scale = torch.ones((), dtype=torch.float32, device=gnorm.device)
         # the step's scalars, float32 values computed on the host (the step
         # count lives there): no copy to the device, no synchronisation
         sf = step.to(torch.float32)
@@ -117,17 +124,15 @@ class AdamW:
                                     sf))
         b2c = float(1.0 - torch.pow(torch.tensor(c.b2, dtype=torch.float32),
                                     sf))
-        for name, p in params.items():
-            p, g = spmd.block(p), spmd.block(grads[name])
-            g = g.float() * scale.to(p.device)
-            m, v = spmd.block(state.m[name]), spmd.block(state.v[name])
-            m.mul_(c.b1).add_(g, alpha=1 - c.b1)
-            v.mul_(c.b2).add_(g * g, alpha=1 - c.b2)
-            delta = (m / b1c) / (torch.sqrt(v / b2c) + c.eps)
-            pf = p.float()
-            if self.decayed(name):
-                delta.add_(pf, alpha=c.weight_decay)
-            p.copy_(pf - lr * delta)
+        names = list(params)
+        if names:
+            ops.adamw_update(
+                [spmd.block(params[k]) for k in names],
+                [spmd.block(grads[k]) for k in names],
+                [spmd.block(state.m[k]) for k in names],
+                [spmd.block(state.v[k]) for k in names],
+                [self.decayed(k) for k in names], scale, lr=lr, b1=c.b1,
+                b2=c.b2, b1c=b1c, b2c=b2c, eps=c.eps, wd=c.weight_decay)
         return params, OptState(step=step, m=state.m, v=state.v), gnorm
 
 
@@ -145,20 +150,29 @@ def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
 def _sharded_norm(grads: Tree, params: Tree) -> torch.Tensor:
     """The float32 L2 norm of gradients given as this rank's blocks of
     DTensor parameters: each block's sum of squares, summed over the mesh
-    axes its parameter is split over (once per set of axes)."""
+    axes its parameter is split over (one all-reduce per set of axes),
+    then all added in the parameters' order, as ``global_norm`` adds them
+    (so on one rank the two give the same bits)."""
     from torch.distributed.tensor import Shard
-    by_axes: Dict[tuple, torch.Tensor] = {}
+    names = list(params)
+    sq = ops.grad_sumsq([spmd.block(grads[k]) for k in names])
+    by_axes: Dict[tuple, list] = {}
     mesh = None
-    for name, p in params.items():
-        g = spmd.block(grads[name]).float()
-        axes = ()
+    for i, name in enumerate(names):
+        p = params[name]
         if spmd.is_sharded(p):
             mesh = p.device_mesh
             axes = tuple(a for a, pl in zip(mesh.mesh_dim_names,
                                             p.placements)
                          if isinstance(pl, Shard))
-        sq = torch.sum(torch.square(g))
-        by_axes[axes] = by_axes[axes] + sq if axes in by_axes else sq
-    total = sum(spmd.all_reduce(v, mesh, axes) if axes else v
-                for axes, v in by_axes.items())
-    return torch.sqrt(total)
+            if axes:
+                by_axes.setdefault(axes, []).append(i)
+    if by_axes:
+        each = list(sq.unbind(0))
+        for axes, idx in by_axes.items():
+            summed = spmd.all_reduce(torch.stack([each[i] for i in idx]),
+                                     mesh, axes)
+            for j, i in enumerate(idx):
+                each[i] = summed[j]
+        sq = torch.stack(each)
+    return torch.sqrt(ops.sum_in_order(sq))

@@ -1694,3 +1694,156 @@ def test_decode_graphs_give_their_memory_back_on_card(cuda_device):
         gc.collect()
     torch.cuda.synchronize()
     assert torch.cuda.memory_allocated() == before
+
+
+# ---------------------------------------------------------------------------
+# AdamW's gradient norm and update (csrc/adamw.cu)
+# ---------------------------------------------------------------------------
+
+ADAMW_SHAPES = [(300, 64), (64,), (0,), (17,), (5, 7, 9), (16384 + 3,),
+                (2 * 16384,)]
+ADAMW_HYPER = dict(lr=3e-3, b1=0.9, b2=0.95, b1c=0.1899999976158142,
+                   b2c=0.09750002622604370, eps=1e-8, wd=0.1)
+
+
+def _adamw_state(dev, p_dtype, g_dtype, seed=0, offset=False):
+    """Parameters, gradients and warm moments of ADAMW_SHAPES; with
+    ``offset`` the gradients are views one element into their storage (the
+    kernels' one-at-a-time path)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(s, scale=1.0):
+        n = torch.Size(s).numel()
+        return torch.randn(n + 1, device=dev, generator=gen) * scale
+
+    ps = [draw(s)[:-1].view(s).to(p_dtype) for s in ADAMW_SHAPES]
+    gs = [(draw(s, 3.0).to(g_dtype)[1:] if offset
+           else draw(s, 3.0)[:-1].to(g_dtype)).view(s)
+          for s in ADAMW_SHAPES]
+    ms = [draw(s, 0.1)[:-1].view(s).clone() for s in ADAMW_SHAPES]
+    vs = [draw(s, 0.1)[:-1].view(s).square().clone() for s in ADAMW_SHAPES]
+    return ps, gs, ms, vs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("p_dtype,g_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+def test_adamw_kernels_match_plain_bit_for_bit_on_card(p_dtype, g_dtype,
+                                                        offset,
+                                                        cuda_device):
+    """The update: p, m and v bit-identical to the plain loop on the card
+    (every dtype pairing, decayed and not, ragged and empty tensors,
+    misaligned gradients).  The norm's per-tensor sums within 1e-5 of
+    torch's and the same bits run to run; its launches counted."""
+    ps, gs, ms, vs = _adamw_state(cuda_device, p_dtype, g_dtype,
+                                  offset=offset)
+    decayed = [i % 3 != 1 for i in range(len(ps))]
+    before = ops.COUNTERS["adamw"].value
+    sq = ops.grad_sumsq(gs)
+    want = ref.grad_sumsq_ref(gs)
+    assert torch.equal(ops.grad_sumsq(gs), sq)
+    assert ((sq - want).abs() <= 1e-5 * want).all()
+    total = ops.sum_in_order(sq)
+    assert torch.equal(total, ops.sum_in_order(sq.clone()))
+    scale = torch.clamp(1.0 / torch.sqrt(total), max=1.0)
+    kp, km, kv = ([t.clone() for t in ts] for ts in (ps, ms, vs))
+    ops.adamw_update(kp, gs, km, kv, decayed, scale, **ADAMW_HYPER)
+    ref.adamw_update_ref(ps, gs, ms, vs, decayed, scale, **ADAMW_HYPER)
+    torch.cuda.synchronize()
+    for got, want_ in ((kp, ps), (km, ms), (kv, vs)):
+        for a, b in zip(got, want_):
+            assert torch.equal(a, b)
+    assert ops.COUNTERS["adamw"].value == before + 5   # 2 + 2 + 1 calls
+
+
+@pytest.mark.cuda
+def test_adamw_overflowing_norm_on_card(cuda_device):
+    """A sum of squares past float32: the norm inf in both, the scale 0,
+    the updated parameters finite and equal."""
+    gs = [torch.full((4096,), 1e19, device=cuda_device),
+          torch.ones(10, device=cuda_device)]
+    sq = ops.grad_sumsq(gs)
+    assert torch.isinf(ops.sum_in_order(sq))
+    assert torch.isinf(ref.sum_in_order_ref(ref.grad_sumsq_ref(gs)))
+    scale = torch.clamp(1.0 / torch.sqrt(ops.sum_in_order(sq)), max=1.0)
+    assert float(scale) == 0.0
+    ps = [torch.randn(4096, device=cuda_device).bfloat16(),
+          torch.randn(10, device=cuda_device).bfloat16()]
+    ms = [torch.zeros(4096, device=cuda_device),
+          torch.zeros(10, device=cuda_device)]
+    kp, km, kv = ([t.clone() for t in ts] for ts in (ps, ms, ms))
+    ops.adamw_update(kp, gs, km, kv, [True, True], scale, **ADAMW_HYPER)
+    ref.adamw_update_ref(ps, gs, ms, [m.clone() for m in ms], [True, True],
+                         scale, **ADAMW_HYPER)
+    for a, b in zip(kp, ps):
+        assert torch.isfinite(a.float()).all() and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_adamw_optimizer_on_card_equals_plain(cuda_device):
+    """optim.AdamW on the card (the kernels) against the plain versions on
+    the card, three steps: norms, parameters and moments the same bits."""
+    from repro_torch.optim import AdamW, AdamWConfig
+    ps, _, _, _ = _adamw_state(cuda_device, torch.bfloat16, torch.bfloat16)
+    names = [f"layers.{i}.w" if i % 2 else f"layers.{i}.norm"
+             for i in range(len(ps))]
+    runs = []
+    for plain in (False, True):
+        params = {k: p.clone() for k, p in zip(names, ps)}
+        opt = AdamW(AdamWConfig(lr=1e-2))
+        state = opt.init(params)
+        norms = []
+        for step in range(3):
+            gen = torch.Generator(device=cuda_device).manual_seed(step)
+            grads = {k: torch.randn(p.shape, device=cuda_device,
+                                    generator=gen).bfloat16()
+                     for k, p in params.items()}
+            if plain:
+                saved = (ops.grad_sumsq, ops.sum_in_order, ops.adamw_update)
+                ops.grad_sumsq, ops.sum_in_order, ops.adamw_update = (
+                    ref.grad_sumsq_ref, ref.sum_in_order_ref,
+                    ref.adamw_update_ref)
+            try:
+                _, state, n = opt.update(grads, state, params)
+            finally:
+                if plain:
+                    (ops.grad_sumsq, ops.sum_in_order,
+                     ops.adamw_update) = saved
+            norms.append(n)
+        runs.append((params, state, norms))
+    (p0, s0, n0), (p1, s1, n1) = runs
+    assert torch.allclose(torch.stack(n0), torch.stack(n1), rtol=1e-5)
+    # the kernels' norm differs from torch's sum in its last bits, and so
+    # then does the clip's scale: hold the state to rounding of that
+    for k in p0:
+        assert torch.allclose(p0[k].float(), p1[k].float(), rtol=2 ** -7)
+        assert torch.allclose(s0.m[k], s1.m[k], rtol=1e-4, atol=1e-8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compress", [False, True])
+def test_launcher_steps_take_the_adamw_kernels_on_card(compress, cuda_device,
+                                                       capsys):
+    """``launch.train`` on the card, plain and with the int8 step over a
+    one-process NCCL group: each step's norm and update are the kernels'
+    three calls, and no plain version of them runs."""
+    from repro_torch.launch import train as tlaunch
+    calls = []
+    saved = {n: getattr(ref, n) for n in ("grad_sumsq_ref",
+                                          "sum_in_order_ref",
+                                          "adamw_update_ref")}
+    for n in saved:
+        setattr(ref, n, lambda *a, _n=n, **k: calls.append(_n))
+    try:
+        before = ops.COUNTERS["adamw"].value
+        assert tlaunch.main(["--arch", "granite-moe-3b-a800m", "--smoke",
+                             "--steps", "2"]
+                            + (["--compress"] if compress else [])) == 0
+    finally:
+        for n, fn in saved.items():
+            setattr(ref, n, fn)
+    assert "[train] done" in capsys.readouterr().out
+    assert ops.COUNTERS["adamw"].value == before + 2 * 3
+    assert calls == []

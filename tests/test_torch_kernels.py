@@ -149,7 +149,7 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
                                  "nbody", "flash_attention", "ssd_scan",
                                  "grouped_matmul", "flash_attention_bwd",
                                  "ssd_scan_bwd", "grouped_matmul_dx",
-                                 "grouped_matmul_dw"}
+                                 "grouped_matmul_dw", "adamw"}
 
 
 def test_meta_tensors_give_shapes():

@@ -16,7 +16,8 @@ CPU.
   smoke configs of a dense, an SSM, a hybrid, a MoE and the
   encoder-decoder arch ends without calling a plain version, and its
   kernel calls equal the calls the same step makes into ``ops`` on the
-  CPU (counted by a wrapper).
+  CPU (counted by a wrapper), the optimizer's three a training step
+  included.
 - Matrix-product FLOPs of a smoke prefill and train step of minicpm
   (dense) and granite (MoE) against ``repro.launch.hlo_analysis.analyze``
   over the JAX step compiled on the CPU, with its elementwise counting
@@ -239,15 +240,17 @@ def test_kernel_bounds_of_the_perf_table_unchanged():
 # ---------------------------------------------------------------------------
 
 KERNELS = ("flash_attention_bshd", "ssd_scan", "grouped_matmul")
+#: the optimizer's entry points, all counted under the ``adamw`` kernel
+OPTIMIZER = ("grad_sumsq", "sum_in_order", "adamw_update")
 
 
 class Calls:
-    """Counts the model's calls into ``ops``' three LM kernels; with
-    ``no_plain``, any plain version called raises."""
+    """Counts the model's calls into ``ops``' three LM kernels and the
+    optimizer's; with ``no_plain``, any plain version called raises."""
 
     def __init__(self, monkeypatch, no_plain=False):
-        self.n = dict.fromkeys(KERNELS, 0)
-        for name in KERNELS:
+        self.n = dict.fromkeys(KERNELS + OPTIMIZER, 0)
+        for name in KERNELS + OPTIMIZER:
             fn = getattr(ops, name)
 
             def counted(*a, _n=name, _fn=fn, **kw):
@@ -256,7 +259,8 @@ class Calls:
             monkeypatch.setattr(ops, name, counted)
         if no_plain:
             for name in ("attention_ref", "ssd_scan_ref",
-                         "grouped_matmul_ref"):
+                         "grouped_matmul_ref", "grad_sumsq_ref",
+                         "sum_in_order_ref", "adamw_update_ref"):
                 def refuse(*a, _n=name, **kw):
                     raise AssertionError(f"{_n} ran on meta")
                 monkeypatch.setattr(ref, name, refuse)
@@ -315,8 +319,10 @@ def test_analyzer_kernel_calls_equal_cpu_calls(arch, kind, monkeypatch):
             "grouped_matmul": gmm}
     if kind == "train":
         want.update(flash_attention_bwd=flash // again,
-                    ssd_scan_bwd=ssd // again)
+                    ssd_scan_bwd=ssd // again,
+                    adamw=sum(cpu.n[k] for k in OPTIMIZER))
         want["grouped_matmul"] += 2 * gmm // again      # dx and dw
+        assert want["adamw"] == 3      # the norm's two calls, the update
     assert got == {k: n for k, n in want.items() if n}
     if kind != "decode" and arch != "mamba2-1.3b":
         assert flash > 0
@@ -419,7 +425,10 @@ def test_matmul_flops_equal_reference_hlo(arch, kind):
     products = 2 + (5 if kind == "train" else 0)
     gap = 2.0 * products * B * cfg.n_heads * cfg.head_dim * masked \
         * cfg.n_layers
-    got = ana["matmul_flops"] + sum(ana["kernel_flops"].values())
+    # the optimizer's kernel does elementwise work only, which the
+    # reference's count here leaves out
+    got = ana["matmul_flops"] + sum(f for k, f in ana["kernel_flops"].items()
+                                    if k != "adamw")
     assert got + gap == pytest.approx(want, rel=1e-12)
 
 
