@@ -41,7 +41,20 @@ and read just after:
   (32 layers, d_model 1536, 40 experts top-8) runs flash attention and the
   MoE grouped GEMM.  Every decode step of every served model is one replay
   of the step's CUDA graph (``DecodeGraph``, captured when the engine is
-  made); for zamba2, granite, gemma2 (past its window) and whisper an
+  made), and every prefill of a prompt length seen before one replay of
+  that length's graph (``PrefillGraphs``, captured at the length's second
+  prefill; its first runs eagerly: an ``lm prefill graphs`` line gives
+  the share of prefills that repeat a length, the lengths captured with
+  their capture seconds, and those replayed); for zamba2, granite,
+  mamba2, minicpm and gemma2 an ``lm prefill graph`` line gives the
+  graphed against the eager prefill at two lengths (the short one and the
+  longest eager, captured, then the short one replayed, each on a prompt
+  drawn anew): logits and cache bit-identical, one prefill's launches a
+  call, a replay's device operations those of an eager prefill, seconds
+  a request in turns, the capture seconds, the graphs' pool and static
+  bytes against an eager prefill's peak, and the idle share of one
+  profiled call of each; for
+  zamba2, granite, gemma2 (past its window) and whisper an
   ``lm decode graph`` line gives graphed against eager decode tokens/s in
   turns on one cache and one set of tokens, the idle share of 8 steps of
   each, and a replay's device operations against an eager step's, with
@@ -148,12 +161,14 @@ record is written to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -204,9 +219,9 @@ from repro_torch.launch.roofline import (  # noqa: E402
     ssd_bwd_split_bound, ssd_split_bound)
 from repro_torch.launch.train import build_optimizer  # noqa: E402
 from repro_torch.optim import AdamW, AdamWConfig  # noqa: E402
-from repro_torch.runtime import (DecodeGraph, RuntimeConfig,  # noqa: E402
-                                 ServeEngine, init_state, make_loss_fn,
-                                 make_train_step)
+from repro_torch.runtime import (DecodeGraph, PrefillGraphs,  # noqa: E402
+                                 RuntimeConfig, ServeEngine, init_state,
+                                 make_loss_fn, make_train_step)
 from repro_torch.runtime.train import (_accumulate_grads,  # noqa: E402
                                        trainable)
 
@@ -478,6 +493,14 @@ DECODE_GRAPH_STEPS = 16
 #: launches at its edges (seen: a third of a replay missed, 2 launches of a
 #: kernel taken in), and the median holds while one window of three does
 DECODE_GRAPH_WINDOWS = 3
+#: the prefill as one CUDA graph per prompt length against the eager
+#: prefill, for these archs (every served arch prefills through the
+#: graphs; mamba2, minicpm and gemma2 are the host-bound eager prefills):
+#: two prompt lengths, one drawn from seed 9 in the lower half of
+#: LM_PROMPTS (with a ragged SSD tail on an SSM stack) and the longest
+PREFILL_GRAPH_ARCHS = LM_ARCHS + ("mamba2-1.3b", "minicpm-2b", "gemma2-2b")
+#: prefills of each kind a turn (eager, graph, graph, eager) at each length
+PREFILL_GRAPH_CALLS = 3
 #: the full-width prefill the launch phase holds the dry-run against
 CHECKED_PREFILL_ARCH = "zamba2-2.7b"
 CHECKED_PREFILL_TOKENS = 1536
@@ -1629,6 +1652,21 @@ def lm_main_path(cfg, model, n_requests: int = LM_REQUESTS,
            f"{gmm_paths}")
     for n, sec in prefills:
         print(f"lm prefill {n} tokens: {sec:.4f} s", flush=True)
+    graphed = engine.prefill_graphs.lengths
+    seen = collections.Counter(lengths)
+    expect(sorted(graphed) == sorted(seen) and all(
+        (g.graph is not None) == (seen[n] > 1) and g.replays == seen[n] - 1
+        for n, g in graphed.items()),
+           f"a prompt length's first prefill eager, its second captured, "
+           f"every repeat a replay: "
+           f"{ {n: (g.calls, g.replays) for n, g in graphed.items()} }")
+    captures = {n: g.capture_s for n, g in graphed.items()
+                if g.capture_s is not None}
+    replayed = [n for i, n in enumerate(lengths) if n in lengths[:i]]
+    print(f"lm prefill graphs {cfg.arch}: {len(replayed)} of {n_requests} "
+          f"prefills repeat a length; captured "
+          f"{ {n: round(s, 4) for n, s in captures.items()} } (seconds of "
+          f"the capture), replayed {replayed}, the rest eager", flush=True)
     tok_s = decode["tokens"] / decode["seconds"]
     print(f"lm decode: {decode['tokens']} tokens in {decode['steps']} steps, "
           f"{decode['seconds']:.3f} s, {tok_s:.1f} tokens/s; all "
@@ -1640,6 +1678,7 @@ def lm_main_path(cfg, model, n_requests: int = LM_REQUESTS,
                     k: list(v.shape) for k, v in engine.cache.items()},
                 launches=launches, want_launches=want,
                 grouped_matmul_bf16_launches=gmm_paths,
+                prefill_captures_s=captures, prefill_replayed=replayed,
                 first_tokens=[r.out[:8] for r in done])
 
 
@@ -2043,6 +2082,176 @@ def decode_graph_phase(cfg, model):
                 logits_bit_identical=bitwise, first_tokens=tokens_eager[:4])
 
 
+#: what a device-to-device copy is called in a profile: eager, a copy
+#: engine's "Memcpy DtoD"; in a replay, the graph's copy kernels
+#: ("memcpy128", "memcpy32_post", ...) and, for a few of granite's copies,
+#: "Memset" (the eager prefill shows no memset at all: 290 copies there,
+#: 287 copy kernels and 3 memsets in its replay)
+GRAPH_COPY = re.compile(r"^(Memcpy DtoD|Memset|memcpy\d*(_post)?)\b")
+
+
+def fold_copies(ops_a_call):
+    """{name: launches a call} with the device-to-device copies and sets
+    under one name, however the device ran them."""
+    out = {}
+    for name, n in (ops_a_call or {}).items():
+        key = "memcpy DtoD or memset" if GRAPH_COPY.match(name) else name
+        out[key] = out.get(key, 0) + n
+    return out
+
+
+def prefill_graph_phase(cfg, model):
+    """The prefill as one CUDA graph per repeated prompt length
+    (``PrefillGraphs`` at LM_CAPACITY) against the eager prefill, at a
+    short length L1 and the longest L2 (``PREFILL_GRAPH_ARCHS``).  Checked,
+    in an untimed pass ordered L1, L2, L1, L2, L1 with each call's prompt
+    drawn anew (a length's first call eager, its second captured and
+    replayed, L1's third a replay after L2's graph used the shared pool
+    and the static cache): each call's logits and every cache entry
+    bit-identical to an eager ``prefill`` of its prompt into a fresh
+    cache, and each call counting that eager prefill's launches, one
+    prefill's (``want_launches``); a replay's device operations at L2
+    those of the captured function run eagerly, by name and count
+    (``median_launches``; the device-to-device copies and sets, which a
+    graph runs as nodes of its own, under one name: ``fold_copies``).
+    Timed: seconds a request (the prefill and the host's read of its
+    greedy token, as the engine reads it), eager against graph in turns
+    (eager, graph, graph, eager) of PREFILL_GRAPH_CALLS calls at each
+    length, each call on a prompt drawn for it (both kinds the same
+    prompts); each length's capture seconds.  Memory: the pool's bytes,
+    the static outputs' bytes and what the holder reserved, against the
+    peak an eager prefill at L2 allocates above what it found (its
+    intermediates and the fresh cache the eager engine makes a request).
+    Profiled: the idle share of one replay against one eager prefill at
+    L2."""
+    rng = np.random.default_rng(9)
+    short = int(rng.integers(LM_PROMPTS[0], LM_PROMPTS[1] // 2 + 1))
+    if cfg.ssm is not None and short % cfg.ssm.chunk == 0:
+        short += 1
+    lengths = (short, LM_PROMPTS[1])
+
+    def draw(n):
+        return torch.from_numpy(rng.integers(0, cfg.vocab, (1, n))).to(CARD)
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: c.value for k, c in ops.COUNTERS.items()}
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    graphs = PrefillGraphs(model, LM_CAPACITY)
+    calls = []
+    for n in (*lengths, *lengths, lengths[0]):
+        toks = draw(n)
+        kind = ("eager", "capture", "replay")[min(
+            2, graphs.lengths[n].calls if n in graphs.lengths else 0)]
+        reset_counts()
+        logits, cache = graphs(toks)
+        counted = counts()
+        reset_counts()
+        with torch.no_grad():
+            want_logits, want = prefill(model, toks, capacity=LM_CAPACITY)
+        eager = counts()
+        same = torch.equal(logits, want_logits) and all(
+            torch.equal(cache[k], want[k]) for k in want)
+        expect(same, f"{cfg.arch}: the {n}-token prefill ({kind}) logits and "
+               f"cache bit-identical to the eager prefill's")
+        one = want_launches(cfg, [n], 0)
+        expect(counted == eager and all(counted[k] == v
+                                        for k, v in one.items()),
+               f"{cfg.arch}: a {n}-token prefill ({kind}) counts one "
+               f"prefill's launches: {counted}, eager {eager}, want {one}")
+        calls.append(dict(tokens=n, kind=kind, launches=counted))
+        del logits, cache, want_logits, want
+    expect([c["kind"] for c in calls]
+           == ["eager", "eager", "capture", "capture", "replay"],
+           f"{cfg.arch}: a length's first prefill eager, its second "
+           f"captured: {calls}")
+    pool, static = graphs.pool_bytes(), graphs.static_bytes()
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved() - reserved
+    toks = draw(lengths[1])
+    torch.cuda.synchronize()
+    found = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        out = prefill(model, toks, capacity=LM_CAPACITY)
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated() - found
+    del out
+
+    @torch.no_grad()
+    def eager_call(t):
+        logits, _ = prefill(model, t, capacity=LM_CAPACITY)
+        return int(torch.argmax(logits[0]))
+
+    def graph_call(t):
+        return int(torch.argmax(graphs(t)[0][0]))
+
+    prompts = {n: [draw(n) for _ in range(PREFILL_GRAPH_CALLS)]
+               for n in lengths}
+    seconds = {n: {"eager": [], "graph": []} for n in lengths}
+    for n in lengths:
+        for kind in ("eager", "graph", "graph", "eager"):
+            fn = graph_call if kind == "graph" else eager_call
+            t0 = time.perf_counter()
+            for t in prompts[n]:
+                fn(t)
+            seconds[n][kind].append((time.perf_counter() - t0)
+                                    / PREFILL_GRAPH_CALLS)
+    # at L2, which a whole number of SSD chunks keeps to fewer operations
+    # than L1's ragged tail
+    longest = graphs.lengths[lengths[1]]
+
+    @torch.no_grad()
+    def captured_eagerly():
+        graphs._run(longest.tokens)
+
+    replay = fold_copies(median_launches(lambda: longest.graph.replay()))
+    step = fold_copies(median_launches(captured_eagerly))
+    if replay and step:
+        expect(replay == step, f"{cfg.arch}: a prefill replay runs the "
+               f"device operations of an eager prefill: replay {replay}, "
+               f"eager {step}")
+    n_replay = sum(replay.values()) if replay else None
+    profiles = {
+        "graph": profile_steps(f"prefill graph {cfg.arch} {lengths[1]}",
+                               lambda: graph_call(prompts[lengths[1]][0])),
+        "eager": profile_steps(f"prefill eager {cfg.arch} {lengths[1]}",
+                               lambda: eager_call(prompts[lengths[1]][0]))}
+    idle = {k: p["idle_share"] for k, p in profiles.items()}
+    captures = {n: g.capture_s for n, g in graphs.lengths.items()
+                if g.capture_s is not None}
+    turns = "; ".join(
+        f"{n} tokens graph {[round(x, 4) for x in seconds[n]['graph']]}, "
+        f"eager {[round(x, 4) for x in seconds[n]['eager']]}"
+        for n in lengths)
+    print(f"lm prefill graph {cfg.arch}: {lengths[0]}, {lengths[1]} tokens "
+          f"eager, captured, then {lengths[0]} replayed, at capacity "
+          f"{LM_CAPACITY}, each prompt drawn anew: logits and cache "
+          f"bit-identical to the eager prefill's, one prefill's launches a "
+          f"call; s a request {turns} (in turns: eager, graph, graph, "
+          f"eager; {PREFILL_GRAPH_CALLS} prompts each); capture s "
+          f"{ {n: round(s, 4) for n, s in captures.items()} }; pool "
+          f"{pool} bytes, static cache and logits {static} bytes, reserved "
+          f"by the holder {reserved} bytes; an eager {lengths[1]}-token "
+          f"prefill's peak above what it found {eager_peak} bytes; idle "
+          f"share at {lengths[1]} graph {idle['graph']}, eager "
+          f"{idle['eager']}; {n_replay} device operations a replay at "
+          f"{lengths[1]} (eager "
+          f"{sum(step.values()) if step else None}, the same by name: "
+          f"{replay == step if replay and step else 'not seen'})",
+          flush=True)
+    return dict(lengths=list(lengths), calls=calls, seconds=seconds,
+                capture_s=captures, pool_bytes=pool, static_bytes=static,
+                reserved_bytes=reserved, eager_peak_bytes=eager_peak,
+                idle_share=idle, profiles=profiles, replay_ops=replay,
+                eager_ops=step, ops_a_replay=n_replay)
+
+
 def checked_prefill(cfg, model, n: int = CHECKED_PREFILL_TOKENS):
     """One batch-1 prefill of ``n`` tokens at capacity ``n`` (the dry-run's
     prefill step at that shape), the model alone on the card before it:
@@ -2105,6 +2314,8 @@ def lm_phase(arch):
               f"({r['bound'][1]})", flush=True)
     serve = lm_main_path(cfg, model)
     serve["profile"] = lm_profile(cfg, model)
+    if arch in PREFILL_GRAPH_ARCHS:
+        serve["prefill_graph"] = prefill_graph_phase(cfg, model)
     if arch in DECODE_GRAPH_ARCHS:
         serve["decode_graph"] = decode_graph_phase(cfg, model)
     if arch == CHECKED_PREFILL_ARCH:
@@ -3298,6 +3509,8 @@ def family_phase(arch):
     kernels = family_kernel_phase(cfg)
     serve = lm_main_path(cfg, model, FAMILY_REQUESTS, FAMILY_MAX_NEW)
     serve["profile"] = lm_profile(cfg, model)
+    if arch in PREFILL_GRAPH_ARCHS:
+        serve["prefill_graph"] = prefill_graph_phase(cfg, model)
     if arch in DECODE_GRAPH_ARCHS:
         serve["decode_graph"] = decode_graph_phase(cfg, model)
     if cfg.arch == WINDOW_ARCH:
@@ -4185,6 +4398,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = gpu_line()
     print(card, flush=True)
+    laps = {"at": time.perf_counter()}
+
+    def lap(name: str) -> None:
+        """Print the seconds since the last lap: where the run's time goes."""
+        now = time.perf_counter()
+        print(f"time {name}: {now - laps['at']:.1f} s", flush=True)
+        laps["at"] = now
     t0 = time.perf_counter()
     quad_start()
     _build.library()
@@ -4219,23 +4439,30 @@ def main() -> int:
               f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), max err "
               f"{r['max_abs_err']:.3g}", flush=True)
 
+    lap("build and kernels")
     requests, chain, launches = main_path(sched, inputs)
     del inputs
+    lap("scheduler")
     gates = gates_phase()
     flash_pad = flash_padding_phase()
+    lap("gates and flash padding")
     paper, paper_launches = paper_phase()
+    lap("paper")
     by_path = {"scheduler": dict(launches), "paper": paper_launches}
     lm_serve, lm_head = {}, {}
     for arch in LM_ARCHS:
         lm_kernels, lm_serve[arch], lm_head[arch] = lm_phase(arch)
         results.update(lm_kernels)
         by_path[arch] = lm_serve[arch]["launches"]
+        lap(f"serve {arch}")
     train_kernels, train, train_head = train_phase()
+    lap("train " + TRAIN_ARCH)
     results.update(train_kernels)
     by_path["train " + TRAIN_ARCH] = train["launches"]
     hyb_kernels, hyb_train, hyb_head = hybrid_train_phase()
     results.update(hyb_kernels)
     by_path["train " + HYBRID_TRAIN_ARCH] = hyb_train["launches"]
+    lap("train " + HYBRID_TRAIN_ARCH)
     families = {}
     for arch in FAMILY_ARCHS:
         fk, serve, head = family_phase(arch)
@@ -4245,25 +4472,30 @@ def main() -> int:
         for extra in ("window", "frontend"):
             if extra in serve:
                 by_path[f"{arch} {extra}"] = serve[extra]["launches"]
+        lap(f"serve {arch}")
     for arch in CUT_ARCHS:
         fk, serve, check = cut_phase(arch)
         results.update(fk)
         families[arch] = dict(serve=serve, cut_check=check,
                               layers=CUT_LAYERS)
         by_path[f"{arch} {CUT_LAYERS} layers"] = serve["launches"]
+        lap(f"serve {arch} {CUT_LAYERS} layers")
     for arch in FAMILY_TRAIN_ARCHS:
         fk, main_, head = family_train_phase(arch)
         results.update({f"{k} {arch} train": v for k, v in fk.items()})
         families[arch].update(train=main_, train_head_check=head)
         by_path["train " + arch] = main_["launches"]
+        lap("train " + arch)
     wk, w_serve, w_head, w_grads, w_train = whisper_phase()
     results.update(wk)
     families[WHISPER_ARCH] = dict(serve=w_serve, head_check=w_head,
                                   train=w_train, train_head_check=w_grads)
     by_path[WHISPER_ARCH] = w_serve["launches"]
     by_path["train " + WHISPER_ARCH] = w_train["launches"]
+    lap(WHISPER_ARCH)
     example = train_lm_phase()
     by_path["train_lm"] = example["launches"]
+    lap("train_lm")
     checked = {f"train {arch}": (arch, "train", families[arch]["train"])
                for arch in CHECKED_TRAIN_ARCHS}
     checked[f"prefill {CHECKED_PREFILL_ARCH}"] = (
@@ -4271,7 +4503,9 @@ def main() -> int:
         lm_serve[CHECKED_PREFILL_ARCH]["checked_prefill"])
     launch = launch_phase(checked)
     by_path["serve_llm"] = launch["serve_llm"]["launches"]
+    lap("launch")
     mesh = mesh_phase(quad)
+    lap("mesh")
     by_path[f"mesh {MESH_ARCH} prefill"] = mesh["world1"]["sharded"][
         "prefill_launches"]
     by_path[f"mesh {MESH_ARCH} train"] = mesh["world1"]["sharded"][

@@ -6,15 +6,21 @@ greedy or temperature sampling), as in the JAX package.  It runs on CUDA
 unless ``device="cpu"`` is passed, and raises without a card otherwise.
 On CUDA each decode step is one replay of a CUDA graph captured when the
 engine is made (:class:`~repro_torch.runtime.graphs.DecodeGraph`), as the
-JAX engine runs one jitted program a step; on the CPU the same step runs
-eagerly.  Sampling stays outside the graph, as the JAX engine samples
-outside its jit.  Like the JAX engine it keeps one decode position for all
-slots (the longest prompt admitted so far); see ROADMAP.md, faults of the
-reference.  An optional ``on_step`` callback sees each prefill and decode
-step with its host-clock seconds and its logits, for measurement and
-checks.  As the JAX engine has no way to pass audio frames, this one
-refuses an encoder-decoder model: serve it through ``prefill(...,
-frames=...)`` and ``decode_step`` (or a ``DecodeGraph``).
+JAX engine runs one jitted program a step, and each batch-1 prefill of a
+prompt length seen before is one replay of a graph captured at that
+length's second prefill
+(:class:`~repro_torch.runtime.graphs.PrefillGraphs`; a length's first
+prefill runs eagerly and is the capture's warm-up), as the JAX engine
+jits ``_prefill1`` once a prompt shape; on the CPU the same steps run
+eagerly.  The splice into the slot and sampling stay outside the graphs,
+as the JAX engine keeps them outside its jits.  Like the JAX engine it
+keeps one decode position for all slots (the longest prompt admitted so
+far); see ROADMAP.md, faults of the reference.  An optional ``on_step``
+callback sees each prefill and decode step with its host-clock seconds
+and its logits, for measurement and checks.  As the JAX engine has no
+way to pass audio frames, this one refuses an encoder-decoder model:
+serve it through ``prefill(..., frames=...)`` and ``decode_step`` (or a
+``DecodeGraph``).
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.attention import Position
 from repro_torch.models.lm import (LM, Cache, cache_defs, decode_step,
                                    init_cache, prefill)
-from repro_torch.runtime.graphs import DecodeGraph
+from repro_torch.runtime.graphs import DecodeGraph, PrefillGraphs
 
 
 def make_prefill_step(cfg: ModelConfig, capacity: Optional[int] = None):
@@ -92,12 +98,16 @@ class ServeEngine:
     ``on_step``, when given, is called after every prefill and decode step
     with the seconds from the step's start to the host's read of the tokens
     it sampled (a read that waits for the device), and the step's logits.
-    On CUDA a decode step's logits are the graph's static output: the next
-    decode step overwrites them, so a hook that keeps them copies them.
+    A step's logits may be a graph's static output (a repeated length's
+    prefill's also on the CPU): the next step of its kind overwrites them,
+    so a hook that keeps them copies them.
 
     The decode graph (``graph``) is captured over the model's parameters
-    and the engine's cache: rebinding a parameter invalidates it (the next
-    step raises), and a new capacity or slot count needs a new engine.
+    and the engine's cache, each prefill graph (``prefill_graphs``, one a
+    repeated prompt length) over the parameters and its static batch-1
+    cache, logits and tokens: rebinding a parameter invalidates them (the next
+    step or prefill raises), and a new capacity or slot count needs a new
+    engine.
     """
 
     def __init__(self, cfg: ModelConfig, model: LM, *, slots: int,
@@ -118,7 +128,7 @@ class ServeEngine:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.on_step = on_step
 
-        self._prefill1 = make_prefill_step(cfg, capacity)
+        self.prefill_graphs = PrefillGraphs(self.model, capacity)
 
         self.cache: Cache = init_cache(cfg, slots, capacity,
                                        device=self.device)
@@ -194,7 +204,7 @@ class ServeEngine:
             t0 = time.perf_counter()
             prompt = torch.tensor(req.prompt, dtype=torch.long,
                                   device=self.device)[None]
-            logits, c1 = self._prefill1(self.model, prompt)
+            logits, c1 = self.prefill_graphs(prompt)
             _splice(self.cache, c1, i, self._batch_dims)
             first = greedy(logits)[0]
             token = int(first)

@@ -1697,6 +1697,135 @@ def test_decode_graphs_give_their_memory_back_on_card(cuda_device):
 
 
 # ---------------------------------------------------------------------------
+# The prefill as one CUDA graph per prompt length (runtime/graphs.py)
+# ---------------------------------------------------------------------------
+
+def _kernel_counts():
+    torch.cuda.synchronize()
+    return {k: c.value for k, c in ops.COUNTERS.items()}
+
+
+def _reset_counts():
+    for c in ops.COUNTERS.values():
+        c.reset()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "granite-moe-3b-a800m",
+                                  "gemma2-2b"])
+def test_prefill_graph_replays_match_eager_on_card(arch, cuda_device):
+    """bf16 smoke models as served: prompts long, short, long, short,
+    long, each drawn anew (gemma2's long one past its 16-row window),
+    through one ``PrefillGraphs``: each call's logits and every cache
+    entry bit-identical to an eager prefill into a fresh cache (a length's
+    first call eager, its second captured and replayed, its third a replay
+    after the other length's graph used the shared pool and the static
+    cache), one graph a length in one shared pool, and each call, eager,
+    captured or replayed, counting the launches of one eager prefill."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import LM, prefill
+    from repro_torch.runtime import PrefillGraphs
+    cfg = get_smoke(arch)
+    model = LM(cfg, device=cuda_device,
+               generator=torch.Generator(device=cuda_device).manual_seed(0))
+    graphs = PrefillGraphs(model, 32)
+    assert graphs.pool is not None
+    g = torch.Generator().manual_seed(2)
+    for n in (28, 9, 28, 9, 28):
+        toks = torch.randint(0, cfg.vocab, (1, n), generator=g).to(
+            cuda_device)
+        _reset_counts()
+        logits, cache = graphs(toks)
+        counted = _kernel_counts()
+        _reset_counts()
+        want_logits, want_cache = prefill(model, toks, capacity=32)
+        assert counted == _kernel_counts(), n
+        assert counted["flash_attention"] > 0, n
+        assert torch.equal(logits, want_logits), n
+        for k in want_cache:
+            assert torch.equal(cache[k], want_cache[k]), (n, k)
+    seen = graphs.lengths
+    assert sorted(seen) == [9, 28]
+    assert [seen[n].replays for n in (28, 9)] == [2, 1]
+    for length in seen.values():
+        assert length.graph is not None and length.capture_s > 0
+    assert graphs.pool_bytes() > 0
+
+
+@pytest.mark.cuda
+def test_prefill_graph_refuses_rebound_parameters_on_card(cuda_device):
+    """A replay after a parameter was rebound raises (the graph baked in
+    the old address, the grouped GEMM's TMA maps too), in the holder and
+    through the engine's admit; nothing falls back to an eager prefill."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import LM
+    from repro_torch.runtime import PrefillGraphs, ServeEngine
+    cfg = get_smoke("granite-moe-3b-a800m")
+    model = LM(cfg, device=cuda_device,
+               generator=torch.Generator(device=cuda_device).manual_seed(0))
+    graphs = PrefillGraphs(model, 32)
+    toks = torch.arange(12, device=cuda_device)[None] % cfg.vocab
+    graphs(toks)
+    before = graphs(toks)[0].clone()
+    assert graphs.lengths[12].graph is not None
+    eng = ServeEngine(cfg, model, slots=2, capacity=32)
+    for _ in range(2):
+        eng.submit(toks[0].tolist(), max_new=1)
+    assert len(eng.run_to_completion()) == 2
+    assert eng.prefill_graphs.lengths[12].graph is not None
+    moe = model.layers[0].moe
+    moe.w_in = torch.nn.Parameter(moe.w_in.detach().clone(),
+                                  requires_grad=False)
+    with pytest.raises(RuntimeError, match="moved since its capture"):
+        graphs(toks)
+    eng.submit(toks[0].tolist(), max_new=1)
+    with pytest.raises(RuntimeError, match="moved since its capture"):
+        eng.step()
+    assert torch.isfinite(before).all()
+
+
+@pytest.mark.cuda
+def test_engine_captures_each_repeated_prompt_length_once_on_card(
+        cuda_device):
+    """zamba2's smoke model through the engine: a length's first prefill
+    eager, one capture at its second, a replay for each repeat (none for a
+    length seen once), each request's first token the eager prefill's, and
+    the kernels' counters reading one prefill a request although every
+    capture happened mid-run."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import LM, prefill
+    from repro_torch.runtime import ServeEngine
+    cfg = get_smoke("zamba2-2.7b")
+    model = LM(cfg, device=cuda_device,
+               generator=torch.Generator(device=cuda_device).manual_seed(0))
+    g = torch.Generator().manual_seed(3)
+    lengths = (20, 37, 20, 9, 37, 20)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).tolist()
+               for n in lengths]
+    eng = ServeEngine(cfg, model, slots=2, capacity=64)
+    _reset_counts()
+    for p in prompts:
+        eng.submit(p, max_new=3)
+    done = {r.rid: r.out for r in eng.run_to_completion()}
+    served = _kernel_counts()
+    want = {k: 0 for k in served}
+    for rid, p in enumerate(prompts):
+        _reset_counts()
+        logits, _ = prefill(model, torch.tensor([p], device=cuda_device),
+                            capacity=64)
+        assert done[rid][0] == int(torch.argmax(logits[0])), rid
+        for k, n in _kernel_counts().items():
+            want[k] += n
+    assert served["flash_attention"] == want["flash_attention"] > 0
+    assert served["ssd_scan"] == want["ssd_scan"] > 0
+    seen = eng.prefill_graphs.lengths
+    assert sorted(seen) == [9, 20, 37]
+    assert [seen[n].replays for n in (20, 37, 9)] == [2, 1, 0]
+    assert [seen[n].graph is not None for n in (20, 37, 9)] == [
+        True, True, False]
+
+
+# ---------------------------------------------------------------------------
 # AdamW's gradient norm and update (csrc/adamw.cu)
 # ---------------------------------------------------------------------------
 
