@@ -80,7 +80,12 @@ and read just after:
   against the kernels by device time (also for zamba2); the four steps
   again with the plain update at the kernels' norm, the same bits; and
   AdamW's kernels over granite's parameters (bf16, float32 moments warm
-  from a step) against the plain loop bit for bit, timed in turns;
+  from a step) against the plain loop bit for bit, timed in turns; the
+  microbatch accumulation on the same model (one 8 x 512 batch at 4
+  microbatches, ``csrc/grad_accum.cu`` against the plain loop patched
+  into ``ops``: every accumulated gradient the same bits, both peaks),
+  then its kernel over granite's 322 gradients timed in turns with the
+  plain loop and ``torch._foreach_add_``;
 - zamba2-2.7b training, after granite's state is freed: the SSD scan's
   backward kernel at the training shape (x 8 x 512 x 80 heads of 64,
   d_state 64, chunk 256) and on a chained ragged tail with h0 and
@@ -214,7 +219,7 @@ from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.cells import CellConfig, cell_runtime  # noqa: E402
 from repro_torch.launch.roofline import (  # noqa: E402
     HBM_PER_CARD, PEAK_FLOPS, adamw_bound, bound_ms, flash_bound,
-    flash_bwd_bound,
+    flash_bwd_bound, grad_accum_bound,
     gmm_bound, gmm_bwd_bound, mfu, ssd_bound, ssd_bwd_bound,
     ssd_bwd_split_bound, ssd_split_bound)
 from repro_torch.launch.train import build_optimizer  # noqa: E402
@@ -283,6 +288,10 @@ KERNELS = {
     # AdamW.update (global_norm at :22 included)
     "adamw": ("src/repro_torch/csrc/adamw.cu",
               "src/repro/optim/adamw.py:81"),
+    # no TPU kernel: the JAX step scans its microbatches under jit and XLA
+    # fuses the float32 accumulation of the scan's body
+    "grad_accum": ("src/repro_torch/csrc/grad_accum.cu",
+                   "src/repro/runtime/train.py:134"),
 }
 
 #: the paper phase: hybrid's host testbed at the middle size class, as the
@@ -464,6 +473,10 @@ HYBRID_GRAD_F32_REL = 5e-3
 #: order: ~1e-7 seen at 3.3e8 elements), its two runs the same bits
 ADAMW_ARCH = TRAIN_ARCH
 ADAMW_NORM_RTOL = 1e-5
+#: the microbatch accumulation's check on TRAIN_ARCH's model
+#: (``grad_accum_phase``): one TRAIN_BATCH x TRAIN_SEQ batch at this many
+#: microbatches, the cell runtime's count for a model of its size
+ACCUM_MICROBATCHES = 4
 #: the kernels' names in a profile (summed as "adamw" in train profiles)
 ADAMW_KERNELS = ("adamw_chunks", "sumsq_chunks", "sumsq_tensors",
                  "sum_vector")
@@ -486,13 +499,16 @@ PROFILE_DECODE_STEPS = 8
 #: over its frames
 DECODE_GRAPH_ARCHS = ("zamba2-2.7b", "granite-moe-3b-a800m", "gemma2-2b",
                       "whisper-large-v3")
-DECODE_GRAPH_STEPS = 16
-#: profiler windows (of 4 calls each) a replay's and an eager step's
-#: device operations are each counted over, a kernel's launches a call
-#: being the median over the windows: a window can miss or take in
-#: launches at its edges (seen: a third of a replay missed, 2 launches of a
-#: kernel taken in), and the median holds while one window of three does
-DECODE_GRAPH_WINDOWS = 3
+DECODE_GRAPH_STEPS = 8
+#: profiler windows (of 4 calls each) a replay's and an eager call's device
+#: operations are counted over, at most, a pair (one of each) at a time
+#: until the two agree, a kernel's launches a call being the median over
+#: its side's windows: a window can miss or take in launches at its edges
+#: (seen: a third of a replay missed, 2 launches of a kernel taken in; 8 of
+#: granite's 4691 prefill replay launches missed in two windows of three),
+#: and a count that one window of two misses, or one of three or more,
+#: holds (``matched_launches``)
+LAUNCH_WINDOWS = 5
 #: the prefill as one CUDA graph per prompt length against the eager
 #: prefill, for these archs (every served arch prefills through the
 #: graphs; mamba2, minicpm and gemma2 are the host-bound eager prefills):
@@ -674,6 +690,15 @@ def expect(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+@contextlib.contextmanager
+def part(name: str):
+    """Print the seconds the block took as a ``part <name>:`` line: where
+    a phase's time goes."""
+    t0 = time.perf_counter()
+    yield
+    print(f"part {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -768,16 +793,29 @@ def profiled_kernels(fn, reps: int = 10):
     return {}
 
 
-def median_launches(fn, calls: int = 4):
-    """{kernel name: launches a call} of ``fn``, each kernel's the median
-    over DECODE_GRAPH_WINDOWS ``profiled_kernels`` windows of ``calls``
-    calls (a window that saw nothing counts every kernel 0); kernels whose
-    median is 0 left out."""
-    windows = [{k: n for k, (_, n) in profiled_kernels(fn, calls).items()}
-               for _ in range(DECODE_GRAPH_WINDOWS)]
-    median = {k: sorted(w.get(k, 0) for w in windows)[len(windows) // 2]
-              for k in set().union(*windows)}
-    return {k: n for k, n in median.items() if n}
+def matched_launches(fn_a, fn_b, calls: int = 4, fold=lambda ops: ops):
+    """{kernel name: launches a call} of ``fn_a`` and of ``fn_b``, each
+    ``fold``-ed, from ``profiled_kernels`` windows of ``calls`` calls taken
+    in pairs (one of each) until the two agree or LAUNCH_WINDOWS pairs are
+    taken; each kernel's count the median over its side's windows (of two,
+    the larger: a window that misses launches lowers a count; a window
+    that saw nothing counts every kernel 0); kernels whose median is 0 left
+    out.  Also the pairs taken."""
+    windows = ([], [])
+
+    def median(side):
+        med = {k: sorted(w.get(k, 0) for w in side)[len(side) // 2]
+               for k in set().union(*side)}
+        return fold({k: n for k, n in med.items() if n})
+
+    for taken in range(1, LAUNCH_WINDOWS + 1):
+        for side, fn in zip(windows, (fn_a, fn_b)):
+            side.append({k: n for k, (_, n)
+                         in profiled_kernels(fn, calls).items()})
+        a, b = median(windows[0]), median(windows[1])
+        if a == b:
+            break
+    return a, b, taken
 
 
 def device_ms(fn, reps: int = 10):
@@ -2052,12 +2090,12 @@ def decode_graph_phase(cfg, model):
         profiles[name] = profile_steps(f"decode {name} {cfg.arch}", fn)
     # a bare replay's device operations against one eager step's at the
     # graph's tensor position (the code the capture recorded), a call's
-    # counts the median over DECODE_GRAPH_WINDOWS windows of 4 calls each
+    # counts from windows of 4 calls each (matched_launches)
     reset(True)
     graph.pos.fill_(S)
     graph.token.copy_(first)
-    replay = median_launches(graph.cuda_graph.replay)
-    step = median_launches(
+    replay, step, windows = matched_launches(
+        graph.cuda_graph.replay,
         lambda: decode_step(model, eager_cache, graph.token, graph.pos))
     if replay and step:
         expect(replay == step, f"{cfg.arch}: a replay runs the device "
@@ -2072,14 +2110,16 @@ def decode_graph_phase(cfg, model):
           f"steps graphed {idle['graph']}, eager {idle['eager']}; "
           f"{n_replay} device operations a replay (an eager step "
           f"{sum(step.values()) if step else None}, the same by name: "
-          f"{replay == step if replay and step else 'not seen'}); greedy "
+          f"{replay == step if replay and step else 'not seen'}; "
+          f"{windows} profiler windows of 4 calls a side); greedy "
           f"tokens equal, logits bit-identical; capture {capture_s:.2f} s",
           flush=True)
     return dict(batch=B, position=S, capacity=cap, steps=DECODE_GRAPH_STEPS,
                 tokens_per_s=tok_s, idle_share=idle, profiles=profiles,
                 replay_ops=replay, eager_step_ops=step,
-                ops_a_replay=n_replay, capture_s=capture_s,
-                logits_bit_identical=bitwise, first_tokens=tokens_eager[:4])
+                ops_a_replay=n_replay, op_windows=windows,
+                capture_s=capture_s, logits_bit_identical=bitwise,
+                first_tokens=tokens_eager[:4])
 
 
 #: what a device-to-device copy is called in a profile: eager, a copy
@@ -2112,7 +2152,7 @@ def prefill_graph_phase(cfg, model):
     cache, and each call counting that eager prefill's launches, one
     prefill's (``want_launches``); a replay's device operations at L2
     those of the captured function run eagerly, by name and count
-    (``median_launches``; the device-to-device copies and sets, which a
+    (``matched_launches``; the device-to-device copies and sets, which a
     graph runs as nodes of its own, under one name: ``fold_copies``).
     Timed: seconds a request (the prefill and the host's read of its
     greedy token, as the engine reads it), eager against graph in turns
@@ -2210,8 +2250,8 @@ def prefill_graph_phase(cfg, model):
     def captured_eagerly():
         graphs._run(longest.tokens)
 
-    replay = fold_copies(median_launches(lambda: longest.graph.replay()))
-    step = fold_copies(median_launches(captured_eagerly))
+    replay, step, windows = matched_launches(
+        lambda: longest.graph.replay(), captured_eagerly, fold=fold_copies)
     if replay and step:
         expect(replay == step, f"{cfg.arch}: a prefill replay runs the "
                f"device operations of an eager prefill: replay {replay}, "
@@ -2243,13 +2283,13 @@ def prefill_graph_phase(cfg, model):
           f"{idle['eager']}; {n_replay} device operations a replay at "
           f"{lengths[1]} (eager "
           f"{sum(step.values()) if step else None}, the same by name: "
-          f"{replay == step if replay and step else 'not seen'})",
-          flush=True)
+          f"{replay == step if replay and step else 'not seen'}; "
+          f"{windows} profiler windows of 4 calls a side)", flush=True)
     return dict(lengths=list(lengths), calls=calls, seconds=seconds,
                 capture_s=captures, pool_bytes=pool, static_bytes=static,
                 reserved_bytes=reserved, eager_peak_bytes=eager_peak,
                 idle_share=idle, profiles=profiles, replay_ops=replay,
-                eager_ops=step, ops_a_replay=n_replay)
+                eager_ops=step, ops_a_replay=n_replay, op_windows=windows)
 
 
 def checked_prefill(cfg, model, n: int = CHECKED_PREFILL_TOKENS):
@@ -2285,13 +2325,25 @@ def checked_prefill(cfg, model, n: int = CHECKED_PREFILL_TOKENS):
                 seconds_each=seconds)
 
 
+def graph_parts(cfg, model, serve) -> None:
+    """The prefill graphs' and the decode graph's phases where ``cfg``'s
+    arch is among theirs, into ``serve``."""
+    if cfg.arch in PREFILL_GRAPH_ARCHS:
+        with part(f"{cfg.arch} prefill graph"):
+            serve["prefill_graph"] = prefill_graph_phase(cfg, model)
+    if cfg.arch in DECODE_GRAPH_ARCHS:
+        with part(f"{cfg.arch} decode graph"):
+            serve["decode_graph"] = decode_graph_phase(cfg, model)
+
+
 def lm_phase(arch):
     """One model: its kernels at its shapes, its main path, a profiled
     window and the head check; the model is freed before returning."""
     cfg = get_config(arch)
     model = build_model(cfg)
-    kernels = (lm_kernel_phase(cfg) if cfg.family == "hybrid"
-               else moe_kernel_phase(cfg))
+    with part(f"{arch} kernels"):
+        kernels = (lm_kernel_phase(cfg) if cfg.family == "hybrid"
+                   else moe_kernel_phase(cfg))
     for name, r in kernels.items():
         print(f"kernel {name} {r['shape']} {r['dtype']}: {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, "
@@ -2312,15 +2364,14 @@ def lm_phase(arch):
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
               f"{r['library_ms']}, bound {r['bound'][0]:.4f} ms "
               f"({r['bound'][1]})", flush=True)
-    serve = lm_main_path(cfg, model)
-    serve["profile"] = lm_profile(cfg, model)
-    if arch in PREFILL_GRAPH_ARCHS:
-        serve["prefill_graph"] = prefill_graph_phase(cfg, model)
-    if arch in DECODE_GRAPH_ARCHS:
-        serve["decode_graph"] = decode_graph_phase(cfg, model)
+    with part(f"{arch} main path and profile"):
+        serve = lm_main_path(cfg, model)
+        serve["profile"] = lm_profile(cfg, model)
+    graph_parts(cfg, model, serve)
     if arch == CHECKED_PREFILL_ARCH:
         serve["checked_prefill"] = checked_prefill(cfg, model)
-    head = lm_head_check(cfg, model)
+    with part(f"{arch} head check"):
+        head = lm_head_check(cfg, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2548,11 +2599,12 @@ def want_train_launches(cfg, remat: str = TRAIN_REMAT):
 
 
 class PlainCalls:
-    """Counts the calls of the LM kernels' and the optimizer's plain
+    """Counts the calls of the LM kernels' and the train step's plain
     versions while it is entered (the card's training path must make
     none)."""
     NAMES = ("attention_ref", "grouped_matmul_ref", "ssd_scan_ref",
-             "grad_sumsq_ref", "sum_in_order_ref", "adamw_update_ref")
+             "grad_sumsq_ref", "sum_in_order_ref", "adamw_update_ref",
+             "grad_accumulate_ref")
 
     def __enter__(self):
         self.calls = {n: 0 for n in self.NAMES}
@@ -3092,7 +3144,8 @@ def train_phase():
     """Training of TRAIN_ARCH: its kernels' gradients, the main path, the
     gradient head check; the model is freed before returning."""
     cfg = get_config(TRAIN_ARCH)
-    kernels = train_kernel_phase(cfg)
+    with part(f"train {cfg.arch} kernels"):
+        kernels = train_kernel_phase(cfg)
     r = kernels["flash_attention_bwd"]
     print(f"kernel flash_attention_bwd {r['shape']} bfloat16: {r['ms']:.4f} "
           f"ms (in turns {r['turns']['kernel']}), plain {r['plain_ms']:.4f} "
@@ -3124,12 +3177,147 @@ def train_phase():
     model = build_model(cfg)
     head = train_head_check(cfg, model)      # the parameters as built
     main = train_main_path(cfg, model, profile_update=True)
+    with part(f"train {cfg.arch} microbatch accumulation"):
+        kernels["grad_accum"] = grad_accum_phase(cfg, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    main["plain_update_run"] = plain_update_run(cfg, main)
-    kernels["adamw"] = adamw_kernel_phase(get_config(ADAMW_ARCH))
+    with part(f"train {cfg.arch} plain update run and adamw kernels"):
+        main["plain_update_run"] = plain_update_run(cfg, main)
+        kernels["adamw"] = adamw_kernel_phase(get_config(ADAMW_ARCH))
     return kernels, main, head
+
+
+def accumulate_once(cfg, model, batch, rt, plain_version: bool):
+    """``_accumulate_grads`` on ``batch`` at ``rt``'s microbatches, with the
+    kernel or with the plain version patched into ``ops``; the counters
+    from 0 just before: (gradients, loss, aux, grad_accum launches, plain
+    calls, peak bytes above what it found)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    found = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    saved = ops.grad_accumulate
+    with PlainCalls() as plain:
+        if plain_version:
+            ops.grad_accumulate = ref.grad_accumulate_ref
+        try:
+            grads, loss, aux = _accumulate_grads(make_loss_fn(cfg, rt), model,
+                                                 batch, rt)
+            torch.cuda.synchronize()
+        finally:
+            ops.grad_accumulate = saved
+    return (grads, float(loss), float(aux),
+            ops.COUNTERS["grad_accum"].value, dict(plain.calls),
+            torch.cuda.max_memory_allocated() - found)
+
+
+def grad_accum_phase(cfg, model):
+    """The microbatch accumulation on ``model`` at full width: one
+    TRAIN_BATCH x TRAIN_SEQ batch at ACCUM_MICROBATCHES microbatches through
+    ``_accumulate_grads``, with the kernel and with the plain version
+    patched into ``ops``, no optimizer step: every accumulated gradient
+    the same bits (compared as int32 patterns: ``torch.equal`` takes -0.0
+    for +0.0), the same loss, the kernel launched once a microbatch and no
+    plain version on its side, each side's peak.  Then the kernel alone at
+    the model's parameter list with bf16 gradients, in turns by CUDA
+    events: a middle call, a last call, the plain version's middle call,
+    and the library's (``torch._foreach_add_``, then ``_foreach_mul_`` for
+    the last call), the library's bits checked against the kernel's; the
+    bytes bound of each call."""
+    M = ACCUM_MICROBATCHES
+    trainable(model)
+    rt = RuntimeConfig(microbatches=M, remat=TRAIN_REMAT, loss_chunks=1,
+                       aux_weight=0.01)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                    global_batch=TRAIN_BATCH, seed=0)
+    batch = {k: v.to(CARD) for k, v in batch_at(dc, 0).items()}
+    kg, kloss, kaux, klaunch, kplain, kpeak = accumulate_once(
+        cfg, model, batch, rt, False)
+    pg, ploss, paux, plaunch, pplain, ppeak = accumulate_once(
+        cfg, model, batch, rt, True)
+    names = list(kg)
+    same = [torch.equal(kg[k].view(torch.int32), pg[k].view(torch.int32))
+            for k in names]
+    expect(all(same), f"the kernel's accumulated gradients bit-identical to "
+           f"the plain version's: {sum(same)} of {len(same)} tensors")
+    expect((kloss, kaux) == (ploss, paux), f"the same loss and aux: "
+           f"{(kloss, kaux)} {(ploss, paux)}")
+    expect(klaunch == M and not any(kplain.values()),
+           f"the kernel side launched grad_accum {klaunch} times (want {M}) "
+           f"and no plain version: {kplain}")
+    expect(plaunch == 0 and pplain["grad_accumulate_ref"] == M,
+           f"the plain side launched nothing ({plaunch}) and called the "
+           f"plain version {M} times: {pplain}")
+    del pg
+    accs = [kg[k] for k in names]
+    del kg
+    gen = torch.Generator(device=CARD).manual_seed(5)
+    gs = [(torch.randn(a.shape, device=CARD, generator=gen) * 1e-3)
+          .bfloat16() for a in accs]
+    numels = [a.numel() for a in accs]
+    # the library's bits, from a copy of the accumulators
+    lib = [a.clone() for a in accs]
+    ops.grad_accumulate(accs, gs, mode="middle")
+    torch._foreach_add_(lib, gs)
+    lib_same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(accs, lib))
+    ops.grad_accumulate(accs, gs, mode="last", scale=1.0 / M)
+    torch._foreach_add_(lib, gs)
+    torch._foreach_mul_(lib, 1.0 / M)
+    lib_same &= all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                    for a, b in zip(accs, lib))
+    expect(lib_same, "torch._foreach_add_ (and _foreach_mul_) give the "
+           "kernel's bits")
+    del lib
+    calls = {
+        "kernel": (lambda: ops.grad_accumulate(accs, gs, mode="middle"), 10),
+        "kernel last": (lambda: ops.grad_accumulate(
+            accs, gs, mode="last", scale=1.0 / M), 10),
+        "plain": (lambda: ref.grad_accumulate_ref(accs, gs, mode="middle"),
+                  3),
+        "library": (lambda: torch._foreach_add_(accs, gs), 3),
+        "library last": (lambda: (torch._foreach_add_(accs, gs),
+                                  torch._foreach_mul_(accs, 1.0 / M)), 3)}
+    turns = {k: [] for k in calls}
+    for k in [*calls, *reversed(calls)]:
+        fn, reps = calls[k]
+        turns[k].append(cuda_ms(fn, reps))
+    ms = {k: min(v) for k, v in turns.items()}
+    g_dtypes = [g.dtype for g in gs]
+    bound = grad_accum_bound(numels, g_dtypes, "middle")
+    last_bound = grad_accum_bound(numels, g_dtypes, "last")
+    del accs, gs
+    gc.collect()
+    torch.cuda.empty_cache()
+    shape = (f"{cfg.arch} parameters: {len(numels)} tensors, {sum(numels)} "
+             f"elements, bf16 gradients into float32")
+    print(f"train {cfg.arch} microbatches {M} (one {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} batch, no update): the kernel's accumulated "
+          f"gradients bit-identical to the plain version's over "
+          f"{len(same)} tensors, loss {kloss} both; grad_accum launches "
+          f"{klaunch}; peak above what each found: kernel {kpeak} bytes, "
+          f"plain version {ppeak} bytes", flush=True)
+    print(f"kernel grad_accum {shape}: middle call {ms['kernel']:.4f} ms "
+          f"(in turns {turns['kernel']}), last call "
+          f"{ms['kernel last']:.4f} ms ({turns['kernel last']}); plain "
+          f"{ms['plain']:.4f} ms ({turns['plain']}); library "
+          f"torch._foreach_add_ {ms['library']:.4f} ms "
+          f"({turns['library']}), + _foreach_mul_ "
+          f"{ms['library last']:.4f} ms ({turns['library last']}), its "
+          f"bits the kernel's; bound middle {bound[0]:.4f} ms ({bound[1]}), "
+          f"last {last_bound[0]:.4f} ms ({last_bound[1]})", flush=True)
+    return dict(shape=shape, tensors=len(numels), elements=sum(numels),
+                microbatches=M, ms=ms["kernel"], last_ms=ms["kernel last"],
+                plain_ms=ms["plain"], library_ms=ms["library"],
+                library_last_ms=ms["library last"], turns=turns,
+                bound=bound, last_bound=last_bound, max_abs_err=0.0,
+                bit_identical=True, library_bit_identical=lib_same,
+                launches=klaunch, peak_bytes={"kernel": kpeak,
+                                              "plain": ppeak},
+                loss=kloss)
 
 
 # ---------------------------------------------------------------------------
@@ -3506,18 +3694,18 @@ def family_phase(arch):
     and the head check; the model is freed before returning."""
     cfg = get_config(arch)
     model = build_model(cfg)
-    kernels = family_kernel_phase(cfg)
-    serve = lm_main_path(cfg, model, FAMILY_REQUESTS, FAMILY_MAX_NEW)
-    serve["profile"] = lm_profile(cfg, model)
-    if arch in PREFILL_GRAPH_ARCHS:
-        serve["prefill_graph"] = prefill_graph_phase(cfg, model)
-    if arch in DECODE_GRAPH_ARCHS:
-        serve["decode_graph"] = decode_graph_phase(cfg, model)
+    with part(f"{arch} kernels"):
+        kernels = family_kernel_phase(cfg)
+    with part(f"{arch} main path and profile"):
+        serve = lm_main_path(cfg, model, FAMILY_REQUESTS, FAMILY_MAX_NEW)
+        serve["profile"] = lm_profile(cfg, model)
+    graph_parts(cfg, model, serve)
     if cfg.arch == WINDOW_ARCH:
         serve["window"] = window_phase(cfg, model)
     if cfg.arch == VLM_ARCH:
         serve["frontend"] = frontend_phase(cfg, model)
-    head = lm_head_check(cfg, model) if arch in HEAD_ARCHS else None
+    with part(f"{arch} head check"):
+        head = lm_head_check(cfg, model) if arch in HEAD_ARCHS else None
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3675,7 +3863,8 @@ def train_lm_phase():
     from the same directory to TRAIN_LM_STEPS[1], which resumes at the
     saved step; every logged loss finite.  Each step is 2 microbatches
     under remat "dots", so each layer's flash forward runs twice a
-    microbatch (models/lm.py REMAT_SAVED) and its backward once."""
+    microbatch (models/lm.py REMAT_SAVED) and its backward once, and the
+    accumulation's kernel once a microbatch."""
     ckpt = ROOT / "build" / "train_lm_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
     runs, outs = [], []
@@ -3696,7 +3885,7 @@ def train_lm_phase():
     n_steps = TRAIN_LM_STEPS[1]
     want = {"flash_attention": 4 * cfg.n_layers * n_steps,
             "flash_attention_bwd": 2 * cfg.n_layers * n_steps,
-            "adamw": 3 * n_steps}
+            "adamw": 3 * n_steps, "grad_accum": 2 * n_steps}
     expect(runs[0]["start"] == 0 and runs[1]["start"] == TRAIN_LM_STEPS[0]
            and f"resumed from step {TRAIN_LM_STEPS[0]}" in outs[1],
            f"the second run resumed at the saved step: {runs}")
@@ -3908,15 +4097,20 @@ def whisper_phase():
     window, the head check, the gradient head check, then the training
     main path; the model is freed before returning."""
     cfg = get_config(WHISPER_ARCH)
-    kernels = whisper_kernel_phase(cfg)
+    with part(f"{cfg.arch} kernels"):
+        kernels = whisper_kernel_phase(cfg)
     model = build_model(cfg)
-    serve = whisper_serve(cfg, model)
-    serve["profile"] = whisper_profile(cfg, model)
-    serve["decode_graph"] = decode_graph_phase(cfg, model)
-    head = lm_head_check(cfg, model)
-    grads = grad_head_check(cfg, model, WHISPER_GRAD_GROUPS,
-                            WHISPER_GRAD_F32_REL)   # the parameters as built
-    train = train_main_path(cfg, model, WHISPER_TRAIN_REMAT)
+    with part(f"{cfg.arch} main path and profile"):
+        serve = whisper_serve(cfg, model)
+        serve["profile"] = whisper_profile(cfg, model)
+    graph_parts(cfg, model, serve)
+    with part(f"{cfg.arch} head checks"):
+        head = lm_head_check(cfg, model)
+        # the parameters as built
+        grads = grad_head_check(cfg, model, WHISPER_GRAD_GROUPS,
+                                WHISPER_GRAD_F32_REL)
+    with part(f"train {cfg.arch}"):
+        train = train_main_path(cfg, model, WHISPER_TRAIN_REMAT)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -4535,7 +4729,7 @@ def main() -> int:
     for name in ["saxpy", "filter_pipeline", "segmentation", "nbody",
                  "flash_attention", "flash_attention_bwd", "ssd_scan",
                  "ssd_scan_bwd", "grouped_matmul", "grouped_matmul_dx",
-                 "grouped_matmul_dw", "adamw"]:
+                 "grouped_matmul_dw", "adamw", "grad_accum"]:
         r = results[name]
         source, replaces = KERNELS[name]
         kernels.append({
@@ -4548,6 +4742,11 @@ def main() -> int:
     # training's; the backward kernels' device time alone (torch.profiler)
     # beside their CUDA-event times
     by_name = {k["name"]: k for k in kernels}
+    # the accumulation's last call (the scale) beside its middle call
+    acc = results["grad_accum"]
+    by_name["grad_accum"].update(
+        last_ms=acc["last_ms"], last_bound_ms=acc["last_bound"][0],
+        library_last_ms=acc["library_last_ms"])
     by_name["grouped_matmul"]["backward_launches"] = train[
         "grouped_matmul_backward_launches"]
     for name in ("grouped_matmul_dx", "grouped_matmul_dw"):

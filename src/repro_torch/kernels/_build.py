@@ -77,6 +77,8 @@ SIGNATURES: Dict[str, List] = {
     # device table, tensors, chunk, chunks, scale, lr, b1, 1 - b1, b2,
     # 1 - b2, b1c, b2c, eps, wd, device, stream
     "adamw_update": [_P, _I, _L, _L, _P, *[_F] * 9, _I, _P],
+    # device table, tensors, chunk, chunks, mode, scale, device, stream
+    "grad_accum": [_P, _I, _L, _L, _I, _F, _I, _P],
 }
 #: dtype code a C entry point takes for its tensors' element type
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -1,11 +1,13 @@
-"""The three LM kernels and the optimizer's on ``meta`` tensors: what a
-dry-run step reaches in their place.
+"""The three LM kernels and the train step's (AdamW's, the microbatch
+accumulation's) on ``meta`` tensors: what a dry-run step reaches in their
+place.
 
 Each function here stands for the CUDA wrapper of the same name in
 :mod:`~repro_torch.kernels.flash_attention`,
-:mod:`~repro_torch.kernels.ssd_scan`, :mod:`~repro_torch.kernels.moe_gemm`
-or :mod:`~repro_torch.kernels.adamw` (all three of its wrappers under
-``adamw``, as they count in its ``launches``):
+:mod:`~repro_torch.kernels.ssd_scan`, :mod:`~repro_torch.kernels.moe_gemm`,
+:mod:`~repro_torch.kernels.adamw` (all three of its wrappers under
+``adamw``, as they count in its ``launches``) or
+:mod:`~repro_torch.kernels.grad_accum`:
 it takes the same arguments, allocates the same outputs and scratch (on
 ``meta``: shapes, no memory), launches nothing, and reports the call with
 its work from :mod:`repro_torch.launch.roofline` (the FLOPs and bytes of
@@ -25,6 +27,7 @@ from typing import Callable, List, Optional
 import torch
 
 from repro_torch.kernels import adamw as _adamw
+from repro_torch.kernels import grad_accum as _accum
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.launch import roofline as rl
 
@@ -178,3 +181,9 @@ def adamw_update(params, grads, ms, vs, decayed, scale, **hyper) -> None:
     _report("adamw", rl.adamw_update_work(
         [p.numel() for p in params], [p.dtype for p in params],
         [g.dtype for g in grads]))
+
+
+def grad_accumulate(accs, grads, *, mode: str, scale: float = 1.0) -> None:
+    _accum.check_args(accs, grads, mode)
+    _report("grad_accum", rl.grad_accum_work(
+        [a.numel() for a in accs], [g.dtype for g in grads], mode))

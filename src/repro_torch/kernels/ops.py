@@ -5,12 +5,13 @@ inputs and raises on anything it does not take.  Any other tensor (the
 host fission slots' CPU tensors, the ``meta`` tensors of a shape probe)
 goes to the plain PyTorch version in :mod:`repro_torch.kernels.ref`, but
 for the ``meta`` tensors that reach the three LM kernels (flash attention,
-the SSD scan, the grouped GEMM) and the optimizer's (AdamW's gradient
-norm and update): those take the card's route, autograd Functions
-included, with :mod:`repro_torch.kernels.meta`'s stand-ins in place of
-the launches, so that a dry-run step counts each kernel by its work
-formula.  The choice is the tensor's device and nothing else: no
-error ever sends a CUDA tensor to the plain version.
+the SSD scan, the grouped GEMM) and the train step's (AdamW's gradient
+norm and update, the microbatch accumulation): those take the card's
+route, autograd Functions included, with
+:mod:`repro_torch.kernels.meta`'s stand-ins in place of the launches, so
+that a dry-run step counts each kernel by its work formula.  The choice
+is the tensor's device and nothing else: no error ever sends a CUDA
+tensor to the plain version.
 
 Gradients.  On the CPU autograd runs through the plain versions.  On the
 card, flash attention, the SSD scan and the grouped GEMM are
@@ -34,6 +35,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import adamw as _adamw
 from repro_torch.kernels import filter_pipeline as _filter
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import grad_accum as _accum
 from repro_torch.kernels import meta as _meta
 from repro_torch.kernels import moe_gemm as _gmm
 from repro_torch.kernels import nbody as _nbody
@@ -367,13 +369,23 @@ def adamw_update(params, grads, ms, vs, decayed, scale: torch.Tensor,
                                 **hyper)
 
 
+def grad_accumulate(accs, grads, *, mode: str, scale: float = 1.0) -> None:
+    """One microbatch's gradients added into their float32 accumulators in
+    place (``ref.grad_accumulate_ref``; ``mode`` first, middle or last,
+    the last multiplying by ``scale``)."""
+    kern = _kernels(accs[0]) if accs else None
+    if kern is not None:
+        return kern.grad_accumulate(accs, grads, mode=mode, scale=scale)
+    return ref.grad_accumulate_ref(accs, grads, mode=mode, scale=scale)
+
+
 class _Card:
-    """The card's wrappers of the LM kernels and the optimizer's, under the
+    """The card's wrappers of the LM kernels and the train step's, under the
     names of :mod:`repro_torch.kernels.meta`'s stand-ins, looked up in their
     modules at each call (a check may put a patched wrapper there)."""
 
     def __getattr__(self, name: str):
-        for module in (_flash, _ssd, _gmm, _adamw):
+        for module in (_flash, _ssd, _gmm, _adamw, _accum):
             if hasattr(module, name):
                 return getattr(module, name)
         raise AttributeError(name)
@@ -389,4 +401,4 @@ COUNTERS = {c.name: c for c in (_saxpy.launches, _filter.launches,
                                 _gmm.launches, _flash.bwd_launches,
                                 _ssd.bwd_launches,
                                 *_gmm.bwd_kernels.values(),
-                                _adamw.launches)}
+                                _adamw.launches, _accum.launches)}

@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the hand-written kernels: the paper's
-benchmark kernels and the LM kernels (flash attention, SSD scan, the MoE
-grouped GEMM).
+benchmark kernels, the LM kernels (flash attention, SSD scan, the MoE
+grouped GEMM) and the train step's (AdamW, the microbatch accumulation).
 
 Each computes the same function as its hand-written CUDA kernel with
 ordinary tensor operations, on any device.  The CPU tests hold them
@@ -15,6 +15,8 @@ from typing import Optional, Tuple
 import math
 
 import torch
+
+from repro_torch.kernels.grad_accum import check_args as check_accum_args
 
 _M32 = 1 << 32
 _H32 = 1 << 31
@@ -226,3 +228,21 @@ def adamw_update_ref(params, grads, ms, vs, decayed, scale: torch.Tensor,
         if dec:
             delta.add_(pf, alpha=wd)
         p.copy_(pf - lr * delta)
+
+
+# ---------------------------------------------------------------------------
+# the microbatch gradient accumulation (the eager loop the kernel replaces)
+# ---------------------------------------------------------------------------
+
+def grad_accumulate_ref(accs, grads, *, mode: str, scale: float = 1.0
+                        ) -> None:
+    """Each gradient added into its float32 accumulator in place: ``first``
+    zeros the accumulator before the addition, ``last`` multiplies by
+    ``scale`` (a Python float, taken in float32) after it."""
+    check_accum_args(accs, grads, mode)
+    for a, g in zip(accs, grads):
+        if mode == "first":
+            a.zero_()
+        a += g.float()
+        if mode == "last":
+            a.mul_(scale)

@@ -40,7 +40,8 @@ after each cell.  :func:`build_cell` also runs on a real mesh (NCCL on
 cards, gloo on the CPU): ``chip_smoke.py`` runs its world-1 cell on the
 card.
 
-The three LM kernels run as their meta stand-ins
+The three LM kernels and the train step's (AdamW, the microbatch
+accumulation) run as their meta stand-ins
 (:mod:`repro_torch.kernels.meta`), each call counted by its work formula
 at the local shapes it is given (one card's share of the heads, experts'
 columns or sequence); no plain version runs.

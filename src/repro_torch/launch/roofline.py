@@ -14,7 +14,8 @@ cores, 495 TF32, 67 FP32 on the CUDA cores, 3.35 TB/s of HBM3, and NVLink
 card's ``total_memory`` as PyTorch reports it on the H100 80GB HBM3.
 
 The second half holds one work formula per hand-written LM kernel,
-forward and backward, and for the optimizer's kernels: the FLOPs it must do and the bytes it must move
+forward and backward, and for the train step's kernels (AdamW, the
+microbatch accumulation): the FLOPs it must do and the bytes it must move
 (each input read once, each output written once) for the call's shapes.
 The dry-run (:mod:`repro_torch.launch.op_analysis`) adds them to a step's
 counts wherever a model reaches the kernel, and the card's checks
@@ -355,4 +356,19 @@ def adamw_work(numels, p_dtypes, g_dtypes=None) -> Work:
 
 def adamw_bound(numels, p_dtypes, g_dtypes=None):
     flops, nbytes = adamw_work(numels, p_dtypes, g_dtypes)
+    return bound_ms(nbytes, flops)
+
+
+def grad_accum_work(numels, g_dtypes, mode: str) -> Work:
+    """One microbatch's accumulation: every gradient read once, every
+    float32 accumulator written once and, but in the ``first`` call, read
+    once (6 and 10 bytes an element with bf16 gradients); one float32
+    addition an element, two in the ``last`` call (the scale)."""
+    acc = 4 if mode == "first" else 8
+    nbytes = sum(k * (_size(d) + acc) for k, d in zip(numels, g_dtypes))
+    return (2.0 if mode == "last" else 1.0) * sum(numels), float(nbytes)
+
+
+def grad_accum_bound(numels, g_dtypes, mode: str):
+    flops, nbytes = grad_accum_work(numels, g_dtypes, mode)
     return bound_ms(nbytes, flops)

@@ -39,6 +39,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.kernels import ops
 from repro_torch.models import spmd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import LM, forward_backbone, sharded_inputs
@@ -131,9 +132,13 @@ def _accumulate_grads(loss_fn, model: LM, batch: Batch, rt: RuntimeConfig):
     """Gradients of the batch's loss, by parameter name, and the loss and
     aux averaged over the microbatches.  With M > 1 microbatches dividing
     the batch, the batch is taken M slices in turn and the gradients summed
-    in float32; otherwise (the reference's fallback) in one pass.  Every
-    batch key but the tokens and the labels is an extra of the model's,
-    sliced with them."""
+    in float32 accumulators (on a mesh: this rank's blocks), one
+    ``ops.grad_accumulate`` call a microbatch over every gradient (on the
+    card one kernel launch; the first call writes the accumulators, the
+    last scales them by 1 / M in place), each microbatch's gradients freed
+    before the next backward; otherwise (the reference's fallback) in one
+    pass.  Every batch key but the tokens and the labels is an extra of the
+    model's, sliced with them."""
     params = dict(model.named_parameters())
     tokens, labels = batch["tokens"], batch["labels"]
     extras = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
@@ -141,20 +146,22 @@ def _accumulate_grads(loss_fn, model: LM, batch: Batch, rt: RuntimeConfig):
     if M <= 1 or B % M:
         return _grads(loss_fn, model, params, tokens, labels, extras)
     n = B // M
-    g_acc = {k: torch.zeros_like(spmd.block(p), dtype=torch.float32)
-             for k, p in params.items()}
+    names = list(params)
+    g_acc = [torch.empty(b.shape, dtype=torch.float32, device=b.device)
+             for b in (spmd.block(params[k]) for k in names)]
     l_acc = a_acc = 0.0
     for i in range(M):
         part = slice(i * n, (i + 1) * n)
         g, loss, aux = _grads(loss_fn, model, params, tokens[part],
                               labels[part],
                               {k: v[part] for k, v in extras.items()})
-        for k in g_acc:
-            g_acc[k] += g[k].float()
+        mode = "first" if i == 0 else "last" if i == M - 1 else "middle"
+        ops.grad_accumulate(g_acc, [g[k] for k in names], mode=mode,
+                            scale=1.0 / M)
+        del g
         l_acc, a_acc = l_acc + loss, a_acc + aux
     inv = 1.0 / M
-    return ({k: v * inv for k, v in g_acc.items()}, l_acc * inv,
-            a_acc * inv)
+    return dict(zip(names, g_acc)), l_acc * inv, a_acc * inv
 
 
 def _to_device(batch: Batch, device: torch.device) -> Batch:

@@ -1976,3 +1976,93 @@ def test_launcher_steps_take_the_adamw_kernels_on_card(compress, cuda_device,
     assert "[train] done" in capsys.readouterr().out
     assert ops.COUNTERS["adamw"].value == before + 2 * 3
     assert calls == []
+
+
+# ---------------------------------------------------------------------------
+# the microbatch gradient accumulation (csrc/grad_accum.cu)
+# ---------------------------------------------------------------------------
+
+ACCUM_SHAPES = [(0,), (1,), (7,), (300, 64), (5, 7, 9), (16384 + 3,),
+                (2 * 16384,)]
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("g_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", [2, 3, 4])
+def test_grad_accum_kernel_matches_plain_bit_for_bit_on_card(M, g_dtype,
+                                                             offset,
+                                                             cuda_device):
+    """M microbatches first / middle / last, the kernel against the plain
+    loop on the card: every accumulator the same bits (-0.0 included:
+    every fifth element is -0.0 in each microbatch), odd and empty sizes;
+    with ``offset`` the accumulators and gradients are contiguous views one
+    element into their storage (the kernel's one-at-a-time path).  One
+    launch a call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(M)
+
+    def tensor(s, dtype):
+        n = torch.Size(s).numel()
+        t = torch.randn(n + 1, device=cuda_device, generator=gen).to(dtype)
+        t[::5] = -0.0
+        return (t[1:] if offset else t[:-1]).view(s)
+
+    accs = [tensor(s, torch.float32) for s in ACCUM_SHAPES]
+    plain = [torch.empty(s, device=cuda_device) for s in ACCUM_SHAPES]
+    before = ops.COUNTERS["grad_accum"].value
+    for i in range(M):
+        gs = [tensor(s, g_dtype) for s in ACCUM_SHAPES]
+        mode = "first" if i == 0 else "last" if i == M - 1 else "middle"
+        ops.grad_accumulate(accs, gs, mode=mode, scale=1.0 / M)
+        ref.grad_accumulate_ref(plain, gs, mode=mode, scale=1.0 / M)
+    torch.cuda.synchronize()
+    for a, b in zip(accs, plain):
+        assert torch.equal(_bits(a), _bits(b))
+    assert ops.COUNTERS["grad_accum"].value == before + M
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [3, 4])
+def test_train_step_accumulates_through_the_kernel_on_card(M, cuda_device):
+    """``make_train_step`` on the card at M microbatches: M ``grad_accum``
+    launches a step and no plain version; the loss and gradient norm the
+    same bits as with the plain version patched into ``ops``."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamW, AdamWConfig
+    from repro_torch.runtime import (RuntimeConfig, init_state,
+                                     make_train_step)
+    cfg = get_smoke("granite-moe-3b-a800m")
+    tokens = torch.randint(0, cfg.vocab, (M * 2, 33),
+                           generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    runs = []
+    for plain in (False, True):
+        model = LM(cfg, device=cuda_device, generator=torch.Generator(
+            device=cuda_device).manual_seed(0))
+        opt = AdamW(AdamWConfig(lr=1e-3))
+        step = make_train_step(cfg, opt, RuntimeConfig(microbatches=M,
+                                                       remat=None))
+        state = init_state(model, opt)
+        calls = []
+        saved = (ops.grad_accumulate, ref.grad_accumulate_ref)
+        ref.grad_accumulate_ref = (lambda *a, **k: calls.append(1)
+                                   or saved[1](*a, **k))
+        if plain:
+            ops.grad_accumulate = ref.grad_accumulate_ref
+        before = ops.COUNTERS["grad_accum"].value
+        try:
+            for _ in range(2):
+                state, m = step(state, batch)
+            torch.cuda.synchronize()
+        finally:
+            ops.grad_accumulate, ref.grad_accumulate_ref = saved
+        launched = ops.COUNTERS["grad_accum"].value - before
+        assert (launched, len(calls)) == ((0, 2 * M) if plain
+                                          else (2 * M, 0))
+        runs.append((float(m["loss"]), float(m["grad_norm"])))
+    assert runs[0] == runs[1]

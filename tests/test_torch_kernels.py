@@ -144,12 +144,13 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     ops.segmentation(x)
     ops.filter_pipeline(torch.ones(4, 4))
     ops.nbody_accelerations(torch.ones(5, 3), torch.ones(5))
+    ops.grad_accumulate([torch.empty(3)], [torch.ones(3)], mode="first")
     assert {k: c.value for k, c in ops.COUNTERS.items()} == before
     assert set(ops.COUNTERS) == {"saxpy", "filter_pipeline", "segmentation",
                                  "nbody", "flash_attention", "ssd_scan",
                                  "grouped_matmul", "flash_attention_bwd",
                                  "ssd_scan_bwd", "grouped_matmul_dx",
-                                 "grouped_matmul_dw", "adamw"}
+                                 "grouped_matmul_dw", "adamw", "grad_accum"}
 
 
 def test_meta_tensors_give_shapes():

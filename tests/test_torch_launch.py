@@ -242,15 +242,17 @@ def test_kernel_bounds_of_the_perf_table_unchanged():
 KERNELS = ("flash_attention_bshd", "ssd_scan", "grouped_matmul")
 #: the optimizer's entry points, all counted under the ``adamw`` kernel
 OPTIMIZER = ("grad_sumsq", "sum_in_order", "adamw_update")
+#: the microbatch accumulation's entry point (the ``grad_accum`` kernel)
+ACCUMULATE = ("grad_accumulate",)
 
 
 class Calls:
     """Counts the model's calls into ``ops``' three LM kernels and the
-    optimizer's; with ``no_plain``, any plain version called raises."""
+    train step's; with ``no_plain``, any plain version called raises."""
 
     def __init__(self, monkeypatch, no_plain=False):
-        self.n = dict.fromkeys(KERNELS + OPTIMIZER, 0)
-        for name in KERNELS + OPTIMIZER:
+        self.n = dict.fromkeys(KERNELS + OPTIMIZER + ACCUMULATE, 0)
+        for name in KERNELS + OPTIMIZER + ACCUMULATE:
             fn = getattr(ops, name)
 
             def counted(*a, _n=name, _fn=fn, **kw):
@@ -260,7 +262,8 @@ class Calls:
         if no_plain:
             for name in ("attention_ref", "ssd_scan_ref",
                          "grouped_matmul_ref", "grad_sumsq_ref",
-                         "sum_in_order_ref", "adamw_update_ref"):
+                         "sum_in_order_ref", "adamw_update_ref",
+                         "grad_accumulate_ref"):
                 def refuse(*a, _n=name, **kw):
                     raise AssertionError(f"{_n} ran on meta")
                 monkeypatch.setattr(ref, name, refuse)
@@ -320,9 +323,12 @@ def test_analyzer_kernel_calls_equal_cpu_calls(arch, kind, monkeypatch):
     if kind == "train":
         want.update(flash_attention_bwd=flash // again,
                     ssd_scan_bwd=ssd // again,
-                    adamw=sum(cpu.n[k] for k in OPTIMIZER))
+                    adamw=sum(cpu.n[k] for k in OPTIMIZER),
+                    grad_accum=cpu.n["grad_accumulate"])
         want["grouped_matmul"] += 2 * gmm // again      # dx and dw
         assert want["adamw"] == 3      # the norm's two calls, the update
+        # one accumulation call a microbatch
+        assert want["grad_accum"] == cell.microbatches
     assert got == {k: n for k, n in want.items() if n}
     if kind != "decode" and arch != "mamba2-1.3b":
         assert flash > 0
