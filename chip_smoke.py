@@ -34,6 +34,14 @@ and read just after:
   (``profile_construction``); the timed partition sweep of ``fission``
   part (b).  Wall-clock numbers are printed (``paper ...`` lines), never
   gated;
+- the decode step's four kernels (``csrc/rmsnorm.cu``, ``rope_cache.cu``,
+  ``decode_attention.cu``, ``ssd_decode.cu``: no TPU kernel, the JAX
+  engine's jit fuses that work) against their plain versions at every
+  decode arch's shapes (``kernel rmsnorm|rope_cache_write|
+  decode_attention|ssd_decode_step <case>`` lines: head dims 64, 80, 128
+  and 256, gemma2 past its window, whisper's self- and cross-attention,
+  zamba2's and mamba2's SSD heads), each timed in turns with its plain
+  version and, where one PyTorch call computes it, ``F.rms_norm`` or SDPA;
 - LM serving, two models in turn, each at full width in bf16 with random
   weights from a seed, behind ``ServeEngine``: 8 requests of 256 to 1536
   prompt tokens and 32 new tokens each.  zamba2-2.7b (54 layers, d_model
@@ -58,7 +66,13 @@ and read just after:
   ``lm decode graph`` line gives graphed against eager decode tokens/s in
   turns on one cache and one set of tokens, the idle share of 8 steps of
   each, and a replay's device operations against an eager step's, with
-  the greedy tokens equal and the logits bit-identical.  Then the head of
+  the greedy tokens equal and the logits bit-identical; and the graphed
+  step with the decode kernels against a graph of the same step with
+  their plain versions, in turns (tokens/s, the logits' distances at
+  every step printed), and an ``lm decode head`` line: at the model's
+  head, full width, each step from a shared cache, the kernels' logits
+  within 2e-2 relative L2 of the plain versions' in float32 (bf16
+  printed), greedy tokens that differ only at near ties.  Then the head of
   each model (zamba2's first hybrid
   group of 5 Mamba2 + 1 attention layers, granite's first 2 layers, each
   with the full-width embedding) on the card against the same parameters
@@ -206,6 +220,7 @@ from repro_torch.core import (AcceleratorPlatform, DeviceInfo,  # noqa: E402
                               Workload, build_plan)
 from repro_torch.data import DataConfig, batch_at  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import decode_step as dec_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import moe_gemm as gmm_mod  # noqa: E402
 from repro_torch.kernels import nbody as nbody_mod  # noqa: E402
@@ -214,9 +229,11 @@ from repro_torch.models import (LM, decode_step, init_cache,  # noqa: E402
                                 prefill)
 from repro_torch.models import lm as lm_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
-from repro_torch.models.layers import embed, rmsnorm  # noqa: E402
+from repro_torch.models.layers import (embed, rmsnorm,  # noqa: E402
+                                       rope_frequencies)
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.cells import CellConfig, cell_runtime  # noqa: E402
+from repro_torch.launch import roofline as rl  # noqa: E402
 from repro_torch.launch.roofline import (  # noqa: E402
     HBM_PER_CARD, PEAK_FLOPS, adamw_bound, bound_ms, flash_bound,
     flash_bwd_bound, grad_accum_bound,
@@ -292,7 +309,23 @@ KERNELS = {
     # fuses the float32 accumulation of the scan's body
     "grad_accum": ("src/repro_torch/csrc/grad_accum.cu",
                    "src/repro/runtime/train.py:134"),
+    # no TPU kernel: the JAX engine jits its whole decode step
+    # (src/repro/runtime/serve.py:83) and XLA fuses each layer's rmsnorm,
+    # apply_rope with update_cache, decode_attention and ssd_decode
+    "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
+                "src/repro/models/layers.py:90"),
+    "rope_cache_write": ("src/repro_torch/csrc/rope_cache.cu",
+                         "src/repro/models/layers.py:141"),
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/models/attention.py:217"),
+    "ssd_decode_step": ("src/repro_torch/csrc/ssd_decode.cu",
+                        "src/repro/models/ssm.py:163"),
 }
+#: the decode step's kernels, each entry of ``ops`` beside its plain version
+DECODE_PLAIN = {"rmsnorm": ref.rmsnorm_ref,
+                "rope_cache_write": ref.rope_cache_ref,
+                "decode_attention": ref.decode_attention_ref,
+                "ssd_decode_step": ref.ssd_decode_step_ref}
 
 #: the paper phase: hybrid's host testbed at the middle size class, as the
 #: reference's hybrid runs by default (benchmarks/hybrid.py), for saxpy and
@@ -500,6 +533,32 @@ PROFILE_DECODE_STEPS = 8
 DECODE_GRAPH_ARCHS = ("zamba2-2.7b", "granite-moe-3b-a800m", "gemma2-2b",
                       "whisper-large-v3")
 DECODE_GRAPH_STEPS = 8
+#: the decode kernels' part: every decode arch's shapes at LM_SLOTS slots,
+#: a step DECODE_AHEAD positions past the longest prompt (gemma2's past its
+#: window, whisper's past its prompt); the bf16 outputs within one bf16
+#: step and DECODE_ATOL x max |plain|, the float32 state within
+#: SSD_STATE_RTOL x max |plain|; each timed in turns, DECODE_REPS calls in
+#: a CUDA graph (``graph_ms``)
+DECODE_AHEAD, DECODE_ATOL, SSD_STATE_RTOL, DECODE_REPS = 16, 1e-4, 1e-5, 50
+#: the archs whose decode shapes the part covers, and the shape of each
+#: kernel's line in the ``kernels`` record
+DECODE_ARCHS = (LM_ARCHS + ("mamba2-1.3b", "minicpm-2b", "gemma2-2b",
+                            "nemotron-4-15b", "internvl2-26b",
+                            "mixtral-8x22b", "command-r-plus-104b",
+                            "whisper-large-v3"))
+DECODE_REPORTED = {"rmsnorm": "zamba2-2.7b gated 5120",
+                   "rope_cache_write": "granite-moe-3b-a800m",
+                   "decode_attention": "granite-moe-3b-a800m",
+                   "ssd_decode_step": "zamba2-2.7b"}
+#: the decode step with the kernels against the same step with the plain
+#: versions: the logits' relative L2 at every step, each step from a shared
+#: cache, at the model's head (``head_decode_parity``) in float32.  At
+#: random init the full-depth step is chaotic (the attention is near
+#: argmax, head_prefill): one bf16 step of a norm's output flips near-tied
+#: keys, the plain bf16 step is itself about 1 from the float32 one, and
+#: even float32 rounding grows over the layers; the full-depth distances
+#: (bf16 graphs, float32 steps) and the head's in bf16 are printed
+DECODE_LOGITS_REL = 2e-2
 #: profiler windows (of 4 calls each) a replay's and an eager call's device
 #: operations are counted over, at most, a pair (one of each) at a time
 #: until the two agree, a kernel's launches a call being the median over
@@ -1601,6 +1660,293 @@ def moe_kernel_phase(cfg):
     return results
 
 
+# ---------------------------------------------------------------------------
+# the decode step's kernels at every decode arch's shapes
+# ---------------------------------------------------------------------------
+
+def graph_ms(fn, reps: int = DECODE_REPS) -> float:
+    """Milliseconds a call of ``fn`` takes on the device with the host out
+    of the way: ``reps`` calls captured in one CUDA graph after a warm-up
+    call, one replay timed with CUDA events after a warm-up replay (a
+    decode kernel's launch from Python takes longer than the kernel).  The
+    capture adds to the launch counters; every main path resets them."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timed_turns(fns):
+    """{name: [ms, ms]} of each of ``fns`` ({name: fn}) by ``graph_ms``,
+    in turns: in order, then in reverse (kernel, plain, library, library,
+    plain, kernel)."""
+    out = {n: [] for n in fns}
+    for n in [*fns, *reversed(list(fns))]:
+        out[n].append(graph_ms(fns[n]))
+    return out
+
+
+def decode_cases():
+    """Each decode kernel call the served archs make, by shape: {kernel:
+    {case name: (cfg, shape dict)}}.  The norm at each d_model with its
+    residual and at each d_inner alone (the gated norm); per attention
+    arch its rope write and its attention at the engine's cache (LM_SLOTS
+    slots, LM_CAPACITY rows; gemma2's rolling local cache and its global
+    one at WINDOW_CAPACITY, past the window; whisper's self-attention at
+    WHISPER_CAPACITY without rope and its cross-attention); the SSD step
+    of each Mamba2 arch."""
+    B = LM_SLOTS
+    cases = {k: {} for k in DECODE_PLAIN}
+    for arch in DECODE_ARCHS:
+        cfg = get_config(arch)
+        d = cfg.d_model
+        cases["rmsnorm"].setdefault(f"d {d} residual", (cfg, dict(
+            d=d, residual=True)))
+        if cfg.ssm is not None:
+            s = cfg.ssm
+            di = s.d_inner(d)
+            cases["rmsnorm"][f"{arch} gated {di}"] = (cfg, dict(
+                d=di, residual=False))
+            cases["ssd_decode_step"][arch] = (cfg, dict(
+                nh=s.n_heads(d), hd=s.head_dim, ds=s.d_state,
+                K=s.conv_dim))
+        if cfg.family == "ssm":
+            continue
+        if cfg.enc_dec:
+            cap, pos = WHISPER_CAPACITY, WHISPER_PROMPT + DECODE_AHEAD
+        elif cfg.local_global_pattern:
+            cap, pos = WINDOW_CAPACITY, WINDOW_PROMPT + DECODE_AHEAD
+        else:
+            cap, pos = LM_CAPACITY, LM_PROMPTS[1] + DECODE_AHEAD
+        shapes = lm_mod.cache_defs(cfg, B, cap)
+        keys = (("k_local", "local"), ("k_global", "global")
+                ) if cfg.local_global_pattern else (("k", ""),)
+        for key, tag in keys:
+            rows = shapes[key][2]
+            window = (cfg.sliding_window if cfg.sliding_window
+                      and rows == cfg.sliding_window else None)
+            shape = dict(H=cfg.n_heads, KV=cfg.n_kv_heads, hd=cfg.head_dim,
+                         S=rows, pos=pos, window=window,
+                         cap=cfg.attn_softcap, scale=cfg.attn_scale,
+                         rope=cfg.use_rope)
+            name = f"{arch} {tag}".strip()
+            cases["rope_cache_write"][name] = (cfg, shape)
+            cases["decode_attention"][name] = (cfg, shape)
+        if cfg.enc_dec:
+            frames = shapes["xk"][2]
+            cases["decode_attention"][f"{arch} cross"] = (cfg, dict(
+                H=cfg.n_heads, KV=cfg.n_kv_heads, hd=cfg.head_dim, S=frames,
+                pos=frames - 1, window=None, cap=cfg.attn_softcap,
+                scale=cfg.attn_scale, rope=False))
+    return cases
+
+
+def conv1_in_order(val: torch.Tensor, w: torch.Tensor, buf: torch.Tensor):
+    """``ref._conv1`` with the taps summed k = 0..K-1 one rounded float32
+    op at a time, the SSD kernel's order (the plain version's einsum leaves
+    the order to the matmul library): a check-only stand-in, so that the
+    kernel's bf16 conv outputs, which feed the float32 state, can be held
+    bit for bit and the state to SSD_STATE_RTOL."""
+    window = torch.cat([buf.to(val.dtype), val], dim=1)
+    wf = w.float()
+    y = window[:, 0].float() * wf[0]
+    for k in range(1, w.shape[0]):
+        y = y + window[:, k].float() * wf[k]
+    return F.silu(y.to(val.dtype)[:, None]), window[:, 1:]
+
+
+@contextlib.contextmanager
+def conv_in_order():
+    """``ref.ssd_decode_step_ref`` on ``conv1_in_order`` inside."""
+    saved = ref._conv1
+    ref._conv1 = conv1_in_order
+    try:
+        yield
+    finally:
+        ref._conv1 = saved
+
+
+def decode_kernel_phase():
+    """The decode step's kernels against their plain versions on the card
+    at every decode arch's shapes (``decode_cases``), bf16 as the models
+    call them.  Pass: each output within one bf16 step and DECODE_ATOL x
+    max |plain| (``bf16_excess`` <= 1), the cache rows' v and the conv
+    buffers the same bits, the float32 state within SSD_STATE_RTOL x max
+    |plain|, an int and a tensor position the same bits.  The SSD step is
+    held to its plain version with the conv taps summed in the kernel's
+    order (``conv_in_order``); its distance from the plain version as it
+    is, y's share of the bound and the state's relative error, is
+    reported beside.  Each timed in
+    turns against its plain version and, where one PyTorch call computes
+    the same function, that call (``F.rms_norm`` of the norm without a
+    residual; SDPA with a boolean mask where there is no softcap).  Returns
+    {kernel: its record at DECODE_REPORTED's shape, with every shape's}."""
+    dev = torch.device(CARD)
+    g = torch.Generator(device=dev).manual_seed(33)
+    bf16 = torch.bfloat16
+    B = LM_SLOTS
+
+    def randn(*shape, scale=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=g, device=dev) * scale
+                ).to(dtype)
+
+    def record(name, case, got_want, fns, bound, ok_extra=True, **extra):
+        worst = max(bf16_excess(a, b, DECODE_ATOL * b.float().abs().max()
+                                .item()) for a, b in got_want)
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in got_want)
+        expect(worst <= 1.0 and ok_extra,
+               f"decode kernel {name} {case}: within one bf16 step + "
+               f"{DECODE_ATOL} x max (worst element at {worst:.3f} of its "
+               f"bound) {extra}")
+        ms = timed_turns(fns)
+        r = dict(shape=case, ms=float(np.mean(ms["kernel"])),
+                 plain_ms=float(np.mean(ms["plain"])),
+                 library_ms=(float(np.mean(ms["library"])) if "library" in ms
+                             else None), turns_ms=ms, bound=bound,
+                 max_abs_err=err, worst_share_of_bound=worst, **extra)
+        print(f"kernel {name} {case}: {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
+              f"{bound[0]:.5f} ms ({bound[1]}), max err {err:.3g} "
+              f"(worst at {worst:.3f} of its bound){' ' if extra else ''}"
+              f"{extra if extra else ''}", flush=True)
+        return r
+
+    out = {k: {} for k in DECODE_PLAIN}
+    cases = decode_cases()
+    for case, (cfg, sh) in cases["rmsnorm"].items():
+        d, res = sh["d"], sh["residual"]
+        x, r = randn(B, 1, d, scale=3.0), randn(B, 1, d)
+        sc = randn(d, scale=0.1) + 1
+        eps = cfg.norm_eps
+        kw = dict(residual=r) if res else {}
+        got, want = ops.rmsnorm(x, sc, eps, **kw), ref.rmsnorm_ref(
+            x, sc, eps, **kw)
+        same_sum = not res or torch.equal(got[0], want[0])
+        pairs = [(got[1], want[1])] if res else [(got, want)]
+        fns = {"kernel": lambda: ops.rmsnorm(x, sc, eps, **kw),
+               "plain": lambda: ref.rmsnorm_ref(x, sc, eps, **kw)}
+        if not res:
+            fns["library"] = lambda: F.rms_norm(x, (d,), sc, eps)
+        out["rmsnorm"][case] = record(
+            "rmsnorm", case, pairs, fns,
+            rl.rmsnorm_bound(B, d, bf16, bf16, res), same_sum,
+            sum_bit_identical=same_sum)
+    for case, (cfg, sh) in cases["rope_cache_write"].items():
+        H, KV, hd, S, pos = sh["H"], sh["KV"], sh["hd"], sh["S"], sh["pos"]
+        q, k, v = randn(B, 1, H, hd), randn(B, 1, KV, hd), randn(B, 1, KV, hd)
+        base = randn(B, S, KV, hd), randn(B, S, KV, hd)
+        freqs = (rope_frequencies(hd, cfg.rope_theta, dev) if sh["rope"]
+                 else None)
+        kw = dict(freqs=freqs, window=sh["window"])
+        kc, vc, kt, vt, kp, vp = (t.clone() for t in base * 3)
+        qo = ops.rope_cache_write(q, k, v, kc, vc, pos, **kw)
+        qt = ops.rope_cache_write(q, k, v, kt, vt, torch.tensor(pos,
+                                                                device=dev),
+                                  **kw)
+        qp = ref.rope_cache_ref(q, k, v, kp, vp, pos, **kw)
+        same = (torch.equal(qo, qt) and torch.equal(kc, kt)
+                and torch.equal(vc, vt) and torch.equal(vc, vp))
+        out["rope_cache_write"][case] = record(
+            "rope_cache_write", case, [(qo, qp), (kc, kp)],
+            {"kernel": lambda: ops.rope_cache_write(q, k, v, kc, vc, pos,
+                                                    **kw),
+             "plain": lambda: ref.rope_cache_ref(q, k, v, kp, vp, pos,
+                                                 **kw)},
+            rl.rope_cache_bound(B, H, KV, hd, bf16, bf16, sh["rope"]), same,
+            int_tensor_and_v_bit_identical=same)
+        del base, kc, vc, kt, vt, kp, vp
+    for case, (cfg, sh) in cases["decode_attention"].items():
+        H, KV, hd, S, pos = sh["H"], sh["KV"], sh["hd"], sh["S"], sh["pos"]
+        W = sh["window"]
+        q = randn(B, 1, H, hd)
+        kc, vc = randn(B, S, KV, hd), randn(B, S, KV, hd)
+        kw = dict(window=W, logit_cap=sh["cap"], scale=sh["scale"])
+        got = ops.decode_attention(q, kc, vc, pos=pos, **kw)
+        again = ops.decode_attention(q, kc, vc, pos=torch.tensor(
+            pos, device=dev), **kw)
+        want = ref.decode_attention_ref(q, kc, vc, pos=pos, **kw)
+        fns = {"kernel": lambda: ops.decode_attention(q, kc, vc, pos=pos,
+                                                      **kw),
+               "plain": lambda: ref.decode_attention_ref(q, kc, vc, pos=pos,
+                                                         **kw)}
+        rows = rl.decode_rows(S, pos, W)
+        if not sh["cap"]:
+            j = torch.arange(S, device=dev)
+            valid = j <= pos
+            if W is not None and S > W:
+                valid &= j > pos - W
+            qh, kh, vh = (t.transpose(1, 2) for t in (q, kc, vc))
+            fns["library"] = lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=valid[None, None, None],
+                scale=sh["scale"],
+                enable_gqa=True)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        rows_split, splits = dec_mod.split_plan(B, KV, S, sms)
+        out["decode_attention"][case] = record(
+            "decode_attention", case, [(got, want)], fns,
+            rl.decode_attention_bound(B, H, KV, rows, hd, bf16, bf16),
+            torch.equal(got, again), int_tensor_bit_identical=bool(
+                torch.equal(got, again)), rows_read=rows,
+            splits=splits, rows_a_split=rows_split)
+        del kc, vc
+    for case, (cfg, sh) in cases["ssd_decode_step"].items():
+        nh, hd, ds, K = sh["nh"], sh["hd"], sh["ds"], sh["K"]
+        di = nh * hd
+        p = dict(dt_bias=randn(nh, scale=0.5), A_log=randn(nh, scale=0.5),
+                 D=randn(nh), conv_x=randn(K, di, scale=0.5),
+                 conv_B=randn(K, ds, scale=0.5),
+                 conv_C=randn(K, ds, scale=0.5))
+        z, x, Bv, Cv = (randn(B, 1, di), randn(B, 1, di), randn(B, 1, ds),
+                        randn(B, 1, ds))
+        dt = randn(B, 1, nh)
+        h0 = randn(B, nh, ds, hd, dtype=torch.float32)
+        conv0 = {"x": randn(B, K - 1, di), "B": randn(B, K - 1, ds),
+                 "C": randn(B, K - 1, ds)}
+        states = [(h0.clone(), {k: t.clone() for k, t in conv0.items()})
+                  for _ in range(3)]
+        (h, conv), (hp, convp), (ho, convo) = states
+        y = ops.ssd_decode_step(z, x, Bv, Cv, dt, p, h=h, conv=conv)
+        yp = ref.ssd_decode_step_ref(z, x, Bv, Cv, dt, p, h=hp, conv=convp)
+        with conv_in_order():
+            yo = ref.ssd_decode_step_ref(z, x, Bv, Cv, dt, p, h=ho,
+                                         conv=convo)
+        h_err = (h - ho).abs().max().item() / ho.abs().max().item()
+        plain_h_err = (h - hp).abs().max().item() / hp.abs().max().item()
+        plain_y = bf16_excess(y, yp, DECODE_ATOL * yp.float().abs().max()
+                              .item())
+        same_conv = all(torch.equal(conv[k], convp[k]) for k in conv)
+        out["ssd_decode_step"][case] = r = record(
+            "ssd_decode_step", case, [(y, yo)],
+            {"kernel": lambda: ops.ssd_decode_step(z, x, Bv, Cv, dt, p, h=h,
+                                                   conv=conv),
+             "plain": lambda: ref.ssd_decode_step_ref(z, x, Bv, Cv, dt, p,
+                                                      h=hp, conv=convp)},
+            rl.ssd_decode_bound(B, nh, hd, ds, K, bf16, bf16),
+            h_err <= SSD_STATE_RTOL and same_conv,
+            state_rel_err=h_err, conv_bit_identical=same_conv,
+            plain_state_rel_err=plain_h_err,
+            plain_worst_share_of_bound=plain_y,
+            plain_max_abs_err=(y.float() - yp.float()).abs().max().item())
+        # the kernels line's error is the plain version's as it is
+        r["in_order_max_abs_err"] = r["max_abs_err"]
+        r["max_abs_err"] = r["plain_max_abs_err"]
+    torch.cuda.synchronize()
+    return {k: dict(out[k][DECODE_REPORTED[k]], shapes=out[k])
+            for k in out}
+
+
 def lm_prompts(cfg, n_requests: int = LM_REQUESTS):
     """``n_requests`` prompts, lengths drawn from seed 0 in LM_PROMPTS; for
     an SSM model at least one a multiple of the SSD chunk (no tail) and two
@@ -1617,13 +1963,29 @@ def lm_prompts(cfg, n_requests: int = LM_REQUESTS):
     return [rng.integers(0, cfg.vocab, n).tolist() for n in lengths]
 
 
+def decode_launches(cfg, steps: int):
+    """The decode kernels' launches over ``steps`` unsharded decode steps:
+    two norms a layer (a decoder layer of the encoder-decoder three, its
+    cross-attention's included) and the final norm; one rope write and one
+    attention an attention layer (and one more attention a layer for the
+    cross-attention); one SSD step a Mamba2 layer."""
+    L = cfg.n_layers
+    n_attn = sum(cfg.is_attention_layer(i) for i in range(L))
+    cross = L if cfg.enc_dec else 0
+    return {"rmsnorm": steps * (2 * L + 1 + cross),
+            "rope_cache_write": steps * n_attn,
+            "decode_attention": steps * (n_attn + cross),
+            "ssd_decode_step": steps * (L - n_attn)}
+
+
 def want_launches(cfg, lengths, decode_steps):
     """Each LM kernel's launches over the requests: one flash call per
     attention layer per prefill (zamba2: one per hybrid group; gemma2: the
     local and the global layer of each pair; mamba2: none), one SSD call
     per Mamba2 layer per prefill (two when the prompt has a ragged tail),
-    and for a MoE model three grouped GEMMs per layer per prefill and decode
-    step (a decode step runs neither flash nor the SSD scan)."""
+    for a MoE model three grouped GEMMs per layer per prefill and decode
+    step (a decode step runs neither flash nor the SSD scan), and the
+    decode kernels' (``decode_launches``)."""
     n_attn = sum(cfg.is_attention_layer(i) for i in range(cfg.n_layers))
     n_ssm = cfg.n_layers - n_attn
     Q = cfg.ssm.chunk if cfg.ssm is not None else 0
@@ -1632,7 +1994,8 @@ def want_launches(cfg, lengths, decode_steps):
                             for n in lengths),
             "grouped_matmul": (3 * cfg.n_layers * (len(lengths)
                                                    + decode_steps)
-                               if cfg.moe is not None else 0)}
+                               if cfg.moe is not None else 0),
+            **decode_launches(cfg, decode_steps)}
 
 
 def lm_main_path(cfg, model, n_requests: int = LM_REQUESTS,
@@ -2014,7 +2377,10 @@ def decode_graph_phase(cfg, model):
     in turns.  Checked: the same greedy tokens in every run, the logits
     bit-identical (an untimed pass), and a replay's device operations those
     of an eager step at the graph's tensor position, by name and count
-    (``torch.profiler``).  Profiled: PROFILE_DECODE_STEPS steps of each."""
+    (``torch.profiler``).  Profiled: PROFILE_DECODE_STEPS steps of each.
+    Then the kernels against their plain versions: the graphs in turns
+    (``plain_graph_check``) and, bound, the model's head
+    (``head_decode_parity``)."""
     rng = np.random.default_rng(8)
     extras = {}
     if cfg.enc_dec:
@@ -2066,7 +2432,7 @@ def decode_graph_phase(cfg, model):
     bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
     worst = max((g.float() - w.float()).abs().max().item()
                 for g, w in zip(got, want))
-    del want, got
+    del want
     tok_s = {"eager": [], "graph": []}
     same = [tokens_eager == tokens_graph]
     for graphed in (False, True, True, False):
@@ -2082,6 +2448,10 @@ def decode_graph_phase(cfg, model):
            f"same greedy tokens in every run: {same}")
     expect(bitwise, f"{cfg.arch}: graphed logits bit-identical to the eager "
            f"step's (max |diff| {worst})")
+    plain = plain_graph_check(model, cache, B, S, first, got, tokens_graph,
+                              reset, graph)
+    del got
+    head = head_decode_parity(cfg, model, tokens, cap, extras)
     profiles = {}
     for name, fn in (("graph", lambda: graphed_steps(
             graph, S, PROFILE_DECODE_STEPS, first)),
@@ -2114,12 +2484,171 @@ def decode_graph_phase(cfg, model):
           f"{windows} profiler windows of 4 calls a side); greedy "
           f"tokens equal, logits bit-identical; capture {capture_s:.2f} s",
           flush=True)
+    dist = {k: [float(f"{r[k]:.6g}") for r in plain["rel_l2"]]
+            for k in ("f32_kernels_plain", "kernels_plain", "plain_f32",
+                      "kernels_f32")}
+    print(f"lm decode graph {cfg.arch} against its plain versions: tokens/s "
+          f"graphed with the kernels {[round(x, 1) for x in plain['kernels']]}"
+          f", with the plain versions "
+          f"{[round(x, 1) for x in plain['plain']]} (in turns: plain, "
+          f"kernels, kernels, plain); logits relative L2 by step at full "
+          f"depth, bf16 graphs kernels against plain "
+          f"{dist['kernels_plain']}, plain bf16 against float32 "
+          f"{dist['plain_f32']}, kernels bf16 against float32 "
+          f"{dist['kernels_f32']}, float32 kernels against plain from a "
+          f"shared cache {dist['f32_kernels_plain']}; greedy tokens that "
+          f"differ (step, slot, top-two margin, max |diff|): bf16 "
+          f"{plain['near_ties']}, float32 {plain['near_ties_f32']}",
+          flush=True)
+    hd = {k: [float(f"{x:.6g}") for x in r["rel_l2"]]
+          for k, r in head.items()}
+    print(f"lm decode head {cfg.arch} kernels against plain, each step from "
+          f"a shared cache: logits relative L2 by step, float32 "
+          f"{hd['float32']} (bound {DECODE_LOGITS_REL}), bf16 {hd['bf16']};"
+          f" greedy tokens that differ: float32 "
+          f"{head['float32']['near_ties']}, bf16 {head['bf16']['near_ties']}",
+          flush=True)
     return dict(batch=B, position=S, capacity=cap, steps=DECODE_GRAPH_STEPS,
+                against_plain=plain, head_against_plain=head,
                 tokens_per_s=tok_s, idle_share=idle, profiles=profiles,
                 replay_ops=replay, eager_step_ops=step,
                 ops_a_replay=n_replay, op_windows=windows,
                 capture_s=capture_s, logits_bit_identical=bitwise,
                 first_tokens=tokens_eager[:4])
+
+
+@contextlib.contextmanager
+def decode_plain():
+    """The decode step's four entries of ``ops`` pointed at their plain
+    versions (DECODE_PLAIN), whatever the device."""
+    saved = {n: getattr(ops, n) for n in DECODE_PLAIN}
+    for n, fn in DECODE_PLAIN.items():
+        setattr(ops, n, fn)
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+
+
+def differing_tokens(arch: str, i: int, kernels: torch.Tensor,
+                     plain: torch.Tensor, what: str):
+    """(step, slot, top-two margin, max |diff|) of each slot whose greedy
+    token differs between the kernels' logits and the plain versions' at
+    step ``i``; each must be a near tie (the plain logits' top-two margin
+    under the step's max |diff|)."""
+    diff = (kernels - plain).abs().max().item()
+    top2 = plain.topk(2, -1).values
+    out = []
+    for b in torch.nonzero(kernels.argmax(-1) != plain.argmax(-1)
+                           )[:, 0].tolist():
+        margin = (top2[b, 0] - top2[b, 1]).item()
+        out.append((i, b, margin, diff))
+        expect(margin < diff, f"{arch} step {i} slot {b}, {what}: the "
+               f"kernels' greedy token differs from the plain versions' at "
+               f"a margin {margin} >= max |diff| {diff}")
+    return out
+
+
+def plain_graph_check(model, cache, B: int, S: int, first, got, tokens,
+                      reset, graph):
+    """The graphed step with the decode kernels (``graph``, its logits
+    ``got`` by step from position S, its greedy ``tokens``) against a graph
+    of the same step captured over the same cache with the decode entries
+    of ``ops`` on their plain versions (``decode_plain``), both fed the
+    kernels' tokens; and the same weights in float32, the kernels' step
+    against the plain versions' step, each step from one shared cache.
+    Reported at every step: the logits' relative L2 of the two bf16 graphs,
+    of each against the float32 plain step and of the two float32 steps,
+    and the greedy tokens that differ, each held to the near-tie rule
+    (``differing_tokens``); the bound is the head's
+    (``head_decode_parity``: at full depth the random-init step is
+    chaotic).  Then tokens/s of both graphs in turns (plain, kernels,
+    kernels, plain), each from the same cache and first tokens."""
+    cfg = model.cfg
+    with decode_plain():
+        pgraph = DecodeGraph(model, cache, B)
+    reset(True)
+    shared = {k: v.clone() for k, v in cache.items()}
+    step_cache = {k: torch.empty_like(v) for k, v in shared.items()}
+    m32 = LM(cfg, dtype=torch.float32, device=CARD)
+    m32.load_state_dict(model.state_dict())
+    rows, ties, tok = [], {"bf16": [], "float32": []}, first
+    V = cfg.vocab     # the padded vocab tail is masked to -2^30 on every run
+    for i, kg in enumerate(got):
+        pl = pgraph(S + i, tok)[:, :V].float()
+        for k, v in shared.items():
+            step_cache[k].copy_(v)
+        with torch.no_grad():
+            k32 = decode_step(m32, step_cache, tok, S + i)[0][:, :V].float()
+            with decode_plain():
+                f32 = decode_step(m32, shared, tok, S + i)[0][:, :V].float()
+        kg = kg[:, :V].float()
+        rows.append(dict(f32_kernels_plain=rel_l2(k32, f32),
+                         kernels_plain=rel_l2(kg, pl),
+                         plain_f32=rel_l2(pl, f32),
+                         kernels_f32=rel_l2(kg, f32)))
+        for what, k_, p_ in (("float32", k32, f32), ("bf16", kg, pl)):
+            ties[what] += differing_tokens(cfg.arch, i, k_, p_, what)
+        tok = torch.tensor(tokens[i], device=CARD)
+    del m32, shared, step_cache
+    tok_s = {"plain": [], "kernels": []}
+    for which in ("plain", "kernels", "kernels", "plain"):
+        reset(True)
+        t0 = time.perf_counter()
+        graphed_steps(pgraph if which == "plain" else graph, S,
+                      DECODE_GRAPH_STEPS, first)
+        tok_s[which].append(B * DECODE_GRAPH_STEPS
+                            / (time.perf_counter() - t0))
+    del pgraph
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rel_l2=rows, near_ties=ties["bf16"],
+                near_ties_f32=ties["float32"], **tok_s)
+
+
+def head_decode_parity(cfg, model, tokens, cap: int, extras):
+    """The decode kernels against their plain versions where the step is
+    not chaotic: the model's head (``model_head``: zamba2's first hybrid
+    group, granite's first 2 layers, gemma2's first local/global pair,
+    whisper's first encoder and decoder layers) at full width, in float32
+    and in bf16, prefilled with ``tokens`` (and ``extras``) at ``cap``,
+    then DECODE_GRAPH_STEPS steps, each from one shared cache: the
+    kernels' step against the plain versions' (``decode_plain``), fed the
+    plain step's greedy tokens.  Bound at every step, in float32: the
+    logits within relative L2 DECODE_LOGITS_REL; in both dtypes a greedy
+    token that differs only at a near tie (``differing_tokens``).
+    Returns {dtype: dict(rel_l2=[...], near_ties=[...])}."""
+    head, state = model_head(cfg, model)
+    S, V = tokens.shape[1], cfg.vocab
+    out = {}
+    for name, dtype in (("float32", torch.float32), ("bf16", torch.bfloat16)):
+        m = head_model(head, state, dtype, CARD)
+        with torch.no_grad():
+            logits, cache = prefill(m, tokens, capacity=cap, **{
+                k: v.to(dtype) for k, v in extras.items()})
+        step_cache = {k: torch.empty_like(v) for k, v in cache.items()}
+        tok, rows, ties = torch.argmax(logits, -1), [], []
+        for i in range(DECODE_GRAPH_STEPS):
+            for k, v in cache.items():
+                step_cache[k].copy_(v)
+            with torch.no_grad():
+                kl = decode_step(m, step_cache, tok, S + i)[0][:, :V].float()
+                with decode_plain():
+                    pl = decode_step(m, cache, tok, S + i)[0][:, :V].float()
+            rows.append(rel_l2(kl, pl))
+            if dtype == torch.float32:
+                expect(rows[-1] <= DECODE_LOGITS_REL, f"{cfg.arch} head "
+                       f"step {i}: in float32, the decode kernels' logits "
+                       f"within relative L2 {DECODE_LOGITS_REL} of the plain "
+                       f"versions' from the same cache: {rows[-1]}")
+            ties += differing_tokens(cfg.arch, i, kl, pl, f"head {name}")
+            tok = torch.argmax(pl, -1)
+        out[name] = dict(rel_l2=rows, near_ties=ties)
+        del m, logits, cache, step_cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 #: what a device-to-device copy is called in a profile: eager, a copy
@@ -2599,12 +3128,13 @@ def want_train_launches(cfg, remat: str = TRAIN_REMAT):
 
 
 class PlainCalls:
-    """Counts the calls of the LM kernels' and the train step's plain
-    versions while it is entered (the card's training path must make
-    none)."""
+    """Counts the calls of the LM kernels', the train step's and the decode
+    step's plain versions while it is entered (the card's training path
+    must make none)."""
     NAMES = ("attention_ref", "grouped_matmul_ref", "ssd_scan_ref",
              "grad_sumsq_ref", "sum_in_order_ref", "adamw_update_ref",
-             "grad_accumulate_ref")
+             "grad_accumulate_ref", "rmsnorm_ref", "rope_cache_ref",
+             "decode_attention_ref", "ssd_decode_step_ref")
 
     def __enter__(self):
         self.calls = {n: 0 for n in self.NAMES}
@@ -4000,7 +4530,8 @@ def whisper_serve(cfg, model):
     WHISPER_LONG_DECODE steps, each shape's prefill warmed up and its graph
     captured first.  Each run's launch counts from 0 just before to just
     after: one flash call per encoder layer and two per decoder layer
-    (attention, cross-attention) a prefill, none a decode step."""
+    (attention, cross-attention) a prefill, none a decode step; the decode
+    kernels' launches a step (``decode_launches``), none a prefill."""
     gen = torch.Generator(device=CARD).manual_seed(7)
     rng = np.random.default_rng(0)
     per_prefill = cfg.n_enc_layers + 2 * cfg.n_layers
@@ -4038,11 +4569,13 @@ def whisper_serve(cfg, model):
         expect(all(finite), f"whisper {name}: finite logits")
         expect(all(0 <= t < cfg.vocab for row in out for t in row),
                f"whisper {name}: tokens in the vocab")
-        expect(at_prefill == launches["flash_attention"] == per_prefill
-               and not any(n for k, n in launches.items()
-                           if k != "flash_attention"),
+        want = {"flash_attention": per_prefill,
+                **decode_launches(cfg, steps)}
+        expect(at_prefill == per_prefill and all(
+            n == want.get(k, 0) for k, n in launches.items()),
                f"whisper {name}: {per_prefill} flash calls a prefill, none a "
-               f"decode step, no other kernel: {launches}")
+               f"decode step, the decode kernels' {want} in {steps} steps, "
+               f"no other kernel: {launches}")
         tok_s = B * steps / decode_s
         print(f"lm prefill {B} x {S} tokens over {B} x {cfg.enc_frames} "
               f"frames: {prefill_s:.4f} s", flush=True)
@@ -4624,8 +5157,8 @@ def main() -> int:
     for name in ORDER:
         shapes = {k: tuple(v.shape) for k, v in inputs[name].items()
                   if isinstance(v, torch.Tensor)}
-        part = first_partitioning(sched, sct_for(name), shapes)
-        gpu_units[name] = part.units[0]
+        partition = first_partitioning(sched, sct_for(name), shapes)
+        gpu_units[name] = partition.units[0]
     results = kernel_phase(inputs, gpu_units, nbody_slot_targets(sched))
     for name, r in results.items():
         print(f"kernel {name} {r['shape']}: {r['ms']:.4f} ms, plain "
@@ -4633,6 +5166,19 @@ def main() -> int:
               f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), max err "
               f"{r['max_abs_err']:.3g}", flush=True)
 
+    allocated = torch.cuda.memory_allocated()
+    with part("decode kernels"):
+        results.update(decode_kernel_phase())
+    # the part's graph captures run cuBLAS on the capture stream, which
+    # keeps a workspace there; cleared, so that the models' peaks after it
+    # find what they found before the part
+    gc.collect()
+    residue = torch.cuda.memory_allocated() - allocated
+    torch._C._cuda_clearCublasWorkspaces()
+    print(f"decode kernels: {residue} bytes allocated after the part that "
+          f"were not before it, "
+          f"{torch.cuda.memory_allocated() - allocated} after clearing "
+          f"cuBLAS's workspaces", flush=True)
     lap("build and kernels")
     requests, chain, launches = main_path(sched, inputs)
     del inputs
@@ -4729,7 +5275,8 @@ def main() -> int:
     for name in ["saxpy", "filter_pipeline", "segmentation", "nbody",
                  "flash_attention", "flash_attention_bwd", "ssd_scan",
                  "ssd_scan_bwd", "grouped_matmul", "grouped_matmul_dx",
-                 "grouped_matmul_dw", "adamw", "grad_accum"]:
+                 "grouped_matmul_dw", "adamw", "grad_accum", "rmsnorm",
+                 "rope_cache_write", "decode_attention", "ssd_decode_step"]:
         r = results[name]
         source, replaces = KERNELS[name]
         kernels.append({

@@ -79,6 +79,20 @@ SIGNATURES: Dict[str, List] = {
     "adamw_update": [_P, _I, _L, _L, _P, *[_F] * 9, _I, _P],
     # device table, tensors, chunk, chunks, mode, scale, device, stream
     "grad_accum": [_P, _I, _L, _L, _I, _F, _I, _P],
+    # x, residual (or NULL), scale, y, sum (or NULL), dtype, scale dtype,
+    # rows, d, eps, device, stream
+    "rmsnorm_fwd": [*[_P] * 5, _I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, q_out, k_cache, v_cache, freqs (or NULL), position (or
+    # NULL), position, dtype, cache dtype, B, H, KV, S, hd, rolling,
+    # device, stream
+    "rope_cache_write": [*[_P] * 8, _L, *[_I] * 8, _I, _P],
+    # q, k_cache, v_cache, o, split outputs, split (max, sum), position
+    # (or NULL), position, dtype, cache dtype, B, H, KV, S, hd, rows a
+    # split, splits, window, scale, softcap, device, stream
+    "decode_attention_fwd": [*[_P] * 7, _L, *[_I] * 10, _F, _F, _I, _P],
+    # z, x, B, C, dt, dt_bias, A_log, D, conv_x, conv_B, conv_C, buffers
+    # x, B, C, h, y, dtype, buffer dtype, B, nh, hd, ds, K, device, stream
+    "ssd_decode_step": [*[_P] * 16, *[_I] * 7, _I, _P],
 }
 #: dtype code a C entry point takes for its tensors' element type
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -1,13 +1,14 @@
-"""The three LM kernels and the train step's (AdamW's, the microbatch
-accumulation's) on ``meta`` tensors: what a dry-run step reaches in their
-place.
+"""The three LM kernels, the train step's (AdamW's, the microbatch
+accumulation's) and the decode step's on ``meta`` tensors: what a dry-run
+step reaches in their place.
 
 Each function here stands for the CUDA wrapper of the same name in
 :mod:`~repro_torch.kernels.flash_attention`,
 :mod:`~repro_torch.kernels.ssd_scan`, :mod:`~repro_torch.kernels.moe_gemm`,
 :mod:`~repro_torch.kernels.adamw` (all three of its wrappers under
-``adamw``, as they count in its ``launches``) or
-:mod:`~repro_torch.kernels.grad_accum`:
+``adamw``, as they count in its ``launches``),
+:mod:`~repro_torch.kernels.grad_accum` or
+:mod:`~repro_torch.kernels.decode_step`:
 it takes the same arguments, allocates the same outputs and scratch (on
 ``meta``: shapes, no memory), launches nothing, and reports the call with
 its work from :mod:`repro_torch.launch.roofline` (the FLOPs and bytes of
@@ -27,6 +28,7 @@ from typing import Callable, List, Optional
 import torch
 
 from repro_torch.kernels import adamw as _adamw
+from repro_torch.kernels import decode_step as _decode
 from repro_torch.kernels import grad_accum as _accum
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.launch import roofline as rl
@@ -187,3 +189,41 @@ def grad_accumulate(accs, grads, *, mode: str, scale: float = 1.0) -> None:
     _accum.check_args(accs, grads, mode)
     _report("grad_accum", rl.grad_accum_work(
         [a.numel() for a in accs], [g.dtype for g in grads], mode))
+
+
+def rmsnorm(x, scale, eps, residual=None):
+    rows, d = _decode.check_rmsnorm(x, scale, residual)
+    y = torch.empty_like(x)
+    _report("rmsnorm", rl.rmsnorm_work(rows, d, x.dtype, scale.dtype,
+                                       residual is not None))
+    return y if residual is None else (torch.empty_like(x), y)
+
+
+def rope_cache_write(q, k, v, k_cache, v_cache, pos, *, freqs=None,
+                     window=None):
+    B, H, KV, S, hd = _decode.check_rope_cache(q, k, v, k_cache, v_cache,
+                                               freqs)
+    _decode.check_position(pos, q.device)
+    _report("rope_cache_write", rl.rope_cache_work(
+        B, H, KV, hd, q.dtype, k_cache.dtype, freqs is not None))
+    return q if freqs is None else torch.empty_like(q)
+
+
+def decode_attention(q, k_cache, v_cache, *, pos, window=None,
+                     logit_cap=0.0, scale=None):
+    B, H, KV, S, hd = _decode.check_decode_attention(q, k_cache, v_cache)
+    _decode.check_position(pos, q.device)
+    _, splits = _decode.split_plan(B, KV, S, _decode.H100_SMS)
+    _decode.attention_scratch(B, H, S, hd, splits, q.device)
+    rows = rl.decode_rows(S, None if isinstance(pos, torch.Tensor) else pos,
+                          window)
+    _report("decode_attention", rl.decode_attention_work(
+        B, H, KV, rows, hd, q.dtype, k_cache.dtype))
+    return torch.empty_like(q)
+
+
+def ssd_decode_step(z, x, B, C, dt, p, *, h, conv):
+    Bsz, nh, hd, ds, K = _decode.ssd_dims(z, x, B, C, dt, p, h, conv)
+    _report("ssd_decode_step", rl.ssd_decode_work(Bsz, nh, hd, ds, K,
+                                                  x.dtype, conv["x"].dtype))
+    return torch.empty_like(x)

@@ -5,10 +5,11 @@ inputs and raises on anything it does not take.  Any other tensor (the
 host fission slots' CPU tensors, the ``meta`` tensors of a shape probe)
 goes to the plain PyTorch version in :mod:`repro_torch.kernels.ref`, but
 for the ``meta`` tensors that reach the three LM kernels (flash attention,
-the SSD scan, the grouped GEMM) and the train step's (AdamW's gradient
-norm and update, the microbatch accumulation): those take the card's
-route, autograd Functions included, with
-:mod:`repro_torch.kernels.meta`'s stand-ins in place of the launches, so
+the SSD scan, the grouped GEMM), the train step's (AdamW's gradient
+norm and update, the microbatch accumulation) and the decode step's
+(RMSNorm, rope with the cache write, decode attention, the Mamba2
+recurrent step): those take the card's route, autograd Functions
+included, with :mod:`repro_torch.kernels.meta`'s stand-ins in place of the launches, so
 that a dry-run step counts each kernel by its work formula.  The choice
 is the tensor's device and nothing else: no error ever sends a CUDA
 tensor to the plain version.
@@ -33,6 +34,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels import adamw as _adamw
+from repro_torch.kernels import decode_step as _decode
 from repro_torch.kernels import filter_pipeline as _filter
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import grad_accum as _accum
@@ -379,13 +381,71 @@ def grad_accumulate(accs, grads, *, mode: str, scale: float = 1.0) -> None:
     return ref.grad_accumulate_ref(accs, grads, mode=mode, scale=scale)
 
 
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+            residual: Optional[torch.Tensor] = None):
+    """RMSNorm of x over its last dim in x's dtype (``ref.rmsnorm_ref``);
+    with a residual, (x + residual, its norm)."""
+    kern = _kernels(x)
+    if kern is not None:
+        _no_backward("rmsnorm", x, scale, residual)
+        return kern.rmsnorm(x, scale, eps, residual)
+    return ref.rmsnorm_ref(x, scale, eps, residual)
+
+
+def rope_cache_write(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor, pos, *,
+                     freqs: Optional[torch.Tensor] = None,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """One decode step's q and k rotated at ``pos`` (an int or a 0-d int64
+    tensor) by ``freqs``, k and v written into their cache row in place
+    (``ref.rope_cache_ref``); returns q."""
+    kern = _kernels(q)
+    if kern is not None:
+        _no_backward("rope_cache_write", q, k, v)
+        return kern.rope_cache_write(q, k, v, k_cache, v_cache, pos,
+                                     freqs=freqs, window=window)
+    return ref.rope_cache_ref(q, k, v, k_cache, v_cache, pos, freqs=freqs,
+                              window=window)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, *, pos,
+                     window: Optional[int] = None, logit_cap: float = 0.0,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """(B,1,H,hd) attention of one query a slot over the rows of the
+    (B,S,KV,hd) caches valid at ``pos`` (``ref.decode_attention_ref``)."""
+    kern = _kernels(q)
+    if kern is not None:
+        _no_backward("decode_attention", q, k_cache, v_cache)
+        return kern.decode_attention(q, k_cache, v_cache, pos=pos,
+                                     window=window, logit_cap=logit_cap,
+                                     scale=scale)
+    return ref.decode_attention_ref(q, k_cache, v_cache, pos=pos,
+                                    window=window, logit_cap=logit_cap,
+                                    scale=scale)
+
+
+def ssd_decode_step(z, x, B, C, dt, p, *, h: torch.Tensor, conv):
+    """The Mamba2 recurrent step of one token past its projections
+    (``ref.ssd_decode_step_ref``): y = (C . h + D x) * silu(z), with the
+    conv buffers ``conv`` and the float32 state ``h`` updated in place."""
+    kern = _kernels(x)
+    if kern is not None:
+        _no_backward("ssd_decode_step", z, x, B, C, dt,
+                     *(p[k] for k in ("dt_bias", "A_log", "D", "conv_x",
+                                      "conv_B", "conv_C")))
+        return kern.ssd_decode_step(z, x, B, C, dt, p, h=h, conv=conv)
+    return ref.ssd_decode_step_ref(z, x, B, C, dt, p, h=h, conv=conv)
+
+
 class _Card:
-    """The card's wrappers of the LM kernels and the train step's, under the
-    names of :mod:`repro_torch.kernels.meta`'s stand-ins, looked up in their
-    modules at each call (a check may put a patched wrapper there)."""
+    """The card's wrappers of the LM kernels, the train step's and the
+    decode step's, under the names of :mod:`repro_torch.kernels.meta`'s
+    stand-ins, looked up in their modules at each call (a check may put a
+    patched wrapper there)."""
 
     def __getattr__(self, name: str):
-        for module in (_flash, _ssd, _gmm, _adamw, _accum):
+        for module in (_flash, _ssd, _gmm, _adamw, _accum, _decode):
             if hasattr(module, name):
                 return getattr(module, name)
         raise AttributeError(name)
@@ -401,4 +461,7 @@ COUNTERS = {c.name: c for c in (_saxpy.launches, _filter.launches,
                                 _gmm.launches, _flash.bwd_launches,
                                 _ssd.bwd_launches,
                                 *_gmm.bwd_kernels.values(),
-                                _adamw.launches, _accum.launches)}
+                                _adamw.launches, _accum.launches,
+                                _decode.rms_launches, _decode.rope_launches,
+                                _decode.attn_launches,
+                                _decode.ssd_launches)}

@@ -1,6 +1,8 @@
 """Plain PyTorch versions of the hand-written kernels: the paper's
 benchmark kernels, the LM kernels (flash attention, SSD scan, the MoE
-grouped GEMM) and the train step's (AdamW, the microbatch accumulation).
+grouped GEMM), the train step's (AdamW, the microbatch accumulation) and
+the decode step's (RMSNorm, rope with the cache write, decode attention,
+the Mamba2 recurrent step).
 
 Each computes the same function as its hand-written CUDA kernel with
 ordinary tensor operations, on any device.  The CPU tests hold them
@@ -10,11 +12,12 @@ of every hybrid run with them (``ops`` dispatches by device).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Mapping, Optional, Tuple, Union
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.grad_accum import check_args as check_accum_args
 
@@ -246,3 +249,186 @@ def grad_accumulate_ref(accs, grads, *, mode: str, scale: float = 1.0
         a += g.float()
         if mode == "last":
             a.mul_(scale)
+
+
+# ---------------------------------------------------------------------------
+# the decode step's layer bodies (the eager code the decode kernels replace)
+# ---------------------------------------------------------------------------
+
+#: cache rows a decode step turns to float32 at a time
+DECODE_ROWS = 4096
+
+
+def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float,
+                residual: Optional[torch.Tensor] = None):
+    """RMSNorm over the last dim (``rmsnorm_rows``); with a residual, the
+    sum ``x + residual`` in x's dtype and its norm."""
+    if residual is not None:
+        s = x + residual
+        return s, rmsnorm_rows(s, scale, eps)
+    return rmsnorm_rows(x, scale, eps)
+
+
+def rmsnorm_rows(x: torch.Tensor, scale: torch.Tensor, eps: float
+                 ) -> torch.Tensor:
+    """RMSNorm over the last dim in float32, in x's dtype: the models'
+    norm everywhere (``layers.rmsnorm``) and the decode norm's plain
+    version."""
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def rotate_ref(x: torch.Tensor, positions: torch.Tensor,
+               freqs: torch.Tensor) -> torch.Tensor:
+    """x (..., S, H, hd) rotated at ``positions`` (broadcastable to
+    (..., S)) by the float32 frequencies ``freqs`` (hd/2,)."""
+    ang = positions.to(torch.float32)[..., None] * freqs       # (..., S, hd/2)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+def update_cache_ref(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     k: torch.Tensor, v: torch.Tensor,
+                     pos: Union[int, torch.Tensor],
+                     window: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write one (B,1,KV,hd) k/v at ``pos`` (modulo window for rolling),
+    in place.  A position past the end is clamped to the last row, as
+    ``jax.lax.dynamic_update_slice`` clamps it in the JAX package; a tensor
+    position is reduced and clamped on the device."""
+    Scap = k_cache.shape[1]
+    idx = pos % Scap if (window is not None and Scap == window) else pos
+    if isinstance(idx, torch.Tensor):
+        idx = idx.clamp(0, Scap - 1).long().view(1)
+        k_cache.index_copy_(1, idx, k.to(k_cache.dtype))
+        v_cache.index_copy_(1, idx, v.to(v_cache.dtype))
+        return k_cache, v_cache
+    idx = min(max(idx, 0), Scap - 1)
+    k_cache[:, idx] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, idx] = v[:, 0].to(v_cache.dtype)
+    return k_cache, v_cache
+
+
+def rope_cache_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   k_cache: torch.Tensor, v_cache: torch.Tensor,
+                   pos: Union[int, torch.Tensor], *,
+                   freqs: Optional[torch.Tensor] = None,
+                   window: Optional[int] = None) -> torch.Tensor:
+    """One decode step's q and k (B,1,H,hd), (B,1,KV,hd) rotated at
+    ``pos`` by ``freqs`` (None: no rotation), k and v written at the
+    cache row of ``pos`` (``update_cache_ref``).  Returns q."""
+    if freqs is not None:
+        positions = (pos.view(1, 1) if isinstance(pos, torch.Tensor)
+                     else torch.full((1, 1), pos, device=q.device))
+        q = rotate_ref(q, positions, freqs)
+        k = rotate_ref(k, positions, freqs)
+    update_cache_ref(k_cache, v_cache, k, v, pos, window=window)
+    return q
+
+
+def decode_scores(q: torch.Tensor, k_cache: torch.Tensor, *,
+                  pos: Union[int, torch.Tensor], window: Optional[int],
+                  logit_cap: float, scale: Optional[float], row0: int = 0,
+                  n_rows: Optional[int] = None) -> torch.Tensor:
+    """The masked float32 scores (B,KV,G,rows) of one decode query over the
+    cache's rows, read a block of :data:`DECODE_ROWS` rows at a time.  Row j
+    of the cache is position ``row0 + j`` of a cache of ``n_rows`` rows."""
+    B, _, H, hd = q.shape
+    Scap, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    n_rows = Scap if n_rows is None else n_rows
+    sc = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, KV, G, hd).float()
+    s = torch.empty((B, KV, G, Scap), dtype=torch.float32, device=q.device)
+    for a in range(0, Scap, DECODE_ROWS):
+        b = min(a + DECODE_ROWS, Scap)
+        s[..., a:b] = torch.einsum("bkgh,bjkh->bkgj", qg,
+                                   k_cache[:, a:b].to(q.dtype).float())
+    s = s * sc
+    if logit_cap and logit_cap > 0:
+        s = logit_cap * torch.tanh(s / logit_cap)
+    j = torch.arange(Scap, device=q.device) + row0
+    valid = j <= pos
+    if window is not None and n_rows > window:
+        valid &= j > pos - window
+    return s.masked_fill(~valid, NEG_INF)
+
+
+def weighted_values(p: torch.Tensor, v_cache: torch.Tensor) -> torch.Tensor:
+    """sum_j p[..., j] v[:, j] in float32, a block of rows at a time:
+    (B,KV,G,hd)."""
+    Scap = v_cache.shape[1]
+    o = None
+    for a in range(0, Scap, DECODE_ROWS):
+        b = min(a + DECODE_ROWS, Scap)
+        part = torch.einsum("bkgj,bjkh->bkgh", p[..., a:b],
+                            v_cache[:, a:b].float())
+        o = part if o is None else o + part
+    return o
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, *,
+                         pos: Union[int, torch.Tensor],
+                         window: Optional[int] = None, logit_cap: float = 0.0,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B,1,H,hd); caches: (B,Scap,KV,hd); ``pos``: current position.
+
+    For rolling (windowed) caches the caller guarantees Scap == window and
+    positions are stored modulo the window; masking here is by validity
+    count only.  Scores and the weighted sum are float32, as in the JAX
+    package (bf16 products are exact in float32); the cache is read in its
+    own dtype, a block of rows at a time."""
+    B, _, H, hd = q.shape
+    s = decode_scores(q, k_cache, pos=pos, window=window,
+                      logit_cap=logit_cap, scale=scale)
+    p = torch.softmax(s, dim=-1)
+    o = weighted_values(p, v_cache)
+    return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def _conv1(val: torch.Tensor, w: torch.Tensor, buf: torch.Tensor):
+    """One token's depth-K causal conv of ``val`` (B,1,C) after the
+    buffer's K-1 rows (B,K-1,C), weights (K,C), then silu; and the shifted
+    window."""
+    window = torch.cat([buf.to(val.dtype), val], dim=1)
+    y = torch.einsum("bkc,kc->bc", window, w)[:, None]
+    return F.silu(y), window[:, 1:]
+
+
+def ssd_decode_step_ref(z: torch.Tensor, x: torch.Tensor, B: torch.Tensor,
+                        C: torch.Tensor, dt: torch.Tensor,
+                        p: Mapping[str, torch.Tensor], *, h: torch.Tensor,
+                        conv: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """The Mamba2 recurrent step of one token past its projections: z, x
+    (B,1,nh*hd), B, C (B,1,ds) and the raw dt (B,1,nh) in, y = (C . h +
+    D x) * silu(z) (B,1,nh*hd) out; the conv buffers ``conv`` (x, B, C)
+    shifted and the float32 state ``h`` (B,nh,ds,hd) updated in place."""
+    Bsz = x.shape[0]
+    nh, ds = dt.shape[-1], B.shape[-1]
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    xr, nbx = _conv1(x, p["conv_x"], conv["x"])
+    Br, nbB = _conv1(B, p["conv_B"], conv["B"])
+    Cr, nbC = _conv1(C, p["conv_C"], conv["C"])
+    A = -torch.exp(p["A_log"].float())
+    xh = xr.reshape(Bsz, nh, -1).float()                  # (B,nh,hd)
+    dt1 = dt.reshape(Bsz, nh)                             # f32
+    a = torch.exp(dt1 * A)                                # (B,nh)
+    Bv = Br.reshape(Bsz, ds).float()
+    Cv = Cr.reshape(Bsz, ds).float()
+    hf = h.float()
+    h_new = hf * a[:, :, None, None] + torch.einsum(
+        "bs,bh,bhe->bhse", Bv, dt1, xh)
+    y = torch.einsum("bs,bhse->bhe", Cv, h_new)
+    y = y + xh * p["D"].float()[None, :, None]
+    y = y.reshape(Bsz, 1, -1).to(x.dtype)
+    y = y * F.silu(z)
+    h.copy_(h_new.to(h.dtype))
+    for key, new in (("x", nbx), ("B", nbB), ("C", nbC)):
+        conv[key].copy_(new.to(conv[key].dtype))
+    return y

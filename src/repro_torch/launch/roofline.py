@@ -14,8 +14,9 @@ cores, 495 TF32, 67 FP32 on the CUDA cores, 3.35 TB/s of HBM3, and NVLink
 card's ``total_memory`` as PyTorch reports it on the H100 80GB HBM3.
 
 The second half holds one work formula per hand-written LM kernel,
-forward and backward, and for the train step's kernels (AdamW, the
-microbatch accumulation): the FLOPs it must do and the bytes it must move
+forward and backward, for the train step's kernels (AdamW, the
+microbatch accumulation) and for the decode step's (RMSNorm, rope with the
+cache write, decode attention, the Mamba2 recurrent step): the FLOPs it must do and the bytes it must move
 (each input read once, each output written once) for the call's shapes.
 The dry-run (:mod:`repro_torch.launch.op_analysis`) adds them to a step's
 counts wherever a model reaches the kernel, and the card's checks
@@ -371,4 +372,87 @@ def grad_accum_work(numels, g_dtypes, mode: str) -> Work:
 
 def grad_accum_bound(numels, g_dtypes, mode: str):
     flops, nbytes = grad_accum_work(numels, g_dtypes, mode)
+    return bound_ms(nbytes, flops)
+
+
+# ---------------------------------------------------------------------------
+# the decode step's kernels
+# ---------------------------------------------------------------------------
+
+def rmsnorm_work(rows: int, d: int, dtype, scale_dtype,
+                 residual: bool = False) -> Work:
+    """x (and the residual) and scale read, y (and the sum) written once;
+    4 operations an element (square, sum, two products), 5 with the
+    residual's add."""
+    n = rows * d
+    nbytes = _size(dtype) * n * (4 if residual else 2) + _size(scale_dtype) * d
+    return (5.0 if residual else 4.0) * n, float(nbytes)
+
+
+def rmsnorm_bound(rows, d, dtype, scale_dtype, residual=False):
+    flops, nbytes = rmsnorm_work(rows, d, dtype, scale_dtype, residual)
+    return bound_ms(nbytes, flops)
+
+
+def rope_cache_work(B: int, H: int, KV: int, hd: int, dtype, cache_dtype,
+                    rope: bool = True) -> Work:
+    """q, k, v read once, the rotated q written and a cache row of k and v
+    written (and the frequency table read) with rope; the row alone
+    without.  6 operations a rotated pair (the angle, four products, a sum
+    or difference) and its cosine and sine, 8 in all."""
+    size = _size(dtype)
+    nbytes = (2 * B * KV * hd * size + 2 * B * KV * hd * _size(cache_dtype)
+              + ((2 * B * H * hd * size + 2 * hd) if rope else 0))
+    return (4.0 * B * (H + KV) * hd if rope else 0.0), float(nbytes)
+
+
+def rope_cache_bound(B, H, KV, hd, dtype, cache_dtype, rope=True):
+    flops, nbytes = rope_cache_work(B, H, KV, hd, dtype, cache_dtype, rope)
+    return bound_ms(nbytes, flops)
+
+
+def decode_rows(S: int, pos: Optional[int], window: Optional[int]) -> int:
+    """The cache rows a decode query at ``pos`` attends to (all S where the
+    position is not known on the host, or none is valid)."""
+    if pos is None:
+        return S
+    hi = min(pos, S - 1)
+    lo = max(0, pos - window + 1) if window is not None and S > window \
+        else 0
+    return hi - lo + 1 if hi >= lo else S
+
+
+def decode_attention_work(B: int, H: int, KV: int, rows: int, hd: int,
+                          dtype, cache_dtype) -> Work:
+    """q read and o written once, the ``rows`` valid rows of K and V read
+    once; 4 operations a (query head, row, column): the two products'
+    multiply-adds."""
+    nbytes = (2 * B * H * hd * _size(dtype)
+              + 2 * B * KV * rows * hd * _size(cache_dtype))
+    return 4.0 * B * H * rows * hd, float(nbytes)
+
+
+def decode_attention_bound(B, H, KV, rows, hd, dtype, cache_dtype):
+    flops, nbytes = decode_attention_work(B, H, KV, rows, hd, dtype,
+                                          cache_dtype)
+    return bound_ms(nbytes, flops)
+
+
+def ssd_decode_work(B: int, nh: int, hd: int, ds: int, K: int, dtype,
+                    buf_dtype) -> Work:
+    """The float32 state read and written once; z, x, B, C, dt and the
+    parameters read, y written, the conv buffers read and written once.
+    Operations: 5 a state element (h a, B (dt x), the sum, C h, the sum),
+    2 a conv tap of every channel."""
+    di, size = nh * hd, _size(dtype)
+    nbytes = (8 * B * nh * ds * hd
+              + size * (B * (3 * di + 2 * ds + nh) + 3 * nh
+                        + K * (di + 2 * ds))
+              + 2 * _size(buf_dtype) * B * (K - 1) * (di + 2 * ds))
+    return (5.0 * B * nh * ds * hd + 2.0 * K * B * (di + 2 * ds),
+            float(nbytes))
+
+
+def ssd_decode_bound(B, nh, hd, ds, K, dtype, buf_dtype):
+    flops, nbytes = ssd_decode_work(B, nh, hd, ds, K, dtype, buf_dtype)
     return bound_ms(nbytes, flops)

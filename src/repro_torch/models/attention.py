@@ -4,10 +4,12 @@ Prefill attention goes through :func:`repro_torch.kernels.ops.flash_attention_bs
 the hand-written CUDA kernel on a CUDA tensor, its plain version
 (``ref.attention_ref``) on any other.  It takes the place of the JAX
 package's ``blockwise_attention`` (the jnp oracle of its Pallas kernel),
-which computes the same function.  Decode attention and the cache update
-stay plain PyTorch, as they are plain jnp in the JAX package; decode reads
-the bf16 cache a block of rows at a time, so no float32 copy of a layer's
-cache is made.
+which computes the same function.  The unsharded decode step's rope and
+cache write and its attention go through ``ops.rope_cache_write`` and
+``ops.decode_attention`` (:mod:`repro_torch.models.lm`): kernels on the
+card, which the JAX engine's jit fuses; their plain versions, and the
+sharded step's decode here, read the bf16 cache a block of rows at a time,
+so no float32 copy of a layer's cache is made.
 
 On a mesh (:mod:`repro_torch.models.spmd`) the block runs on local heads
 where the rules shard them over the model axis (flash on H/model and
@@ -22,19 +24,15 @@ softmaxes.
 """
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple, Union
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.ref import DECODE_ROWS  # noqa: F401 (re-exported)
 from repro_torch.models import spmd
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (NEG_INF, Defs, ParamDef, Params,
-                                       apply_rope, softcap)
-
-#: cache rows a decode step turns to float32 at a time
-DECODE_ROWS = 4096
+from repro_torch.models.layers import Defs, ParamDef, Params, apply_rope
 
 
 def attn_defs(cfg: ModelConfig) -> Defs:
@@ -223,62 +221,16 @@ def int_position(pos: Position) -> int:
     return pos
 
 
-def _decode_scores(q: torch.Tensor, k_cache: torch.Tensor, *,
-                   pos: Position, window: Optional[int], logit_cap: float,
-                   scale: Optional[float], row0: int = 0,
-                   n_rows: Optional[int] = None) -> torch.Tensor:
-    """The masked float32 scores (B,KV,G,rows) of one decode query over the
-    cache's rows, read a block of :data:`DECODE_ROWS` rows at a time.  Row j
-    of the cache is position ``row0 + j`` of a cache of ``n_rows`` rows."""
-    B, _, H, hd = q.shape
-    Scap, KV = k_cache.shape[1], k_cache.shape[2]
-    G = H // KV
-    n_rows = Scap if n_rows is None else n_rows
-    sc = scale if scale is not None else 1.0 / math.sqrt(hd)
-    qg = q.reshape(B, KV, G, hd).float()
-    s = torch.empty((B, KV, G, Scap), dtype=torch.float32, device=q.device)
-    for a in range(0, Scap, DECODE_ROWS):
-        b = min(a + DECODE_ROWS, Scap)
-        s[..., a:b] = torch.einsum("bkgh,bjkh->bkgj", qg,
-                                   k_cache[:, a:b].to(q.dtype).float())
-    s = softcap(s * sc, logit_cap)
-    j = torch.arange(Scap, device=q.device) + row0
-    valid = j <= pos
-    if window is not None and n_rows > window:
-        valid &= j > pos - window
-    return s.masked_fill(~valid, NEG_INF)
-
-
-def _weighted_values(p: torch.Tensor, v_cache: torch.Tensor) -> torch.Tensor:
-    """sum_j p[..., j] v[:, j] in float32, a block of rows at a time:
-    (B,KV,G,hd)."""
-    Scap = v_cache.shape[1]
-    o = None
-    for a in range(0, Scap, DECODE_ROWS):
-        b = min(a + DECODE_ROWS, Scap)
-        part = torch.einsum("bkgj,bjkh->bkgh", p[..., a:b],
-                            v_cache[:, a:b].float())
-        o = part if o is None else o + part
-    return o
-
-
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, *, pos: Position,
                      window: Optional[int] = None, logit_cap: float = 0.0,
                      scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B,1,H,hd); caches: (B,Scap,KV,hd); ``pos``: current position.
-
-    For rolling (windowed) caches the caller guarantees Scap == window and
-    positions are stored modulo the window; masking here is by validity
-    count only.  Scores and the weighted sum are float32, as in the JAX
-    package (bf16 products are exact in float32); the cache is read in its
-    own dtype, a block of rows at a time."""
-    B, _, H, hd = q.shape
-    s = _decode_scores(q, k_cache, pos=pos, window=window,
-                       logit_cap=logit_cap, scale=scale)
-    p = torch.softmax(s, dim=-1)
-    o = _weighted_values(p, v_cache)
-    return o.reshape(B, 1, H, hd).to(q.dtype)
+    """q: (B,1,H,hd); caches: (B,Scap,KV,hd): the plain decode attention
+    (``ref.decode_attention_ref``), which the sharded step runs on its
+    blocks; the unsharded step takes ``ops.decode_attention``."""
+    return ref.decode_attention_ref(q, k_cache, v_cache, pos=pos,
+                                    window=window, logit_cap=logit_cap,
+                                    scale=scale)
 
 
 def decode_attention_rows(q: torch.Tensor, k_cache: torch.Tensor,
@@ -292,13 +244,13 @@ def decode_attention_rows(q: torch.Tensor, k_cache: torch.Tensor,
     and sums over the axis."""
     B, _, H, hd = q.shape
     rows = k_cache.shape[1]
-    s = _decode_scores(q, k_cache, pos=pos, window=window,
-                       logit_cap=logit_cap, scale=scale,
-                       row0=layout.tp_rank * rows, n_rows=n_rows)
+    s = ref.decode_scores(q, k_cache, pos=pos, window=window,
+                          logit_cap=logit_cap, scale=scale,
+                          row0=layout.tp_rank * rows, n_rows=n_rows)
     m = spmd.all_reduce(s.amax(-1), layout.mesh, (layout.tp,), "max")
     p = torch.exp(s - m[..., None])
     den = spmd.all_reduce(p.sum(-1), layout.mesh, (layout.tp,))
-    o = spmd.all_reduce(_weighted_values(p, v_cache), layout.mesh,
+    o = spmd.all_reduce(ref.weighted_values(p, v_cache), layout.mesh,
                         (layout.tp,))
     return (o / den[..., None]).reshape(B, 1, H, hd).to(q.dtype)
 
@@ -366,22 +318,6 @@ def decode_sharded(L, h: torch.Tensor, p: Params, cfg: ModelConfig, *,
     return y
 
 
-def update_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
-                 k: torch.Tensor, v: torch.Tensor, pos: Position,
-                 window: Optional[int] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Write one (B,1,KV,hd) k/v at ``pos`` (modulo window for rolling),
-    in place.  A position past the end is clamped to the last row, as
-    ``jax.lax.dynamic_update_slice`` clamps it in the JAX package; a tensor
-    position is reduced and clamped on the device."""
-    Scap = k_cache.shape[1]
-    idx = pos % Scap if (window is not None and Scap == window) else pos
-    if isinstance(idx, torch.Tensor):
-        idx = idx.clamp(0, Scap - 1).long().view(1)
-        k_cache.index_copy_(1, idx, k.to(k_cache.dtype))
-        v_cache.index_copy_(1, idx, v.to(v_cache.dtype))
-        return k_cache, v_cache
-    idx = min(max(idx, 0), Scap - 1)
-    k_cache[:, idx] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, idx] = v[:, 0].to(v_cache.dtype)
-    return k_cache, v_cache
+#: the plain cache write of one decode step (the unsharded step's rope
+#: kernel writes the cache itself)
+update_cache = ref.update_cache_ref

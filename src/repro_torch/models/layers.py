@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels import ref
 from repro_torch.models import spmd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.sharding import (Rules, local_shape, placements_for,
@@ -104,11 +105,7 @@ def rmsnorm_def(d: int) -> Defs:
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    scale = spmd.local(scale)
-    xf = x.float()
-    var = (xf * xf).mean(-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (y * scale.float()).to(x.dtype)
+    return ref.rmsnorm_rows(x, spmd.local(scale), eps)
 
 
 # ---------------------------------------------------------------------------
@@ -183,14 +180,8 @@ def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
-    hd = x.shape[-1]
-    freqs = rope_frequencies(hd, theta, x.device)              # (hd/2,)
-    ang = positions.to(torch.float32)[..., None] * freqs       # (..., S, hd/2)
-    cos = torch.cos(ang)[..., None, :]
-    sin = torch.sin(ang)[..., None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
-    return out.to(x.dtype)
+    return ref.rotate_ref(x, positions,
+                          rope_frequencies(x.shape[-1], theta, x.device))
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

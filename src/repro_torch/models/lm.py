@@ -58,18 +58,19 @@ from torch import nn
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.kernels import ops
 from repro_torch.models import spmd
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (Position, attention_sharded,
-                                          attn_defs, decode_attention,
-                                          decode_sharded, int_position,
-                                          out_proj, prefill_attention, qkv,
-                                          query, update_cache)
+                                          attn_defs, decode_sharded,
+                                          int_position, out_proj,
+                                          prefill_attention, qkv, query)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (Defs, ParamDef, Params, embed,
                                        embed_defs, mask_padded_vocab, mlp,
                                        mlp_defs, new_parameter, rmsnorm,
-                                       rmsnorm_def, softcap, unembed,
+                                       rmsnorm_def, rope_frequencies,
+                                       softcap, unembed,
                                        unembed_weight, vocab_sharded)
 from repro_torch.models.moe import moe_defs, moe_ffn
 from repro_torch.models.sharding import (Rules, contiguous_stride,
@@ -148,28 +149,40 @@ class AttnBlock(Params):
 
     def decode(self, x: torch.Tensor, *, k_cache: torch.Tensor,
                v_cache: torch.Tensor, pos: Position, window: Optional[int],
+               freqs: Optional[torch.Tensor] = None,
                xk: Optional[torch.Tensor] = None,
                xv: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One decode step; with the cache's cross-attention keys and values
         ``xk``/``xv`` (B, frames, KV, hd), the cross-attention over
-        them."""
+        them.  Unsharded, through the decode kernels' entries in ``ops``:
+        the norms (each after its residual add), q and k rotated by the
+        model's frequency table ``freqs`` (none without rope) with the
+        cache write, the attention."""
         cfg = self.cfg
-        h = rmsnorm(x, self["ln1"]["scale"], cfg.norm_eps)
         L = spmd.current()
         if L is not None:
+            h = rmsnorm(x, self["ln1"]["scale"], cfg.norm_eps)
             return self._decode_sharded(L, x, h, k_cache, v_cache, pos,
                                         window, xk, xv)
-        positions = (pos.view(1, 1) if isinstance(pos, torch.Tensor)
-                     else torch.full((1, 1), pos, device=x.device))
-        q, k, v = qkv(h, self["attn"], cfg, positions=positions,
-                      rope=cfg.use_rope)
-        update_cache(k_cache, v_cache, k, v, pos, window=window)
-        o = decode_attention(q, k_cache, v_cache, pos=pos, window=window,
-                             logit_cap=cfg.attn_softcap, scale=cfg.attn_scale)
-        y = x + out_proj(o, self["attn"])
+        eps, kw = cfg.norm_eps, dict(logit_cap=cfg.attn_softcap,
+                                     scale=cfg.attn_scale)
+        h = ops.rmsnorm(x, self["ln1"]["scale"], eps)
+        q, k, v = qkv(h, self["attn"], cfg)
+        q = ops.rope_cache_write(q, k, v, k_cache, v_cache, pos,
+                                 freqs=freqs if cfg.use_rope else None,
+                                 window=window)
+        o = ops.decode_attention(q, k_cache, v_cache, pos=pos, window=window,
+                                 **kw)
+        y = out_proj(o, self["attn"])
         if xk is not None:
-            y = _cross_decode(self, y, cfg, xk, xv)
-        return _ffn_part(self, y, cfg)
+            # the cross-attention over the frames the prefill cached (in
+            # bf16, as the JAX package reads them), every frame valid
+            x, h = ops.rmsnorm(y, self["ln_x"]["scale"], eps, residual=x)
+            o = ops.decode_attention(query(h, self["xattn"]), xk, xv,
+                                     pos=xk.shape[1] - 1, **kw)
+            y = out_proj(o, self["xattn"])
+        x, h = ops.rmsnorm(y, self["ln2"]["scale"], eps, residual=x)
+        return x + _ffn_out(self, h, cfg)
 
     def _decode_sharded(self, L, x, h, k_cache, v_cache, pos, window, xk,
                         xv) -> torch.Tensor:
@@ -223,17 +236,6 @@ def _cross_part(p: Params, y: torch.Tensor, cfg: ModelConfig,
     return y + out_proj(o, p["xattn"]), (k, v)
 
 
-def _cross_decode(p: Params, y: torch.Tensor, cfg: ModelConfig,
-                  xk: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
-    """The cross-attention of one decode step, over the keys and values the
-    prefill cached (in bf16, as the JAX package reads them), every frame
-    valid."""
-    h = rmsnorm(y, p["ln_x"]["scale"], cfg.norm_eps)
-    o = decode_attention(query(h, p["xattn"]), xk, xv, pos=xk.shape[1] - 1,
-                         logit_cap=cfg.attn_softcap, scale=cfg.attn_scale)
-    return y + out_proj(o, p["xattn"])
-
-
 def _ffn_aux(p: Params, x: torch.Tensor, cfg: ModelConfig
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The residual FFN and its aux loss (the MoE router's; 0 for an
@@ -245,6 +247,13 @@ def _ffn_aux(p: Params, x: torch.Tensor, cfg: ModelConfig
         y = mlp(h, p["ffn"], cfg)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + y, aux
+
+
+def _ffn_out(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The FFN of the normed stream ``h``, without its residual (the MoE
+    aux loss dropped: a decode step's)."""
+    return moe_ffn(h, p["moe"], cfg)[0] if "moe" in p else mlp(h, p["ffn"],
+                                                                cfg)
 
 
 def _ffn_part(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -280,7 +289,10 @@ class MambaBlock(Params):
 
     def decode(self, x: torch.Tensor, *, h: torch.Tensor,
                conv_state: Dict[str, torch.Tensor]):
-        hn = rmsnorm(x, self["ln1"]["scale"], self.cfg.norm_eps)
+        """One decode step; ``h`` and the conv buffers are updated in
+        place (``ssm.ssd_decode``)."""
+        norm = rmsnorm if spmd.current() is not None else ops.rmsnorm
+        hn = norm(x, self["ln1"]["scale"], self.cfg.norm_eps)
         y, hs, conv = ssm_mod.ssd_decode(hn, self["ssm"], self.cfg, h=h,
                                          conv_state=conv_state)
         return x + y, hs, conv
@@ -965,13 +977,15 @@ def _decode(model: LM, cache: Cache, views, token: torch.Tensor,
         return CacheBlock(t[i], kind, rows)
 
     def mamba(blk: MambaBlock, x: torch.Tensor, idx) -> torch.Tensor:
-        x, hs, conv = blk.decode(
+        # the block updates the state and the conv buffers in place
+        return blk.decode(
             x, h=cache["h"][idx],
-            conv_state={k: cache["conv_" + k][idx] for k in ("x", "B", "C")})
-        cache["h"][idx] = hs
-        for k in ("x", "B", "C"):
-            cache["conv_" + k][idx] = conv[k]
-        return x
+            conv_state={k: cache["conv_" + k][idx]
+                        for k in ("x", "B", "C")})[0]
+
+    # the rope kernel's frequency table, once a step
+    freqs = (rope_frequencies(cfg.head_dim, cfg.rope_theta, x.device)
+             if cfg.use_rope and L is None else None)
 
     if cfg.family == "ssm":
         for i, blk in enumerate(model.layers):
@@ -982,25 +996,25 @@ def _decode(model: LM, cache: Cache, views, token: torch.Tensor,
             for j, blk in enumerate(grp.mamba):
                 x = mamba(blk, x, (i, j))
             x = grp.attn.decode(x, k_cache=kv("k", i), v_cache=kv("v", i),
-                                pos=pos, window=window)
+                                pos=pos, window=window, freqs=freqs)
     elif cfg.local_global_pattern:
         window = window_of("k_local")
         for i, pair in enumerate(model.layers):
             x = pair.local.decode(x, k_cache=kv("k_local", i),
                                   v_cache=kv("v_local", i), pos=pos,
-                                  window=window)
+                                  window=window, freqs=freqs)
             x = pair.global_.decode(x, k_cache=kv("k_global", i),
                                     v_cache=kv("v_global", i), pos=pos,
-                                    window=None)
+                                    window=None, freqs=freqs)
     else:
         window = window_of("k")
         for i, blk in enumerate(model.layers):
             x = blk.decode(x, k_cache=kv("k", i), v_cache=kv("v", i),
-                           pos=pos, window=window,
+                           pos=pos, window=window, freqs=freqs,
                            xk=kv("xk", i) if cfg.enc_dec else None,
                            xv=kv("xv", i) if cfg.enc_dec else None)
     if L is not None:
         return _last_logits_sharded(L, model, x)
-    x = rmsnorm(x, model.final_norm["scale"], cfg.norm_eps)
+    x = ops.rmsnorm(x, model.final_norm["scale"], cfg.norm_eps)
     logits = unembed(x, model.embed, cfg)
     return logits[:, 0]

@@ -7,7 +7,11 @@ plain version on any other.  It takes the place of the JAX package's
 ``lax.scan`` chunk loop in ``ssd_prefill``, which computes the same
 function.  Everything around it — projections, the ragged-tail split, the
 conv buffers, the D skip, the gate and the norm — follows the JAX package
-line for line.  Decode is the O(1) recurrent update on the carried state.
+line for line.  Decode is the O(1) recurrent update on the carried state:
+past the projections one :func:`repro_torch.kernels.ops.ssd_decode_step`
+call (the hand-written kernel on the card, which the JAX engine's jit
+fuses) and the gated norm's ``ops.rmsnorm``, the state and conv buffers
+updated in place.
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import spmd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Defs, ParamDef, Params, rmsnorm
@@ -186,52 +190,30 @@ def ssd_decode(x: torch.Tensor, p: Params, cfg: ModelConfig, *,
                ) -> Tuple[torch.Tensor, torch.Tensor,
                           Dict[str, torch.Tensor]]:
     """One-token recurrent step. x: (B,1,d_model); h: (B,nh,ds,hd) (this
-    rank's heads on a mesh)."""
+    rank's heads on a mesh).  The state ``h`` and the conv buffers are
+    updated in place (the decode cache's own tensors) and returned.
+    Unsharded, past the projections: ``ops.ssd_decode_step`` and the gated
+    norm's ``ops.rmsnorm`` (kernels on the card); on a mesh, the plain step
+    (``ref.ssd_decode_step_ref``) and the norm over the model axis."""
     L = spmd.current()
     if L is None:
-        return _ssd_decode(x, p, cfg, h=h, conv_state=conv_state)
+        y = ops.ssd_decode_step(*_projections(x, p), p, h=h,
+                                conv=conv_state)
+        y = ops.rmsnorm(y, p["norm"], cfg.norm_eps)
+        return y @ p["w_out"], h, conv_state
     w, tp = _ssm_local(L, p)
-    y, hs, conv = _ssd_decode(L.copy_to_tp(x) if tp else x, w, cfg, h=h,
-                              conv_state=conv_state,
-                              norm_layout=L if tp else None)
-    return (L.reduce_tp(y) if tp else y), hs, conv
+    y = ref.ssd_decode_step_ref(
+        *_projections(L.copy_to_tp(x) if tp else x, w), w, h=h,
+        conv=conv_state)
+    y = _gated_norm(y, w["norm"], cfg.norm_eps, L if tp else None,
+                    cfg.ssm.d_inner(cfg.d_model)) @ w["w_out"]
+    return (L.reduce_tp(y) if tp else y), h, conv_state
 
 
-def _ssd_decode(x: torch.Tensor, p, cfg: ModelConfig, *, h: torch.Tensor,
-                conv_state: Dict[str, torch.Tensor], norm_layout=None):
-    s = cfg.ssm
-    B = x.shape[0]
-    di, nh, ds = p["w_x"].shape[1], p["w_dt"].shape[1], s.d_state
-    z, xr, Br, Cr, dt = _project(x, p, cfg)
-
-    def conv1(val, w, buf):
-        window = torch.cat([buf.to(val.dtype), val], dim=1)
-        y = torch.einsum("bkc,kc->bc", window, w)[:, None]
-        return F.silu(y), window[:, 1:]
-
-    xr, nbx = conv1(xr, p["conv_x"], conv_state["x"])
-    Br, nbB = conv1(Br, p["conv_B"], conv_state["B"])
-    Cr, nbC = conv1(Cr, p["conv_C"], conv_state["C"])
-    new_conv = {"x": nbx.to(conv_state["x"].dtype),
-                "B": nbB.to(conv_state["B"].dtype),
-                "C": nbC.to(conv_state["C"].dtype)}
-
-    A = -torch.exp(p["A_log"].float())
-    xh = xr.reshape(B, nh, -1).float()                    # (B,nh,hd)
-    dt1 = dt.reshape(B, nh)                               # f32
-    a = torch.exp(dt1 * A)                                # (B,nh)
-    Bv = Br.reshape(B, ds).float()
-    Cv = Cr.reshape(B, ds).float()
-    hf = h.float()
-    h_new = hf * a[:, :, None, None] + torch.einsum(
-        "bs,bh,bhe->bhse", Bv, dt1, xh)
-    y = torch.einsum("bs,bhse->bhe", Cv, h_new)
-    y = y + xh * p["D"].float()[None, :, None]
-    y = y.reshape(B, 1, di).to(x.dtype)
-    y = y * F.silu(z)
-    y = _gated_norm(y, p["norm"], cfg.norm_eps, norm_layout,
-                    s.d_inner(cfg.d_model))
-    return y @ p["w_out"], h_new.to(h.dtype), new_conv
+def _projections(x: torch.Tensor, p) -> Tuple[torch.Tensor, ...]:
+    """z, x, B, C and the raw dt of one decode token (the recurrent step
+    applies dt's bias and softplus)."""
+    return tuple(x @ p[k] for k in ("w_z", "w_x", "w_B", "w_C", "w_dt"))
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, dtype=torch.float32,

@@ -9,6 +9,7 @@ import math
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 import repro_torch.core as T
 from repro_torch import suite
@@ -2066,3 +2067,245 @@ def test_train_step_accumulates_through_the_kernel_on_card(M, cuda_device):
                                           else (2 * M, 0))
         runs.append((float(m["loss"]), float(m["grad_norm"])))
     assert runs[0] == runs[1]
+
+
+# ---------------------------------------------------------------------------
+# the decode step's kernels (csrc/rmsnorm.cu, rope_cache.cu,
+# decode_attention.cu, ssd_decode.cu) against their plain versions
+# ---------------------------------------------------------------------------
+
+def _excess(got, want, atol):
+    """The largest |got - want| / (2^-7 |want| + atol): at most 1 where
+    they differ by one bf16 step and ``atol``."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() / (2.0 ** -7 * want.abs() + atol)).max().item()
+
+
+def _decode_count(name):
+    return ops.COUNTERS[name].value
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1280, 2560, 5120, 12288])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("residual", [False, True])
+def test_decode_rmsnorm_on_card(d, dtype, residual, cuda_device):
+    """The norm within one bf16 step (float32: 1e-5) of the plain version;
+    with a residual, the sum the same bits as ``x + r``; one launch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    x = (torch.randn((4, 1, d), device=cuda_device, generator=gen) * 3
+         ).to(dtype)
+    r = torch.randn((4, 1, d), device=cuda_device, generator=gen).to(dtype)
+    s = (1 + 0.1 * torch.randn(d, device=cuda_device, generator=gen)
+         ).to(dtype)
+    before = _decode_count("rmsnorm")
+    if residual:
+        got_s, got = ops.rmsnorm(x, s, 1e-5, residual=r)
+        want_s, want = ref.rmsnorm_ref(x, s, 1e-5, residual=r)
+        assert torch.equal(got_s, want_s)
+    else:
+        got, want = ops.rmsnorm(x, s, 1e-5), ref.rmsnorm_ref(x, s, 1e-5)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert _excess(got, want, 1e-3) <= 1.0
+    assert _decode_count("rmsnorm") == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+@pytest.mark.parametrize("pos,window,S", [
+    (37, None, 64), (700, None, 64), (-2, None, 64), (70, 32, 32),
+    (-1, 32, 32)])
+@pytest.mark.parametrize("rope", [True, False])
+def test_decode_rope_cache_on_card(hd, pos, window, S, rope, cuda_device):
+    """q rotated and the cache row written as the plain version does (one
+    bf16 step), every other row untouched, an int and a tensor position
+    the same bits; one launch a call."""
+    from repro_torch.models.layers import rope_frequencies
+    gen = torch.Generator(device=cuda_device).manual_seed(hd + S)
+    B, H, KV = 4, 8, 2
+
+    def rand(*s):
+        return torch.randn(s, device=cuda_device, generator=gen).to(
+            torch.bfloat16)
+
+    q, k, v = rand(B, 1, H, hd), rand(B, 1, KV, hd), rand(B, 1, KV, hd)
+    base = rand(B, S, KV, hd), rand(B, S, KV, hd)
+    freqs = rope_frequencies(hd, 10_000.0, cuda_device) if rope else None
+    runs = []
+    before = _decode_count("rope_cache_write")
+    for p in (pos, torch.tensor(pos, device=cuda_device)):
+        kc, vc = (t.clone() for t in base)
+        qo = ops.rope_cache_write(q, k, v, kc, vc, p, freqs=freqs,
+                                  window=window)
+        runs.append((qo, kc, vc))
+    kc, vc = (t.clone() for t in base)
+    qw = ref.rope_cache_ref(q, k, v, kc, vc, pos, freqs=freqs, window=window)
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    qo, kg, vg = runs[0]
+    assert _excess(qo, qw, 1e-3) <= 1.0 and _excess(kg, kc, 1e-3) <= 1.0
+    assert torch.equal(vg, vc)
+    changed = (kg != base[0]).any(-1).any(-1).any(0)
+    assert int(changed.sum()) <= 1
+    assert _decode_count("rope_cache_write") == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,hd,S,pos,window,cap", [
+    (1, 80, 2048, 1600, None, 0.0),       # zamba2's heads
+    (3, 64, 2048, 1700, None, 0.0),       # granite's
+    (2, 256, 4096, 5000, 4096, 50.0),     # gemma2's rolling local cache
+    (2, 256, 5200, 5100, 4096, 50.0),     # a window inside a longer cache
+    (6, 128, 2048, 40, None, 0.0),        # nemotron's, early
+    (12, 128, 256, 255, None, 0.0),       # command-r's group
+    (1, 64, 1500, 1499, None, 0.0),       # whisper's cross-attention
+    (1, 64, 448, -1, None, 0.0),          # no valid row: uniform
+    (2, 64, 16, 5, None, 0.0),            # one split
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attention_on_card(G, hd, S, pos, window, cap, dtype,
+                                  cuda_device):
+    """Within one bf16 step of the plain version (float32: 2e-5 of the
+    largest output), an int and a tensor position the same bits, a repeat
+    the same bits; one launch a call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(G * hd + S)
+    B, KV = 4, 2
+    q = torch.randn((B, 1, KV * G, hd), device=cuda_device,
+                    generator=gen).to(dtype)
+    kc = (torch.randn((B, S, KV, hd), device=cuda_device, generator=gen)
+          * 2).to(torch.bfloat16)
+    vc = torch.randn((B, S, KV, hd), device=cuda_device,
+                     generator=gen).to(torch.bfloat16)
+    kw = dict(window=window, logit_cap=cap, scale=1.0 / math.sqrt(hd))
+    before = _decode_count("decode_attention")
+    got = ops.decode_attention(q, kc, vc, pos=pos, **kw)
+    again = ops.decode_attention(q, kc, vc,
+                                 pos=torch.tensor(pos, device=cuda_device),
+                                 **kw)
+    want = ref.decode_attention_ref(q, kc, vc, pos=pos, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if dtype == torch.float32:
+        assert (got - want).abs().max() <= 2e-5 * want.abs().max()
+    else:
+        assert _excess(got, want, 1e-3) <= 1.0
+    assert _decode_count("decode_attention") == before + 2
+
+
+def _conv1_in_order(val, w, buf):
+    """``ref._conv1`` with the taps summed k = 0..K-1 one rounded float32
+    op at a time, the SSD kernel's order (the plain version's einsum leaves
+    the order to the matmul library): check-only, so that the state can be
+    held to 1e-5."""
+    window = torch.cat([buf.to(val.dtype), val], dim=1)
+    wf = w.float()
+    y = window[:, 0].float() * wf[0]
+    for k in range(1, w.shape[0]):
+        y = y + window[:, k].float() * wf[k]
+    return F.silu(y.to(val.dtype)[:, None]), window[:, 1:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nh,hd,ds", [(80, 64, 64), (64, 64, 128),
+                                      (5, 16, 16)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_decode_step_on_card(nh, hd, ds, dtype, cuda_device,
+                                 monkeypatch):
+    """One Mamba2 token for 4 slots against the plain version with the
+    conv taps summed in the kernel's order: the conv buffers the same bits,
+    the float32 state within 1e-5 of its largest element, y within one
+    bf16 step (float32: 1e-5); one launch, twice in a row."""
+    monkeypatch.setattr(ref, "_conv1", _conv1_in_order)
+    gen = torch.Generator(device=cuda_device).manual_seed(nh * ds)
+    B, K, di = 4, 4, nh * hd
+
+    def rand(*s, scale=1.0, dt=dtype):
+        return (torch.randn(s, device=cuda_device, generator=gen) * scale
+                ).to(dt)
+
+    p = dict(dt_bias=rand(nh, scale=0.5), A_log=rand(nh, scale=0.5),
+             D=rand(nh), conv_x=rand(K, di, scale=0.5),
+             conv_B=rand(K, ds, scale=0.5), conv_C=rand(K, ds, scale=0.5))
+    h0 = rand(B, nh, ds, hd, dt=torch.float32)
+    conv0 = {"x": rand(B, K - 1, di, dt=torch.bfloat16),
+             "B": rand(B, K - 1, ds, dt=torch.bfloat16),
+             "C": rand(B, K - 1, ds, dt=torch.bfloat16)}
+    h, hw = h0.clone(), h0.clone()
+    conv = {k: t.clone() for k, t in conv0.items()}
+    convw = {k: t.clone() for k, t in conv0.items()}
+    before = _decode_count("ssd_decode_step")
+    for step in range(2):
+        z, x = rand(B, 1, di), rand(B, 1, di)
+        Bv, Cv, dt = rand(B, 1, ds), rand(B, 1, ds), rand(B, 1, nh)
+        y = ops.ssd_decode_step(z, x, Bv, Cv, dt, p, h=h, conv=conv)
+        yw = ref.ssd_decode_step_ref(z, x, Bv, Cv, dt, p, h=hw, conv=convw)
+        torch.cuda.synchronize()
+        for key in conv:
+            assert torch.equal(conv[key], convw[key]), (step, key)
+        assert (h - hw).abs().max() <= 1e-5 * hw.abs().max(), step
+        if dtype == torch.float32:
+            torch.testing.assert_close(y, yw, rtol=1e-5, atol=1e-5)
+        else:
+            assert _excess(y, yw, 1e-3) <= 1.0
+        hw.copy_(h)                 # each step from the same state
+    assert _decode_count("ssd_decode_step") == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "granite-moe-3b-a800m",
+                                  "gemma2-2b", "whisper-large-v3"])
+def test_decode_step_takes_the_decode_kernels_on_card(arch, cuda_device):
+    """A bf16 decode step of a smoke model: the four kernels' launches by
+    formula, and the logits (the padded vocab tail left out: it is -2^30 on
+    every run) within 2e-2 relative L2 of the same step with the plain
+    versions on the card."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import decode_step as dec
+    from repro_torch.models import LM, decode_step, init_cache, prefill
+    cfg = get_smoke(arch)
+    model = LM(cfg, device=cuda_device,
+               generator=torch.Generator(device=cuda_device).manual_seed(0))
+    B, S = 2, 40
+    tokens = torch.randint(0, cfg.vocab, (B, 12), device=cuda_device,
+                           generator=torch.Generator(
+                               device=cuda_device).manual_seed(1))
+    extras = {}
+    if cfg.enc_dec:
+        extras["frames"] = torch.randn(
+            (B, cfg.enc_frames, cfg.d_model), device=cuda_device,
+            generator=torch.Generator(device=cuda_device).manual_seed(2)
+        ).to(torch.bfloat16)
+    logits, cache = prefill(model, tokens, capacity=S, **extras)
+    plain_cache = {k: v.clone() for k, v in cache.items()}
+    tok = torch.argmax(logits, -1)
+    names = ("rmsnorm", "rope_cache_write", "decode_attention",
+             "ssd_decode_step")
+    before = {n: _decode_count(n) for n in names}
+    got, _ = decode_step(model, cache, tok, 12)
+    L = cfg.n_layers
+    n_attn = sum(cfg.is_attention_layer(i) for i in range(L))
+    cross = L if cfg.enc_dec else 0
+    want = {"rmsnorm": 2 * L + 1 + cross, "rope_cache_write": n_attn,
+            "decode_attention": n_attn + cross,
+            "ssd_decode_step": L - n_attn}
+    assert {n: _decode_count(n) - before[n] for n in names} == want
+    saved = {n: getattr(dec, n) for n in names}
+    plain = {"rmsnorm": ref.rmsnorm_ref, "rope_cache_write": ref.rope_cache_ref,
+             "decode_attention": ref.decode_attention_ref,
+             "ssd_decode_step": ref.ssd_decode_step_ref}
+    try:
+        for n in names:
+            setattr(dec, n, plain[n])
+        wanted, _ = decode_step(model, plain_cache, tok, 12)
+    finally:
+        for n, fn in saved.items():
+            setattr(dec, n, fn)
+    torch.cuda.synchronize()
+    got, wanted = (t[:, :cfg.vocab].float() for t in (got, wanted))
+    rel = ((got - wanted).norm() / wanted.norm()).item()
+    assert rel <= 2e-2, rel

@@ -145,12 +145,19 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     ops.filter_pipeline(torch.ones(4, 4))
     ops.nbody_accelerations(torch.ones(5, 3), torch.ones(5))
     ops.grad_accumulate([torch.empty(3)], [torch.ones(3)], mode="first")
+    ops.rmsnorm(torch.ones(2, 1, 8), torch.ones(8), 1e-5)
+    q, kv = torch.ones(2, 1, 4, 8), torch.ones(2, 1, 2, 8)
+    cache = torch.zeros(2, 6, 2, 8)
+    ops.rope_cache_write(q, kv, kv, cache, cache.clone(), 3)
+    ops.decode_attention(q, cache, cache, pos=3)
     assert {k: c.value for k, c in ops.COUNTERS.items()} == before
     assert set(ops.COUNTERS) == {"saxpy", "filter_pipeline", "segmentation",
                                  "nbody", "flash_attention", "ssd_scan",
                                  "grouped_matmul", "flash_attention_bwd",
                                  "ssd_scan_bwd", "grouped_matmul_dx",
-                                 "grouped_matmul_dw", "adamw", "grad_accum"}
+                                 "grouped_matmul_dw", "adamw", "grad_accum",
+                                 "rmsnorm", "rope_cache_write",
+                                 "decode_attention", "ssd_decode_step"}
 
 
 def test_meta_tensors_give_shapes():

@@ -244,15 +244,19 @@ KERNELS = ("flash_attention_bshd", "ssd_scan", "grouped_matmul")
 OPTIMIZER = ("grad_sumsq", "sum_in_order", "adamw_update")
 #: the microbatch accumulation's entry point (the ``grad_accum`` kernel)
 ACCUMULATE = ("grad_accumulate",)
+#: the decode step's entry points, each its kernel's name
+DECODE = ("rmsnorm", "rope_cache_write", "decode_attention",
+          "ssd_decode_step")
 
 
 class Calls:
-    """Counts the model's calls into ``ops``' three LM kernels and the
-    train step's; with ``no_plain``, any plain version called raises."""
+    """Counts the model's calls into ``ops``' three LM kernels, the train
+    step's and the decode step's; with ``no_plain``, any plain version
+    called raises."""
 
     def __init__(self, monkeypatch, no_plain=False):
-        self.n = dict.fromkeys(KERNELS + OPTIMIZER + ACCUMULATE, 0)
-        for name in KERNELS + OPTIMIZER + ACCUMULATE:
+        self.n = dict.fromkeys(KERNELS + OPTIMIZER + ACCUMULATE + DECODE, 0)
+        for name in KERNELS + OPTIMIZER + ACCUMULATE + DECODE:
             fn = getattr(ops, name)
 
             def counted(*a, _n=name, _fn=fn, **kw):
@@ -263,7 +267,9 @@ class Calls:
             for name in ("attention_ref", "ssd_scan_ref",
                          "grouped_matmul_ref", "grad_sumsq_ref",
                          "sum_in_order_ref", "adamw_update_ref",
-                         "grad_accumulate_ref"):
+                         "grad_accumulate_ref", "rmsnorm_ref",
+                         "rope_cache_ref", "decode_attention_ref",
+                         "ssd_decode_step_ref"):
                 def refuse(*a, _n=name, **kw):
                     raise AssertionError(f"{_n} ran on meta")
                 monkeypatch.setattr(ref, name, refuse)
@@ -319,7 +325,7 @@ def test_analyzer_kernel_calls_equal_cpu_calls(arch, kind, monkeypatch):
     flash, ssd, gmm = (cpu.n[k] for k in KERNELS)
     again = 2 if kind == "train" else 1       # remat "full" recomputes
     want = {"flash_attention": flash, "ssd_scan": ssd,
-            "grouped_matmul": gmm}
+            "grouped_matmul": gmm, **{k: cpu.n[k] for k in DECODE}}
     if kind == "train":
         want.update(flash_attention_bwd=flash // again,
                     ssd_scan_bwd=ssd // again,
