@@ -3,9 +3,9 @@
 on one CUDA card.
 
     python3 chip_kernel_shapes.py [flash] [flash_bwd] [gmm] [ssd] [ssd_bwd]
-                                  [saxpy] [nbody] [sass]
+                                  [saxpy] [nbody] [decode] [sass]
 
-(no argument: all eight).  Rebuilds a kernel's source with one setting
+(no argument: all nine).  Rebuilds a kernel's source with one setting
 replaced, each variant into its own library under ``build/shapes/``, all
 built at once, and times each at the main paths' shapes (CUDA-event means
 over 50 launches after a warm-up, twice), its output held to the plain
@@ -53,6 +53,18 @@ each list.
   built for 2 or 8 targets a thread, a 256-source tile, 16 sources
   unrolled, the subnormal-safe ``rsqrtf``, launches that wait in full for
   the one before; and without the reduction pass.
+- decode, at served shapes of ``chip_smoke.py``'s ``decode kernels``
+  part (4 slots, bf16), 50 calls captured in one CUDA graph
+  (``graph_ms``), twice: the decode attention as built at its plan's
+  splits, at half and at twice as many (same build), built with a ring of
+  3 stages up to head dim 128, and with one part knocked out each: the loads past the
+  ring's first tiles, the tensor-core products, the merges of the warps
+  and of the splits, the cluster barrier before the splits' merge; the
+  Mamba2 decode step as built, built for 2 or 8 float4s of state a
+  thread or with its conv weights read through the read-only path, and
+  with one part knocked out each: its slot counter (the B
+  and C buffers then shift unordered), the convolutions, the state's
+  loads and stores, y's sums and stores (only timed).
 - sass: the SASS instruction mix of every kernel of the port as built
   (``cuobjdump``), by opcode.
 A knocked-out build's output is wrong and not checked.  Prints the card,
@@ -76,6 +88,7 @@ import torch.nn.functional as F
 
 import chip_smoke as cs
 from repro_torch.kernels import _build, ref
+from repro_torch.launch import roofline as rl
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import nbody as nbody_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
@@ -221,8 +234,60 @@ NBODY_PATCHES = {
 #: blocks an SM the plan aims at, on the as-built library (the module's
 #: choice first); 0: one split
 NBODY_BLOCKS_PER_SM = [nbody_mod.BLOCKS_PER_SM, 4, 8, 32, 0]
+#: the decode attention's ring (a line of its source), its variants
+#: (stages up to head dim 128) and its knock-outs
+DECODE_CFG = "  static constexpr int STAGES = HD > 128 ? 3 : 2;"
+DECODE_STAGES = [2, 3]
+DECODE_KNOCKOUTS = {
+    "kv_loads": ("      if (nxt < n_tiles) {\n        tile.load(Ks + st",
+                 "      if (false) {\n        tile.load(Ks + st"),
+    "products": (("      mma(ks % 2 ? s2[0] : s[0], qa, kb[0], kb[1]);\n"
+                  "      mma(ks % 2 ? s2[1] : s[1], qa, kb[2], kb[3]);\n",
+                  "      mma(acc[2 * j], ph, vb[0], vb[1]);\n"
+                  "      mma(acc[2 * j + 1], ph, vb[2], vb[3]);\n"
+                  "      mma(acc[2 * j], pl, vb[0], vb[1]);\n"
+                  "      mma(acc[2 * j + 1], pl, vb[2], vb[3]);\n"),
+                 ("", "")),
+    "merges": (("  for (int i = threadIdx.x; i < G * HD; i += kThreads) {",
+                "       i += splits * kThreads) {"),
+               ("  for (int i = threadIdx.x; i < 0; i += kThreads) {",
+                "       i += splits * kThreads) {\n    break;")),
+    "first_cluster_barrier": ("  if (splits > 1) cluster.sync();\n  else",
+                              "  if (false) cluster.sync();\n  else"),
+}
+#: cases of ``cs.decode_cases`` the decode variants are timed at
+DECODE_ATTN = ("granite-moe-3b-a800m", "nemotron-4-15b",
+               "command-r-plus-104b", "zamba2-2.7b", "gemma2-2b local")
+DECODE_SSD_CFG = "constexpr int kRows = 4;"
+DECODE_SSD_ROWS = [4, 2, 8]
+#: the Mamba2 decode step's conv weights read through the read-only
+#: path (a variant, checked like the build as it is)
+DECODE_SSD_LDG = ("      wk[k] = to_f32(w[(long long)k * C + c]);",
+                  "      wk[k] = to_f32(__ldg(w + (long long)k * C + c));")
+DECODE_SSD_KNOCKOUTS = {
+    "counter": ("    done = atomicAdd(st.counters + b, 1);",
+                "    done = gridDim.x - 1;"),
+    "convs": (("      Bs[i] = conv_channel(buf, val, isB ? st.wB : st.wC, ds, K, "
+               "i % ds, w);",
+               "      xs[j] = conv_channel(bx, xv, st.wx, di, K, c, w);"),
+              ("      Bs[i] = 0.5f;\n      for (int k = 0; k < kMaxK; ++k) "
+               "w[k] = 0.5f;",
+               "      xs[j] = 0.5f;\n      for (int k = 0; k < kMaxK; ++k) "
+               "w[k] = 0.5f;")),
+    "y": ("  for (int i = tid; i < n * hd; i += kSsdThreads) {\n"
+          "    const int j = i / hd, e = i % hd, hh = h0 + j;",
+          "  for (int i = tid; i < 0; i += kSsdThreads) {\n"
+          "    const int j = i / hd, e = i % hd, hh = h0 + j;"),
+    "state": (("hv[k] = *reinterpret_cast<const float4*>(hbase + (long long)R "
+               "* hd);",
+               "        *reinterpret_cast<float4*>(hbase + (long long)R * hd) "
+               "= hq;"),
+              ("hv[k] = make_float4(1.0f, 1.0f, 1.0f, 1.0f);",
+               "        if (hq.x == 12345.0f) *reinterpret_cast<float4*>("
+               "hbase + (long long)R * hd) = hq;")),
+}
 KINDS = ("flash", "flash_bwd", "gmm", "ssd", "ssd_bwd", "saxpy", "nbody",
-         "sass")
+         "decode", "sass")
 FLASH = {"zamba2": (1, 32, 32, 1536, 80), "granite": (1, 24, 8, 1536, 64)}
 GMM = {"prefill_in": (40, 384, 1536, 512), "prefill_out": (40, 384, 512, 1536),
        "ragged_c": (40, 72, 1536, 512)}
@@ -652,6 +717,115 @@ def gmm_bwd_rows(libs, g, stream):
     return out
 
 
+def decode_rows(libs, g):
+    """The decode attention's and the Mamba2 decode step's variants at
+    DECODE_ATTN's and the SSD archs' served shapes: ms (graph_ms, twice),
+    the checked builds' worst error as a share of the card checks' bound,
+    registers and spill bytes."""
+    from repro_torch.kernels import decode_step as dec
+    bf16, B = torch.bfloat16, cs.LM_SLOTS
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = cs.decode_cases()
+    out = {}
+
+    def randn(*shape, scale=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=g, device="cuda") * scale
+                ).to(dtype)
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    for case in DECODE_ATTN:
+        cfg, sh = cases["decode_attention"][case]
+        H, KV, hd, S, pos = sh["H"], sh["KV"], sh["hd"], sh["S"], sh["pos"]
+        W = sh["window"]
+        q = randn(B, 1, H, hd)
+        kc, vc = randn(B, S, KV, hd), randn(B, S, KV, hd)
+        want = ref.decode_attention_ref(q, kc, vc, pos=pos, window=W,
+                                        logit_cap=sh["cap"],
+                                        scale=sh["scale"])
+        _, _, plan = dec.attention_plan(q, kc, sms)
+        rows = rl.decode_rows(S, pos, W)
+        row = {"plan_splits": plan, "bound_ms": rl.decode_attention_bound(
+            B, H, KV, rows, hd, bf16, bf16)[0]}
+        runs = [(f"decode_stages{st}", f"stages {st}", plan, True)
+                for st in DECODE_STAGES]
+        runs += [(f"decode_stages{DECODE_STAGES[0]}", f"splits {s}", s, True)
+                 for s in (plan // 2, plan * 2)
+                 if 1 <= s <= dec.MAX_CLUSTER]
+        runs += [(f"decode_without_{n}", f"without {n}", plan, False)
+                 for n in DECODE_KNOCKOUTS]
+        for name, label, splits, checked in runs:
+            lib = _build.load(libs[name], ("decode_attention_fwd",))
+            o = torch.empty_like(q)
+
+            def call(lib=lib, o=o, splits=splits):
+                rc = lib.decode_attention_fwd(
+                    q.data_ptr(), kc.data_ptr(), vc.data_ptr(), o.data_ptr(),
+                    None, None, None, pos, 1, 1, B, H, KV, S, hd, 0, splits,
+                    W if W is not None and S > W else 0,
+                    float(sh["scale"] or 1.0 / math.sqrt(hd)),
+                    float(sh["cap"] or 0.0), 0, stream())
+                if rc:
+                    raise RuntimeError(f"{name} did not launch ({rc})")
+            call()
+            torch.cuda.synchronize()
+            ex = (cs.bf16_excess(o, want, cs.DECODE_ATOL
+                                 * want.float().abs().max().item())
+                  if checked else None)
+            if checked and ex > 1.0:
+                raise RuntimeError(f"{name} {case}: {ex:.3f} of bound")
+            row[label] = dict(ms=[cs.graph_ms(call) for _ in range(2)],
+                              share_of_bound=ex,
+                              ptxas=ptxas(libs[name], "attn_mma",
+                                          f"CfgILi{hd}E"))
+            print(f"decode attention {case} {label}: {row[label]['ms']} ms "
+                  f"(bound {row['bound_ms']:.4f}), ptxas (registers, spill "
+                  f"bytes) {row[label]['ptxas']}", flush=True)
+        out[f"attention {case}"] = row
+    for case, (cfg, sh) in cases["ssd_decode_step"].items():
+        nh, hd, ds, K = sh["nh"], sh["hd"], sh["ds"], sh["K"]
+        di = nh * hd
+        p = dict(dt_bias=randn(nh, scale=0.5), A_log=randn(nh, scale=0.5),
+                 D=randn(nh), conv_x=randn(K, di, scale=0.5),
+                 conv_B=randn(K, ds, scale=0.5),
+                 conv_C=randn(K, ds, scale=0.5))
+        ins = [randn(B, 1, di), randn(B, 1, di), randn(B, 1, ds),
+               randn(B, 1, ds), randn(B, 1, nh), p["dt_bias"], p["A_log"],
+               p["D"], p["conv_x"], p["conv_B"], p["conv_C"]]
+        h = randn(B, nh, ds, hd, dtype=torch.float32)
+        bufs = [randn(B, K - 1, di), randn(B, K - 1, ds),
+                randn(B, K - 1, ds)]
+        counters = torch.zeros(B, dtype=torch.int32, device="cuda")
+        row = {"bound_ms": rl.ssd_decode_bound(B, nh, hd, ds, K, bf16,
+                                                  bf16)[0]}
+        runs = [(f"decode_ssd_rows{r}", f"{r} float4s a thread")
+                for r in DECODE_SSD_ROWS]
+        runs += [("decode_ssd_ldg", "conv weights read-only")]
+        runs += [(f"decode_ssd_without_{n}", f"without {n}")
+                 for n in DECODE_SSD_KNOCKOUTS]
+        for name, label in runs:
+            lib = _build.load(libs[name], ("ssd_decode_step",))
+            y = torch.empty_like(ins[1])
+
+            def call(lib=lib, y=y):
+                rc = lib.ssd_decode_step(
+                    *(t.data_ptr() for t in ins),
+                    *(t.data_ptr() for t in bufs), h.data_ptr(), y.data_ptr(),
+                    counters.data_ptr(), 1, 1, B, nh, hd, ds, K, 0, stream())
+                if rc:
+                    raise RuntimeError(f"{name} did not launch ({rc})")
+            row[label] = dict(ms=[cs.graph_ms(call) for _ in range(2)],
+                              ptxas=ptxas(libs[name], "ssd_decode_kernel"))
+            counters.zero_()
+            print(f"decode ssd_decode_step {case} {label}: "
+                  f"{row[label]['ms']} ms (bound {row['bound_ms']:.4f}), "
+                  f"ptxas (registers, spill bytes) {row[label]['ptxas']}",
+                  flush=True)
+        out[f"ssd_decode_step {case}"] = row
+    return out
+
+
 def spills(lib: Path, kernel: str):
     """The instantiations of ``kernel`` that spill: {name: (registers,
     spill store bytes)}."""
@@ -715,6 +889,18 @@ def main() -> int:
                  for k in NBODY_TARGETS]
         jobs += [("nbody.cu", *patch, f"nbody_{name}")
                  for name, patch in NBODY_PATCHES.items()]
+    if "decode" in kinds:
+        jobs += [("decode_attention.cu", DECODE_CFG,
+                  DECODE_CFG.replace(": 2;", f": {st};"),
+                  f"decode_stages{st}") for st in DECODE_STAGES]
+        jobs += [("decode_attention.cu", *patch, f"decode_without_{name}")
+                 for name, patch in DECODE_KNOCKOUTS.items()]
+        jobs += [("ssd_decode.cu", DECODE_SSD_CFG,
+                  f"constexpr int kRows = {r};", f"decode_ssd_rows{r}")
+                 for r in DECODE_SSD_ROWS]
+        jobs += [("ssd_decode.cu", *DECODE_SSD_LDG, "decode_ssd_ldg")]
+        jobs += [("ssd_decode.cu", *patch, f"decode_ssd_without_{name}")
+                 for name, patch in DECODE_SSD_KNOCKOUTS.items()]
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
         libs = dict(zip((j[3] for j in jobs),
                         pool.map(lambda j: variant(*j), jobs)))
@@ -731,6 +917,8 @@ def main() -> int:
         out["saxpy"] = saxpy_rows(libs, g)
     if "nbody" in kinds:
         out["nbody"] = nbody_rows(libs, g)
+    if "decode" in kinds:
+        out["decode"] = decode_rows(libs, g)
     if "sass" in kinds:
         out["sass"] = sass_mix(_build.build())
         for k, v in (out["sass"] or {}).items():

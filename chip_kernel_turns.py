@@ -2,9 +2,9 @@
 """Two builds of the port's kernels, timed in turns on one CUDA card.
 
     python3 chip_kernel_turns.py OLD_ROOT [flash] [flash_bwd] [gmm] [gmm_bwd]
-                                 [saxpy] [ssd] [ssd_bwd] [nbody]
+                                 [saxpy] [ssd] [ssd_bwd] [nbody] [decode]
 
-(no case named: all eight).  ``OLD_ROOT`` is the root of another checkout
+(no case named: all nine).  ``OLD_ROOT`` is the root of another checkout
 of the repository (for example the parent commit, unpacked with ``git
 archive`` into a directory that ``.gitignore`` lists).  Its
 ``src/repro_torch/csrc`` is built with the same ``nvcc`` flags into
@@ -55,6 +55,19 @@ and the difference of the updated parameters relative to the update),
 then steps in turns on one state (seconds, peak memory, device ms in the
 grouped GEMM's kernels and in copy kernels).
 
+``decode``: the decode attention and the Mamba2 decode step at every
+served shape of ``chip_smoke.py``'s ``decode kernels`` part
+(``decode_cases``: 4 slots, bf16, the engine's caches), each checkout's
+``decode_attention_fwd`` / ``ssd_decode_step`` called with its own
+arguments (read from its C declaration), split plan and scratch (its own
+``kernels/decode_step.py``), timed as ``chip_smoke.py`` times them: 50
+calls captured in one CUDA graph (``graph_ms``), in turns old, new,
+library (SDPA with a boolean mask where there is no softcap), new, old.
+Each build's attention output is held to the plain version, its SSD step
+to the plain version with the conv taps in order (y within one bf16 step,
+the state within ``SSD_STATE_RTOL``, the conv buffers the same bits),
+under ``chip_smoke.py``'s tolerances.
+
 Prints the card's name and power limit, one line a case, then one JSON
 object, which is also written to ``build/kernel_turns.json``.  Exits
 non-zero without a card.
@@ -79,6 +92,7 @@ from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import nbody as nbody_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.kernels.flash_attention import NO_WINDOW
+from repro_torch.launch import roofline as rl
 
 REPS = 50
 PLAIN_REPS = 2          # a plain version's backward, where one is timed
@@ -107,7 +121,7 @@ SSD = (1, 1536, 80, 64, 64, 256)
 SSD_BWD = (8, 512, 80, 64, 64, 256)
 #: the cases, and how many times each runs the turn sequence
 KINDS = ("flash", "flash_bwd", "gmm", "gmm_bwd", "saxpy", "ssd", "ssd_bwd",
-         "nbody")
+         "nbody", "decode")
 ROUNDS = {"saxpy": 5, "nbody": 3}
 
 
@@ -666,6 +680,160 @@ def nbody_case(entries, n_i, n_j):
     return calls, errs, None, bound
 
 
+def c_entry(lib, root: Path, source: str, name: str):
+    """``name`` of a library built from ``root``'s sources, with the
+    argument types of that checkout's C declaration in ``csrc/source``."""
+    text = (root / "src" / "repro_torch" / "csrc" / source).read_text()
+    decl = text[text.index(f'extern "C" int {name}('):]
+    params = decl[decl.index("(") + 1:decl.index(")")].split(",")
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_void_p if "*" in p or "cudaStream_t" in p
+                   else ctypes.c_float if "float" in p
+                   else ctypes.c_longlong if "long long" in p
+                   else ctypes.c_int for p in params]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def decode_module(root: Path):
+    """``root``'s ``kernels/decode_step.py`` (its split plans and
+    scratch), loaded under a name of its own."""
+    path = root / "src" / "repro_torch" / "kernels" / "decode_step.py"
+    spec = importlib.util.spec_from_file_location(
+        f"decode_step_{abs(hash(str(root)))}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def attention_call(fn, mod, q, kc, vc, o, sh):
+    """One checkout's decode attention at a case's shape, with its own
+    plan and scratch (the plan before the tensor-core path: (rows,
+    splits) from ``split_plan(B, KV, S, sms)``)."""
+    B, _, H, hd = q.shape
+    S, KV = kc.shape[1], kc.shape[2]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if hasattr(mod, "attention_plan"):
+        tc, rows, splits = mod.attention_plan(q, kc, sms)
+        part_o, part_ml = mod.attention_scratch(B, H, hd, tc, splits, "cuda")
+    else:
+        tc, (rows, splits) = False, mod.split_plan(B, KV, S, sms)
+        part_o, part_ml = mod.attention_scratch(B, H, S, hd, splits, "cuda")
+    W = sh["window"]
+    window = W if W is not None and S > W else 0
+
+    def call():
+        checked(fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), o.data_ptr(),
+                   None if part_o is None else part_o.data_ptr(),
+                   None if part_ml is None else part_ml.data_ptr(), None,
+                   sh["pos"], 1, 1, B, H, KV, S, hd, rows, splits, window,
+                   float(sh["scale"] or 1.0 / math.sqrt(hd)),
+                   float(sh["cap"] or 0.0), 0,
+                   torch.cuda.current_stream().cuda_stream),
+                "decode_attention")
+    return call, dict(splits=splits, rows_a_split=rows, tensor_cores=tc)
+
+
+def decode_cases(old_root: Path, libs):
+    """(name, (calls, errs, library call, bound, plans), shape) of every
+    served decode attention and SSD step, old and new builds."""
+    entries = {n: (c_entry(libs[n], root, "decode_attention.cu",
+                           "decode_attention_fwd"),
+                   c_entry(libs[n], root, "ssd_decode.cu", "ssd_decode_step"),
+                   decode_module(root))
+               for n, root in (("old", old_root), ("new", cs.ROOT))}
+    g = torch.Generator(device="cuda").manual_seed(34)
+    bf16 = torch.bfloat16
+    B = cs.LM_SLOTS
+
+    def randn(*shape, scale=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=g, device="cuda") * scale
+                ).to(dtype)
+
+    out = []
+    cases = cs.decode_cases()
+    for case, (cfg, sh) in cases["decode_attention"].items():
+        H, KV, hd, S, pos = sh["H"], sh["KV"], sh["hd"], sh["S"], sh["pos"]
+        q = randn(B, 1, H, hd)
+        kc, vc = randn(B, S, KV, hd), randn(B, S, KV, hd)
+        W = sh["window"]
+        kw = dict(window=W, logit_cap=sh["cap"], scale=sh["scale"])
+        want = ref.decode_attention_ref(q, kc, vc, pos=pos, **kw)
+        calls, errs, plans = {}, {}, {}
+        for n, (fn, _, mod) in entries.items():
+            o = torch.empty_like(q)
+            calls[n], plans[n] = attention_call(fn, mod, q, kc, vc, o, sh)
+            calls[n]()
+            torch.cuda.synchronize()
+            errs[n] = cs.bf16_excess(o, want, cs.DECODE_ATOL
+                                     * want.float().abs().max().item())
+        lib_call = None
+        if not sh["cap"]:
+            j = torch.arange(S, device="cuda")
+            valid = j <= pos
+            if W is not None and S > W:
+                valid &= j > pos - W
+            qh, kh, vh = (t.transpose(1, 2) for t in (q, kc, vc))
+
+            def lib_call(qh=qh, kh=kh, vh=vh, valid=valid, sc=sh["scale"]):
+                F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=valid[None, None, None], scale=sc,
+                    enable_gqa=True)
+        rows = rl.decode_rows(S, pos, W)
+        bound = rl.decode_attention_bound(B, H, KV, rows, hd, bf16, bf16)[0]
+        out.append((f"attention {case}", (calls, errs, lib_call, bound,
+                                          plans),
+                    (B, H, KV, S, hd, rows)))
+    for case, (cfg, sh) in cases["ssd_decode_step"].items():
+        nh, hd, ds, K = sh["nh"], sh["hd"], sh["ds"], sh["K"]
+        di = nh * hd
+        p = dict(dt_bias=randn(nh, scale=0.5), A_log=randn(nh, scale=0.5),
+                 D=randn(nh), conv_x=randn(K, di, scale=0.5),
+                 conv_B=randn(K, ds, scale=0.5),
+                 conv_C=randn(K, ds, scale=0.5))
+        z, x, Bv, Cv = (randn(B, 1, di), randn(B, 1, di), randn(B, 1, ds),
+                        randn(B, 1, ds))
+        dt = randn(B, 1, nh)
+        h0 = randn(B, nh, ds, hd, dtype=torch.float32)
+        conv0 = {"x": randn(B, K - 1, di), "B": randn(B, K - 1, ds),
+                 "C": randn(B, K - 1, ds)}
+        hw, convw = h0.clone(), {k: t.clone() for k, t in conv0.items()}
+        with cs.conv_in_order():
+            yw = ref.ssd_decode_step_ref(z, x, Bv, Cv, dt, p, h=hw,
+                                         conv=convw)
+        ins = [t.contiguous() for t in (z, x, Bv, Cv, dt, p["dt_bias"],
+                                        p["A_log"], p["D"], p["conv_x"],
+                                        p["conv_B"], p["conv_C"])]
+        calls, errs = {}, {}
+        for n, (_, fn, mod) in entries.items():
+            h, conv = h0.clone(), {k: t.clone() for k, t in conv0.items()}
+            bufs = [conv[k] for k in ("x", "B", "C")]
+            y = torch.empty_like(x)
+            counters = ([torch.zeros(B, dtype=torch.int32, device="cuda")]
+                        if len(fn.argtypes) == 26 else [])
+
+            def call(fn=fn, h=h, bufs=bufs, y=y, counters=counters):
+                checked(fn(*(t.data_ptr() for t in ins),
+                           *(t.data_ptr() for t in bufs), h.data_ptr(),
+                           y.data_ptr(), *(c.data_ptr() for c in counters),
+                           1, 1, B, nh, hd, ds, K, 0,
+                           torch.cuda.current_stream().cuda_stream),
+                        "ssd_decode_step")
+            call()
+            torch.cuda.synchronize()
+            h_err = (h - hw).abs().max().item() / hw.abs().max().item()
+            same_conv = all(torch.equal(conv[k], convw[k]) for k in conv)
+            errs[n] = max(cs.bf16_excess(y, yw, cs.DECODE_ATOL
+                                         * yw.float().abs().max().item()),
+                          h_err / cs.SSD_STATE_RTOL,
+                          0.0 if same_conv else math.inf)
+            calls[n] = call
+        bound = rl.ssd_decode_bound(B, nh, hd, ds, K, bf16, bf16)[0]
+        out.append((f"ssd_decode_step {case}", (calls, errs, None, bound,
+                                                None), (B, nh, hd, ds, K)))
+    return out
+
+
 def main() -> int:
     if len(sys.argv) < 2:
         print(__doc__, file=sys.stderr)
@@ -721,6 +889,9 @@ def main() -> int:
                    "new": ssd_bwd_entry(libs["new"], cs.ROOT)}
         cases += [("ssd_bwd", "train", ssd_bwd_case(entries, *SSD_BWD),
                    SSD_BWD)]
+    if "decode" in kinds:
+        cases += [("decode", n, case, shape)
+                  for n, case, shape in decode_cases(old_root, libs)]
     if "nbody" in kinds:
         entries = {"old": nbody_entry(libs["old"], old_root),
                    "new": nbody_entry(libs["new"], cs.ROOT)}
@@ -734,8 +905,9 @@ def main() -> int:
                                    f"{e:.3f} of its bound")
         old, new, lib = [], [], []
         for _ in range(ROUNDS.get(kind, 1)):
-            t = [cs.cuda_ms(c, PLAIN_REPS if getattr(c, "plain", False)
-                            else REPS) if c else None
+            t = [(cs.graph_ms(c) if kind == "decode" else
+                  cs.cuda_ms(c, PLAIN_REPS if getattr(c, "plain", False)
+                             else REPS)) if c else None
                  for c in (calls["old"], calls["new"], lib_call,
                            calls["new"], calls["old"])]
             old += [t[0], t[4]]
@@ -751,6 +923,9 @@ def main() -> int:
             r["new_tb_per_s"] = case[4] / (min(new) * 1e-3) / 1e12
         if kind == "ssd":
             r["bit_identical"] = case[4]
+        if kind == "decode":
+            r["share_of_bound"] = bound / min(new)
+            r["plans"] = case[4]
         if kind in ("flash_bwd", "ssd_bwd"):
             # (ms, kernels a call) of each
             r["device_ms"] = {n: cs.device_ms(c) for n, c in

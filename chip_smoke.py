@@ -1893,13 +1893,13 @@ def decode_kernel_phase():
                 scale=sh["scale"],
                 enable_gqa=True)
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        rows_split, splits = dec_mod.split_plan(B, KV, S, sms)
+        tensor_cores, _, splits = dec_mod.attention_plan(q, kc, sms)
         out["decode_attention"][case] = record(
             "decode_attention", case, [(got, want)], fns,
             rl.decode_attention_bound(B, H, KV, rows, hd, bf16, bf16),
             torch.equal(got, again), int_tensor_bit_identical=bool(
                 torch.equal(got, again)), rows_read=rows,
-            splits=splits, rows_a_split=rows_split)
+            splits=splits, tensor_cores=tensor_cores)
         del kc, vc
     for case, (cfg, sh) in cases["ssd_decode_step"].items():
         nh, hd, ds, K = sh["nh"], sh["hd"], sh["ds"], sh["K"]

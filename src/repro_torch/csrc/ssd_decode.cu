@@ -22,30 +22,42 @@
 // rounding order alone.
 //
 // Bound on the card: bytes, the float32 state read and written once (the
-// rest is a few KB a slot); ~5 operations a state element.
+// rest is a few KB a slot): at 4 slots zamba2's (4, 80, 64, 64) and
+// mamba2's (4, 64, 128, 64), 10.5 and 16.8 MB, 3.1 and 5.0 us at 3.35
+// TB/s; ~5 operations a state element.
 //
-// Design: a cluster of kCluster blocks a slot, each taking a contiguous
-// run of the heads: the x channels of its heads (convolved and shifted by
-// their own block), and every B and C channel, which each block convolves
-// for itself.  The B and C buffers are shared by all heads, so they are
-// shifted by the cluster's first block after a cluster barrier, once every
-// block of the slot has read them.  A block walks its heads two at a
-// time, 256 threads a head as (4 columns of hd, a group of state rows),
-// each thread's state rows loaded before any is updated (the loads
-// overlap), y summed over the groups in a fixed order.
-#include <cooperative_groups.h>
-
+// Design: the state in flight at once.  One block of 256 threads a
+// (slot, group of heads), a group as many heads as make kRows = 4 float4s
+// of state a thread (at least 1, at most kMaxGroup): a head a block at
+// zamba2 and mamba2, 320 and 256 blocks at 4 slots (4 float4s ran
+// 1.07-1.2x faster than 8, chip_kernel_shapes.py decode).  Each thread
+// issues its first float4s of the group's state (4 columns of hd, rows a
+// group stride apart) before anything else, so that they are in flight
+// while the convolutions are read (mamba2's d_state 128 takes two such
+// rounds).  y is summed over each thread's rows in order, then over the
+// row groups in a fixed order in shared memory.  A block convolves its
+// heads' x channels and shifts their buffer rows itself, and convolves
+// every B and C channel for itself.  The B and C buffers are every
+// head's, so the slot's last block to have read them shifts them: each
+// block, once it has read them, adds one to its slot's counter; the block
+// that brings it to the slot's block count writes the shifted rows (kept
+// in its shared memory) and sets the counter back to 0, so that the next
+// call (or a CUDA graph's next replay) starts from zero.  The counters
+// (one an int a slot, zero before the first call) belong to one device
+// and one stream of calls: two calls at once on two streams must not
+// share them.  It replaces a cluster of 8 blocks a slot (32 blocks
+// at 4 slots, each walking its 8-10 heads two at a time, a barrier round
+// trip a pair): 0.0162 and 0.0161 ms at zamba2 and mamba2, 20-32% of the
+// bound; now 0.0069-0.0092 ms, 38-58% (H100 80GB HBM3 at 700 W, 50 calls
+// in a CUDA graph, chip_kernel_turns.py and chip_smoke.py).
 #include "decode_step.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kHeadThreads = 256;                // threads a head
-constexpr int kSsdThreads = 2 * kHeadThreads;     // two heads at a time
-constexpr int kRows = 8;     // state rows a thread loads before using them
-constexpr int kCluster = 8;
-constexpr int kMaxK = 8;     // conv depth
+constexpr int kSsdThreads = 256;
+constexpr int kRows = 4;      // float4s of state a thread loads at once
+constexpr int kMaxGroup = 8;  // heads a block
+constexpr int kMaxK = 8;      // conv depth
 
 template <typename T, typename TB>
 struct Step {
@@ -53,159 +65,207 @@ struct Step {
   TB *buf_x, *buf_B, *buf_C;
   float* h;
   T* y;
-  int nh, hd, ds, K;
+  int* counters;
+  int nh, hd, ds, K, per;  // per: heads a block
 };
 
 // Channel c of one slot's depth-K conv: window = the buffer's K-1 rows
-// (taken to T) then the new value; silu of the rounded sum, rounded.
+// (taken to T) then the new value; silu of the rounded sum, rounded.  The
+// window stays in win: its rows 1 .. K-1 are the buffer's rows shifted up
+// by one, each as the plain version's window holds it, the new value last.
 template <typename T, typename TB>
 __device__ __forceinline__ float conv_channel(const TB* buf, const T* val,
                                               const T* w, int C, int K,
-                                              int c) {
+                                              int c, float (&win)[kMaxK]) {
+  float wk[kMaxK];
+#pragma unroll
+  for (int k = 0; k < kMaxK; ++k) {  // every load first
+    if (k < K) {
+      win[k] = k < K - 1 ? round_to<T>(to_f32(buf[(long long)k * C + c]))
+                         : to_f32(val[c]);
+      wk[k] = to_f32(w[(long long)k * C + c]);
+    }
+  }
   float acc = 0.0f;
 #pragma unroll
   for (int k = 0; k < kMaxK; ++k) {
     if (k < K) {
-      const float v = k < K - 1
-                          ? round_to<T>(to_f32(buf[(long long)k * C + c]))
-                          : to_f32(val[c]);
-      const float prod = __fmul_rn(v, to_f32(w[(long long)k * C + c]));
+      const float prod = __fmul_rn(win[k], wk[k]);
       acc = k == 0 ? prod : __fadd_rn(acc, prod);
     }
   }
   return round_to<T>(silu(round_to<T>(acc)));
 }
 
-// The buffer's rows shifted up by one in place, the new value last, each
-// row as the plain version's window holds it (taken to T, then back).
 template <typename T, typename TB>
-__device__ __forceinline__ void shift_channel(TB* buf, const T* val, int C,
-                                              int K, int c) {
-  for (int k = 0; k + 1 < K - 1; ++k)
-    buf[(long long)k * C + c] =
-        from_f32<TB>(round_to<T>(to_f32(buf[(long long)(k + 1) * C + c])));
-  buf[(long long)(K - 2) * C + c] = from_f32<TB>(to_f32(val[c]));
-}
-
-template <typename T, typename TB>
-__global__ void __cluster_dims__(kCluster, 1, 1)
-    __launch_bounds__(kSsdThreads) ssd_decode_kernel(Step<T, TB> st) {
+__global__ void __launch_bounds__(kSsdThreads)
+    ssd_decode_kernel(Step<T, TB> st) {
   extern __shared__ float smem[];
-  const int rank = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int nh = st.nh, hd = st.hd, ds = st.ds, K = st.K;
+  const int b = blockIdx.y, tid = threadIdx.x;
+  const int nh = st.nh, hd = st.hd, ds = st.ds, K = st.K, per = st.per;
   const int di = nh * hd;
-  const int per = (nh + kCluster - 1) / kCluster;
-  const int h0 = min(rank * per, nh), h1 = min(h0 + per, nh);
-  float* Bs = smem;                    // ds
-  float* Cs = Bs + ds;                 // ds
+  const int h0 = blockIdx.x * per, n = min(per, nh - h0);  // this block's
+  const int quads = hd / 4, groups = kSsdThreads / quads;
+  float* Bs = smem;                    // ds, then C's ds
+  float* Cs = Bs + ds;
   float* xs = Cs + ds;                 // per x hd
   float* dts = xs + per * hd;          // per
   float* as = dts + per;               // per
-  float* red = as + per;               // 2 x groups x hd
+  float* red = as + per;               // per x groups x hd
+  float* win = red + per * groups * hd;  // (K - 1) x 2 ds: B's, C's rows
+  __shared__ int last;
 
-  // this slot's rows of the inputs and buffers
-  const T* Bv = st.Bv + (long long)b * ds;
-  const T* Cv = st.Cv + (long long)b * ds;
+  // the group's state as rows R = j ds + s (head j, state row s): this
+  // thread 4 columns of hd and the rows R = grp + k groups.  Its first
+  // kRows float4s, and z and D of its first output, are loaded before
+  // anything else, so that they are in flight while the convolutions are
+  // read
+  const int q4 = tid % quads, grp = tid / quads;
+  const int rows = grp < groups ? n * ds : 0;  // none past the groups
+  float* hbase = st.h + ((long long)b * nh + h0) * ds * hd + 4 * q4;
+  float4 hv[kRows];
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    const int R = grp + k * groups;
+    if (R < rows)
+      hv[k] = *reinterpret_cast<const float4*>(hbase + (long long)R * hd);
+  }
+  const long long out0 = (long long)b * di + (long long)h0 * hd + tid;
+  float z0 = 0.0f, D0 = 0.0f;
+  if (tid < n * hd) {
+    z0 = to_f32(st.z[out0]);
+    D0 = to_f32(st.D[h0 + tid / hd]);
+  }
+
+  // the prologue, one item a thread where it can: B's and C's channels
+  // (convolved; their shifted rows kept for the slot's last block), this
+  // block's x channels (convolved and shifted: no other block reads them),
+  // its heads' dt and decay
   const T* xv = st.x + (long long)b * di;
-  TB* bB = st.buf_B + (long long)b * (K - 1) * ds;
-  TB* bC = st.buf_C + (long long)b * (K - 1) * ds;
   TB* bx = st.buf_x + (long long)b * (K - 1) * di;
-  for (int c = tid; c < ds; c += kSsdThreads) {
-    Bs[c] = conv_channel(bB, Bv, st.wB, ds, K, c);
-    Cs[c] = conv_channel(bC, Cv, st.wC, ds, K, c);
+  for (int i = tid; i < 2 * ds + n * hd + n; i += kSsdThreads) {
+    float w[kMaxK];
+    if (i < 2 * ds) {
+      const bool isB = i < ds;
+      const TB* buf = (isB ? st.buf_B : st.buf_C) + (long long)b * (K - 1) * ds;
+      const T* val = (isB ? st.Bv : st.Cv) + (long long)b * ds;
+      Bs[i] = conv_channel(buf, val, isB ? st.wB : st.wC, ds, K, i % ds, w);
+#pragma unroll
+      for (int k = 1; k < kMaxK; ++k)
+        if (k < K) win[(k - 1) * 2 * ds + i] = w[k];
+    } else if (i < 2 * ds + n * hd) {
+      const int j = i - 2 * ds, c = h0 * hd + j;
+      xs[j] = conv_channel(bx, xv, st.wx, di, K, c, w);
+#pragma unroll
+      for (int k = 1; k < kMaxK; ++k)
+        if (k < K) bx[(long long)(k - 1) * di + c] = from_f32<TB>(w[k]);
+    } else {
+      const int j = i - 2 * ds - n * hd, hh = h0 + j;
+      const float raw = __fadd_rn(to_f32(st.dt[(long long)b * nh + hh]),
+                                  to_f32(st.dt_bias[hh]));
+      const float dt = raw > 20.0f ? raw : log1pf(expf(raw));
+      const float A = -expf(to_f32(st.A_log[hh]));
+      dts[j] = dt;
+      as[j] = expf(__fmul_rn(dt, A));
+    }
   }
-  for (int i = tid; i < (h1 - h0) * hd; i += kSsdThreads) {
-    const int c = h0 * hd + i;
-    xs[i] = conv_channel(bx, xv, st.wx, di, K, c);
-    shift_channel(bx, xv, di, K, c);     // this block's channels alone
-  }
-  for (int j = tid; j < h1 - h0; j += kSsdThreads) {
-    const int hh = h0 + j;
-    const float raw = __fadd_rn(to_f32(st.dt[(long long)b * nh + hh]),
-                                to_f32(st.dt_bias[hh]));
-    const float dt = raw > 20.0f ? raw : log1pf(expf(raw));
-    const float A = -expf(to_f32(st.A_log[hh]));
-    dts[j] = dt;
-    as[j] = expf(__fmul_rn(dt, A));
-  }
+  for (int i = tid; i < n * groups * hd; i += kSsdThreads) red[i] = 0.0f;
   __syncthreads();
-
-  // two heads at a time, kHeadThreads threads each: (4 columns of hd, a
-  // group of state rows), a thread's rows loaded before any is used
-  const int pair = tid / kHeadThreads, t = tid % kHeadThreads;
-  const int quads = hd / 4, groups = kHeadThreads / quads;
-  const int q4 = t % quads, grp = t / quads;
-  float* red_h = red + pair * groups * hd;
-  for (int hp = h0; hp < h1; hp += 2) {
-    const int hh = hp + pair, j = hh - h0;
-    if (hh < h1 && grp < groups) {
-      const float dt = dts[j], a = as[j];
-      float xdt[4], yp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        xdt[e] = __fmul_rn(dt, xs[j * hd + 4 * q4 + e]);
-      float* hrow = st.h + (((long long)b * nh + hh) * ds) * hd + 4 * q4;
-      for (int s0 = grp; s0 < ds; s0 += kRows * groups) {
-        float4 hv[kRows];
-#pragma unroll
-        for (int k = 0; k < kRows; ++k) {
-          const int s = s0 + k * groups;
-          if (s < ds)
-            hv[k] = *reinterpret_cast<float4*>(hrow + (long long)s * hd);
-        }
-#pragma unroll
-        for (int k = 0; k < kRows; ++k) {
-          const int s = s0 + k * groups;
-          if (s < ds) {
-            const float Bs_ = Bs[s], Cs_ = Cs[s];
-            float* hq = &hv[k].x;
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              hq[e] = __fadd_rn(__fmul_rn(hq[e], a), __fmul_rn(Bs_, xdt[e]));
-              yp[e] = __fadd_rn(yp[e], __fmul_rn(Cs_, hq[e]));
-            }
-            *reinterpret_cast<float4*>(hrow + (long long)s * hd) = hv[k];
-          }
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) red_h[grp * hd + 4 * q4 + e] = yp[e];
-    }
-    __syncthreads();
-    for (int i = tid; i < 2 * hd; i += kSsdThreads) {
-      const int hh2 = hp + i / hd, e = i % hd, j2 = hh2 - h0;
-      if (hh2 >= h1) continue;
-      const float* rr = red + (i / hd) * groups * hd;
-      float sum = 0.0f;
-      for (int g = 0; g < groups; ++g) sum = __fadd_rn(sum, rr[g * hd + e]);
-      const long long c = (long long)b * di + (long long)hh2 * hd + e;
-      const float yv = round_to<T>(__fadd_rn(
-          sum, __fmul_rn(xs[j2 * hd + e], to_f32(st.D[hh2]))));
-      const float zs = round_to<T>(silu(to_f32(st.z[c])));
-      st.y[c] = from_f32<T>(__fmul_rn(yv, zs));
-    }
-    __syncthreads();  // red is taken again by the next pair of heads
+  // the B and C buffers are read: count this block in; the slot's last
+  // block shifts them at its end (the count's answer is waited for there)
+  int done = 0;
+  if (tid == 0) {
+    __threadfence();
+    done = atomicAdd(st.counters + b, 1);
   }
 
-  // every block of the slot has read the B and C buffers: shift them
-  cg::this_cluster().sync();
-  if (rank == 0) {
-    for (int c = tid; c < ds; c += kSsdThreads) {
-      shift_channel(bB, Bv, ds, K, c);
-      shift_channel(bC, Cv, ds, K, c);
+  // h = h a + B (dt x) and the y sums, kept per head in row order, the
+  // next kRows float4s loaded before any of them is used
+  float yp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  int jy = rows > 0 ? grp / ds : 0;   // the head yp sums
+  for (int R0 = grp; R0 < rows; R0 += kRows * groups) {
+    if (R0 > grp) {
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+        const int R = R0 + k * groups;
+        if (R < rows)
+          hv[k] = *reinterpret_cast<const float4*>(hbase + (long long)R * hd);
+      }
     }
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const int R = R0 + k * groups;
+      if (R < rows) {
+        const int j = R / ds, s = R - j * ds;
+        if (j != jy) {  // the sums of head jy are whole
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            red[(jy * groups + grp) * hd + 4 * q4 + e] = yp[e];
+            yp[e] = 0.0f;
+          }
+          jy = j;
+        }
+        const float dt = dts[j], a = as[j], Bs_ = Bs[s], Cs_ = Cs[s];
+        const float* xq = xs + j * hd + 4 * q4;
+        float4 hq = hv[k];
+        float* he = &hq.x;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          he[e] = __fadd_rn(__fmul_rn(he[e], a),
+                            __fmul_rn(Bs_, __fmul_rn(dt, xq[e])));
+          yp[e] = __fadd_rn(yp[e], __fmul_rn(Cs_, he[e]));
+        }
+        *reinterpret_cast<float4*>(hbase + (long long)R * hd) = hq;
+      }
+    }
+  }
+  if (rows > 0) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      red[(jy * groups + grp) * hd + 4 * q4 + e] = yp[e];
+  }
+  if (tid == 0) last = done == gridDim.x - 1;
+  __syncthreads();
+  for (int i = tid; i < n * hd; i += kSsdThreads) {
+    const int j = i / hd, e = i % hd, hh = h0 + j;
+    float sum = 0.0f;
+    for (int g = 0; g < groups; ++g)
+      sum = __fadd_rn(sum, red[(j * groups + g) * hd + e]);
+    const long long c = out0 - tid + i;
+    const float z = i == tid ? z0 : to_f32(st.z[c]);
+    const float D = i == tid ? D0 : to_f32(st.D[hh]);
+    const float yv = round_to<T>(__fadd_rn(sum, __fmul_rn(xs[i], D)));
+    const float zs = round_to<T>(silu(z));
+    st.y[c] = from_f32<T>(__fmul_rn(yv, zs));
+  }
+  if (last) {  // every block of the slot has read the B and C buffers
+    TB* bB = st.buf_B + (long long)b * (K - 1) * ds;
+    TB* bC = st.buf_C + (long long)b * (K - 1) * ds;
+    for (int i = tid; i < (K - 1) * 2 * ds; i += kSsdThreads) {
+      const int k = i / (2 * ds), c = i % (2 * ds);
+      (c < ds ? bB : bC)[(long long)k * ds + c % ds] =
+          from_f32<TB>(win[k * 2 * ds + c]);
+    }
+    if (tid == 0) st.counters[b] = 0;
   }
 }
 
-int smem_floats(int nh, int hd, int ds) {
-  const int per = (nh + kCluster - 1) / kCluster;
-  return 2 * ds + per * hd + 2 * per + 2 * (kHeadThreads / (hd / 4)) * hd;
+// heads a block: enough for kRows float4s of state a thread
+int heads_a_block(int nh, int hd, int ds) {
+  const int fit = kRows * kSsdThreads * 4 / (ds * hd);
+  return max(1, min(min(fit, kMaxGroup), nh));
+}
+
+int smem_floats(int nh, int hd, int ds, int K) {
+  const int per = heads_a_block(nh, hd, ds);
+  return 2 * ds + per * hd + 2 * per + per * (kSsdThreads / (hd / 4)) * hd +
+         (K - 1) * 2 * ds;
 }
 
 template <typename T, typename TB>
 int launch(const void* const* in, void* buf_x, void* buf_B, void* buf_C,
-           float* h, void* y, int B, int nh, int hd, int ds, int K,
-           cudaStream_t stream) {
+           float* h, void* y, int* counters, int B, int nh, int hd, int ds,
+           int K, cudaStream_t stream) {
   Step<T, TB> st;
   st.z = static_cast<const T*>(in[0]);
   st.x = static_cast<const T*>(in[1]);
@@ -223,13 +283,16 @@ int launch(const void* const* in, void* buf_x, void* buf_B, void* buf_C,
   st.buf_C = static_cast<TB*>(buf_C);
   st.h = h;
   st.y = static_cast<T*>(y);
+  st.counters = counters;
   st.nh = nh;
   st.hd = hd;
   st.ds = ds;
   st.K = K;
-  const size_t smem = sizeof(float) * smem_floats(nh, hd, ds);
-  ssd_decode_kernel<T, TB><<<dim3(kCluster, B), kSsdThreads, smem,
-                              stream>>>(st);
+  st.per = heads_a_block(nh, hd, ds);
+  const size_t smem = sizeof(float) * smem_floats(nh, hd, ds, K);
+  const int blocks = (nh + st.per - 1) / st.per;
+  ssd_decode_kernel<T, TB><<<dim3(blocks, B), kSsdThreads, smem, stream>>>(
+      st);
   return (int)cudaGetLastError();
 }
 
@@ -240,36 +303,38 @@ int launch(const void* const* in, void* buf_x, void* buf_B, void* buf_C,
 // dt_bias, A_log, D (nh) and conv weights (K, nh*hd), (K, ds), (K, ds) in
 // the same dtype; the conv buffers (B, K-1, nh*hd), (B, K-1, ds) x 2 in
 // buf_dtype, shifted in place; the float32 state h (B, nh, ds, hd) updated
-// in place; y (B, nh*hd) written, y = (C . h + D x) * silu(z).
+// in place; y (B, nh*hd) written, y = (C . h + D x) * silu(z).  counters:
+// B ints, 0 before the call and after it (the kernel sets them back).
 extern "C" int ssd_decode_step(const void* z, const void* x, const void* Bv,
                                const void* Cv, const void* dt,
                                const void* dt_bias, const void* A_log,
                                const void* D, const void* conv_x,
                                const void* conv_B, const void* conv_C,
                                void* buf_x, void* buf_B, void* buf_C,
-                               float* h, void* y, int dtype, int buf_dtype,
+                               float* h, void* y, int* counters,
+                               int dtype, int buf_dtype,
                                int B, int nh, int hd, int ds, int K,
                                int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (B < 0 || nh <= 0 || hd <= 0 || hd % 4 || hd / 4 > kHeadThreads ||
-      ds <= 0 || K < 2 || K > kMaxK ||
-      sizeof(float) * smem_floats(nh, hd, ds) > 48 * 1024)
+  if (B < 0 || nh <= 0 || hd <= 0 || hd % 4 || hd / 4 > kSsdThreads ||
+      ds <= 0 || K < 2 || K > kMaxK || counters == nullptr ||
+      sizeof(float) * smem_floats(nh, hd, ds, K) > 48 * 1024)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const void* in[11] = {z, x, Bv, Cv, dt, dt_bias, A_log, D, conv_x, conv_B,
                         conv_C};
   if (dtype == kF32 && buf_dtype == kF32)
-    return launch<float, float>(in, buf_x, buf_B, buf_C, h, y, B, nh, hd, ds,
-                                K, stream);
+    return launch<float, float>(in, buf_x, buf_B, buf_C, h, y, counters,
+                                B, nh, hd, ds, K, stream);
   if (dtype == kF32 && buf_dtype == kBf16)
-    return launch<float, bf16>(in, buf_x, buf_B, buf_C, h, y, B, nh, hd, ds,
-                               K, stream);
+    return launch<float, bf16>(in, buf_x, buf_B, buf_C, h, y, counters,
+                               B, nh, hd, ds, K, stream);
   if (dtype == kBf16 && buf_dtype == kF32)
-    return launch<bf16, float>(in, buf_x, buf_B, buf_C, h, y, B, nh, hd, ds,
-                               K, stream);
+    return launch<bf16, float>(in, buf_x, buf_B, buf_C, h, y, counters,
+                               B, nh, hd, ds, K, stream);
   if (dtype == kBf16 && buf_dtype == kBf16)
-    return launch<bf16, bf16>(in, buf_x, buf_B, buf_C, h, y, B, nh, hd, ds,
-                              K, stream);
+    return launch<bf16, bf16>(in, buf_x, buf_B, buf_C, h, y, counters,
+                              B, nh, hd, ds, K, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -86,13 +86,15 @@ SIGNATURES: Dict[str, List] = {
     # NULL), position, dtype, cache dtype, B, H, KV, S, hd, rolling,
     # device, stream
     "rope_cache_write": [*[_P] * 8, _L, *[_I] * 8, _I, _P],
-    # q, k_cache, v_cache, o, split outputs, split (max, sum), position
-    # (or NULL), position, dtype, cache dtype, B, H, KV, S, hd, rows a
-    # split, splits, window, scale, softcap, device, stream
+    # q, k_cache, v_cache, o, split outputs, split (max, sum) (both NULL
+    # on the tensor cores), position (or NULL), position, dtype, cache
+    # dtype, B, H, KV, S, hd, rows a split (0 on the tensor cores),
+    # splits, window, scale, softcap, device, stream
     "decode_attention_fwd": [*[_P] * 7, _L, *[_I] * 10, _F, _F, _I, _P],
     # z, x, B, C, dt, dt_bias, A_log, D, conv_x, conv_B, conv_C, buffers
-    # x, B, C, h, y, dtype, buffer dtype, B, nh, hd, ds, K, device, stream
-    "ssd_decode_step": [*[_P] * 16, *[_I] * 7, _I, _P],
+    # x, B, C, h, y, slot counters, dtype, buffer dtype, B, nh, hd, ds, K,
+    # device, stream
+    "ssd_decode_step": [*[_P] * 17, *[_I] * 7, _I, _P],
 }
 #: dtype code a C entry point takes for its tensors' element type
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

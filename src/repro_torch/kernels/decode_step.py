@@ -15,11 +15,18 @@ one).  Each wrapper computes what its plain version in
     into their cache row (``ref.rope_cache_ref``);
   * :func:`decode_attention` (``csrc/decode_attention.cu``) — one query a
     slot over the cache read in place, split over its rows, the splits
-    merged in a fixed order by a second kernel where there are several
-    (``ref.decode_attention_ref``);
+    merged in a fixed order (``ref.decode_attention_ref``): bf16 over bf16
+    at the head dims of ``MMA_HEAD_DIMS`` on the tensor cores, the splits
+    of a (slot, kv head) one thread block cluster merged in distributed
+    shared memory (:func:`split_plan`); other operands on the CUDA cores,
+    merged by a second kernel (:func:`fma_split_plan`);
   * :func:`ssd_decode_step` (``csrc/ssd_decode.cu``) — the Mamba2 recurrent
     step between the projections and the gated norm, the conv buffers and
-    the float32 state updated in place (``ref.ssd_decode_step_ref``).
+    the float32 state updated in place (``ref.ssd_decode_step_ref``); a
+    block a (slot, group of heads), the slot's last block shifting the B
+    and C conv buffers through a slot counter the kernel sets back to 0.
+    The counters are one buffer a device: calls on one device are ordered
+    on one stream (two at once on two streams would share them).
 
 A position is a Python int (a launch argument) or a 0-d int64 tensor on
 the tensors' device, which the kernel reads (a CUDA graph's position
@@ -31,7 +38,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Mapping, Optional, Tuple, Union
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
@@ -44,9 +51,14 @@ attn_launches = LaunchCounter("decode_attention")
 ssd_launches = LaunchCounter("ssd_decode_step")
 
 #: query heads a kv head, head dim (even), rows a split of the attention
+#: on the CUDA cores
 MAX_GROUP, MAX_HEAD_DIM, MAX_SPLIT_ROWS = 16, 256, 256
-#: the SSD step's conv depth and its block's shared memory (48 KB)
-MAX_CONV, SSD_SMEM_FLOATS = 8, 12 * 1024
+#: the attention's head dims on the tensor cores (bf16 q and caches), and
+#: its most splits a (slot, kv head): a portable thread block cluster
+MMA_HEAD_DIMS, MAX_CLUSTER = (64, 80, 128, 256), 8
+#: the SSD step's conv depth and its block's shared memory (48 KB); its
+#: slots a call (the slot counters a device, ``_slot_counters``)
+MAX_CONV, SSD_SMEM_FLOATS, MAX_SSD_SLOTS = 8, 12 * 1024, 1024
 #: the SMs a dry-run on ``meta`` plans the attention's splits for (an H100)
 H100_SMS = 132
 _FLOATS = (torch.float32, torch.bfloat16)
@@ -169,15 +181,45 @@ def check_decode_attention(q, k_cache, v_cache
     return B, H, KV, S, hd
 
 
-def split_plan(B: int, KV: int, S: int, sms: int) -> Tuple[int, int]:
-    """(rows a split, splits) of the attention over S rows: enough splits
-    for B * KV blocks each to fill the card eight times over (a block's
-    rows are read by few threads each, so its loads overlap little), at
-    least 32 and at most MAX_SPLIT_ROWS rows a split, a multiple of 16."""
+def split_plan(B: int, KV: int, G: int, S: int, hd: int, sms: int) -> int:
+    """Splits (blocks of one cluster) a (slot, kv head) on the tensor
+    cores, a power of 2 up to MAX_CLUSTER: as many as keep every block
+    resident at once (3 an SM up to head dim 128, by the cp.async ring's
+    shared memory; at 256, one an SM, half the SMs, since a cluster of 8
+    then needs 8 free SMs of one GPC: 8 splits ran slower than 4), but
+    each split at least max(64, 16 G) of the S rows, so that its float32
+    partial (G x (hd + 2), written to its shared memory and read once by
+    the cluster) stays within ~6% of its K and V bytes.  The kernel
+    spreads the rows valid at the step's position evenly over the
+    splits."""
+    blocks = 3 * sms if hd <= 128 else sms // 2
+    want = min(blocks // max(B * KV, 1), MAX_CLUSTER,
+               S // max(64, 16 * G))
+    return 1 << (max(want, 1).bit_length() - 1)
+
+
+def fma_split_plan(B: int, KV: int, S: int, sms: int) -> Tuple[int, int]:
+    """(rows a split, splits) of the attention on the CUDA cores over S
+    rows: enough splits for B * KV blocks each to fill the card eight times
+    over (a block's rows are read by few threads each, so its loads overlap
+    little), at least 32 and at most MAX_SPLIT_ROWS rows a split, a
+    multiple of 16."""
     want = max(1, -(-8 * sms // max(B * KV, 1)))
     rows = min(MAX_SPLIT_ROWS, max(32, -(-S // want)))
     rows = -(-rows // 16) * 16
     return rows, -(-S // rows)
+
+
+def attention_plan(q: torch.Tensor, k_cache: torch.Tensor, sms: int
+                   ) -> Tuple[bool, int, int]:
+    """(on the tensor cores, rows a split, splits) of a checked call: bf16
+    q over bf16 caches at a head dim of MMA_HEAD_DIMS run on the tensor
+    cores, with rows 0 (the kernel spreads the valid rows)."""
+    B, _, H, hd = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    if q.dtype == k_cache.dtype == torch.bfloat16 and hd in MMA_HEAD_DIMS:
+        return True, 0, split_plan(B, KV, H // KV, S, hd, sms)
+    return (False, *fma_split_plan(B, KV, S, sms))
 
 
 @functools.lru_cache(maxsize=None)
@@ -185,17 +227,39 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def attention_scratch(B: int, H: int, S: int, hd: int, splits: int, device
+def attention_scratch(B: int, H: int, hd: int, tensor_cores: bool,
+                      splits: int, device
                       ) -> Tuple[Optional[torch.Tensor],
                                  Optional[torch.Tensor]]:
-    """The splits' float32 outputs (splits, B, H, hd) and (max, sum) pairs
-    (splits, B, H, 2); none for one split."""
-    if splits == 1:
+    """The CUDA-core splits' float32 outputs (splits, B, H, hd) and (max,
+    sum) pairs (splits, B, H, 2); none for one split, and none on the
+    tensor cores (the partials stay in the cluster's shared memory)."""
+    if tensor_cores or splits == 1:
         return None, None
     return (torch.empty((splits, B, H, hd), dtype=torch.float32,
                         device=device),
             torch.empty((splits, B, H, 2), dtype=torch.float32,
                         device=device))
+
+
+def ssd_heads_a_block(nh: int, hd: int, ds: int) -> int:
+    """Heads a block of the SSD step (``csrc/ssd_decode.cu``
+    heads_a_block): as many as make 4 float4s of state for each of its 256
+    threads, 1 to 8."""
+    return max(1, min(4 * 256 * 4 // (ds * hd), 8, nh))
+
+
+_counters: Dict[int, torch.Tensor] = {}
+
+
+def _slot_counters(device: torch.device) -> torch.Tensor:
+    """The SSD step's MAX_SSD_SLOTS int32 slot counters on ``device``: zero
+    between calls (the kernel sets them back), made once a device."""
+    c = _counters.get(device.index)
+    if c is None:
+        c = _counters[device.index] = torch.zeros(
+            MAX_SSD_SLOTS, dtype=torch.int32, device=device)
+    return c
 
 
 def ssd_dims(z, x, Bv, Cv, dt, p: Mapping[str, torch.Tensor],
@@ -230,10 +294,12 @@ def ssd_dims(z, x, Bv, Cv, dt, p: Mapping[str, torch.Tensor],
         _fail(f"SSD head dim {hd} must be a multiple of 4 up to 1024")
     if not 2 <= K <= MAX_CONV:
         _fail(f"conv depth {K} must be 2..{MAX_CONV}")
-    per = -(-nh // 8)
-    if 2 * ds + per * (hd + 2) + 2 * (256 // (hd // 4)) * hd \
-            > SSD_SMEM_FLOATS:
+    per = ssd_heads_a_block(nh, hd, ds)
+    if 2 * ds + per * (hd + 2) + per * (256 // (hd // 4)) * hd \
+            + (K - 1) * 2 * ds > SSD_SMEM_FLOATS:
         _fail(f"{nh} heads of {hd}, d_state {ds}: too large a block")
+    if Bsz > MAX_SSD_SLOTS:
+        _fail(f"{Bsz} slots: the SSD step takes up to {MAX_SSD_SLOTS}")
     _dtype(h, "h", (torch.float32,))
     _shape(h, "h", (Bsz, nh, ds, hd))
     _contiguous(h, "h")
@@ -316,11 +382,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     check_position(pos, dev)
     q = q.contiguous()
     _on_card("decode_attention", dev, q, k_cache, v_cache)
-    if k_cache.data_ptr() % 8 or v_cache.data_ptr() % 8:
-        _fail("the caches must start on 8 bytes (pairs of elements are "
-              "read at once)")
-    rows, splits = split_plan(B, KV, S, _sms(dev.index))
-    part_o, part_ml = attention_scratch(B, H, S, hd, splits, dev)
+    tensor_cores, rows, splits = attention_plan(q, k_cache, _sms(dev.index))
+    align = 16 if tensor_cores else 8
+    if k_cache.data_ptr() % align or v_cache.data_ptr() % align:
+        _fail(f"the caches must start on {align} bytes (read {align} "
+              f"bytes at a time)")
+    part_o, part_ml = attention_scratch(B, H, hd, tensor_cores, splits, dev)
     o = torch.empty_like(q)
     ptr, host = _position(pos)
     sc = scale if scale is not None else 1.0 / math.sqrt(hd)
@@ -355,7 +422,8 @@ def ssd_decode_step(z: torch.Tensor, x: torch.Tensor, B: torch.Tensor,
     y = torch.empty_like(ins[1])
     check_launch(library().ssd_decode_step(
         *(t.data_ptr() for t in ins), *(t.data_ptr() for t in bufs),
-        h.data_ptr(), y.data_ptr(), DTYPE_CODES[x.dtype],
+        h.data_ptr(), y.data_ptr(), _slot_counters(dev).data_ptr(),
+        DTYPE_CODES[x.dtype],
         DTYPE_CODES[bufs[0].dtype], Bsz, nh, hd, ds, K, dev.index,
         stream_of(x)), "ssd_decode_step")
     ssd_launches.add()

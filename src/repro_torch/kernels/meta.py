@@ -213,8 +213,9 @@ def decode_attention(q, k_cache, v_cache, *, pos, window=None,
                      logit_cap=0.0, scale=None):
     B, H, KV, S, hd = _decode.check_decode_attention(q, k_cache, v_cache)
     _decode.check_position(pos, q.device)
-    _, splits = _decode.split_plan(B, KV, S, _decode.H100_SMS)
-    _decode.attention_scratch(B, H, S, hd, splits, q.device)
+    tensor_cores, _, splits = _decode.attention_plan(q, k_cache,
+                                                     _decode.H100_SMS)
+    _decode.attention_scratch(B, H, hd, tensor_cores, splits, q.device)
     rows = rl.decode_rows(S, None if isinstance(pos, torch.Tensor) else pos,
                           window)
     _report("decode_attention", rl.decode_attention_work(

@@ -2163,6 +2163,8 @@ def test_decode_rope_cache_on_card(hd, pos, window, S, rope, cuda_device):
     (2, 256, 5200, 5100, 4096, 50.0),     # a window inside a longer cache
     (6, 128, 2048, 40, None, 0.0),        # nemotron's, early
     (12, 128, 256, 255, None, 0.0),       # command-r's group
+    (12, 128, 2048, 1552, None, 0.0),     # command-r's served call
+    (3, 64, 100, 70, None, 0.0),          # a ragged last tile: 64 + 7 rows
     (1, 64, 1500, 1499, None, 0.0),       # whisper's cross-attention
     (1, 64, 448, -1, None, 0.0),          # no valid row: uniform
     (2, 64, 16, 5, None, 0.0),            # one split
@@ -2254,6 +2256,91 @@ def test_ssd_decode_step_on_card(nh, hd, ds, dtype, cuda_device,
             assert _excess(y, yw, 1e-3) <= 1.0
         hw.copy_(h)                 # each step from the same state
     assert _decode_count("ssd_decode_step") == before + 2
+
+
+def _ssd_step_inputs(nh, hd, ds, dtype, gen, B=4, K=4):
+    """One Mamba2 token's inputs, the layer's parameters, a state and conv
+    buffers at (nh, hd, ds) for B slots, random from ``gen``."""
+    di = nh * hd
+    dev = gen.device
+
+    def rand(*s, scale=1.0, dt=dtype):
+        return (torch.randn(s, device=dev, generator=gen) * scale).to(dt)
+
+    p = dict(dt_bias=rand(nh, scale=0.5), A_log=rand(nh, scale=0.5),
+             D=rand(nh), conv_x=rand(K, di, scale=0.5),
+             conv_B=rand(K, ds, scale=0.5), conv_C=rand(K, ds, scale=0.5))
+    h = rand(B, nh, ds, hd, dt=torch.float32)
+    conv = {"x": rand(B, K - 1, di, dt=torch.bfloat16),
+            "B": rand(B, K - 1, ds, dt=torch.bfloat16),
+            "C": rand(B, K - 1, ds, dt=torch.bfloat16)}
+    steps = [(rand(B, 1, di), rand(B, 1, di), rand(B, 1, ds),
+              rand(B, 1, ds), rand(B, 1, nh)) for _ in range(4)]
+    return p, h, conv, steps
+
+
+@pytest.mark.cuda
+def test_decode_kernels_replay_clean_in_a_graph_on_card(cuda_device):
+    """Each kernel called twice in one CUDA graph, the graph replayed
+    twice, against the same calls made eagerly: the attention at
+    command-r-plus's served call (4 slots, 96/8 heads of 128, 2048 rows, a
+    device position: 4 splits a cluster) and the SSD step at zamba2's and
+    mamba2's shapes (two tokens a replay, each replay's B and C buffers
+    shifted by the slot's last block through a counter the kernel sets
+    back to 0), the same bits; the counters 0 after."""
+    from repro_torch.kernels import decode_step as dec
+    gen = torch.Generator(device=cuda_device).manual_seed(34)
+    B, H, KV, S, hd = 4, 96, 8, 2048, 128
+    q = torch.randn((B, 1, H, hd), device=cuda_device, generator=gen).to(
+        torch.bfloat16)
+    kc = torch.randn((B, S, KV, hd), device=cuda_device, generator=gen).to(
+        torch.bfloat16)
+    vc = torch.randn((B, S, KV, hd), device=cuda_device, generator=gen).to(
+        torch.bfloat16)
+    pos = torch.tensor(1552, device=cuda_device)
+    kw = dict(pos=pos, scale=1.0 / math.sqrt(hd))
+    want = ops.decode_attention(q, kc, vc, **kw)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [ops.decode_attention(q, kc, vc, **kw) for _ in range(2)]
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, want) for o in outs)
+    assert _excess(want, ref.decode_attention_ref(q, kc, vc, **kw),
+                   1e-3) <= 1.0
+    for nh, hd, ds in ((80, 64, 64), (64, 64, 128)):
+        p, h0, conv0, steps = _ssd_step_inputs(nh, hd, ds, torch.bfloat16,
+                                               gen)
+        h, conv = h0.clone(), {k: t.clone() for k, t in conv0.items()}
+        eager = []
+        for z, x, Bv, Cv, dt in steps:
+            eager.append(ops.ssd_decode_step(z, x, Bv, Cv, dt, p, h=h,
+                                             conv=conv))
+        want_h, want_conv = h.clone(), {k: t.clone() for k, t in conv.items()}
+        h.copy_(h0)
+        for k in conv:
+            conv[k].copy_(conv0[k])
+        ins = [tuple(t.clone() for t in s) for s in steps[:2]]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            ys = [ops.ssd_decode_step(*s, p, h=h, conv=conv) for s in ins]
+        h.copy_(h0)
+        for k in conv:
+            conv[k].copy_(conv0[k])
+        for r in range(2):
+            for s, src_ in zip(ins, steps[2 * r:2 * r + 2]):
+                for t, v in zip(s, src_):
+                    t.copy_(v)
+            graph.replay()
+            torch.cuda.synchronize()
+            for i, y in enumerate(ys):
+                assert torch.equal(y, eager[2 * r + i]), (nh, r, i)
+        assert torch.equal(h, want_h)
+        assert all(torch.equal(conv[k], want_conv[k]) for k in conv)
+    assert int(dec._slot_counters(cuda_device).abs().sum()) == 0
 
 
 @pytest.mark.cuda

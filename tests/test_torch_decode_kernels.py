@@ -9,10 +9,14 @@
   ``tests/test_kernels.py``); a ``hypothesis`` case over the position
   (before the window, past it, past the cache's end, below 0), the window,
   a rolling cache, the GQA group, the head dim and the softcap.
-- The split-KV attention's plan and arithmetic, emulated in float32 (the
-  splits' maxima, weights and sums, merged in order; the valid rows as one
-  range, a uniform softmax where none is valid), against the plain
-  version over the same cases.
+- The split-KV attention's plans and arithmetic, emulated in float32,
+  against the plain version over the same cases: on the CUDA cores the
+  splits' maxima, weights and sums, merged in order; on the tensor cores
+  (bf16 values) the valid rows spread over the splits, tiles of 64 rows,
+  each warp's online softmax in base 2, P as bf16 hi + lo halves, the
+  warps then the splits merged in order; the valid rows as one range, a
+  uniform softmax where none is valid.  The plans' splits, and the
+  partials' share of the cache's bytes at command-r-plus's shape.
 - An int position and a 0-d tensor position give the same bits.
 - The wrappers' argument checks (run by the card's wrappers and by the
   ``meta`` stand-ins) refuse shapes, dtypes, head dims, groups and
@@ -190,22 +194,29 @@ def test_ssd_decode_matches_jax(dtype):
 # the split-KV attention's arithmetic, emulated
 # ---------------------------------------------------------------------------
 
-def split_attention(q, k_cache, v_cache, pos, window, cap, scale, sms):
-    """csrc/decode_attention.cu's arithmetic in float32: the valid rows as
-    one range (all rows at weight 1 where none is valid), each split's
+LOG2E = 1.4426950408889634
+
+
+def valid_range(pos, window, S):
+    """The kernel's valid rows lo..hi (``valid_rows``): every row, at
+    score 0, where none is valid."""
+    hi = min(pos, S - 1)
+    lo = max(0, pos - window + 1) if window is not None and S > window \
+        else 0
+    return (0, S - 1, True) if hi < lo else (lo, hi, False)
+
+
+def fma_split_attention(q, k_cache, v_cache, pos, window, cap, scale, sms):
+    """csrc/decode_attention.cu's CUDA-core arithmetic (float32 operands)
+    in float32: ``fma_split_plan``'s splits of whole rows, each split's
     max, weights and sums, the splits merged in order."""
     B, _, H, hd = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV
-    rows, splits = dec.split_plan(B, KV, S, sms)
+    rows, splits = dec.fma_split_plan(B, KV, S, sms)
     assert rows % 16 == 0 and rows <= dec.MAX_SPLIT_ROWS
     assert splits * rows >= S > (splits - 1) * rows
-    hi = min(pos, S - 1)
-    lo = max(0, pos - window + 1) if window is not None and S > window \
-        else 0
-    uniform = hi < lo
-    if uniform:
-        lo, hi = 0, S - 1
+    lo, hi, uniform = valid_range(pos, window, S)
     out = torch.empty((B, H, hd), dtype=torch.float32)
     for b in range(B):
         for kv in range(KV):
@@ -231,19 +242,92 @@ def split_attention(q, k_cache, v_cache, pos, window, cap, scale, sms):
     return out[:, None].to(q.dtype)
 
 
+def merge_in_order(parts):
+    """(max, sum, output) partials merged in order in base 2, a partial
+    with sum 0 at weight 0: the kernel's merge of its warps and of its
+    splits."""
+    M = torch.full_like(parts[0][0], -math.inf)
+    for m, l, _ in parts:
+        M = torch.where(l > 0, torch.maximum(M, m), M)
+    num, den = torch.zeros_like(parts[0][2]), torch.zeros_like(M)
+    for m, l, o in parts:
+        w = torch.where(l > 0, torch.exp2(m - M), torch.zeros_like(M))
+        num = num + w[:, None] * o
+        den = den + w * l
+    return M, den, num
+
+
+def split_attention(q, k_cache, v_cache, pos, window, cap, scale, sms,
+                    splits=None):
+    """csrc/decode_attention.cu's tensor-core arithmetic (bf16 operands)
+    in float32: the valid rows as one range (every row at score 0 where
+    none is valid) spread over ``split_plan``'s splits (or ``splits``), a
+    multiple of 16 rows each; in a split, tiles of 64 rows, 16 a warp, each
+    warp's online softmax over its rows in base 2 (scale, then softcap),
+    P.V with P as bf16 hi + lo halves summed in float32; the warps merged
+    in order, then the splits."""
+    B, _, H, hd = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    if splits is None:
+        splits = dec.split_plan(B, KV, G, S, hd, sms)
+    assert 1 <= splits <= dec.MAX_CLUSTER and splits & (splits - 1) == 0
+    lo, hi, uniform = valid_range(pos, window, S)
+    n = hi - lo + 1
+    per = -(-(-(-n // splits)) // 16) * 16
+    out = torch.empty((B, H, hd), dtype=torch.float32)
+    for b in range(B):
+        for kv in range(KV):
+            qg = q[b, 0, kv * G:(kv + 1) * G].float()
+            blocks = []
+            for sp in range(splits):
+                a = lo + sp * per
+                e = min(a + per - 1, hi)
+                warps = []
+                for w in range(4):
+                    m = torch.full((G,), -math.inf)
+                    l, acc = torch.zeros(G), torch.zeros((G, hd))
+                    for r0 in range(a + 16 * w, e + 1, 64):
+                        r1 = min(r0 + 16, e + 1)
+                        kk = k_cache[b, r0:r1, kv].float()
+                        vv = v_cache[b, r0:r1, kv].float()
+                        s = qg @ kk.T
+                        s = (cap * LOG2E * torch.tanh(s * (scale / cap))
+                             if cap else s * (scale * LOG2E))
+                        if uniform:
+                            s = torch.zeros_like(s)
+                        mx = torch.maximum(m, s.max(-1).values)
+                        base = torch.where(mx == -math.inf, 0.0, mx)
+                        corr = torch.exp2(m - base)
+                        p = torch.exp2(s - base[:, None])
+                        l = l * corr + p.sum(-1)
+                        p_hi = p.bfloat16().float()
+                        p_lo = (p - p_hi).bfloat16().float()
+                        acc = acc * corr[:, None] + p_hi @ vv + p_lo @ vv
+                        m = mx
+                    warps.append((m, l, acc))
+                blocks.append(merge_in_order(warps))
+            _, den, num = merge_in_order(blocks)
+            out[b, kv * G:(kv + 1) * G] = num / den[:, None]
+    return out[:, None].to(q.dtype)
+
+
 @settings(max_examples=30, deadline=None)
 @given(pos=st.integers(-3, 90), window=st.sampled_from([None, 8, 24]),
        rolling=st.booleans(), G=st.sampled_from([1, 2, 3, 6, 12]),
        hd=st.sampled_from([16, 64, 80, 128, 256]),
        cap=st.sampled_from([0.0, 50.0]), sms=st.sampled_from([1, 132]),
+       splits=st.sampled_from([None, 2, 4, 8]),
        seed=st.integers(0, 2 ** 16))
-def test_decode_attention_cases(pos, window, rolling, G, hd, cap, sms, seed):
+def test_decode_attention_cases(pos, window, rolling, G, hd, cap, sms,
+                                splits, seed):
     """Over positions before the window, past it, past the cache's end and
     below 0, rolling caches (rows = window) and longer ones: the plain
     version against the JAX package's in float32, an int position against
-    a tensor one bit for bit, and the split-KV emulation against the plain
+    a tensor one bit for bit, the CUDA-core emulation against the plain
     version (at an H100's 132 SMs and at one, which cuts the rows into
-    more splits)."""
+    more splits), and the tensor-core emulation against the plain version
+    on bf16 values (the plan's splits, or 2, 4 or 8 of them)."""
     B, KV = 2, 2
     S = window if rolling and window is not None else 40
     rng = np.random.default_rng(seed)
@@ -256,8 +340,13 @@ def test_decode_attention_cases(pos, window, rolling, G, hd, cap, sms, seed):
         assert_allclose(got.numpy(), np32(want), rtol=1e-5, atol=1e-5)
     assert torch.equal(got, ref.decode_attention_ref(
         q, kc, vc, pos=torch.tensor(pos), **kw))
-    emu = split_attention(q, kc, vc, pos, window, cap, kw["scale"], sms)
+    emu = fma_split_attention(q, kc, vc, pos, window, cap, kw["scale"], sms)
     assert_allclose(emu.numpy(), got.numpy(), rtol=1e-5, atol=1e-5)
+    qb, kb, vb = (t.bfloat16().float() for t in (q, kc, vc))
+    emu = split_attention(qb, kb, vb, pos, window, cap, kw["scale"], sms,
+                          splits)
+    want = ref.decode_attention_ref(qb, kb, vb, pos=pos, **kw)
+    assert_allclose(emu.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
 
 
 @settings(max_examples=20, deadline=None)
@@ -505,13 +594,60 @@ def test_decode_rows_and_split_plan():
     assert rl.decode_rows(16, 30, 16) == 16             # rolling
     assert rl.decode_rows(40, -1, None) == 40           # uniform
     assert rl.decode_rows(40, None, None) == 40
-    for B, KV, S in ((4, 8, 2048), (4, 32, 2048), (4, 20, 1500), (1, 1, 7),
-                     (128, 8, 32768), (4, 4, 4096)):
-        rows, splits = dec.split_plan(B, KV, S, 132)
+    cases = ((4, 8, 2048), (4, 32, 2048), (4, 20, 1500), (1, 1, 7),
+             (128, 8, 32768), (4, 4, 4096))
+    for B, KV, S in cases:
+        rows, splits = dec.fma_split_plan(B, KV, S, 132)
         assert rows % 16 == 0 and 32 <= rows <= dec.MAX_SPLIT_ROWS
         assert (splits - 1) * rows < S <= splits * rows
-    # B KV blocks a split: splits to fill the card eight times over
-    # (granite's 32 take 32 of 64 rows), never fewer rows than 32
-    assert dec.split_plan(4, 8, 2048, 132) == (64, 32)
-    assert dec.split_plan(4, 32, 2048, 132) == (240, 9)
-    assert dec.split_plan(1, 1, 7, 132) == (32, 1)
+        # on the tensor cores: a power of 2 up to a portable cluster, the
+        # most that keeps every block resident at once (3 an SM up to head
+        # dim 128; at 256 one an SM on half the SMs) and max(64, 16 G) of
+        # the S rows a split
+        for G in (1, 3, 6, 12):
+            for hd in (64, 80, 128, 256):
+                sp = dec.split_plan(B, KV, G, S, hd, 132)
+                blocks = 3 * 132 if hd <= 128 else 132 // 2
+                min_rows = max(64, 16 * G)
+                assert 1 <= sp <= dec.MAX_CLUSTER and sp & (sp - 1) == 0
+                if sp > 1:
+                    assert B * KV * sp <= blocks and S // sp >= min_rows
+                assert sp == dec.MAX_CLUSTER \
+                    or B * KV * 2 * sp > blocks or S // (2 * sp) < min_rows
+    # CUDA cores: B KV blocks a split, splits to fill the card eight times
+    # over (granite's 32 take 32 of 64 rows), never fewer rows than 32
+    assert dec.fma_split_plan(4, 8, 2048, 132) == (64, 32)
+    assert dec.fma_split_plan(4, 32, 2048, 132) == (240, 9)
+    assert dec.fma_split_plan(1, 1, 7, 132) == (32, 1)
+    # tensor cores, at the served shapes (4 slots): granite, nemotron,
+    # command-r-plus 8 (32 clusters); zamba2, minicpm 2 (128, 144
+    # clusters); gemma2's hd 256 4 (16 clusters on 66 SMs); whisper's 4;
+    # command-r-plus's 12 heads a group want 192 rows a split: 2 splits of
+    # a 512-row cache
+    assert dec.split_plan(4, 8, 3, 2048, 64, 132) == 8
+    assert dec.split_plan(4, 8, 6, 2048, 128, 132) == 8
+    assert dec.split_plan(4, 8, 12, 2048, 128, 132) == 8
+    assert dec.split_plan(4, 8, 12, 512, 128, 132) == 2
+    assert dec.split_plan(4, 32, 1, 2048, 80, 132) == 2
+    assert dec.split_plan(4, 36, 1, 2048, 64, 132) == 2
+    assert dec.split_plan(4, 4, 2, 4096, 256, 132) == 4
+    assert dec.split_plan(4, 20, 1, 1500, 64, 132) == 4
+    assert dec.split_plan(1, 8, 3, 2048, 64, 132) == 8
+    assert dec.split_plan(1, 1, 7, 7, 64, 132) == 1
+
+
+def test_decode_partials_are_few_at_command_r():
+    """At command-r-plus's served call (4 slots, 96/8 heads of 128, 1553
+    valid rows of a 2048-row cache) the tensor cores' float32 partials,
+    G x (hd + 2) a split, written once into the split's shared memory and
+    read once by its cluster (none reaches device memory), are a few
+    percent of the K and V bytes read; the CUDA-core plan's 25 splits with
+    valid rows write ~20% to device memory and read it back."""
+    B, H, KV, S, hd, rows = 4, 96, 8, 2048, 128, 1553
+    cache = rows * B * KV * hd * 2 * 2
+    splits = dec.split_plan(B, KV, H // KV, S, hd, dec.H100_SMS)
+    share = splits * B * H * (hd + 2) * 4 / cache
+    assert share <= 0.07, share
+    fma_rows, _ = dec.fma_split_plan(B, KV, S, dec.H100_SMS)
+    fma_share = -(-rows // fma_rows) * B * H * (hd + 2) * 4 / cache
+    assert fma_share > 0.15 > 2 * share
